@@ -1,0 +1,24 @@
+"""SaP on PyTorch and CUDA: the split-and-parallelize banded solver (Li,
+Serban, Negrut 2015) ported from the JAX package ``repro`` to an NVIDIA
+H100, with hand-written CUDA kernels for the block-tridiagonal factor,
+solve and fused factor+spike passes.  Imports no JAX."""
+
+from .core import (
+    SaPFactorization,
+    SaPOptions,
+    SaPPlan,
+    SaPSolveResult,
+    factor,
+    plan_banded,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SaPFactorization",
+    "SaPOptions",
+    "SaPPlan",
+    "SaPSolveResult",
+    "factor",
+    "plan_banded",
+]

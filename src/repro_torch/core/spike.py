@@ -1,0 +1,263 @@
+"""SPIKE machinery: truncated spikes, reduced system, SaP preconditioner.
+
+Implements paper Sec. 2.1:
+
+  * right-spike bottom blocks   V_i^(b) = Sinv_i[M-1] @ B_i          (2.2a)
+  * left-spike top blocks       W_{i+1}^(t) via the UL factorization (2.2c)
+  * the truncated reduced system (2.9):
+        Rbar_i               = I - W_{i+1}^(t) V_i^(b)
+        Rbar_i xt_{i+1}^(t)  = g_{i+1}^(t) - W_{i+1}^(t) g_i^(b)
+        xt_i^(b)             = g_i^(b) - V_i^(b) xt_{i+1}^(t)
+  * the final decoupled solves (2.10).
+
+Three preconditioner variants (paper Sec. 2.1.1):
+  * SaP-D  ("decoupled"): z = D^{-1} r, one block solve.
+  * SaP-C  ("coupled"):   block solve + truncated-spike correction +
+                          second block solve.
+  * SaP-E  ("exact"):     block solve + *exact* reduced-system correction +
+                          second block solve.  The full (P-1)-interface
+                          reduced system is a block-tridiagonal chain of
+                          (2K x 2K) blocks, factored and solved by the same
+                          btf / bts kernels as the partitions.
+
+Reduced system (exact; unknowns y_i = [x_i^(b); x_{i+1}^(t)], i = 0..P-2):
+
+    [ I            V_i^(b) ]        [ W_i^(b) 0 ]        [ 0  0          ]
+    [ W_{i+1}^(t)  I       ] y_i  + [ 0       0 ] y_{i-1} + [ 0  V_{i+1}^(t) ] y_{i+1}
+        = [ g_i^(b); g_{i+1}^(t) ]
+
+Every factor and solve goes through :mod:`repro_torch.kernels.ops`, which
+launches the CUDA kernels for tensors on the card and runs the plain
+versions for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..kernels import ops as kops
+from .banded import BlockTridiag
+from .block_lu import DEFAULT_BOOST, BTFactors, flip_block_tridiag
+from .cyclic_reduction import resolve_reduced_solver
+
+
+def _flip_rows(x: torch.Tensor) -> torch.Tensor:
+    return x.flip(-2)
+
+
+@dataclasses.dataclass
+class SaPPreconditioner:
+    """Factored SaP preconditioner ('C' coupled, 'D' decoupled, 'E' exact).
+
+    All factor tensors may be stored in a lower precision than the Krylov
+    iteration (paper Sec. 3.1 "Mixed Precision Strategy").
+    """
+
+    variant: str  # "C" | "D" | "E"
+    lu: BTFactors  # factors of diag(A_1..A_P)
+    b_cpl: torch.Tensor  # (P-1, K, K)
+    c_cpl: torch.Tensor  # (P-1, K, K)
+    v_bot: Optional[torch.Tensor]  # (P-1, K, K)  V_i^(b)
+    w_top: Optional[torch.Tensor]  # (P-1, K, K)  W_{i+1}^(t)
+    rbar_inv: Optional[torch.Tensor]  # (P-1, K, K)  inv(I - W V)
+    red_lu: Optional[BTFactors]  # factors of the exact (P-1, 2K) reduced chain
+    p: int
+    m: int
+    k: int
+    # resolved reduced-chain solver for variant E ("chain"); "none" otherwise
+    reduced_solver: str = "none"
+    # True when the factor+spike stage ran as the fused single pass
+    fused: bool = False
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        """Apply M^{-1} to a (padded) residual of shape (P*M*K,) or (P*M*K, R)."""
+        dtype = self.lu.sinv.dtype
+        rb = r.to(dtype).reshape(self.p, self.m, self.k, -1)
+        if self.variant == "D":
+            z = kops.block_tridiag_solve(self.lu, rb)
+        elif self.variant == "E":
+            z = _apply_exact(self, rb)
+        else:
+            z = _apply_coupled(self, rb)
+        return z.reshape(r.shape).to(r.dtype)
+
+
+def resolve_fused(fused, device: torch.device) -> bool:
+    """Resolve the ``fused_factor`` knob: ``"auto"`` means fused where the
+    tensors are on the card (the kernel keeps the UL recurrence and spike
+    carries out of device-memory round trips) and the btf -> UL -> spike
+    sequence on the CPU."""
+    if fused in (True, "on"):
+        return True
+    if fused in (None, False, "off"):
+        return False
+    if fused == "auto":
+        return torch.device(device).type == "cuda"
+    raise ValueError(f"unknown fused_factor setting {fused!r}")
+
+
+def _correct(pc: SaPPreconditioner, rb, xt_bot, xt_top):
+    """Final solves (eq. 2.10): subtract the coupling contributions."""
+    rb2 = rb.clone()
+    rb2[1:, 0] -= pc.c_cpl @ xt_bot  # into partitions 1..P-1, top block
+    rb2[:-1, -1] -= pc.b_cpl @ xt_top  # into partitions 0..P-2, bottom block
+    return kops.block_tridiag_solve(pc.lu, rb2)
+
+
+def _apply_coupled(pc: SaPPreconditioner, rb: torch.Tensor) -> torch.Tensor:
+    # 1) g = D^{-1} r
+    g = kops.block_tridiag_solve(pc.lu, rb)  # (P, M, K, R)
+    g_top = g[:, 0]
+    g_bot = g[:, -1]
+    # 2) reduced-system correction per interface i = 0..P-2   (eq. 2.9)
+    rhs = g_top[1:] - pc.w_top @ g_bot[:-1]
+    xt_top = pc.rbar_inv @ rhs  # xt_{i+1}^(t)
+    xt_bot = g_bot[:-1] - pc.v_bot @ xt_top  # xt_i^(b)
+    return _correct(pc, rb, xt_bot, xt_top)
+
+
+def _apply_exact(pc: SaPPreconditioner, rb: torch.Tensor) -> torch.Tensor:
+    """SaP-E apply: an exact solve of the banded preconditioner matrix."""
+    g = kops.block_tridiag_solve(pc.lu, rb)
+    # exact reduced system on the interface unknowns; its RHS is just the
+    # interface slices of g
+    h = torch.cat([g[:-1, -1], g[1:, 0]], dim=1)  # (P-1, 2K, R)
+    y = kops.block_tridiag_solve_chain(pc.red_lu, h)
+    return _correct(pc, rb, y[:, : pc.k], y[:, pc.k :])
+
+
+def _reduced_interface_system(v_bot, v_top, w_top, w_bot):
+    """Assemble the exact (P-1)-interface block-tridiag chain (2K blocks).
+
+    Inputs are the four corner blocks of the whole spikes, each (P-1, K, K):
+    v_bot/v_top index right spikes of partitions 0..P-2, w_top/w_bot left
+    spikes of partitions 1..P-1.  Returns (d, e, f) of shape
+    (P-1, 2K, 2K); e[0] / f[P-2] are zero.
+    """
+    q, k, _ = v_bot.shape  # q = P-1 interfaces
+    eye = torch.eye(k, dtype=v_bot.dtype, device=v_bot.device).expand(q, k, k)
+    rd = v_bot.new_zeros((q, 2 * k, 2 * k))
+    re = torch.zeros_like(rd)
+    rf = torch.zeros_like(rd)
+    rd[:, :k, :k] = eye
+    rd[:, :k, k:] = v_bot
+    rd[:, k:, :k] = w_top
+    rd[:, k:, k:] = eye
+    # y_{i-1} contributes W_i^(b) x_{i-1}^(b); y_{i+1} contributes
+    # V_{i+1}^(t) x_{i+2}^(t) (see module docstring).
+    re[1:, :k, :k] = w_bot[:-1]
+    rf[:-1, k:, k:] = v_top[1:]
+    return rd, re, rf
+
+
+def _block_inverse(a: torch.Tensor, boost_eps: float) -> torch.Tensor:
+    """Boosted Gauss-Jordan inverse of (Q, K, K) blocks: the btf pass on
+    chains of one block row, whose factor is exactly ``gj_inverse``."""
+    z = torch.zeros_like(a)[:, None]
+    return kops.block_tridiag_factor(a[:, None].contiguous(), z, z, boost_eps).sinv[:, 0]
+
+
+def build_preconditioner(
+    bt: BlockTridiag,
+    variant: str = "C",
+    boost_eps: float = DEFAULT_BOOST,
+    precond_dtype: torch.dtype = torch.float32,
+    spike_mode: str = "ul",
+    reduced_solver: str = "auto",
+    fused: str | bool = "off",
+) -> SaPPreconditioner:
+    """Factor the SaP preconditioner from block-tridiagonal partitions.
+
+    spike_mode:
+      * "ul"   -- paper Sec. 2.1 fast path: V^(b) from the bottom of the LU
+                  factors, W^(t) from a UL factorization (top only).
+      * "full" -- compute the *entire* spikes by full solves (R = K
+                  right-hand sides) and take the needed blocks.
+      Variant "E" needs all four corner blocks, so it takes whole spikes
+      unless the fused pass supplies them.
+
+    reduced_solver (variant "E" only): "chain" (sequential btf/bts sweep
+    over the (P-1)-interface chain), "bcr" (block cyclic reduction, not
+    ported yet: raises), or "auto" ("bcr" from 8 interfaces on).
+
+    fused (``"on"`` / ``"off"`` / ``"auto"``; bools accepted): run the
+    factor AND spike-corner extraction as one fused pass; ``"auto"`` is
+    fused on the card.  Applies to variants C/E with P > 1 under
+    ``spike_mode="ul"``.
+    """
+    if variant not in ("C", "D", "E"):
+        raise ValueError(f"unknown SaP variant {variant!r}")
+    if spike_mode not in ("ul", "full"):
+        raise ValueError(f"unknown spike_mode {spike_mode!r}")
+    reduced_solver = (
+        resolve_reduced_solver(reduced_solver, bt.p - 1)
+        if variant == "E" and bt.p > 1
+        else "none"
+    )
+    if reduced_solver == "bcr":
+        raise NotImplementedError("reduced_solver='bcr' is not ported yet; see ROADMAP.md")
+    use_fused = (
+        resolve_fused(fused, bt.d.device)
+        and variant in ("C", "E")
+        and spike_mode == "ul"
+        and bt.p > 1
+    )
+    d, e, f, b_cpl, c_cpl = (
+        x.to(precond_dtype) for x in (bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl)
+    )
+
+    v_bot = w_top = rbar_inv = red_lu = None
+    v_top = w_bot = None
+    if use_fused:
+        fs = kops.fused_factor_spike(d, e, f, b_cpl, c_cpl, boost_eps)
+        lu = fs.lu
+        v_bot, w_top, v_top, w_bot = fs.v_bot, fs.w_top, fs.v_top, fs.w_bot
+    else:
+        lu = kops.block_tridiag_factor(d, e, f, boost_eps)
+
+    if variant in ("C", "E") and bt.p > 1:
+        if not use_fused:
+            if variant == "C" and spike_mode == "ul":
+                # V_i^(b) = Sinv_i[M-1] @ B_i  for i = 0..P-2
+                v_bot = lu.sinv[:-1, -1] @ b_cpl
+                # W_{i+1}^(t) from the UL factorization of partitions 1..P-1
+                ul = kops.block_tridiag_factor(*flip_block_tridiag(d, e, f), boost_eps)
+                w_top = _flip_rows(ul.sinv[1:, -1] @ _flip_rows(c_cpl))
+            else:
+                # whole right spikes: A_i V_i = [0;..;B_i], keep corners
+                rhs_b = d.new_zeros((bt.p, bt.m, bt.k, bt.k))
+                rhs_b[:-1, -1] = b_cpl
+                v_full = kops.block_tridiag_solve(lu, rhs_b)
+                v_bot, v_top = v_full[:-1, -1], v_full[:-1, 0]
+                # whole left spikes: A_{i+1} W_{i+1} = [C_{i+1};0;..]
+                rhs_c = d.new_zeros((bt.p, bt.m, bt.k, bt.k))
+                rhs_c[1:, 0] = c_cpl
+                w_full = kops.block_tridiag_solve(lu, rhs_c)
+                w_top, w_bot = w_full[1:, 0], w_full[1:, -1]
+        if variant == "C":
+            eye = torch.eye(bt.k, dtype=d.dtype, device=d.device)
+            rbar_inv = _block_inverse(eye - w_top @ v_bot, boost_eps)
+        else:
+            rd, re, rf = _reduced_interface_system(v_bot, v_top, w_top, w_bot)
+            red_lu = kops.block_tridiag_factor_chain(rd, re, rf, boost_eps)
+    elif variant in ("C", "E"):
+        variant = "D"  # single partition: coupled/exact == decoupled
+
+    return SaPPreconditioner(
+        variant=variant,
+        lu=lu,
+        b_cpl=b_cpl,
+        c_cpl=c_cpl,
+        v_bot=v_bot,
+        w_top=w_top,
+        rbar_inv=rbar_inv,
+        red_lu=red_lu,
+        p=bt.p,
+        m=bt.m,
+        k=bt.k,
+        reduced_solver=reduced_solver,
+        fused=use_fused,
+    )

@@ -1,0 +1,69 @@
+"""Fused factor + spike-corner kernel (SaP-C/E factor stage).
+
+Replaces the TPU kernel ``repro/kernels/fused_spike.py:_fused_kernel``
+(``fused_factor_spike_pallas``).  The CUDA source is ``csrc/fused_spike.cu``:
+one ascending pass over the M block rows carries four K x K blocks -- the
+LU inverse, the UL inverse of the reversed chain (read through flipped
+views, never copied), and the left and right spike right-hand sides -- and
+writes the LU factors plus the four spike corners (v_bot, v_top, w_top,
+w_bot).  The LU and UL recurrences never read each other, so each
+partition runs them in two thread blocks side by side.
+
+Bound on the H100: operations (two inverses and six K x K products per
+block row).  The four carries (640 KB at K = 200) exceed a block's shared
+memory: each side keeps its running inverse in its shared-memory
+elimination block and its spike carry in an L2-resident workspace.
+
+On a CPU tensor the wrapper runs the plain version
+(:func:`repro_torch.core.block_lu.fused_factor_spike_padded_ref`); on a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.block_lu import DEFAULT_BOOST, fused_factor_spike_padded_ref
+from . import build
+from ._launch import check_operands, check_shape, stream_handle
+
+
+def fused_factor_spike(
+    d: torch.Tensor,
+    e: torch.Tensor,
+    f: torch.Tensor,
+    bq: torch.Tensor,
+    cq: torch.Tensor,
+    boost_eps: float = DEFAULT_BOOST,
+) -> tuple[torch.Tensor, ...]:
+    """Fused factor + spike corners for all partitions.
+
+    d/e/f: (P, M, K, K); bq/cq: (P, K, K) per-partition couplings (see
+    :func:`repro_torch.core.block_lu.pad_couplings`).  Returns
+    ``(sinv, l, vb, vt, wt, wb)``: the LU factors (P, M, K, K) and the four
+    spike corner blocks (P, K, K).
+    """
+    if d.device.type == "cpu":
+        return fused_factor_spike_padded_ref(d, e, f, bq, cq, boost_eps)
+    check_operands("fused_factor_spike", d.device, d=d, e=e, f=f, bq=bq, cq=cq)
+    p, m, k, _ = d.shape
+    for name, t in (("d", d), ("e", e), ("f", f)):
+        check_shape("fused_factor_spike", name, t, (p, m, k, k))
+    for name, t in (("bq", bq), ("cq", cq)):
+        check_shape("fused_factor_spike", name, t, (p, k, k))
+    lib = build.load("fused_spike")
+    sinv = torch.empty_like(d)
+    l = torch.empty_like(d)
+    vb, vt, wt, wb = (torch.empty_like(bq) for _ in range(4))
+    ws = torch.empty((p * lib.fused_workspace_floats(k),), dtype=torch.float32, device=d.device)
+    code = lib.fused_launch(
+        d.data_ptr(), e.data_ptr(), f.data_ptr(), bq.data_ptr(), cq.data_ptr(),
+        sinv.data_ptr(), l.data_ptr(), vb.data_ptr(), vt.data_ptr(), wt.data_ptr(),
+        wb.data_ptr(), ws.data_ptr(), p, m, k, boost_eps, stream_handle(d.device),
+    )
+    build.check(lib, code, "fused_factor_spike")
+    fused_factor_spike.launches += 1
+    return sinv, l, vb, vt, wt, wb
+
+
+fused_factor_spike.launches = 0

@@ -1,0 +1,101 @@
+"""The port stands alone: no JAX, nothing of the JAX package, the card by
+default, and kernel wrappers that take the plain path only for CPU
+tensors."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as T
+from repro_torch.kernels import build
+from repro_torch.kernels.btf import btf
+from repro_torch.kernels.bts import bts
+from repro_torch.kernels.fused_spike import fused_factor_spike
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path) -> set[str]:
+    mods = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            mods.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            mods.add(node.module)
+    return mods
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_package(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def test_port_files_are_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"sap.py", "spike.py", "krylov.py", "btf.py", "bts.py", "fused_spike.py",
+            "chip_smoke.py"} <= names
+
+
+def test_plan_banded_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    band = T.random_banded(32, 2, 1.0, seed=0).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.plan_banded(band, T.SaPOptions(p=2))
+    plan = T.plan_banded(band, T.SaPOptions(p=2), device="cpu")
+    assert plan.band_pc.device.type == "cpu"
+
+
+def _chain(p=2, m=3, k=4):
+    g = torch.Generator().manual_seed(0)
+    d = torch.randn(p, m, k, k, generator=g) + 4 * torch.eye(k)
+    e = torch.randn(p, m, k, k, generator=g) * 0.3
+    f = torch.randn(p, m, k, k, generator=g) * 0.3
+    return d, e, f
+
+
+def test_wrappers_on_cpu_tensors_use_the_plain_version_and_do_not_count(monkeypatch):
+    def no_build(name):
+        raise AssertionError(f"kernel {name} must not be built for a CPU tensor")
+
+    monkeypatch.setattr(build, "load", no_build)
+    before = (btf.launches, bts.launches, fused_factor_spike.launches)
+    d, e, f = _chain()
+    sinv, l = btf(d, e, f)
+    ref = T.btf_ref(d, e, f)
+    torch.testing.assert_close(sinv, ref.sinv, rtol=0, atol=0)
+    b = torch.randn(2, 3, 4, 2)
+    torch.testing.assert_close(bts(sinv, l, f, b), T.bts_ref(ref, b), rtol=0, atol=0)
+    bq, cq = torch.randn(2, 4, 4), torch.randn(2, 4, 4)
+    out = fused_factor_spike(d, e, f, bq, cq)
+    assert len(out) == 6
+    assert (btf.launches, bts.launches, fused_factor_spike.launches) == before
+
+
+def test_wrappers_reject_bad_operands_before_launching(monkeypatch):
+    """Checks that run before any kernel is built: dtype and shape."""
+    from repro_torch.kernels import _launch
+
+    d, e, f = _chain()
+    with pytest.raises(TypeError, match="float32"):
+        _launch.check_operands("btf", d.device, d=d.double(), e=e, f=f)
+    with pytest.raises(ValueError, match="contiguous"):
+        _launch.check_operands("btf", d.device, d=d.transpose(-1, -2), e=e, f=f)
+    with pytest.raises(ValueError, match="on"):
+        _launch.check_operands("btf", torch.device("meta"), d=d, e=e, f=f)
+    with pytest.raises(ValueError, match="shape"):
+        _launch.check_shape("btf", "e", e[:, :2], tuple(d.shape))
+
+
+def test_kernel_sources_and_build_plan():
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+        assert build._library_path(name).parent == build.BUILD_DIR
+    assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    # the build directory is ignored by git
+    assert "build/" in (ROOT / ".gitignore").read_text().split()
