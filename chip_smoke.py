@@ -10,7 +10,7 @@ of the JAX package.  Phases, each printing one JSON line:
 2. build: compiles the CUDA kernels of ``src/repro_torch/kernels/csrc``;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (P=64, M=16, K=200), at the SaP-E reduced chain's
-   (P=1, M=7, K=400) and at small edge cases;
+   (P=1, M=7, K=400) and at edge cases (M=1, K=37, K=256);
 4. the slice at full size: N=200,000, K=200 banded systems (paper Table
    4.1/4.2 setting), float32 band storage and preconditioner, float64
    iteration, tol=1e-8, through ``factor(plan_banded(...)).solve`` for the
@@ -74,6 +74,33 @@ def check_close(what: str, kernel, plain) -> float:
     if rel > KERNEL_RTOL:
         raise AssertionError(f"{what}: max abs err {err:.3e} = {rel:.3e} of max > {KERNEL_RTOL}")
     return err
+
+
+def btf_work(p: int, m: int, k: int) -> tuple[float, float]:
+    """(flops, bytes) a block-tridiagonal LU of P chains of M K x K blocks
+    must do.  Row 0 only inverts (2K^3); rows 1..M-1 each form L_j (2K^3),
+    S_j = D_j - L_j F_{j-1} (2K^3 + K^2) and invert S_j (2K^3).  Reads every
+    D, E_1..E_{M-1} and F_0..F_{M-2}; writes sinv and l."""
+    flops = p * ((6 * m - 4) * k**3 + (m - 1) * k**2)
+    return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m)
+
+
+def bts_work(p: int, m: int, k: int, r: int) -> tuple[float, float]:
+    """(flops, bytes) of both sweeps for R right-hand sides: M-1 forward
+    products, sinv_{M-1} y, then F_j x_{j+1} and sinv_j (...) for j < M-1,
+    each 2K^2 R flops.  Reads sinv, l_1..l_{M-1}, f_0..f_{M-2} and b;
+    writes x."""
+    flops = p * ((6 * m - 4) * k * k * r + 2 * (m - 1) * k * r)
+    return float(flops), 4.0 * p * ((3 * m - 2) * k * k + 2 * m * k * r)
+
+
+def fused_work(p: int, m: int, k: int) -> tuple[float, float]:
+    """(flops, bytes) of the fused pass: the LU and the UL recurrence (btf's
+    work each), the two spike carries (M-1 products each) and the four
+    corner products.  Reads the chain blocks btf reads plus bq and cq;
+    writes sinv, l and the four K x K corners."""
+    flops = p * ((16 * m - 4) * k**3 + 2 * (m - 1) * k**2)
+    return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m + 2 + 4)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -187,9 +214,12 @@ def main() -> int:
     rd, re, rf = _reduced_interface_system(fs8.v_bot, fs8.v_top, fs8.w_top, fs8.w_bot)
     del bt8, fs8
     check_kernels("_chain", rd[None], re[None], rf[None], None, None, (1, 4))
-    # edge cases: a single block row with an all-padding last partition, and
-    # K not a power of two with a partly padded last partition
-    for tag, (n, k, p) in {"_m1": (15, 5, 4), "_k37": (259, 37, 3)}.items():
+    # edge cases: a single block row with an all-padding last partition; K
+    # not a power of two with a partly padded last partition; K = 256, whose
+    # elimination block no longer fits in shared memory (btf and the fused
+    # pass then keep it, and the fused carries, in device memory)
+    edge = {"_m1": (15, 5, 4), "_k37": (259, 37, 3), "_k256": (1400, 256, 2)}
+    for tag, (n, k, p) in edge.items():
         small = torch.tensor(random_banded(n, k, 1.0, seed=SEED).astype(np.float32), device=dev)
         sbt = band_to_block_tridiag(small, k, p)
         check_kernels(tag, sbt.d, sbt.e, sbt.f, sbt.b_cpl, sbt.c_cpl, (1, 4, k))
@@ -282,39 +312,31 @@ def main() -> int:
     del systems, band_d05
 
     # ---- 5. timing at the main path's shapes ---------------------------------
-    def mb(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
     p, m, k = bt.p, bt.m, bt.k
     ref = bl.btf_ref(bt.d, bt.e, bt.f)
     rhs1 = torch.randn((p, m, k, 1), device=dev)
     bq, cq = bl.pad_couplings(bt.b_cpl, bt.c_cpl, p)
-    btf_flops = p * m * (6.0 * k**3 + k * k)
     specs = {
         "btf": dict(
             source="src/repro_torch/kernels/csrc/btf.cu",
             replaces="src/repro/kernels/btf.py:40",
             kernel=lambda: btf(bt.d, bt.e, bt.f),
             plain=lambda: bl.btf_ref(bt.d, bt.e, bt.f),
-            nbytes=mb(bt.d, bt.e, bt.f, ref.sinv, ref.l), flops=btf_flops,
-            reps=10, plain_reps=1, err=main_path_errs["btf"],
+            work=btf_work(p, m, k), reps=10, plain_reps=1, err=main_path_errs["btf"],
         ),
         "bts": dict(
             source="src/repro_torch/kernels/csrc/bts.cu",
             replaces="src/repro/kernels/bts.py:27",
             kernel=lambda: bts(ref.sinv, ref.l, bt.f, rhs1),
             plain=lambda: bl.bts_ref(ref, rhs1),
-            nbytes=mb(ref.sinv, ref.l, bt.f, rhs1, rhs1), flops=p * m * 6.0 * k * k,
-            reps=50, plain_reps=5, err=main_path_errs["bts_r1"],
+            work=bts_work(p, m, k, 1), reps=50, plain_reps=5, err=main_path_errs["bts_r1"],
         ),
         "fused_factor_spike": dict(
             source="src/repro_torch/kernels/csrc/fused_spike.cu",
             replaces="src/repro/kernels/fused_spike.py:47",
             kernel=lambda: fused_factor_spike(bt.d, bt.e, bt.f, bq, cq),
             plain=lambda: bl.fused_factor_spike_padded_ref(bt.d, bt.e, bt.f, bq, cq),
-            nbytes=mb(bt.d, bt.e, bt.f, bq, cq, ref.sinv, ref.l) + 4 * mb(bq),
-            flops=2 * btf_flops + p * m * 4.0 * k**3 + p * 8.0 * k**3,
-            reps=5, plain_reps=1, err=main_path_errs["fused"],
+            work=fused_work(p, m, k), reps=5, plain_reps=1, err=main_path_errs["fused"],
         ),
     }
     summary = []
@@ -323,7 +345,8 @@ def main() -> int:
         ms = cuda_ms(s["kernel"], s["reps"])
         plain_ms = cuda_ms(s["plain"], s["plain_reps"])
         wrappers[name].launches = saved  # timing launches are not the path's
-        t_bytes, t_ops = s["nbytes"] / PEAK_BYTES_S * 1e3, s["flops"] / PEAK_F32_FLOP_S * 1e3
+        flops, nbytes = s["work"]
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
         summary.append({
             "name": name, "route": "cuda", "source": s["source"], "replaces": s["replaces"],
             "launches": totals[name], "max_abs_err": s["err"], "ms": ms, "plain_ms": plain_ms,
@@ -331,7 +354,7 @@ def main() -> int:
             "library_ms": None,
         })
         emit({"phase": "timing", "kernel": name, "ms": ms, "plain_ms": plain_ms,
-              "bytes": s["nbytes"], "flops": s["flops"], "shape": [p, m, k]})
+              "bytes": nbytes, "flops": flops, "shape": [p, m, k]})
     # host-orchestrated torch code of the path, timed for the record
     x64 = torch.randn(N, device=dev, dtype=torch.float64)
     emit({

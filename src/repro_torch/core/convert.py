@@ -73,7 +73,6 @@ def factorization_from_numpy(
         k=op.k,
         tol=float(meta["tol"]),
         maxiter=int(meta["maxiter"]),
-        use_cg=meta["solver"] == "cg",
         iter_dtype=meta.get("iter_dtype"),
         solver=meta["solver"],
         d_factor=get("d_factor"),

@@ -46,9 +46,9 @@ class SaPOptions:
     boost_eps: float = DEFAULT_BOOST
     precond_dtype: str = "float32"
     iter_dtype: Optional[str] = None  # Krylov dtype; None = follow the RHS
-    use_cg: bool = False  # CG for SPD systems
+    use_cg: bool = False  # legacy spelling of solver="cg" (SPD systems)
     # Outer solver: "bicgstab2" | "cg" | "refine" | "auto" (= "cg" when
-    # use_cg else "bicgstab2").
+    # use_cg else "bicgstab2"); resolved once, at factor() time.
     solver: str = "auto"
     # Fused factor+spike kernel: "on" | "off" | "auto" (fused on the card).
     fused_factor: str = "auto"
@@ -184,7 +184,6 @@ class SaPFactorization:
     k: int
     tol: float
     maxiter: int
-    use_cg: bool
     iter_dtype: Optional[str]
     # resolved outer solver ("bicgstab2" | "cg" | "refine"); never "auto"
     solver: str = "bicgstab2"
@@ -232,7 +231,8 @@ class SaPFactorization:
 
 
 def resolve_solver(solver: str, use_cg: bool) -> str:
-    """Resolve ``SaPOptions.solver`` to a concrete outer solver name."""
+    """Resolve ``SaPOptions.solver`` to a concrete outer solver name:
+    ``"auto"`` honours the legacy ``use_cg`` flag, an explicit name wins."""
     if solver == "auto":
         return "cg" if use_cg else "bicgstab2"
     if solver not in ("bicgstab2", "cg", "refine"):
@@ -269,7 +269,6 @@ def factor(pl: SaPPlan) -> SaPFactorization:
         k=pl.k,
         tol=opts.tol,
         maxiter=opts.maxiter,
-        use_cg=opts.use_cg,
         iter_dtype=opts.iter_dtype,
         solver=resolve_solver(opts.solver, opts.use_cg),
         d_factor=d_factor,
@@ -295,7 +294,7 @@ def _solve_impl(
 
     if fac.solver == "refine":
         block = _refine_block
-    elif fac.solver == "cg" or fac.use_cg:
+    elif fac.solver == "cg":
         block = _cg_block
     else:
         block = _bicgstab2_block

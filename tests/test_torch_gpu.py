@@ -23,7 +23,10 @@ from repro_torch.kernels.fused_spike import fused_factor_spike
 
 pytestmark = pytest.mark.gpu
 
-SHAPES = [(15, 5, 4), (259, 37, 3), (3200, 20, 8), (12800, 200, 4)]  # (n, k, p)
+# (n, k, p).  At K = 256 the K x K elimination block does not fit in one
+# block's shared memory, so btf and the fused pass eliminate in device
+# memory (and the fused pass keeps its fourth workspace slot there).
+SHAPES = [(15, 5, 4), (259, 37, 3), (3200, 20, 8), (12800, 200, 4), (1400, 256, 2)]
 
 
 @pytest.fixture
@@ -87,6 +90,16 @@ def test_chain_kernels_at_block_size_400(cuda):
     _close(got.sinv, want.sinv)
     h = torch.randn(rd.shape[0], 400, 1, device=cuda)
     _close(ops.block_tridiag_solve_chain(got, h), bl.bts_chain(want, h))
+
+
+def test_k256_elimination_block_lives_in_device_memory(cuda):
+    """The K = 256 shapes above take the device-memory layout: btf needs a
+    K x K workspace per partition, the fused pass four slots per side."""
+    from repro_torch.kernels import build
+
+    assert build.load("btf").btf_workspace_floats(256) == 256 * 256
+    assert build.load("fused_spike").fused_workspace_floats(256) == 2 * 4 * 256 * 256
+    assert build.load("btf").btf_workspace_floats(200) == 0
 
 
 def test_wrappers_reject_non_float32(cuda):

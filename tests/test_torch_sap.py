@@ -100,11 +100,13 @@ def test_solve_many_matches_jax_lifecycle(variant, system, p, resolved):
     assert torch.allclose(one.x, tres.x[:, 1], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("solver", ["refine", "cg"])
+@pytest.mark.parametrize("solver", ["refine", "cg", "use_cg"])
 def test_outer_solvers_match_jax(solver):
-    kw = dict(solver=solver)
+    # "use_cg" is the legacy spelling of solver="cg", resolved at factor()
+    kw = dict(use_cg=True) if solver == "use_cg" else dict(solver=solver)
+    want = "cg" if solver == "use_cg" else solver
     system = "rand_d2"
-    if solver == "cg":  # CG needs an SPD operator: symmetrize the band
+    if want == "cg":  # CG needs an SPD operator: symmetrize the band
         band, _ = _system(system)
         dense = np.asarray(J.band_to_dense(jnp.asarray(band)))
         dense = (dense + dense.T) / 2
@@ -115,7 +117,7 @@ def test_outer_solvers_match_jax(solver):
     b = (np.asarray(J.band_to_dense(jnp.asarray(band))) @ np.ones(band.shape[0])).astype(np.float32)
     jfac = J.factor(J.plan_banded(jnp.asarray(band), J.SaPOptions(p=4, tol=TOL, **kw)))
     tfac = RT.factor(RT.plan_banded(band, T.SaPOptions(p=4, tol=TOL, **kw), device="cpu"))
-    assert tfac.solver == jfac.solver == solver
+    assert tfac.solver == jfac.solver == want
     _compare(tfac.solve(b), jfac.solve(jnp.asarray(b)))
 
 
