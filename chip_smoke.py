@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's dense-banded SaP path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's SaP paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -7,16 +7,24 @@ Needs one CUDA card and the CUDA toolkit (nvcc); imports nothing of JAX or
 of the JAX package.  Phases, each printing one JSON line:
 
 1. device and toolchain;
-2. build: compiles the CUDA kernels of ``src/repro_torch/kernels/csrc``;
+2. build: compiles the CUDA kernels of ``src/repro_torch/kernels/csrc``,
+   one nvcc per source, all started together;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (P=64, M=16, K=200), at the SaP-E reduced chain's
-   (P=1, M=7, K=400) and at edge cases (M=1, K=37, K=256);
-4. the slice at full size: N=200,000, K=200 banded systems (paper Table
+   (P=1, M=7, K=400) and at edge cases (M=1, K=37, K=256); the four block
+   cyclic reduction (BCR) kernels and the whole BCR factor / solve at the
+   P=64 interface chain of the d=0.5 band (63 blocks of 2K=400, R=1, 4)
+   and at edge cases (m=1, m=3, K=37 with R=K);
+4. the slices at full size: N=200,000, K=200 banded systems (paper Table
    4.1/4.2 setting), float32 band storage and preconditioner, float64
    iteration, tol=1e-8, through ``factor(plan_banded(...)).solve`` for the
-   variants D, C (fused and not), E and ``solve_many``, with every kernel
-   wrapper's launch count;
-5. timing of each kernel beside its plain version, with CUDA events.
+   variants D, C (fused and not), E (P=8, chain), ``solve_many``, E at
+   P=64 with BCR (``reduced_solver="auto"``) and with the chain sweep; and
+   the sparse front end: ``random_sparse(200,000, 20, d=1.0,
+   structured_band=50)`` through ``factor(plan(...)).solve`` at P=64
+   (host DB + CM timed once); with every kernel wrapper's launch count;
+5. timing of each kernel beside its plain version (and a library call
+   where one computes the same function), with CUDA events.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -103,6 +111,30 @@ def fused_work(p: int, m: int, k: int) -> tuple[float, float]:
     return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m + 2 + 4)
 
 
+def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
+    """(flops, bytes) of each BCR kernel over all levels of one factor
+    (inv_odd, reduce) or one solve with R right-hand sides (rhs_reduce,
+    backsub), for a chain of m blocks of K x K padded to 2^L blocks.  Each
+    level of length m_l eliminates m_l/2 odd rows, so the levels eliminate
+    2^L - 1 rows in all; the identity padding rows are counted, since the
+    kernels eliminate them like any other (at m = 63: 1 of 64 rows).
+    inv_odd inverts every odd block and the root (2K^3 each; reads and
+    writes one block each); reduce does six K x K products per even row
+    plus two block subtractions, reading D_2i, E, F, a (3 blocks per row
+    pair) and writing lo, hi, D', E', F'; rhs_reduce reads lo, hi and the
+    level's RHS, writes the half-length RHS (4K^2 R + 2KR flops a row);
+    backsub reads a, e, f, the odd RHS and x, writes the level's solution
+    (6K^2 R + 2KR flops a row)."""
+    rows = (1 << max(m - 1, 0).bit_length()) - 1
+    blk, vec = 4.0 * k * k, 4.0 * k * r
+    return {
+        "inv_odd": (2.0 * k**3 * (rows + 1), 2 * blk * (rows + 1)),
+        "reduce": (rows * (12.0 * k**3 + 2 * k * k), rows * 11 * blk),
+        "rhs_reduce": (rows * (4.0 * k * k * r + 2 * k * r), rows * (2 * blk + 3 * vec)),
+        "backsub": (rows * (6.0 * k * k * r + 2 * k * r), rows * (3 * blk + 4 * vec)),
+    }
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` on the card, timed by CUDA events."""
     import torch
@@ -134,16 +166,20 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.core import (
+        CsrOperator,
         SaPOptions,
         band_matvec,
         band_to_block_tridiag,
         factor,
+        plan,
         plan_banded,
         random_banded,
+        random_sparse,
     )
     from repro_torch.core import block_lu as bl
+    from repro_torch.core import cyclic_reduction as cr
     from repro_torch.core.spike import _reduced_interface_system
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import bcr, build, ops
     from repro_torch.kernels.btf import btf
     from repro_torch.kernels.bts import bts
     from repro_torch.kernels.fused_spike import fused_factor_spike
@@ -223,18 +259,102 @@ def main() -> int:
         small = torch.tensor(random_banded(n, k, 1.0, seed=SEED).astype(np.float32), device=dev)
         sbt = band_to_block_tridiag(small, k, p)
         check_kernels(tag, sbt.d, sbt.e, sbt.f, sbt.b_cpl, sbt.c_cpl, (1, 4, k))
+
+    # BCR: each kernel on every level of a factor and a solve, and the whole
+    # factor / solve, against the plain versions.  Main shapes: the SaP-E
+    # interface chain of the d=0.5 band at P=64 (63 blocks of 2K=400).
+    band_d05 = torch.tensor(random_banded(N, K, 0.5, seed=SEED).astype(np.float32), device=dev)
+    bt64 = band_to_block_tridiag(band_d05, K, 64)
+    fs64 = ops.fused_factor_spike(bt64.d, bt64.e, bt64.f, bt64.b_cpl, bt64.c_cpl)
+    chain = _reduced_interface_system(fs64.v_bot, fs64.v_top, fs64.w_top, fs64.w_bot)
+    del bt64, fs64
+    assert tuple(chain[0].shape) == (63, 2 * K, 2 * K)
+
+    def bcr_inputs(d, e, f, r):
+        """Per-level kernel inputs of one plain factor and one plain solve:
+        [(d, e, f, a_odd)], [(lo, hi, b)], [(a, e_odd, f_odd, b, x)] and the
+        root block, with a seeded R-column right-hand side."""
+        pd, pe, pf = cr.pad_chain(d, e, f)
+        facts, lv = [], []
+        while pd.shape[0] > 1:
+            a = cr.bcr_inv_odd_ref(pd)
+            facts.append((pd, pe, pf, a))
+            level, (pd, pe, pf) = cr.bcr_reduce_level_ref(pd, pe, pf)
+            lv.append(level)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        b = cr.pad_rhs(torch.randn(d.shape[0], d.shape[1], r, generator=g, device=dev), len(lv))
+        downs, rhs = [], []
+        for level in lv:
+            downs.append((level.lo, level.hi, b))
+            rhs.append(b)
+            b = cr.bcr_rhs_reduce_ref(level.lo, level.hi, b)
+        x = (cr.bcr_inv_odd_ref(pd, first=0)[0] @ b[0])[None]
+        ups = []
+        for level, bl_ in zip(reversed(lv), reversed(rhs)):
+            ups.append((level.a_odd, level.e_odd.contiguous(), level.f_odd.contiguous(), bl_, x))
+            x = cr.bcr_backsub_ref(level.a_odd, level.e_odd, level.f_odd, bl_, x)
+        return facts, downs, ups, pd
+
+    def check_bcr(tag, d, e, f, rs):
+        facts, downs, ups, root = bcr_inputs(d, e, f, rs[0])
+        err = {nm: 0.0 for nm in ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")}
+        for pd, pe, pf, a in facts:
+            err["bcr_inv_odd"] = max(err["bcr_inv_odd"], check_close(
+                f"bcr_inv_odd{tag}", bcr.inv_odd(pd), a))
+            for o, w in zip(bcr.reduce(pd, pe, pf, a), cr.bcr_reduce_ref(pd, pe, pf, a)):
+                err["bcr_reduce"] = max(err["bcr_reduce"], check_close(f"bcr_reduce{tag}", o, w))
+        err["bcr_inv_odd"] = max(err["bcr_inv_odd"], check_close(
+            f"bcr_inv_odd{tag} root", bcr.inv_odd(root, first=0), cr.bcr_inv_odd_ref(root, first=0)))
+        for lo, hi, b in downs:
+            err["bcr_rhs_reduce"] = max(err["bcr_rhs_reduce"], check_close(
+                f"bcr_rhs_reduce{tag}", bcr.rhs_reduce(lo, hi, b), cr.bcr_rhs_reduce_ref(lo, hi, b)))
+        for a, eo, fo, b, x in ups:
+            err["bcr_backsub"] = max(err["bcr_backsub"], check_close(
+                f"bcr_backsub{tag}", bcr.backsub(a, eo, fo, b, x), cr.bcr_backsub_ref(a, eo, fo, b, x)))
+        for nm, v in err.items():
+            errs[f"{nm}{tag}"] = v
+        fac, want = ops.bcr_factor(d, e, f), cr.bcr_factor(d, e, f)
+        errs[f"bcr_factor{tag}"] = max(
+            [check_close(f"bcr_factor{tag} root", fac.root_inv, want.root_inv)]
+            + [check_close(f"bcr_factor{tag}", o, w)
+               for lo_, lw in zip(fac.levels, want.levels) for o, w in zip(lo_, lw)]
+        )
+        g = torch.Generator(device=dev).manual_seed(SEED + 1)
+        for r in rs:
+            h = torch.randn(d.shape[0], d.shape[1], r, generator=g, device=dev)
+            errs[f"bcr_solve{tag}_r{r}"] = check_close(
+                f"bcr_solve{tag} r={r}", ops.bcr_solve(fac, h), cr.bcr_solve(want, h))
+
+    check_bcr("", *chain, (1, 4))
+    bcr_errs = {nm: errs[nm] for nm in ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")}
+    # The far spike corners of this band have decayed to nothing, so its
+    # chain's couplings E, F are (numerically) zero.  A random chain of the
+    # same shape with dense couplings holds the kernels to every term; then
+    # edge cases: a one-block chain (root only), m=3 (padded to 4) at
+    # 2K=400, and K=37 with R=K.  Random parts are scaled by 1/sqrt(K), so
+    # the 4 I shift keeps every block well conditioned.
+    edges = {"_dense": (63, 2 * K, 1), "_m1": (1, 400, 1), "_m3": (3, 400, 4), "_k37": (5, 37, 37)}
+    for tag, (m, k, r) in edges.items():
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        sc = k**-0.5
+        d = sc * torch.randn(m, k, k, generator=g, device=dev) + 4 * torch.eye(k, device=dev)
+        e = 0.3 * sc * torch.randn(m, k, k, generator=g, device=dev)
+        f = 0.3 * sc * torch.randn(m, k, k, generator=g, device=dev)
+        check_bcr(tag, d, e, f, (r,))
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL, "max_abs_err": errs})
 
-    # ---- 4. the slice at full size -------------------------------------------
+    # ---- 4. the slices at full size ------------------------------------------
     rng = np.random.default_rng(SEED)
     xstar = torch.tensor(rng.normal(size=N), device=dev)
-    band_d05 = torch.tensor(random_banded(N, K, 0.5, seed=SEED).astype(np.float32), device=dev)
     systems = {}
     for name, band in (("d1.0", band_d1), ("d0.5", band_d05)):
         b64 = band_matvec(band.double(), xstar)
         systems[name] = (band, b64)
-    wrappers = {"btf": btf, "bts": bts, "fused_factor_spike": fused_factor_spike}
+    wrappers = {"btf": btf, "bts": bts, "fused_factor_spike": fused_factor_spike,
+                "bcr_inv_odd": bcr.inv_odd, "bcr_reduce": bcr.reduce,
+                "bcr_rhs_reduce": bcr.rhs_reduce, "bcr_backsub": bcr.backsub}
+    bcr_names = ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")
 
     def reset():
         for w in wrappers.values():
@@ -243,6 +363,22 @@ def main() -> int:
     def counts():
         return {nm: w.launches for nm, w in wrappers.items()}
 
+    # the sparse system: float32-exact values, so the float32 operator the
+    # plan keeps is the matrix solved; b = A x* in float64
+    t0 = time.perf_counter()
+    csr = random_sparse(N, 20.0, d=1.0, seed=SEED, structured_band=50)
+    csr.data = csr.data.astype(np.float32).astype(np.float64)
+    a_sparse = CsrOperator.from_csr(csr, dtype=torch.float64, device=dev)
+    sparse_gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sparse_plan = plan(csr, SaPOptions(p=64, variant="auto", tol=TOL, maxiter=MAXITER,
+                                       precond_dtype="float32"))
+    torch.cuda.synchronize()
+    emit({"phase": "sparse_plan", "n": csr.n, "nnz": csr.nnz, "generate_s": sparse_gen_s,
+          "plan_s": time.perf_counter() - t0, "k_after_reorder": sparse_plan.k,
+          "info": sparse_plan.info})
+    del csr
+
     runs = [
         # name, system, options, R, kernels the path must launch
         ("D", "d1.0", dict(p=64, variant="D"), 0, ("btf", "bts")),
@@ -250,16 +386,27 @@ def main() -> int:
         ("C_unfused", "d1.0", dict(p=64, variant="C", fused_factor="off"), 0, ("btf", "bts")),
         ("E", "d0.5", dict(p=8, variant="E"), 0, ("fused_factor_spike", "btf", "bts")),
         ("C_many", "d1.0", dict(p=64, variant="C"), 4, ("fused_factor_spike", "bts", "btf")),
+        ("E_bcr", "d0.5", dict(p=64, variant="E", reduced_solver="auto"), 0,
+         ("fused_factor_spike", "bts") + bcr_names),
+        ("E_chain_p64", "d0.5", dict(p=64, variant="E", reduced_solver="chain"), 0,
+         ("fused_factor_spike", "btf", "bts")),
+        ("sparse", "sparse", None, 0, ("bts",)),
     ]
     totals = dict.fromkeys(wrappers, 0)
     for name, sysname, kw, nrhs, must in runs:
-        band, b64 = systems[sysname]
-        if nrhs:
-            scale = torch.arange(1, nrhs + 1, device=dev, dtype=torch.float64)
-            rhs, want_x = b64[:, None] * scale, xstar[:, None] * scale
+        if sysname == "sparse":
+            rhs, want_x = a_sparse.matvec(xstar), xstar
+            matvec = a_sparse.matvec
         else:
-            rhs, want_x = b64, xstar
-        opts = SaPOptions(tol=TOL, maxiter=MAXITER, precond_dtype="float32", **kw)
+            band, b64 = systems[sysname]
+            a64 = band.double()
+            matvec = lambda x, a64=a64: band_matvec(a64, x)  # noqa: E731
+            if nrhs:
+                scale = torch.arange(1, nrhs + 1, device=dev, dtype=torch.float64)
+                rhs, want_x = b64[:, None] * scale, xstar[:, None] * scale
+            else:
+                rhs, want_x = b64, xstar
+            opts = SaPOptions(tol=TOL, maxiter=MAXITER, precond_dtype="float32", **kw)
         # Each stage runs twice: the first call also pays one-time costs
         # (lazy loading of torch's CUDA kernels); the second is reported as
         # the stage's time.  Launch counts are those of the first call.
@@ -269,7 +416,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         for attempt in range(2):
             t0 = time.perf_counter()
-            fac = factor(plan_banded(band, opts))
+            fac = factor(sparse_plan if sysname == "sparse" else plan_banded(band, opts))
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             if attempt == 0:
@@ -284,12 +431,11 @@ def main() -> int:
                 peak = torch.cuda.max_memory_allocated()
                 del fac, res
         x = res.x
-        a64 = band.double()
-        resid = (rhs - band_matvec(a64, x)).norm(dim=0) / rhs.norm(dim=0)
+        resid = (rhs - matvec(x)).norm(dim=0) / rhs.norm(dim=0)
         fwd = (x - want_x).norm(dim=0) / want_x.norm(dim=0)
         its = res.iterations.flatten().tolist()
         line = {
-            "phase": "slice", "run": name, "n": N, "k": K, "system": sysname,
+            "phase": "slice", "run": name, "n": N, "k": fac.k, "system": sysname,
             "variant": fac.variant, "p": fac.p, "fused": fac.pc.fused,
             "reduced_solver": fac.pc.reduced_solver, "nrhs": max(nrhs, 1),
             "iterations": its, "true_resnorm_f64": resid.flatten().tolist(),
@@ -305,11 +451,17 @@ def main() -> int:
             raise AssertionError(f"slice {name}: bad solution")
         if float(resid.max()) > 1e-6:
             raise AssertionError(f"slice {name}: true_resnorm {resid.tolist()} > 1e-6")
+        if name == "E_bcr" and fac.pc.reduced_solver != "bcr":
+            raise AssertionError(f"slice {name}: reduced_solver {fac.pc.reduced_solver!r}")
+        if name == "E_bcr" and min(factor_counts[nm] for nm in bcr_names[:2]) == 0:
+            raise AssertionError(f"slice {name}: inv_odd / reduce not launched by the factor")
+        if name == "E_bcr" and min(solve_counts[nm] for nm in bcr_names[2:]) == 0:
+            raise AssertionError(f"slice {name}: rhs_reduce / backsub not launched by the solve")
         for nm in must:
             if factor_counts[nm] + solve_counts[nm] == 0:
                 raise AssertionError(f"slice {name}: kernel {nm} was never launched")
         del fac, res, x
-    del systems, band_d05
+    del systems, band_d05, sparse_plan, a_sparse
 
     # ---- 5. timing at the main path's shapes ---------------------------------
     p, m, k = bt.p, bt.m, bt.k
@@ -339,11 +491,40 @@ def main() -> int:
             work=fused_work(p, m, k), reps=5, plain_reps=1, err=main_path_errs["fused"],
         ),
     }
+    # BCR at the P=64 interface chain: each kernel over all levels of one
+    # factor (inv_odd, reduce) or one solve at R=1 (rhs_reduce, backsub)
+    facts, downs, ups, root = bcr_inputs(*chain, 1)
+    odd_blocks = torch.cat([pd[1::2] for pd, _, _, _ in facts] + [root])
+    work = bcr_work(chain[0].shape[0], chain[0].shape[1], 1)
+
+    def each(fn, args):
+        return lambda: [fn(*a) for a in args]
+
+    bcr_specs = {
+        "bcr_inv_odd": dict(
+            kernel=lambda: [bcr.inv_odd(a[0]) for a in facts] + [bcr.inv_odd(root, first=0)],
+            plain=lambda: [cr.bcr_inv_odd_ref(a[0]) for a in facts]
+            + [cr.bcr_inv_odd_ref(root, first=0)],
+            library=lambda: torch.linalg.inv(odd_blocks), replaces="src/repro/kernels/bcr.py:43"),
+        "bcr_reduce": dict(kernel=each(bcr.reduce, facts), plain=each(cr.bcr_reduce_ref, facts),
+                           replaces="src/repro/kernels/bcr.py:48"),
+        "bcr_rhs_reduce": dict(kernel=each(bcr.rhs_reduce, downs),
+                               plain=each(cr.bcr_rhs_reduce_ref, downs),
+                               replaces="src/repro/kernels/bcr.py:79"),
+        "bcr_backsub": dict(kernel=each(bcr.backsub, ups), plain=each(cr.bcr_backsub_ref, ups),
+                            replaces="src/repro/kernels/bcr.py:89"),
+    }
+    for name, s in bcr_specs.items():
+        s.update(source="src/repro_torch/kernels/csrc/bcr.cu", work=work[name[4:]],
+                 reps=3 if name in ("bcr_inv_odd", "bcr_reduce") else 20, plain_reps=1,
+                 err=bcr_errs[name])
+    specs.update(bcr_specs)
     summary = []
     for name, s in specs.items():
         saved = wrappers[name].launches
         ms = cuda_ms(s["kernel"], s["reps"])
         plain_ms = cuda_ms(s["plain"], s["plain_reps"])
+        library_ms = cuda_ms(s["library"], s["reps"]) if "library" in s else None
         wrappers[name].launches = saved  # timing launches are not the path's
         flops, nbytes = s["work"]
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
@@ -351,10 +532,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": s["source"], "replaces": s["replaces"],
             "launches": totals[name], "max_abs_err": s["err"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": library_ms,
         })
+        shape = list(chain[0].shape) if name in bcr_specs else [p, m, k]
         emit({"phase": "timing", "kernel": name, "ms": ms, "plain_ms": plain_ms,
-              "bytes": nbytes, "flops": flops, "shape": [p, m, k]})
+              "library_ms": library_ms, "bytes": nbytes, "flops": flops, "shape": shape})
     # host-orchestrated torch code of the path, timed for the record
     x64 = torch.randn(N, device=dev, dtype=torch.float64)
     emit({

@@ -1,7 +1,8 @@
 """SaP on PyTorch and CUDA: the split-and-parallelize banded solver (Li,
 Serban, Negrut 2015) ported from the JAX package ``repro`` to an NVIDIA
 H100, with hand-written CUDA kernels for the block-tridiagonal factor,
-solve and fused factor+spike passes.  Imports no JAX."""
+solve and fused factor+spike passes and for block cyclic reduction, and
+the sparse DB/CM front end on the host.  Imports no JAX."""
 
 from .core import (
     SaPFactorization,
@@ -9,7 +10,9 @@ from .core import (
     SaPPlan,
     SaPSolveResult,
     factor,
+    plan,
     plan_banded,
+    solve_sparse,
 )
 
 __version__ = "0.1.0"
@@ -20,5 +23,7 @@ __all__ = [
     "SaPPlan",
     "SaPSolveResult",
     "factor",
+    "plan",
     "plan_banded",
+    "solve_sparse",
 ]

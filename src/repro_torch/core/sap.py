@@ -1,15 +1,25 @@
-"""SaP solver API for dense banded systems: plan_banded / factor / solve.
+"""SaP solver API: plan / plan_banded / factor / solve.
 
-The paper's economics (Fig. 3.1): pay once for the split block-LU + SPIKE
-factorization (T_LU), then amortize it over a cheap preconditioned Krylov
-iteration per right-hand side (T_Kry).  The lifecycle mirrors that:
+The paper's economics (Fig. 3.1): pay once for the expensive stages -- DB
+reordering (T_DB), CM reordering (T_CM), drop-off (T_Drop), banded
+assembly (T_Asmbl) and the split block-LU + SPIKE factorization (T_LU) --
+then amortize them over a cheap preconditioned Krylov iteration per
+right-hand side (T_Kry).  The lifecycle mirrors that:
 
-1. ``plan_banded(band, opts, device) -> SaPPlan``: puts the (N, 2K+1) band
-   on the device (the card unless ``device="cpu"`` is asked for).
+1. ``plan(a, opts, device)`` / ``plan_banded(band, opts, device) ->
+   SaPPlan``: ``plan`` runs the host-side DB/CM/drop-off analysis of a
+   CSR, scipy or dense square matrix once and keeps the permutations;
+   ``plan_banded`` takes (N, 2K+1) band storage as it is.  The operator
+   and preconditioner band go to the device (the card unless
+   ``device="cpu"`` is asked for).
 2. ``factor(plan) -> SaPFactorization``: block-LU + SPIKE coupling
    (paper Sec. 2.1), through the CUDA kernels when the band is on the card.
 3. ``factorization.solve(b)`` / ``factorization.solve_many(B)``: one RHS of
-   shape (N,), or (N, R) with an independent Krylov iteration per column.
+   shape (N,), or (N, R) with an independent Krylov iteration per column;
+   permutations are applied and undone inside.
+
+The Krylov matvec always uses the original (reordered) matrix; drop-off
+and the banded approximation only affect the preconditioner.
 
 Mixed precision (Sec. 3.1): the preconditioner is factored and applied in
 ``opts.precond_dtype`` while the outer iteration runs in the dtype of the
@@ -25,10 +35,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import reorder as reorder_mod
 from .banded import band_to_block_tridiag, diag_dominance_factor
 from .block_lu import DEFAULT_BOOST
 from .krylov import KrylovResult, _bicgstab2_block, _cg_block, _refine_block
-from .operators import BandedOperator, LinearOperator
+from .operators import BandedOperator, CsrOperator, LinearOperator, require_square_dense
 from .spike import SaPPreconditioner, build_preconditioner
 
 
@@ -52,13 +63,20 @@ class SaPOptions:
     solver: str = "auto"
     # Fused factor+spike kernel: "on" | "off" | "auto" (fused on the card).
     fused_factor: str = "auto"
-    # reduced-system solver for variant "E": "chain" | "bcr" | "auto".
+    # reduced-system solver for variant "E": "chain" = sequential btf/bts
+    # sweep over the (P-1)-interface chain, "bcr" = block cyclic reduction,
+    # "auto" = bcr from 8 interfaces on.
     reduced_solver: str = "auto"
+    # sparse front end (Sec. 2.2), used by plan()
+    use_db: bool = True  # diagonal-boosting reordering
+    use_cm: bool = True  # bandwidth-reducing reordering
+    third_stage: bool = False  # per-partition CM (Sec. 4.3.2)
+    drop_tol: float = 0.0  # element drop-off fraction (0 = keep all)
 
 
 @dataclasses.dataclass
 class SaPSolution:
-    """Legacy one-shot result (``solve_banded``)."""
+    """Legacy one-shot result (``solve_banded`` / ``solve_sparse``)."""
 
     x: torch.Tensor
     iterations: float
@@ -126,19 +144,25 @@ def resolve_device(device=None) -> torch.device:
 
 @dataclasses.dataclass
 class SaPPlan:
-    """Analysis result: operator + preconditioner band on the device.
+    """Analysis result: operator + permutations + preconditioner band.
 
-    op      : operator the Krylov matvec uses
-    band_pc : (N, 2K+1) preconditioner band
+    op      : (reordered) operator the Krylov matvec uses
+    band_pc : (N, 2K+1) preconditioner band (post drop-off), on the device
     k       : preconditioner half bandwidth
+    b_perm  : RHS permutation (None = identity), ``b_r = b[b_perm]``
+    x_perm  : unknown un-permutation (None = identity), ``x = x_r[x_perm]``
     opts    : solver options the factorization will inherit
+    info    : stage diagnostics (db/cm flags, k_after_reorder, ...)
     """
 
     op: LinearOperator
     band_pc: torch.Tensor
     k: int
     n: int
+    b_perm: Optional[np.ndarray]
+    x_perm: Optional[np.ndarray]
     opts: SaPOptions
+    info: dict
 
 
 def plan_banded(band, opts: Optional[SaPOptions] = None, device=None) -> SaPPlan:
@@ -159,7 +183,41 @@ def plan_banded(band, opts: Optional[SaPOptions] = None, device=None) -> SaPPlan
         band_pc=band,
         k=op.k,
         n=op.n,
+        b_perm=None,
+        x_perm=None,
         opts=opts,
+        info={"variant": opts.variant, "p": opts.p},
+    )
+
+
+def plan(a, opts: Optional[SaPOptions] = None, device=None) -> SaPPlan:
+    """Plan for a general operator / sparse matrix (paper Sec. 2.2 / 4.3).
+
+    Runs DB + CM reordering and drop-off once (per ``opts``) on the host;
+    the returned plan carries the permutations, the reordered operator and
+    the preconditioner band, both on ``device`` (default: the card) in the
+    default float dtype.  Banded operators skip the reordering front end.
+    """
+    opts = opts or SaPOptions()
+    if isinstance(a, BandedOperator):
+        return plan_banded(a, opts, device)
+    dev = resolve_device(device)
+    if isinstance(a, CsrOperator):
+        a = a.to_csr()
+    elif isinstance(a, torch.Tensor):
+        a = a.cpu().numpy()
+    if isinstance(a, np.ndarray):
+        require_square_dense(a)
+    rp = reorder_mod.analyze(a, use_db=opts.use_db, use_cm=opts.use_cm, drop_tol=opts.drop_tol)
+    return SaPPlan(
+        op=CsrOperator.from_csr(rp.csr, device=dev),
+        band_pc=torch.tensor(rp.band_pc, dtype=torch.get_default_dtype(), device=dev),
+        k=rp.k,
+        n=rp.csr.n,
+        b_perm=rp.b_perm,
+        x_perm=rp.x_perm,
+        opts=opts,
+        info={**rp.info, "variant": opts.variant, "p": opts.p},
     )
 
 
@@ -172,10 +230,11 @@ def plan_banded(band, opts: Optional[SaPOptions] = None, device=None) -> SaPPlan
 class SaPFactorization:
     """Reusable SaP factorization handle.
 
-    Holds the operator and the factored preconditioner; ``solve`` /
-    ``solve_many`` pay only the Krylov iteration.  ``d_factor`` is the
-    preconditioner band's degree of diagonal dominance (Eq. 2.11), echoed
-    into every :class:`SaPSolveResult`.
+    Holds the (reordered) operator, the factored preconditioner and the
+    permutations; ``solve`` / ``solve_many`` pay only the Krylov
+    iteration.  ``d_factor`` is the preconditioner band's degree of
+    diagonal dominance (Eq. 2.11), echoed into every
+    :class:`SaPSolveResult`.
     """
 
     op: LinearOperator
@@ -188,6 +247,8 @@ class SaPFactorization:
     # resolved outer solver ("bicgstab2" | "cg" | "refine"); never "auto"
     solver: str = "bicgstab2"
     d_factor: Optional[torch.Tensor] = None
+    b_perm: Optional[torch.Tensor] = None  # int64 (N,) on the device, or None
+    x_perm: Optional[torch.Tensor] = None  # int64 (N,) on the device, or None
 
     @property
     def variant(self) -> str:
@@ -204,7 +265,7 @@ class SaPFactorization:
         return self.pc.p * self.pc.m * self.pc.k
 
     def _rhs(self, b, ndim: int) -> torch.Tensor:
-        b = _tensor(b).to(self.op.band.device)
+        b = _tensor(b).to(self.pc.lu.sinv.device)
         if b.ndim != ndim:
             want = f"({self.n},)" if ndim == 1 else f"({self.n}, R)"
             raise ValueError(f"expected an RHS of shape {want}, got {tuple(b.shape)}")
@@ -262,6 +323,11 @@ def factor(pl: SaPPlan) -> SaPFactorization:
         reduced_solver=opts.reduced_solver,
         fused=opts.fused_factor,
     )
+    dev = pl.band_pc.device
+
+    def to_idx(perm):
+        return None if perm is None else torch.as_tensor(perm, dtype=torch.int64).to(dev)
+
     return SaPFactorization(
         op=pl.op,
         pc=pc,
@@ -272,6 +338,8 @@ def factor(pl: SaPPlan) -> SaPFactorization:
         iter_dtype=opts.iter_dtype,
         solver=resolve_solver(opts.solver, opts.use_cg),
         d_factor=d_factor,
+        b_perm=to_idx(pl.b_perm),
+        x_perm=to_idx(pl.x_perm),
     )
 
 
@@ -283,8 +351,11 @@ def factor(pl: SaPPlan) -> SaPFactorization:
 def _solve_impl(
     fac: SaPFactorization, bmat: torch.Tensor, record_history: bool = False
 ) -> SaPSolveResult:
-    """Solve body on an (N, R) block: pad, Krylov, unpad."""
+    """Solve body on an (N, R) block: permute, pad, Krylov, unpad,
+    un-permute."""
     b = bmat.to(_resolve_iter_dtype(bmat.dtype, fac.iter_dtype))
+    if fac.b_perm is not None:
+        b = b[fac.b_perm]
     n, n_pad = fac.n, fac.n_pad
 
     def precond(r):
@@ -299,10 +370,12 @@ def _solve_impl(
     else:
         block = _bicgstab2_block
     res: KrylovResult = block(fac.op.matvec, b, precond, None, fac.tol, fac.maxiter, record_history)
-    # true_resnorm is computed on the unpadded system (identity-padding rows
-    # never enter the Krylov vectors)
+    x = res.x[fac.x_perm] if fac.x_perm is not None else res.x
+    # true_resnorm is computed in the solver frame (permuted, unpadded:
+    # identity-padding rows never enter the Krylov vectors); permutations
+    # preserve norms, so it equals the original frame's ||b - A x|| / ||b||
     return SaPSolveResult(
-        x=res.x,
+        x=x,
         iterations=res.iterations,
         resnorm=res.resnorm,
         converged=res.converged,
@@ -313,7 +386,7 @@ def _solve_impl(
 
 
 # ---------------------------------------------------------------------------
-# Legacy one-shot wrapper (deprecated for repeated solves)
+# Legacy one-shot wrappers (deprecated for repeated solves)
 # ---------------------------------------------------------------------------
 
 
@@ -349,3 +422,37 @@ def solve_banded(band, b, opts: Optional[SaPOptions] = None, device=None) -> SaP
         },
     )
 
+
+def solve_sparse(a, b, opts: Optional[SaPOptions] = None, device=None) -> SaPSolution:
+    """One-shot solve of a sparse system via the reorder + banded pipeline.
+
+    Deprecated for repeated solves: this re-runs DB/CM reordering and the
+    block-LU factorization on every call.  Use ``factor(plan(a, opts))``
+    and reuse the handle across right-hand sides.
+    """
+    warnings.warn(
+        "solve_sparse re-runs the whole plan/factor pipeline on every call and "
+        "is deprecated; use factor(plan(a, opts)).solve(b) and reuse the handle "
+        "across right-hand sides",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    pl = plan(a, opts, device)
+    fac = factor(pl)
+    res = fac.solve(b)
+    return SaPSolution(
+        x=res.x,
+        iterations=float(res.iterations),
+        resnorm=float(res.resnorm),
+        converged=bool(res.converged),
+        true_resnorm=float(res.true_resnorm),
+        k=fac.k,
+        info={
+            **pl.info,
+            "variant": fac.variant,
+            "variant_requested": pl.opts.variant,
+            "reduced_solver": fac.pc.reduced_solver,
+            "d_factor": float(fac.d_factor),
+            "p": pl.opts.p,
+        },
+    )

@@ -17,8 +17,10 @@ Three preconditioner variants (paper Sec. 2.1.1):
   * SaP-E  ("exact"):     block solve + *exact* reduced-system correction +
                           second block solve.  The full (P-1)-interface
                           reduced system is a block-tridiagonal chain of
-                          (2K x 2K) blocks, factored and solved by the same
-                          btf / bts kernels as the partitions.
+                          (2K x 2K) blocks, factored and solved either by
+                          the same btf / bts kernels as the partitions (an
+                          O(P) sequential sweep) or by block cyclic
+                          reduction (O(log2 P) parallel levels).
 
 Reduced system (exact; unknowns y_i = [x_i^(b); x_{i+1}^(t)], i = 0..P-2):
 
@@ -41,7 +43,7 @@ import torch
 from ..kernels import ops as kops
 from .banded import BlockTridiag
 from .block_lu import DEFAULT_BOOST, BTFactors, flip_block_tridiag
-from .cyclic_reduction import resolve_reduced_solver
+from .cyclic_reduction import BCRFactors, resolve_reduced_solver
 
 
 def _flip_rows(x: torch.Tensor) -> torch.Tensor:
@@ -64,10 +66,12 @@ class SaPPreconditioner:
     w_top: Optional[torch.Tensor]  # (P-1, K, K)  W_{i+1}^(t)
     rbar_inv: Optional[torch.Tensor]  # (P-1, K, K)  inv(I - W V)
     red_lu: Optional[BTFactors]  # factors of the exact (P-1, 2K) reduced chain
+    red_bcr: Optional[BCRFactors]  # log-depth BCR factors of the same chain
     p: int
     m: int
     k: int
-    # resolved reduced-chain solver for variant E ("chain"); "none" otherwise
+    # resolved reduced-chain solver for variant E ("chain" = sequential
+    # btf/bts sweep, "bcr" = block cyclic reduction); "none" otherwise
     reduced_solver: str = "none"
     # True when the factor+spike stage ran as the fused single pass
     fused: bool = False
@@ -125,7 +129,10 @@ def _apply_exact(pc: SaPPreconditioner, rb: torch.Tensor) -> torch.Tensor:
     # exact reduced system on the interface unknowns; its RHS is just the
     # interface slices of g
     h = torch.cat([g[:-1, -1], g[1:, 0]], dim=1)  # (P-1, 2K, R)
-    y = kops.block_tridiag_solve_chain(pc.red_lu, h)
+    if pc.reduced_solver == "bcr":
+        y = kops.bcr_solve(pc.red_bcr, h)
+    else:
+        y = kops.block_tridiag_solve_chain(pc.red_lu, h)
     return _correct(pc, rb, y[:, : pc.k], y[:, pc.k :])
 
 
@@ -180,8 +187,8 @@ def build_preconditioner(
       unless the fused pass supplies them.
 
     reduced_solver (variant "E" only): "chain" (sequential btf/bts sweep
-    over the (P-1)-interface chain), "bcr" (block cyclic reduction, not
-    ported yet: raises), or "auto" ("bcr" from 8 interfaces on).
+    over the (P-1)-interface chain), "bcr" (block cyclic reduction,
+    O(log2 P) parallel levels), or "auto" ("bcr" from 8 interfaces on).
 
     fused (``"on"`` / ``"off"`` / ``"auto"``; bools accepted): run the
     factor AND spike-corner extraction as one fused pass; ``"auto"`` is
@@ -197,8 +204,6 @@ def build_preconditioner(
         if variant == "E" and bt.p > 1
         else "none"
     )
-    if reduced_solver == "bcr":
-        raise NotImplementedError("reduced_solver='bcr' is not ported yet; see ROADMAP.md")
     use_fused = (
         resolve_fused(fused, bt.d.device)
         and variant in ("C", "E")
@@ -209,7 +214,7 @@ def build_preconditioner(
         x.to(precond_dtype) for x in (bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl)
     )
 
-    v_bot = w_top = rbar_inv = red_lu = None
+    v_bot = w_top = rbar_inv = red_lu = red_bcr = None
     v_top = w_bot = None
     if use_fused:
         fs = kops.fused_factor_spike(d, e, f, b_cpl, c_cpl, boost_eps)
@@ -242,7 +247,10 @@ def build_preconditioner(
             rbar_inv = _block_inverse(eye - w_top @ v_bot, boost_eps)
         else:
             rd, re, rf = _reduced_interface_system(v_bot, v_top, w_top, w_bot)
-            red_lu = kops.block_tridiag_factor_chain(rd, re, rf, boost_eps)
+            if reduced_solver == "bcr":
+                red_bcr = kops.bcr_factor(rd, re, rf, boost_eps)
+            else:
+                red_lu = kops.block_tridiag_factor_chain(rd, re, rf, boost_eps)
     elif variant in ("C", "E"):
         variant = "D"  # single partition: coupled/exact == decoupled
 
@@ -255,6 +263,7 @@ def build_preconditioner(
         w_top=w_top,
         rbar_inv=rbar_inv,
         red_lu=red_lu,
+        red_bcr=red_bcr,
         p=bt.p,
         m=bt.m,
         k=bt.k,

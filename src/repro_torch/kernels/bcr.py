@@ -1,0 +1,148 @@
+"""Block cyclic reduction kernels (SaP-E reduced-chain stage).
+
+Replace the TPU kernels of ``repro/kernels/bcr.py``: ``_inv_odd_kernel``
+(:func:`inv_odd`), ``_reduce_kernel`` (:func:`reduce`),
+``_rhs_reduce_kernel`` (:func:`rhs_reduce`) and ``_backsub_kernel``
+(:func:`backsub`).  The CUDA source is ``csrc/bcr.cu``: every elimination
+level is one grid over (row, output tile) -- the TPU kernels' per-row grid
+cell split further, since one level has only m/2 rows.  ``reduce`` and
+``backsub`` launch two grids per call (the second half of each reads all
+of the first); each wrapper counts one launch per call.
+
+Bound on the H100: the factor (``inv_odd`` + ``reduce``) by operations,
+~14 (2K)^3 flops per eliminated row; the solve (``rhs_reduce`` +
+``backsub``) at small R by bytes, every factor block read once.  At
+2K = 400 a block does not fit in shared memory: ``inv_odd`` inverts in
+its output slot in device memory, one thread block per inverted block.
+
+On a CPU tensor each wrapper runs its plain version from
+:mod:`repro_torch.core.cyclic_reduction`; on a CUDA tensor it launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.block_lu import DEFAULT_BOOST
+from ..core.cyclic_reduction import (
+    bcr_backsub_ref,
+    bcr_inv_odd_ref,
+    bcr_reduce_ref,
+    bcr_rhs_reduce_ref,
+)
+from . import build
+from ._launch import check_operands, check_shape, stream_handle
+
+
+def _blocks(what: str, t: torch.Tensor) -> tuple[int, int]:
+    """(m, K) of an (m, K, K) block tensor; raises on any other shape."""
+    if t.ndim != 3 or t.shape[1] != t.shape[2]:
+        raise ValueError(f"{what}: expected (m, K, K) blocks, got {tuple(t.shape)}")
+    return t.shape[0], t.shape[1]
+
+
+def inv_odd(d: torch.Tensor, boost_eps: float = DEFAULT_BOOST, first: int = 1) -> torch.Tensor:
+    """Boosted Gauss-Jordan inverses of d[first::2]: (m, K, K) -> (len, K, K).
+
+    ``first=1`` inverts a level's odd diagonal blocks; ``first=0`` on a
+    one-block chain inverts the root.
+    """
+    if d.device.type == "cpu":
+        return bcr_inv_odd_ref(d, boost_eps, first)
+    check_operands("bcr inv_odd", d.device, d=d)
+    m, k = _blocks("bcr inv_odd", d)
+    count = len(range(first, m, 2))
+    lib = build.load("bcr")
+    out = torch.empty((count, k, k), dtype=d.dtype, device=d.device)
+    if count:
+        code = lib.bcr_inv_launch(
+            d.data_ptr(), out.data_ptr(), count, first, k, boost_eps, stream_handle(d.device)
+        )
+        build.check(lib, code, "bcr inv_odd")
+        inv_odd.launches += 1
+    return out
+
+
+def reduce(
+    d: torch.Tensor, e: torch.Tensor, f: torch.Tensor, a_odd: torch.Tensor
+) -> tuple[torch.Tensor, ...]:
+    """Eliminate the odd rows of an (m, K, K) chain (m even):
+    ``(lo, hi, d', e', f')``, each (m/2, K, K)."""
+    if d.device.type == "cpu":
+        return bcr_reduce_ref(d, e, f, a_odd)
+    check_operands("bcr reduce", d.device, d=d, e=e, f=f, a_odd=a_odd)
+    m, k = _blocks("bcr reduce", d)
+    if m % 2:
+        raise ValueError(f"bcr reduce: chain length {m} must be even")
+    for name, t in (("e", e), ("f", f)):
+        check_shape("bcr reduce", name, t, (m, k, k))
+    check_shape("bcr reduce", "a_odd", a_odd, (m // 2, k, k))
+    lib = build.load("bcr")
+    lo, hi, dn, en, fn = (torch.empty_like(a_odd) for _ in range(5))
+    code = lib.bcr_reduce_launch(
+        d.data_ptr(), e.data_ptr(), f.data_ptr(), a_odd.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), dn.data_ptr(), en.data_ptr(), fn.data_ptr(), m // 2, k,
+        stream_handle(d.device),
+    )
+    build.check(lib, code, "bcr reduce")
+    reduce.launches += 1
+    return lo, hi, dn, en, fn
+
+
+def rhs_reduce(lo: torch.Tensor, hi: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fold a level's odd right-hand sides into its even equations:
+    b (m, K, R) -> (m/2, K, R)."""
+    if b.device.type == "cpu":
+        return bcr_rhs_reduce_ref(lo, hi, b)
+    check_operands("bcr rhs_reduce", b.device, lo=lo, hi=hi, b=b)
+    m2, k = _blocks("bcr rhs_reduce", lo)
+    check_shape("bcr rhs_reduce", "hi", hi, (m2, k, k))
+    r = b.shape[-1]
+    check_shape("bcr rhs_reduce", "b", b, (2 * m2, k, r))
+    lib = build.load("bcr")
+    out = torch.empty((m2, k, r), dtype=b.dtype, device=b.device)
+    code = lib.bcr_rhs_reduce_launch(
+        lo.data_ptr(), hi.data_ptr(), b.data_ptr(), out.data_ptr(), m2, k, r,
+        stream_handle(b.device),
+    )
+    build.check(lib, code, "bcr rhs_reduce")
+    rhs_reduce.launches += 1
+    return out
+
+
+def backsub(
+    a_odd: torch.Tensor,
+    e_odd: torch.Tensor,
+    f_odd: torch.Tensor,
+    b: torch.Tensor,
+    x: torch.Tensor,
+) -> torch.Tensor:
+    """Recover a level's odd unknowns and interleave: ``b`` the level's
+    (m, K, R) right-hand side, ``x`` the (m/2, K, R) even unknowns ->
+    the level's (m, K, R) solution."""
+    if b.device.type == "cpu":
+        return bcr_backsub_ref(a_odd, e_odd, f_odd, b, x)
+    check_operands("bcr backsub", b.device, a_odd=a_odd, e_odd=e_odd, f_odd=f_odd, b=b, x=x)
+    m2, k = _blocks("bcr backsub", a_odd)
+    for name, t in (("e_odd", e_odd), ("f_odd", f_odd)):
+        check_shape("bcr backsub", name, t, (m2, k, k))
+    r = x.shape[-1]
+    check_shape("bcr backsub", "x", x, (m2, k, r))
+    check_shape("bcr backsub", "b", b, (2 * m2, k, r))
+    lib = build.load("bcr")
+    t = torch.empty_like(x)
+    out = torch.empty((2 * m2, k, r), dtype=x.dtype, device=x.device)
+    code = lib.bcr_backsub_launch(
+        a_odd.data_ptr(), e_odd.data_ptr(), f_odd.data_ptr(), b.data_ptr(), x.data_ptr(),
+        t.data_ptr(), out.data_ptr(), m2, k, r, stream_handle(b.device),
+    )
+    build.check(lib, code, "bcr backsub")
+    backsub.launches += 1
+    return out
+
+
+inv_odd.launches = 0
+reduce.launches = 0
+rhs_reduce.launches = 0
+backsub.launches = 0

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("btf", "bts", "fused_spike")
+SOURCES = ("btf", "bts", "fused_spike", "bcr")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -51,6 +51,12 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
         ),
         "fused_workspace_floats": (_L, [_I]),
+    },
+    "bcr": {
+        "bcr_inv_launch": (_I, [_P, _P, _I, _I, _I, _F, _P]),
+        "bcr_reduce_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+        "bcr_rhs_reduce_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "bcr_backsub_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     },
 }
 for _fns in SIGNATURES.values():

@@ -1,10 +1,11 @@
 """Public entry points of the block-tridiagonal kernels.
 
 Dispatch goes by tensor device alone: the wrappers in :mod:`.btf`,
-:mod:`.bts` and :mod:`.fused_spike` run the plain PyTorch version for a CPU
-tensor and launch the CUDA kernel for a CUDA tensor.  This module adds the
-factor containers, the single-chain forms (the SaP-E reduced interface
-system) and the per-partition coupling layout of the fused pass.
+:mod:`.bts`, :mod:`.fused_spike` and :mod:`.bcr` run the plain PyTorch
+version for a CPU tensor and launch the CUDA kernel for a CUDA tensor.
+This module adds the factor containers, the single-chain forms (the SaP-E
+reduced interface system), the per-partition coupling layout of the fused
+pass and the level loops of block cyclic reduction.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import torch
 
 from ..core.block_lu import DEFAULT_BOOST, BTFactors, FusedSpikeFactors, pad_couplings
+from ..core.cyclic_reduction import BCRFactors, BCRLevel, pad_chain, pad_rhs
+from . import bcr
 from .btf import btf
 from .bts import bts
 from .fused_spike import fused_factor_spike as _fused
@@ -68,3 +71,38 @@ def fused_factor_spike(
         w_top=wt[1:],
         w_bot=wb[1:],
     )
+
+
+def bcr_factor(
+    d: torch.Tensor, e: torch.Tensor, f: torch.Tensor, boost_eps: float = DEFAULT_BOOST
+) -> BCRFactors:
+    """Block cyclic reduction factor of one chain (M, K, K) in log2(M)
+    levels (pair with :func:`bcr_solve`); ``e[0]`` / ``f[M-1]`` are ignored.
+    Per level, ``inv_odd`` inverts the odd diagonal blocks and ``reduce``
+    builds ``lo``/``hi`` and the half-length chain; the root block goes
+    through ``inv_odd``'s kernel as well."""
+    m = d.shape[0]
+    d, e, f = (t.contiguous() for t in pad_chain(d, e, f))
+    levels = []
+    while d.shape[0] > 1:
+        a_odd = bcr.inv_odd(d, boost_eps)
+        lo, hi, d_next, e_next, f_next = bcr.reduce(d, e, f, a_odd)
+        levels.append(BCRLevel(lo=lo, hi=hi, a_odd=a_odd,
+                               e_odd=e[1::2].contiguous(), f_odd=f[1::2].contiguous()))
+        d, e, f = d_next, e_next, f_next
+    root_inv = bcr.inv_odd(d, boost_eps, first=0)[0]
+    return BCRFactors(levels=tuple(levels), root_inv=root_inv, m=m)
+
+
+def bcr_solve(factors: BCRFactors, b: torch.Tensor) -> torch.Tensor:
+    """Solve one BCR-factored chain: b (M, K, R) -> x (M, K, R).  The root
+    apply ``root_inv @ b_0`` is one plain product, as in the JAX package."""
+    b = pad_rhs(b.contiguous(), factors.n_levels)
+    rhs = []
+    for lv in factors.levels:
+        rhs.append(b)
+        b = bcr.rhs_reduce(lv.lo, lv.hi, b)
+    x = (factors.root_inv @ b[0])[None]
+    for lv, bl in zip(reversed(factors.levels), reversed(rhs)):
+        x = bcr.backsub(lv.a_odd, lv.e_odd, lv.f_odd, bl, x)
+    return x[: factors.m]

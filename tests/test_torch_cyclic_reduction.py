@@ -1,0 +1,254 @@
+"""The port's block cyclic reduction against the JAX package.
+
+The plain ``bcr_factor`` / ``bcr_solve`` and the kernel wrappers' CPU path
+(``repro_torch.kernels.ops``) against the jnp reference
+(``repro.core.cyclic_reduction``) and the Pallas kernels in interpret
+mode without lane padding (``repro.kernels.bcr``), level leaf by level
+leaf; against the port's own sequential chain sweep; and the SaP-E
+lifecycle with ``reduced_solver`` "bcr" / "auto" against the JAX
+lifecycle.
+
+Tolerance: rtol = atol = 2e-4, the JAX package's own BCR tests' -- the
+same float32 elimination with the block products' sums taken in another
+order.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as J
+from repro.configs.sap_solver import exact
+from repro.core import cyclic_reduction as jcr
+from repro.kernels.bcr import bcr_factor_pallas, bcr_solve_pallas
+import repro_torch.core as T
+from repro_torch.core import block_lu as tbl
+from repro_torch.core import cyclic_reduction as tcr
+from repro_torch.core import spike as ts
+from repro_torch.kernels import bcr as kbcr
+from repro_torch.kernels import build, ops
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _chain(m, k, r, seed):
+    rng = np.random.default_rng(seed)
+    d = (rng.normal(size=(m, k, k)) + 4 * np.eye(k)).astype(np.float32)
+    e = (rng.normal(size=(m, k, k)) * 0.3).astype(np.float32)
+    f = (rng.normal(size=(m, k, k)) * 0.3).astype(np.float32)
+    b = rng.normal(size=(m, k, r)).astype(np.float32)
+    return d, e, f, b
+
+
+def _torch(*arrays):
+    return tuple(torch.tensor(a) for a in arrays)
+
+
+def _assert_factors_close(tf, jf):
+    assert tf.m == jf.m and tf.n_levels == jf.n_levels
+    for tl, jl in zip(tf.levels, jf.levels):
+        for name in tcr.BCRLevel._fields:
+            np.testing.assert_allclose(getattr(tl, name).numpy(), np.asarray(getattr(jl, name)),
+                                       err_msg=name, **TOL)
+    np.testing.assert_allclose(tf.root_inv.numpy(), np.asarray(jf.root_inv), **TOL)
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 5, 8, 16])
+def test_bcr_matches_jax_reference(m, k, r):
+    d, e, f, b = _chain(m, k, r, seed=100 * m + 10 * k + r)
+    jf = jcr.bcr_factor(jnp.asarray(d), jnp.asarray(e), jnp.asarray(f))
+    jx = jcr.bcr_solve(jf, jnp.asarray(b))
+    tf = tcr.bcr_factor(*_torch(d, e, f))
+    _assert_factors_close(tf, jf)
+    np.testing.assert_allclose(tcr.bcr_solve(tf, torch.tensor(b)).numpy(), np.asarray(jx), **TOL)
+
+
+@pytest.mark.parametrize("m,k,r", [(1, 2, 1), (2, 4, 3), (3, 8, 1), (5, 2, 3), (8, 4, 1), (16, 8, 3)])
+def test_bcr_kernel_path_matches_jax_interpret_kernels(m, k, r):
+    """The kernel wrappers' CPU path (ops.bcr_factor / bcr_solve, level by
+    level through the four wrappers) against the Pallas kernels run in
+    interpret mode, without the TPU lane padding."""
+    d, e, f, b = _chain(m, k, r, seed=m + k + r)
+    jf = bcr_factor_pallas(jnp.asarray(d), jnp.asarray(e), jnp.asarray(f), interpret=True,
+                           lane_pad=False)
+    jx = bcr_solve_pallas(jf, jnp.asarray(b), interpret=True, lane_pad=False)
+    tf = ops.bcr_factor(*_torch(d, e, f))
+    _assert_factors_close(tf, jf)
+    np.testing.assert_allclose(ops.bcr_solve(tf, torch.tensor(b)).numpy(), np.asarray(jx), **TOL)
+
+
+@pytest.mark.parametrize("m", [1, 3, 6, 9])
+def test_kernel_path_on_cpu_is_the_plain_version(m, monkeypatch):
+    """On CPU tensors the wrappers run the plain versions, bit for bit, and
+    neither build nor count a launch."""
+
+    def no_build(name):
+        raise AssertionError(f"kernel {name} must not be built for a CPU tensor")
+
+    monkeypatch.setattr(build, "load", no_build)
+    wrappers = (kbcr.inv_odd, kbcr.reduce, kbcr.rhs_reduce, kbcr.backsub)
+    before = [w.launches for w in wrappers]
+    d, e, f, b = _torch(*_chain(m, 4, 2, seed=m))
+    got = ops.bcr_factor(d, e, f)
+    want = tcr.bcr_factor(d, e, f)
+    for gl, wl in zip(got.levels, want.levels):
+        for g, w in zip(gl, wl):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    torch.testing.assert_close(got.root_inv, want.root_inv, rtol=0, atol=0)
+    torch.testing.assert_close(ops.bcr_solve(got, b), tcr.bcr_solve(want, b), rtol=0, atol=0)
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("m,k", [(1, 3), (2, 2), (7, 4), (12, 3)])
+def test_bcr_matches_the_port_chain_sweep(m, k):
+    """BCR and the sequential btf/bts sweep solve the same chain; a chain of
+    one block row reduces to the root inverse, which is btf's inverse."""
+    d, e, f, b = _torch(*_chain(m, k, 2, seed=7 * m + k))
+    x_seq = tbl.bts_chain(tbl.btf_chain(d, e, f), b)
+    x_bcr = ops.bcr_solve(ops.bcr_factor(d, e, f), b)
+    torch.testing.assert_close(x_bcr, x_seq, **TOL)
+    one = ops.bcr_factor(d[:1], e[:1], f[:1])
+    assert one.n_levels == 0
+    torch.testing.assert_close(one.root_inv, tbl.btf_chain(d[:1], e[:1], f[:1]).sinv[0, 0], **TOL)
+
+
+def test_pad_chain_leaves_the_callers_tensors_alone():
+    d, e, f, _ = _torch(*_chain(5, 3, 1, seed=1))
+    e0, f0 = e.clone(), f.clone()
+    pd, pe, pf = tcr.pad_chain(d, e, f)
+    torch.testing.assert_close(e, e0, rtol=0, atol=0)
+    torch.testing.assert_close(f, f0, rtol=0, atol=0)
+    assert pd.shape == (8, 3, 3) and bool((pe[0] == 0).all()) and bool((pf[4:] == 0).all())
+    torch.testing.assert_close(pd[5:], torch.eye(3).expand(3, 3, 3))
+
+
+def test_identity_padding_inverts_to_the_identity():
+    """The structural-zero pivot rule: padded identity blocks invert to the
+    identity, so the padding carries the zero solution."""
+    d, e, f, b = _torch(*_chain(3, 4, 2, seed=3))
+    fac = ops.bcr_factor(d, e, f)
+    torch.testing.assert_close(fac.levels[0].a_odd[1], torch.eye(4), rtol=0, atol=0)
+    x = ops.bcr_solve(fac, b)
+    assert x.shape == b.shape
+
+
+def test_reduced_solver_policy_matches_jax():
+    for m in (1, 7, 8, 63):
+        for choice in ("chain", "bcr", "auto"):
+            assert tcr.resolve_reduced_solver(choice, m) == jcr.resolve_reduced_solver(choice, m)
+    with pytest.raises(ValueError):
+        tcr.resolve_reduced_solver("nope", 4)
+
+
+# ---------------------------------------------------------------------------
+# SaP-E with BCR through the lifecycle
+# ---------------------------------------------------------------------------
+
+
+def _osc_system(n=512, k=6, d=0.5, seed=1):
+    band = J.oscillatory_banded(n, k, d=d, seed=seed).astype(np.float32)
+    dense = T.band_to_dense(torch.tensor(band, dtype=torch.float64)).numpy()
+    xstar = np.random.default_rng(seed + 1).normal(size=n)
+    return band, (dense @ xstar).astype(np.float32), xstar
+
+
+def test_bcr_on_the_interface_chain_matches_jax():
+    """The SaP-E reduced chain of that system (P = 16: 15 interfaces of
+    2K = 12 blocks) factored and solved by the port's kernel path and by
+    the jnp reference: the same chain in, the same levels out."""
+    band, _, _ = _osc_system()
+    bt = T.band_to_block_tridiag(torch.tensor(band), 6, 16)
+    fs = tbl.fused_factor_spike_ref(bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl)
+    rd, re, rf = ts._reduced_interface_system(fs.v_bot, fs.v_top, fs.w_top, fs.w_bot)
+    tf = ops.bcr_factor(rd, re, rf)
+    jf = jcr.bcr_factor(*(jnp.asarray(x.numpy()) for x in (rd, re, rf)))
+    _assert_factors_close(tf, jf)
+    h = np.random.default_rng(4).normal(size=(15, 12, 2)).astype(np.float32)
+    np.testing.assert_allclose(ops.bcr_solve(tf, torch.tensor(h)).numpy(),
+                               np.asarray(jcr.bcr_solve(jf, jnp.asarray(h))), **TOL)
+
+
+@pytest.mark.parametrize("reduced_solver", ["bcr", "auto"])
+def test_variant_e_lifecycle_with_bcr_matches_jax(reduced_solver):
+    """oscillatory d = 0.5 at P = 16: 15 interfaces, so "auto" is "bcr" in
+    both packages.  The spike corners of this system already differ by a
+    few 1e-3 of their size between the packages in float32 (the chain is
+    ill-conditioned), so the answers are compared, not the factors: x
+    within 1e-4 of the JAX x (normwise) and near x*."""
+    band, b, xstar = _osc_system()
+    kw = dict(p=16, variant="E", tol=1e-5, maxiter=50, reduced_solver=reduced_solver)
+    jfac = J.factor(J.plan_banded(jnp.asarray(band), J.SaPOptions(**kw)))
+    tfac = T.factor(T.plan_banded(band, T.SaPOptions(**kw), device="cpu"))
+    assert tfac.pc.reduced_solver == jfac.pc.reduced_solver == "bcr"
+    assert tfac.pc.red_lu is None
+    assert tfac.pc.red_bcr.n_levels == jfac.pc.red_bcr.n_levels == 4
+    assert tfac.pc.red_bcr.m == jfac.pc.red_bcr.m == 15
+    tres, jres = tfac.solve(b), jfac.solve(jnp.asarray(b))
+    tx, jx = tres.x.numpy(), np.asarray(jres.x)
+    assert np.linalg.norm(tx - jx) <= 1e-4 * np.linalg.norm(jx)
+    assert float(tres.iterations) <= 3.0 and bool(tres.converged)
+    assert np.linalg.norm(tx - xstar) / np.linalg.norm(xstar) < 1e-2
+
+
+def test_exact_config_resolves_to_bcr_in_the_port():
+    """The JAX package's exact() workload preset, mapped onto the port's
+    options, factors as variant E with BCR at P = 16 (15 interfaces)."""
+    jopts = exact().to_sap_options(p=16)
+    fields = {f.name for f in dataclasses.fields(T.SaPOptions)}
+    topts = T.SaPOptions(**{k: v for k, v in dataclasses.asdict(jopts).items() if k in fields})
+    assert (topts.variant, topts.reduced_solver) == ("E", "auto")
+    band = J.oscillatory_banded(512, 6, d=exact().d, seed=3).astype(np.float32)
+    tfac = T.factor(T.plan_banded(band, topts, device="cpu"))
+    jfac = J.factor(J.plan_banded(jnp.asarray(band), jopts))
+    assert tfac.variant == jfac.variant == "E"
+    assert tfac.pc.reduced_solver == jfac.pc.reduced_solver == "bcr"
+
+
+def test_legacy_info_reports_bcr():
+    band, b, _ = _osc_system()
+    with pytest.warns(DeprecationWarning):
+        sol = T.solve_banded(band, b, T.SaPOptions(p=16, variant="E", tol=1e-5), device="cpu")
+    assert sol.info["reduced_solver"] == "bcr"
+
+
+def _flatten_bcr(jfac):
+    pc = jfac.pc
+    arrays = {
+        "op.band": jfac.op.band,
+        "lu.sinv": pc.lu.sinv, "lu.l": pc.lu.l, "lu.f": pc.lu.f,
+        "b_cpl": pc.b_cpl, "c_cpl": pc.c_cpl,
+        "red_bcr.root_inv": pc.red_bcr.root_inv,
+        "d_factor": jfac.d_factor,
+    }
+    for lvl, level in enumerate(pc.red_bcr.levels):
+        for name in tcr.BCRLevel._fields:
+            arrays[f"red_bcr.{lvl}.{name}"] = getattr(level, name)
+    arrays = {name: np.asarray(a) for name, a in arrays.items()}
+    meta = dict(variant=pc.variant, p=pc.p, m=pc.m, k=pc.k, tol=jfac.tol, maxiter=jfac.maxiter,
+                solver=jfac.solver, red_bcr_m=pc.red_bcr.m)
+    return arrays, meta
+
+
+def test_carry_across_a_jax_bcr_factorization():
+    band, b, _ = _osc_system()
+    opts = J.SaPOptions(p=16, variant="E", tol=1e-5, maxiter=50, reduced_solver="bcr")
+    jfac = J.factor(J.plan_banded(jnp.asarray(band), opts))
+    tfac = T.factorization_from_numpy(*_flatten_bcr(jfac), device="cpu")
+    assert tfac.pc.reduced_solver == "bcr" and tfac.pc.red_bcr.m == jfac.pc.red_bcr.m == 15
+    assert tfac.pc.red_bcr.n_levels == jfac.pc.red_bcr.n_levels
+    r = np.random.default_rng(9).normal(size=jfac.n_pad).astype(np.float32)
+    tz, jz = tfac.pc.apply(torch.tensor(r)).numpy(), np.asarray(jfac.pc.apply(jnp.asarray(r)))
+    # the same stored factors applied: only the solve's sums differ in order
+    assert np.abs(tz - jz).max() <= 1e-5 * np.abs(jz).max()
+    tx, jx = tfac.solve(b).x.numpy(), np.asarray(jfac.solve(jnp.asarray(b)).x)
+    assert np.linalg.norm(tx - jx) <= 1e-4 * np.linalg.norm(jx)
+
+
+def test_carry_across_rejects_unknown_bcr_leaves():
+    with pytest.raises(ValueError, match="unknown"):
+        T.factorization_from_numpy({"red_bcr.0.lower": np.zeros(1)}, {}, device="cpu")

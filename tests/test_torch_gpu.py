@@ -118,3 +118,120 @@ def test_lifecycle_on_the_card_matches_the_cpu(cuda, variant):
     assert float(gpu.true_resnorm) <= 1e-6
     x_gpu, x_cpu = gpu.x.cpu(), cpu.x
     assert float((x_gpu - x_cpu).norm() / x_cpu.norm()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# block cyclic reduction
+# ---------------------------------------------------------------------------
+
+
+def _bcr_chain(cuda, m, k, r, seed=0):
+    """A well-conditioned chain: random parts scaled by 1/sqrt(K), so the
+    4 I shift dominates at every block size."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    s = k**-0.5
+    d = s * torch.randn(m, k, k, generator=g, device=cuda) + 4 * torch.eye(k, device=cuda)
+    e = 0.3 * s * torch.randn(m, k, k, generator=g, device=cuda)
+    f = 0.3 * s * torch.randn(m, k, k, generator=g, device=cuda)
+    b = torch.randn(m, k, r, generator=g, device=cuda)
+    return d, e, f, b
+
+
+def _interface_chain(cuda, p):
+    """The SaP-E reduced chain of a d = 0.5 band: P-1 blocks of 2K = 400."""
+    from repro_torch.core.spike import _reduced_interface_system
+
+    band = torch.tensor(random_banded(p * 2 * 200, 200, 0.5, seed=p).astype(np.float32), device=cuda)
+    bt = band_to_block_tridiag(band, 200, p)
+    fs = ops.fused_factor_spike(bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl)
+    return _reduced_interface_system(fs.v_bot, fs.v_top, fs.w_top, fs.w_bot)
+
+
+# (m, K, R): m = 1 (root only), non-powers of two, K = 37, R = K; at
+# 2K = 400 the inverse eliminates in device memory
+BCR_SHAPES = [(1, 8, 1), (3, 6, 2), (5, 37, 37), (16, 20, 4), (9, 400, 1)]
+
+
+@pytest.mark.parametrize("m,k,r", BCR_SHAPES)
+def test_bcr_kernels_match_plain(cuda, m, k, r):
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.kernels import bcr
+
+    d, e, f, b = _bcr_chain(cuda, m, k, r)
+    pd, pe, pf = cr.pad_chain(d, e, f)
+    if pd.shape[0] > 1:
+        a_odd = bcr.inv_odd(pd)
+        _close(a_odd, cr.bcr_inv_odd_ref(pd))
+        for got, want in zip(bcr.reduce(pd, pe, pf, a_odd), cr.bcr_reduce_ref(pd, pe, pf, a_odd)):
+            _close(got, want)
+        lo, hi = cr.bcr_reduce_ref(pd, pe, pf, a_odd)[:2]
+        bp = cr.pad_rhs(b, (pd.shape[0] - 1).bit_length())
+        _close(bcr.rhs_reduce(lo, hi, bp), cr.bcr_rhs_reduce_ref(lo, hi, bp))
+        x = torch.randn(pd.shape[0] // 2, k, r, device=cuda)
+        eo, fo = pe[1::2].contiguous(), pf[1::2].contiguous()
+        _close(bcr.backsub(a_odd, eo, fo, bp, x), cr.bcr_backsub_ref(a_odd, eo, fo, bp, x))
+    before = bcr.inv_odd.launches
+    fac = ops.bcr_factor(d, e, f)
+    assert bcr.inv_odd.launches == before + fac.n_levels + 1
+    want = cr.bcr_factor(d, e, f)
+    _close(fac.root_inv, want.root_inv)
+    _close(ops.bcr_solve(fac, b), cr.bcr_solve(want, b))
+
+
+@pytest.mark.parametrize("p", [9, 16])
+def test_bcr_on_the_interface_chain_at_block_size_400(cuda, p):
+    """The d = 0.5 reduced chain: the kernel path against the plain BCR, and
+    its answer solves the chain (relative residual at most 1e-4, float32
+    elimination without pivoting across blocks)."""
+    rd, re, rf = _interface_chain(cuda, p)
+    fac = ops.bcr_factor(rd, re, rf)
+    from repro_torch.core import cyclic_reduction as cr
+
+    want = cr.bcr_factor(rd, re, rf)
+    for got_l, want_l in zip(fac.levels, want.levels):
+        for got, w in zip(got_l, want_l):
+            _close(got, w)
+    h = torch.randn(p - 1, 400, 1, device=cuda)
+    x = ops.bcr_solve(fac, h)
+    _close(x, cr.bcr_solve(want, h))
+    ax = rd @ x
+    ax[1:] += re[1:] @ x[:-1]
+    ax[:-1] += rf[:-1] @ x[1:]
+    assert float((ax - h).norm() / h.norm()) <= 1e-4
+
+
+def test_bcr_wrappers_reject_bad_operands(cuda):
+    from repro_torch.kernels import bcr
+
+    d, e, f, b = _bcr_chain(cuda, 4, 8, 1)
+    with pytest.raises(TypeError):
+        bcr.inv_odd(d.double())
+    with pytest.raises(ValueError):
+        bcr.reduce(d[:3], e[:3], f[:3], d[:1])
+
+
+def test_e_bcr_lifecycle_on_the_card_matches_the_cpu(cuda):
+    band = random_banded(4000, 10, 0.5, seed=3).astype(np.float32)
+    b = np.random.default_rng(4).normal(size=4000)
+    opts = SaPOptions(p=16, variant="E", tol=1e-8)
+    gpu_fac = factor(plan_banded(band, opts))
+    assert gpu_fac.pc.reduced_solver == "bcr"
+    gpu = gpu_fac.solve(b)
+    cpu = factor(plan_banded(band, opts, device="cpu")).solve(b)
+    assert float(gpu.true_resnorm) <= 1e-6
+    x_gpu, x_cpu = gpu.x.cpu(), cpu.x
+    assert float((x_gpu - x_cpu).norm() / x_cpu.norm()) <= 1e-5
+
+
+def test_sparse_plan_on_the_card(cuda):
+    from repro_torch.core import plan, random_sparse
+
+    csr = random_sparse(3000, 12.0, d=1.0, seed=0, structured_band=20)
+    csr.data = csr.data.astype(np.float32).astype(np.float64)
+    pl = plan(csr, SaPOptions(p=8, variant="auto", tol=1e-8))
+    assert pl.band_pc.device.type == "cuda" and pl.op.data.device.type == "cuda"
+    xstar = np.random.default_rng(1).normal(size=3000)
+    b = csr.to_dense() @ xstar
+    res = factor(pl).solve(b)
+    assert float(res.true_resnorm) <= 1e-6
+    assert float(np.linalg.norm(res.x.cpu().numpy() - xstar) / np.linalg.norm(xstar)) <= 1e-4

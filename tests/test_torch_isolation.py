@@ -10,7 +10,7 @@ import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.kernels import build
+from repro_torch.kernels import bcr, build
 from repro_torch.kernels.btf import btf
 from repro_torch.kernels.bts import bts
 from repro_torch.kernels.fused_spike import fused_factor_spike
@@ -39,7 +39,8 @@ def test_no_jax_and_no_reference_package(path):
 def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"sap.py", "spike.py", "krylov.py", "btf.py", "bts.py", "fused_spike.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "cyclic_reduction.py", "bcr.py", "sparse.py", "reorder.py",
+            "operators.py", "convert.py"} <= names
 
 
 def test_plan_banded_needs_a_card_unless_cpu_is_asked(monkeypatch):
@@ -64,7 +65,8 @@ def test_wrappers_on_cpu_tensors_use_the_plain_version_and_do_not_count(monkeypa
         raise AssertionError(f"kernel {name} must not be built for a CPU tensor")
 
     monkeypatch.setattr(build, "load", no_build)
-    before = (btf.launches, bts.launches, fused_factor_spike.launches)
+    wrappers = (btf, bts, fused_factor_spike, bcr.inv_odd, bcr.reduce, bcr.rhs_reduce, bcr.backsub)
+    before = [w.launches for w in wrappers]
     d, e, f = _chain()
     sinv, l = btf(d, e, f)
     ref = T.btf_ref(d, e, f)
@@ -74,7 +76,12 @@ def test_wrappers_on_cpu_tensors_use_the_plain_version_and_do_not_count(monkeypa
     bq, cq = torch.randn(2, 4, 4), torch.randn(2, 4, 4)
     out = fused_factor_spike(d, e, f, bq, cq)
     assert len(out) == 6
-    assert (btf.launches, bts.launches, fused_factor_spike.launches) == before
+    a_odd = bcr.inv_odd(d[0, :2], first=1)
+    lo, hi, *_ = bcr.reduce(d[0, :2], e[0, :2], f[0, :2], a_odd)
+    bb = torch.randn(2, 4, 3)
+    x = bcr.backsub(a_odd, e[0, 1:2], f[0, 1:2], bb, bcr.rhs_reduce(lo, hi, bb))
+    assert x.shape == bb.shape
+    assert [w.launches for w in wrappers] == before
 
 
 def test_wrappers_reject_bad_operands_before_launching(monkeypatch):

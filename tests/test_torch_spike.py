@@ -2,8 +2,8 @@
 
 ``build_preconditioner`` then ``apply`` on the same block-tridiagonal
 split, for D, C (fused off and on, each against the JAX package with the
-same ``fused_factor``), E with the chain reduced solver, and whole spikes
-(``spike_mode="full"``).
+same ``fused_factor``), E with the chain and with the block cyclic
+reduction reduced solver, and whole spikes (``spike_mode="full"``).
 
 Tolerance: the largest difference at most 1e-4 of the largest magnitude
 (normwise, float32) -- a factor and two block solves in float32 on each
@@ -92,13 +92,21 @@ def test_exact_variant_solves_the_banded_system():
     torch.testing.assert_close(z, x, rtol=1e-4, atol=1e-4)
 
 
-def test_bcr_is_not_ported_and_raises():
-    tbt, _ = _systems(90, 2, 9, 0.5, seed=3)
-    with pytest.raises(NotImplementedError, match="bcr"):
-        ts.build_preconditioner(tbt, variant="E", reduced_solver="bcr")
-    with pytest.raises(NotImplementedError, match="bcr"):  # auto: 8 interfaces -> bcr
-        ts.build_preconditioner(tbt, variant="E", reduced_solver="auto")
-    assert ts.build_preconditioner(tbt, variant="E", reduced_solver="chain").reduced_solver == "chain"
+@pytest.mark.parametrize("reduced_solver", ["bcr", "auto"])
+def test_exact_preconditioner_with_bcr_matches_jax(reduced_solver):
+    """9 partitions: 8 interfaces, so "auto" resolves to BCR in both
+    packages, and the apply is the exact inverse either way."""
+    tbt, jbt = _systems(90, 2, 9, 0.5, seed=3)
+    kw = dict(variant="E", reduced_solver=reduced_solver)
+    tpc = ts.build_preconditioner(tbt, **kw)
+    jpc = js.build_preconditioner(jbt, impl="jnp", **kw)
+    assert tpc.reduced_solver == jpc.reduced_solver == "bcr"
+    assert tpc.red_lu is None and tpc.red_bcr.m == 8 and tpc.red_bcr.n_levels == 3
+    r = np.random.default_rng(5).normal(size=(tbt.n_pad, 2)).astype(np.float32)
+    _close(tpc.apply(torch.tensor(r)), jpc.apply(jnp.asarray(r)))
+    chain = ts.build_preconditioner(tbt, variant="E", reduced_solver="chain")
+    assert chain.reduced_solver == "chain" and chain.red_bcr is None
+    _close(tpc.apply(torch.tensor(r)), chain.apply(torch.tensor(r)).numpy())
 
 
 def test_resolve_fused_follows_the_device():
