@@ -11,18 +11,23 @@ of the JAX package.  Phases, each printing one JSON line:
    one nvcc per source, all started together;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (P=64, M=16, K=200), at the SaP-E reduced chain's
-   (P=1, M=7, K=400) and at edge cases (M=1, K=37, K=256); the four block
-   cyclic reduction (BCR) kernels and the whole BCR factor / solve at the
-   P=64 interface chain of the d=0.5 band (63 blocks of 2K=400, R=1, 4)
-   and at edge cases (m=1, m=3, K=37 with R=K);
+   (P=1, M=7 and M=63, K=400), at the sparse run's (P=64, M=33, K=95) and
+   at edge cases (M=1, K=37, K=256); the four block cyclic reduction
+   (BCR) kernels and the whole BCR factor / solve at the P=64 interface
+   chain of the d=0.5 band (63 blocks of 2K=400, R=1, 4), at the coupled
+   P=500 chain (499 blocks of 400), at the sparse run's chain (63 blocks
+   of 2K=190, eliminated in shared memory) and at edge cases (m=1, m=3,
+   K=37 with R=K);
 4. the slices at full size: N=200,000, K=200 banded systems (paper Table
    4.1/4.2 setting), float32 band storage and preconditioner, float64
    iteration, tol=1e-8, through ``factor(plan_banded(...)).solve`` for the
    variants D, C (fused and not), E (P=8, chain), ``solve_many``, E at
-   P=64 with BCR (``reduced_solver="auto"``) and with the chain sweep; and
-   the sparse front end: ``random_sparse(200,000, 20, d=1.0,
-   structured_band=50)`` through ``factor(plan(...)).solve`` at P=64
-   (host DB + CM timed once); with every kernel wrapper's launch count;
+   P=64 with BCR (``reduced_solver="auto"``) and with the chain sweep, E
+   with BCR and C at P=500 (partitions of two block rows, so the
+   interface chain stays coupled); and the sparse front end:
+   ``random_sparse(200,000, 20, d=1.0, structured_band=50)`` through
+   ``factor(plan(...)).solve`` at P=64 (host DB + CM timed once, in
+   phase 3); with every kernel wrapper's launch count;
 5. timing of each kernel beside its plain version (and a library call
    where one computes the same function), with CUDA events.
 
@@ -135,6 +140,14 @@ def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
     }
 
 
+def chain_coupling(d, e, f) -> dict[str, float]:
+    """Largest |D|, |E|, |F| of an interface chain: E, F at float32
+    rounding of D mean the chain is decoupled and BCR's coupling terms
+    vanish."""
+    return {nm: float(t.abs().max()) for nm, t in (("max_abs_d", d), ("max_abs_e", e),
+                                                     ("max_abs_f", f))}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` on the card, timed by CUDA events."""
     import torch
@@ -241,14 +254,18 @@ def main() -> int:
                 for nm, o, w in zip(("sinv", "l", "vb", "vt", "wt", "wb"), out, want)
             )
 
+    def split_chain(band, k, p):
+        """The SaP-E interface chain (P-1 blocks of 2K x 2K) of ``band``
+        split into P partitions, as ``factor`` builds it: from the spike
+        corners of the fused pass on the card."""
+        sbt = band_to_block_tridiag(band, k, p)
+        fs = ops.fused_factor_spike(sbt.d, sbt.e, sbt.f, sbt.b_cpl, sbt.c_cpl)
+        return _reduced_interface_system(fs.v_bot, fs.v_top, fs.w_top, fs.w_bot)
+
     check_kernels("", bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl, (1, 4, K))
     main_path_errs = dict(errs)
-    # the SaP-E reduced chain: (P-1) = 7 interfaces of 2K x 2K blocks, built
-    # from the spike corners of an 8-partition split of the same band
-    bt8 = band_to_block_tridiag(band_d1, K, 8)
-    fs8 = ops.fused_factor_spike(bt8.d, bt8.e, bt8.f, bt8.b_cpl, bt8.c_cpl)
-    rd, re, rf = _reduced_interface_system(fs8.v_bot, fs8.v_top, fs8.w_top, fs8.w_bot)
-    del bt8, fs8
+    # the SaP-E reduced chain of an 8-partition split of the same band
+    rd, re, rf = split_chain(band_d1, K, 8)
     check_kernels("_chain", rd[None], re[None], rf[None], None, None, (1, 4))
     # edge cases: a single block row with an all-padding last partition; K
     # not a power of two with a partly padded last partition; K = 256, whose
@@ -264,10 +281,7 @@ def main() -> int:
     # factor / solve, against the plain versions.  Main shapes: the SaP-E
     # interface chain of the d=0.5 band at P=64 (63 blocks of 2K=400).
     band_d05 = torch.tensor(random_banded(N, K, 0.5, seed=SEED).astype(np.float32), device=dev)
-    bt64 = band_to_block_tridiag(band_d05, K, 64)
-    fs64 = ops.fused_factor_spike(bt64.d, bt64.e, bt64.f, bt64.b_cpl, bt64.c_cpl)
-    chain = _reduced_interface_system(fs64.v_bot, fs64.v_top, fs64.w_top, fs64.w_bot)
-    del bt64, fs64
+    chain = split_chain(band_d05, K, 64)
     assert tuple(chain[0].shape) == (63, 2 * K, 2 * K)
 
     def bcr_inputs(d, e, f, r):
@@ -327,6 +341,42 @@ def main() -> int:
 
     check_bcr("", *chain, (1, 4))
     bcr_errs = {nm: errs[nm] for nm in ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")}
+    # btf and bts as E_chain_p64 runs them: one partition of 63 block rows
+    check_kernels("_chain64", chain[0][None], chain[1][None], chain[2][None], None, None, (1, 4))
+    coupling = {"p64": chain_coupling(*chain)}
+    # P=500: partitions of two block rows, too short for the far spikes to
+    # decay, so E, F and every coupling term of BCR stay active
+    chain500 = split_chain(band_d05, K, 500)
+    coupling["p500"] = chain_coupling(*chain500)
+    check_bcr("_p500", *chain500, (1,))
+    del chain500
+
+    # the sparse system: float32-exact values, so the float32 operator the
+    # plan keeps is the matrix solved; b = A x* in float64
+    t0 = time.perf_counter()
+    csr = random_sparse(N, 20.0, d=1.0, seed=SEED, structured_band=50)
+    csr.data = csr.data.astype(np.float32).astype(np.float64)
+    a_sparse = CsrOperator.from_csr(csr, dtype=torch.float64, device=dev)
+    sparse_gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sparse_plan = plan(csr, SaPOptions(p=64, variant="auto", tol=TOL, maxiter=MAXITER,
+                                       precond_dtype="float32"))
+    torch.cuda.synchronize()
+    emit({"phase": "sparse_plan", "n": csr.n, "nnz": csr.nnz, "generate_s": sparse_gen_s,
+          "plan_s": time.perf_counter() - t0, "k_after_reorder": sparse_plan.k,
+          "info": sparse_plan.info})
+    del csr
+    # the sparse run's kernels at its shapes: the reordered band split as
+    # factor splits it (K=95), and its interface chain (2K=190: inv_odd
+    # eliminates in shared memory)
+    ks = max(sparse_plan.k, 1)
+    sbt = band_to_block_tridiag(sparse_plan.band_pc, ks, 64)
+    check_kernels("_sparse", sbt.d, sbt.e, sbt.f, sbt.b_cpl, sbt.c_cpl, (1, 4))
+    del sbt
+    chain_sp = split_chain(sparse_plan.band_pc, ks, 64)
+    coupling["sparse"] = chain_coupling(*chain_sp)
+    check_bcr("_sparse", *chain_sp, (1, 4))
+    del chain_sp
     # The far spike corners of this band have decayed to nothing, so its
     # chain's couplings E, F are (numerically) zero.  A random chain of the
     # same shape with dense couplings holds the kernels to every term; then
@@ -342,7 +392,8 @@ def main() -> int:
         f = 0.3 * sc * torch.randn(m, k, k, generator=g, device=dev)
         check_bcr(tag, d, e, f, (r,))
     torch.cuda.synchronize()
-    emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL, "max_abs_err": errs})
+    emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL, "max_abs_err": errs,
+          "chain_coupling": coupling})
 
     # ---- 4. the slices at full size ------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -363,22 +414,6 @@ def main() -> int:
     def counts():
         return {nm: w.launches for nm, w in wrappers.items()}
 
-    # the sparse system: float32-exact values, so the float32 operator the
-    # plan keeps is the matrix solved; b = A x* in float64
-    t0 = time.perf_counter()
-    csr = random_sparse(N, 20.0, d=1.0, seed=SEED, structured_band=50)
-    csr.data = csr.data.astype(np.float32).astype(np.float64)
-    a_sparse = CsrOperator.from_csr(csr, dtype=torch.float64, device=dev)
-    sparse_gen_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    sparse_plan = plan(csr, SaPOptions(p=64, variant="auto", tol=TOL, maxiter=MAXITER,
-                                       precond_dtype="float32"))
-    torch.cuda.synchronize()
-    emit({"phase": "sparse_plan", "n": csr.n, "nnz": csr.nnz, "generate_s": sparse_gen_s,
-          "plan_s": time.perf_counter() - t0, "k_after_reorder": sparse_plan.k,
-          "info": sparse_plan.info})
-    del csr
-
     runs = [
         # name, system, options, R, kernels the path must launch
         ("D", "d1.0", dict(p=64, variant="D"), 0, ("btf", "bts")),
@@ -390,8 +425,14 @@ def main() -> int:
          ("fused_factor_spike", "bts") + bcr_names),
         ("E_chain_p64", "d0.5", dict(p=64, variant="E", reduced_solver="chain"), 0,
          ("fused_factor_spike", "btf", "bts")),
-        ("sparse", "sparse", None, 0, ("bts",)),
+        ("E_bcr_p500", "d0.5", dict(p=500, variant="E", reduced_solver="bcr"), 0,
+         ("fused_factor_spike", "bts") + bcr_names),
+        ("C_p500", "d0.5", dict(p=500, variant="C"), 0, ("fused_factor_spike", "bts", "btf")),
+        ("sparse", "sparse", None, 0, ("fused_factor_spike", "bts") + bcr_names),
     ]
+    # runs whose reduced chain must go through BCR, and the chain's coupling
+    bcr_runs = {"E_bcr": "p64", "E_bcr_p500": "p500", "sparse": "sparse"}
+    iterations = {}
     totals = dict.fromkeys(wrappers, 0)
     for name, sysname, kw, nrhs, must in runs:
         if sysname == "sparse":
@@ -444,23 +485,32 @@ def main() -> int:
             "peak_mem_bytes": peak,
             "launches_factor": factor_counts, "launches_solve": solve_counts,
         }
+        if name in bcr_runs:
+            line["chain_coupling"] = coupling[bcr_runs[name]]
         emit(line)
+        iterations[name] = max(its)
         for nm in wrappers:
             totals[nm] += factor_counts[nm] + solve_counts[nm]
         if not bool(torch.isfinite(x).all()) or x.shape != want_x.shape:
             raise AssertionError(f"slice {name}: bad solution")
         if float(resid.max()) > 1e-6:
             raise AssertionError(f"slice {name}: true_resnorm {resid.tolist()} > 1e-6")
-        if name == "E_bcr" and fac.pc.reduced_solver != "bcr":
-            raise AssertionError(f"slice {name}: reduced_solver {fac.pc.reduced_solver!r}")
-        if name == "E_bcr" and min(factor_counts[nm] for nm in bcr_names[:2]) == 0:
+        if name in bcr_runs and (fac.variant, fac.pc.reduced_solver) != ("E", "bcr"):
+            raise AssertionError(f"slice {name}: variant {fac.variant!r}, reduced_solver "
+                                 f"{fac.pc.reduced_solver!r}")
+        if name in bcr_runs and min(factor_counts[nm] for nm in bcr_names[:2]) == 0:
             raise AssertionError(f"slice {name}: inv_odd / reduce not launched by the factor")
-        if name == "E_bcr" and min(solve_counts[nm] for nm in bcr_names[2:]) == 0:
+        if name in bcr_runs and min(solve_counts[nm] for nm in bcr_names[2:]) == 0:
             raise AssertionError(f"slice {name}: rhs_reduce / backsub not launched by the solve")
         for nm in must:
             if factor_counts[nm] + solve_counts[nm] == 0:
                 raise AssertionError(f"slice {name}: kernel {nm} was never launched")
         del fac, res, x
+    # the exact reduced system solves what truncated SPIKE drops: with the
+    # couplings active, E must not need more sweeps than C
+    if iterations["E_bcr_p500"] > iterations["C_p500"]:
+        raise AssertionError(f"E_bcr_p500 took {iterations['E_bcr_p500']} sweeps, "
+                             f"C_p500 {iterations['C_p500']}")
     del systems, band_d05, sparse_plan, a_sparse
 
     # ---- 5. timing at the main path's shapes ---------------------------------
@@ -516,7 +566,8 @@ def main() -> int:
     }
     for name, s in bcr_specs.items():
         s.update(source="src/repro_torch/kernels/csrc/bcr.cu", work=work[name[4:]],
-                 reps=3 if name in ("bcr_inv_odd", "bcr_reduce") else 20, plain_reps=1,
+                 reps=3 if name in ("bcr_inv_odd", "bcr_reduce") else 100,
+                 plain_reps=1 if name in ("bcr_inv_odd", "bcr_reduce") else 5,
                  err=bcr_errs[name])
     specs.update(bcr_specs)
     summary = []

@@ -70,7 +70,6 @@ class SaPOptions:
     # sparse front end (Sec. 2.2), used by plan()
     use_db: bool = True  # diagonal-boosting reordering
     use_cm: bool = True  # bandwidth-reducing reordering
-    third_stage: bool = False  # per-partition CM (Sec. 4.3.2)
     drop_tol: float = 0.0  # element drop-off fraction (0 = keep all)
 
 

@@ -148,8 +148,9 @@ def _interface_chain(cuda, p):
 
 
 # (m, K, R): m = 1 (root only), non-powers of two, K = 37, R = K; at
-# 2K = 400 the inverse eliminates in device memory
-BCR_SHAPES = [(1, 8, 1), (3, 6, 2), (5, 37, 37), (16, 20, 4), (9, 400, 1)]
+# 2K = 190 (the sparse run's chain) the inverse eliminates in shared
+# memory, at 2K = 400 in device memory
+BCR_SHAPES = [(1, 8, 1), (3, 6, 2), (5, 37, 37), (16, 20, 4), (7, 190, 4), (9, 400, 1)]
 
 
 @pytest.mark.parametrize("m,k,r", BCR_SHAPES)

@@ -2,8 +2,7 @@
 
 ``sparse.py`` and ``reorder.py`` are numpy copies of the JAX package's
 modules, so their results must be exactly equal: the generator, the CSR
-containers, DB, CM, drop-off, band assembly, the whole ``analyze`` and
-the third stage.  The ``CsrOperator`` matvec (gather + ``index_add_``)
+containers, DB, CM, drop-off, band assembly and the whole ``analyze``.  The ``CsrOperator`` matvec (gather + ``index_add_``)
 agrees with the JAX ``segment_sum`` matvec to float32 rounding: the same
 products summed in another order, at most 1e-6 of the largest value.
 """
@@ -107,8 +106,6 @@ def test_reorder_stages_are_equal():
     k = jro.half_bandwidth(csr)
     band = jro.csr_to_band(csr, k)
     np.testing.assert_array_equal(tro.csr_to_band(tcsr, k), band)
-    for t, j in zip(tro.third_stage(band, k, 4, 30), jro.third_stage(band, k, 4, 30)):
-        np.testing.assert_array_equal(t, j)
 
 
 @pytest.mark.parametrize("shape", [(200,), (200, 3)])
