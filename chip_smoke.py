@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's SaP paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -17,7 +17,10 @@ of the JAX package.  Phases, each printing one JSON line:
    chain of the d=0.5 band (63 blocks of 2K=400, R=1, 4), at the coupled
    P=500 chain (499 blocks of 400), at the sparse run's chain (63 blocks
    of 2K=190, eliminated in shared memory) and at edge cases (m=1, m=3,
-   K=37 with R=K);
+   K=37 with R=K); the two SaP-scan kernels (WKV6, SSD) at the LM path's
+   decode (T=1, 8 slots) and prefill (B=4, T=512, chunk 64) shapes, at
+   chunk 16, under strong decay, and a chunk that does not tile T (which
+   must be refused);
 4. the slices at full size: N=200,000, K=200 banded systems (paper Table
    4.1/4.2 setting), float32 band storage and preconditioner, float64
    iteration, tol=1e-8, through ``factor(plan_banded(...)).solve`` for the
@@ -28,6 +31,12 @@ of the JAX package.  Phases, each printing one JSON line:
    ``random_sparse(200,000, 20, d=1.0, structured_band=50)`` through
    ``factor(plan(...)).solve`` at P=64 (host DB + CM timed once, in
    phase 3); with every kernel wrapper's launch count;
+lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
+   random weights from a seeded generator: ``forward`` over 64 tokens
+   against 64 ``decode_step`` calls in float32, a bfloat16 prefill
+   (B=4, T=512) timed, and a ``ServeEngine`` with 8 slots draining 16
+   requests (prompts of 16-48 tokens, 32 new tokens each), with the
+   WKV / SSD launches of each path and a profiler window of decode ticks;
 5. timing of each kernel beside its plain version (and a library call
    where one computes the same function), with CUDA events.
 
@@ -58,6 +67,21 @@ PEAK_F32_FLOP_S = 67e12
 # recurrences in float32 with the sums of every K x K product taken in
 # another order; rounding compounds over the M block rows.
 KERNEL_RTOL = 1e-4
+# The LM path: both models at full width and depth, serving 16 requests
+# through 8 slots.
+LM_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
+LM_SLOTS, LM_REQUESTS, LM_NEW_TOKENS, LM_PROMPT = 8, 16, 32, (16, 48)
+PREFILL_B, PREFILL_T, CONSISTENCY_T = 4, 512, 64
+# forward (chunk-64 scans) against CONSISTENCY_T decode steps (chunk-1
+# scans), and against a forward at chunk 1, float32 throughout: the
+# largest logit difference at most this fraction of the largest logit.
+# Measured on the H100: 1.1e-5 (RWKV6, from a warm state) and 1.2e-5
+# (Zamba2) -- the same float32 model with the matrix products at another
+# batch shape.  RWKV6's first token from a zero state is ill-conditioned
+# at random weights (its logits move by 1.3% when the embeddings move by
+# 1e-7), so its decode check starts from the state of a 64-token prefix;
+# the cold-start difference is printed, not checked.
+LM_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -140,6 +164,73 @@ def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
     }
 
 
+def wkv_work(bh: int, t: int, d: int, chunk: int) -> tuple[float, float]:
+    """(operations, bytes) of the chunked WKV6 over BH rows of T tokens:
+    per chunk of C, the cumulative decay (C D), the bonus (3 C D), the
+    intra-chunk weights over the s < t pairs (5 D each: product, exponent
+    difference, exponential, multiply-add -- the exponentials counted as
+    operations), the decay factors of r and k (5 C D), the inter term and
+    the state update (2 C D^2 each), the intra and bonus outputs, the state
+    decay (D exponentials, 2 D^2).  Reads r, k, v, log w, u and the state;
+    writes o and the state."""
+    c = chunk
+    pairs = c * (c - 1) // 2
+    per_chunk = (c * d + 3 * c * d + 5 * d * pairs + 5 * c * d + 4 * c * d * d
+                 + 2 * d * pairs + 3 * c * d + d + 2 * d * d)
+    ops = float(bh) * (t // c) * per_chunk
+    return ops, 4.0 * bh * (5 * t * d + d + 2 * d * d)
+
+
+def ssd_work(bh: int, t: int, n: int, p: int, chunk: int, hshare: int) -> tuple[float, float]:
+    """(operations, bytes) of the chunked SSD over BH rows of T tokens:
+    per chunk of C, the cumulative decay (C), the weights over the s <= t
+    pairs (2N + 3 each, the exponential counted), the inter term
+    (2 C N P + C P + C), the intra term (2 P per pair + C P), the decay
+    factors of B (2 C + C N) and the state update (2 C N P + 2 N P + 1).
+    Reads x, log a, the state and B, C once per BH / hshare rows; writes y
+    and the state."""
+    c = chunk
+    pairs = c * (c + 1) // 2
+    per_chunk = (c + pairs * (2 * n + 3) + 2 * c * n * p + c * p + c + 2 * p * pairs + c * p
+                 + 2 * c + c * n + 2 * c * n * p + 2 * n * p + 1)
+    ops = float(bh) * (t // c) * per_chunk
+    nbytes = 4.0 * (2 * bh * t * p + 2 * (bh // hshare) * t * n + bh * t + 2 * bh * n * p)
+    return ops, nbytes
+
+
+def wkv_inputs(dev, bh: int, t: int, d: int, seed: int, strong: bool = False):
+    """r, k, v, log w (<= 0; -30 everywhere when ``strong``), u and a state
+    for BH rows of T tokens, from a seeded generator on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r, k, v = (torch.randn(bh, t, d, generator=g, device=dev) for _ in range(3))
+    if strong:
+        logw = torch.full((bh, t, d), -30.0, device=dev)
+    else:
+        logw = -torch.exp(0.5 * torch.randn(bh, t, d, generator=g, device=dev))
+    u = torch.randn(bh, d, generator=g, device=dev)
+    s0 = 0.1 * torch.randn(bh, d, d, generator=g, device=dev)
+    return r, k, v, logw, u, s0
+
+
+def ssd_inputs(dev, bh: int, t: int, n: int, p: int, hshare: int, seed: int,
+               strong: bool = False):
+    """x, B, C (one row per ``hshare`` rows), log a (<= 0; -30 when
+    ``strong``) and a state, from a seeded generator on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(bh, t, p, generator=g, device=dev)
+    b, c = (torch.randn(bh // hshare, t, n, generator=g, device=dev) for _ in range(2))
+    if strong:
+        loga = torch.full((bh, t), -30.0, device=dev)
+    else:
+        loga = -torch.exp(0.5 * torch.randn(bh, t, generator=g, device=dev))
+    s0 = 0.1 * torch.randn(bh, n, p, generator=g, device=dev)
+    return x, b, c, loga, s0
+
+
 def chain_coupling(d, e, f) -> dict[str, float]:
     """Largest |D|, |E|, |F| of an interface chain: E, F at float32
     rounding of D mean the chain is decoupled and BCR's coupling terms
@@ -193,9 +284,14 @@ def main() -> int:
     from repro_torch.core import cyclic_reduction as cr
     from repro_torch.core.spike import _reduced_interface_system
     from repro_torch.kernels import bcr, build, ops
+    from repro_torch.configs import get_config
     from repro_torch.kernels.btf import btf
     from repro_torch.kernels.bts import bts
     from repro_torch.kernels.fused_spike import fused_factor_spike
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    from repro_torch.kernels.wkv import wkv6, wkv6_plain
+    from repro_torch.models import get_family
+    from repro_torch.serve import Request, ServeEngine
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -391,9 +487,46 @@ def main() -> int:
         e = 0.3 * sc * torch.randn(m, k, k, generator=g, device=dev)
         f = 0.3 * sc * torch.randn(m, k, k, generator=g, device=dev)
         check_bcr(tag, d, e, f, (r,))
+    # the SaP-scan kernels at the LM path's shapes: RWKV6-1.6B's 32 heads of
+    # D=64 and Zamba2-2.7B's 80 heads of N=P=64 (B, C shared by the heads),
+    # at decode (8 slots, T=1, chunk 1) and prefill (B=4, T=512, chunk 64)
+    rw, zb = get_config("rwkv6-1.6b"), get_config("zamba2-2.7b")
+    rw_h, rw_d = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
+    zb_h = zb.ssm_expand * zb.d_model // zb.ssm_head_dim
+    zb_n, zb_p = zb.ssm_state, zb.ssm_head_dim
+    scan_shapes = {
+        "decode": (LM_SLOTS, 1, 1), "prefill": (PREFILL_B, PREFILL_T, rw.ssm_chunk),
+        "c16": (2, 64, 16), "strong": (2, 64, 64), "strong_c16": (2, 64, 16),
+    }
+    for tag, (b, t, c) in scan_shapes.items():
+        strong = tag.startswith("strong")
+        args = wkv_inputs(dev, b * rw_h, t, rw_d, SEED, strong)
+        o, st = wkv6(*args, c)
+        want = wkv6_plain(*args, c)
+        errs[f"wkv_{tag}"] = max(check_close(f"wkv {tag} o", o, want[0]),
+                                 check_close(f"wkv {tag} state", st, want[1]))
+        args = ssd_inputs(dev, b * zb_h, t, zb_n, zb_p, zb_h, SEED, strong)
+        y, st = ssd(*args, c, zb_h)
+        want = ssd_plain(*args, c, zb_h)
+        errs[f"ssd_{tag}"] = max(check_close(f"ssd {tag} y", y, want[0]),
+                                 check_close(f"ssd {tag} state", st, want[1]))
+    # B and C per head (no sharing), and the chunk check: T=96 with chunk 64
+    args = ssd_inputs(dev, 2 * 4, 64, zb_n, zb_p, 1, SEED)
+    errs["ssd_per_head"] = check_close("ssd per-head B, C", ssd(*args, 16)[0],
+                                       ssd_plain(*args, 16)[0])
+    refused = []
+    for name, fn in (("wkv", lambda: wkv6(*wkv_inputs(dev, rw_h, 96, rw_d, SEED), 64)),
+                     ("ssd", lambda: ssd(*ssd_inputs(dev, zb_h, 96, zb_n, zb_p, zb_h, SEED),
+                                         64, zb_h))):
+        try:
+            fn()
+        except ValueError as exc:
+            refused.append(f"{name}: {exc}")
+        else:
+            raise AssertionError(f"{name}: T=96 with chunk 64 was not refused")
     torch.cuda.synchronize()
     emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL, "max_abs_err": errs,
-          "chain_coupling": coupling})
+          "chain_coupling": coupling, "refused": refused})
 
     # ---- 4. the slices at full size ------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -404,7 +537,8 @@ def main() -> int:
         systems[name] = (band, b64)
     wrappers = {"btf": btf, "bts": bts, "fused_factor_spike": fused_factor_spike,
                 "bcr_inv_odd": bcr.inv_odd, "bcr_reduce": bcr.reduce,
-                "bcr_rhs_reduce": bcr.rhs_reduce, "bcr_backsub": bcr.backsub}
+                "bcr_rhs_reduce": bcr.rhs_reduce, "bcr_backsub": bcr.backsub,
+                "wkv": wkv6, "ssd": ssd}
     bcr_names = ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")
 
     def reset():
@@ -513,6 +647,179 @@ def main() -> int:
                              f"C_p500 {iterations['C_p500']}")
     del systems, band_d05, sparse_plan, a_sparse
 
+    # ---- lm. RWKV6-1.6B and Zamba2-2.7B at full width and depth ----------------
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    lm_launches = {}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        fam = get_family(cfg)
+        kernel = "wkv" if cfg.family == "rwkv" else "ssd"
+        torch.cuda.synchronize()
+        other_bytes = torch.cuda.memory_allocated()  # what the solver phases still hold
+        t0 = time.perf_counter()
+        params = fam.init(cfg, torch.Generator(dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(q.numel() for q in params.parameters())
+        weight_bytes = sum(q.numel() * q.element_size() for q in params.parameters())
+        rng = np.random.default_rng(SEED)
+        launches = {}
+        with torch.inference_mode():
+            # forward (chunk-64 scans) against decode steps (chunk-1 scans), float32
+            c32 = dataclasses.replace(cfg, compute_dtype="float32")
+            prefix, toks = (torch.tensor(rng.integers(0, cfg.vocab, size=(2, CONSISTENCY_T)),
+                                         device=dev) for _ in range(2))
+
+            def against_decode(state):
+                """max |forward - decode steps| over toks, both from ``state``
+                (None: from zero), and max |logit|."""
+                full, _ = fam.forward(c32, params, toks, state)
+                full = full[..., : cfg.vocab]
+                if state is None:
+                    cache = fam.init_cache(c32, 2, CONSISTENCY_T)
+                else:
+                    cache = {nm: v.clone() for nm, v in state.items()}
+                d = 0.0
+                for i in range(CONSISTENCY_T):
+                    logits, cache = fam.decode_step(c32, params, cache, toks[:, i:i + 1])
+                    d = max(d, float((logits - full[:, i]).abs().max()))
+                return d, float(full.abs().max())
+
+            reset()
+            consistency = {"t": CONSISTENCY_T, "batch": 2, "rtol": LM_RTOL}
+            consistency["cold_max_abs_diff"], max_logit = against_decode(None)
+            # the model's own float32 sensitivity: embeddings scaled by 1 + 1e-7 N(0, 1)
+            emb = params["embed"].data
+            saved = emb.clone()
+            emb.mul_(1 + 1e-7 * torch.randn(emb.shape, generator=torch.Generator(dev)
+                                            .manual_seed(SEED), device=dev))
+            moved, _ = fam.forward(c32, params, toks)
+            emb.copy_(saved)
+            del saved, emb
+            base, _ = fam.forward(c32, params, toks)
+            consistency["embed_perturbed_max_abs_diff"] = float(
+                (moved - base)[..., : cfg.vocab].abs().max())
+            # the two kernel paths inside one forward: 64 chunks of 1 token
+            # against one chunk of 64, from zero (checked below)
+            ones, _ = fam.forward(dataclasses.replace(c32, ssm_chunk=1), params, toks)
+            consistency["chunk1_forward_max_abs_diff"] = float(
+                (ones - base)[..., : cfg.vocab].abs().max())
+            del moved, base, ones
+            if cfg.family == "rwkv":
+                # RWKV6's first token from a zero state is ill-conditioned (see
+                # PERF.md): the check runs from the state of a 64-token prefix
+                _, warm = fam.forward(c32, params, prefix)
+                consistency["warm_max_abs_diff"], max_logit = against_decode(warm)
+                del warm
+                diff = consistency["warm_max_abs_diff"]
+            else:
+                diff = consistency["cold_max_abs_diff"]
+            consistency["max_abs_logit"] = max_logit
+            launches["consistency_f32"] = counts()[kernel]
+            for what, d in (("decode steps", diff),
+                            ("chunk-1 forward", consistency["chunk1_forward_max_abs_diff"])):
+                if not d <= LM_RTOL * max_logit:
+                    raise AssertionError(f"{arch}: forward and {what} differ by {d:.3e}, "
+                                         f"max |logit| {max_logit:.3e}")
+            # prefill at the published bfloat16; launches are the first call's
+            ptoks = torch.tensor(rng.integers(0, cfg.vocab, size=(PREFILL_B, PREFILL_T)),
+                                 device=dev)
+            reset()
+            out, _ = fam.forward(cfg, params, ptoks)
+            torch.cuda.synchronize()
+            launches["prefill"] = counts()[kernel]
+            if not (bool(torch.isfinite(out).all())
+                    and out.shape == (PREFILL_B, PREFILL_T, cfg.vocab_padded)):
+                raise AssertionError(f"{arch}: prefill logits bad: {tuple(out.shape)}")
+            del out
+            prefill_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fam.forward(cfg, params, ptoks)
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            # serving: 16 requests through 8 slots
+            prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
+                       for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)]
+            max_len = LM_PROMPT[1] + LM_NEW_TOKENS
+            warm = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=max_len)
+            warm.submit(Request(rid=-1, prompt=prompts[0][:2], max_new_tokens=1))
+            warm.run_until_drained()  # first-call costs (torch's lazy loading)
+            del warm
+            engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=max_len)
+            reqs = [Request(rid=i, prompt=pr, max_new_tokens=LM_NEW_TOKENS)
+                    for i, pr in enumerate(prompts)]
+            for r in reqs:
+                engine.submit(r)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            t0 = time.perf_counter()
+            ticks = engine.run_until_drained()
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            launches["serve"] = counts()[kernel]
+            # the model's own peak: weights, cache and temporaries
+            serve_peak = torch.cuda.max_memory_allocated() - other_bytes
+            if not all(r.done and len(r.out) == LM_NEW_TOKENS for r in reqs):
+                raise AssertionError(f"{arch}: not every request ended with "
+                                     f"{LM_NEW_TOKENS} tokens")
+            if not all(0 <= tok < cfg.vocab for r in reqs for tok in r.out):
+                raise AssertionError(f"{arch}: a generated token is outside the vocabulary")
+            # a profiler window of decode ticks at 8 slots
+            cache = fam.init_cache(cfg, LM_SLOTS, max_len)
+            step_toks = torch.tensor(rng.integers(0, cfg.vocab, size=(LM_SLOTS, 1)), device=dev)
+            fam.decode_step(cfg, params, cache, step_toks)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                _, cache = fam.decode_step(cfg, params, cache, step_toks)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+            # the same five ticks under the profiler: device time by kernel (the
+            # profiler slows the host, not the kernels; the share is taken
+            # against the unprofiled window)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    _, cache = fam.decode_step(cfg, params, cache, step_toks)
+                torch.cuda.synchronize()
+                profiled_ms = (time.perf_counter() - t0) * 1e3
+            del cache
+        dev_events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+        n_launch = sum(e.count for e in dev_events)
+        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+        for nm in ("prefill", "serve"):
+            if launches[nm] == 0:
+                raise AssertionError(f"{arch}: the {nm} path never launched the {kernel} kernel")
+        lm_launches[kernel] = launches["serve"] + launches["prefill"]
+        generated = LM_REQUESTS * LM_NEW_TOKENS
+        emit({
+            "phase": "lm", "arch": arch, "params": n_params, "weight_bytes": weight_bytes,
+            "init_s": init_s, "compute_dtype": cfg.compute_dtype,
+            "consistency": consistency,
+            "prefill_ms": prefill_ms, "prefill_shape": [PREFILL_B, PREFILL_T],
+            "serve": {"slots": LM_SLOTS, "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
+                      "prompt_lengths": [len(p) for p in prompts], "ticks": ticks,
+                      "seconds": serve_s, "ms_per_tick": serve_s * 1e3 / ticks,
+                      "generated_tokens_per_s": generated / serve_s,
+                      "peak_mem_bytes": serve_peak, "other_phases_bytes": other_bytes},
+            "decode_window": {"ticks": 5, "wall_ms": window_ms, "profiled_wall_ms": profiled_ms,
+                              "device_kernel_launches": n_launch,
+                              "device_busy_ms": busy_ms if dev_events else None,
+                              "device_busy_share": busy_ms / window_ms if dev_events else None,
+                              "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3,
+                                               e.count] for e in top]},
+            "launches": {kernel: launches},
+        })
+        del params, engine, reqs
+        torch.cuda.empty_cache()
+
     # ---- 5. timing at the main path's shapes ---------------------------------
     p, m, k = bt.p, bt.m, bt.k
     ref = bl.btf_ref(bt.d, bt.e, bt.f)
@@ -588,6 +895,44 @@ def main() -> int:
         shape = list(chain[0].shape) if name in bcr_specs else [p, m, k]
         emit({"phase": "timing", "kernel": name, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bytes": nbytes, "flops": flops, "shape": shape})
+    # the SaP-scan kernels at the LM path's decode shapes (the summary row:
+    # the serving engine's step) and prefill shapes (row "prefill")
+    scan_specs = {
+        "wkv": dict(source="src/repro_torch/kernels/csrc/wkv.cu",
+                    replaces="src/repro/kernels/wkv_chunk.py:38"),
+        "ssd": dict(source="src/repro_torch/kernels/csrc/ssd.cu",
+                    replaces="src/repro/kernels/ssd_chunk.py:26"),
+    }
+    for name, s in scan_specs.items():
+        entry = {"name": name, "route": "cuda", "source": s["source"],
+                 "replaces": s["replaces"], "launches": lm_launches[name], "library_ms": None}
+        for tag in ("decode", "prefill"):
+            b, t, c = scan_shapes[tag]
+            if name == "wkv":
+                args = wkv_inputs(dev, b * rw_h, t, rw_d, SEED)
+                shape = [b * rw_h, t, rw_d, c]
+                flops, nbytes = wkv_work(b * rw_h, t, rw_d, c)
+                kern, plain = (lambda: wkv6(*args, c)), (lambda: wkv6_plain(*args, c))
+            else:
+                args = ssd_inputs(dev, b * zb_h, t, zb_n, zb_p, zb_h, SEED)
+                shape = [b * zb_h, t, zb_n, zb_p, c]
+                flops, nbytes = ssd_work(b * zb_h, t, zb_n, zb_p, c, zb_h)
+                kern, plain = (lambda: ssd(*args, c, zb_h)), (lambda: ssd_plain(*args, c, zb_h))
+            saved = wrappers[name].launches
+            ms = cuda_ms(kern, 200 if tag == "decode" else 20)
+            plain_ms = cuda_ms(plain, 5 if tag == "decode" else 2)
+            wrappers[name].launches = saved  # timing launches are not the path's
+            t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "max_abs_err": errs[f"{name}_{tag}"], "shape": shape}
+            emit({"phase": "timing", "kernel": name, "at": tag, **row, "library_ms": None,
+                  "bytes": nbytes, "flops": flops})
+            if tag == "decode":
+                entry.update(row)
+            else:
+                entry[tag] = row
+        summary.append(entry)
     # host-orchestrated torch code of the path, timed for the record
     x64 = torch.randn(N, device=dev, dtype=torch.float64)
     emit({

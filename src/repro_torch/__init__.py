@@ -2,7 +2,10 @@
 Serban, Negrut 2015) ported from the JAX package ``repro`` to an NVIDIA
 H100, with hand-written CUDA kernels for the block-tridiagonal factor,
 solve and fused factor+spike passes and for block cyclic reduction, and
-the sparse DB/CM front end on the host.  Imports no JAX."""
+the sparse DB/CM front end on the host; beside it the RWKV6 and Zamba2
+serving path (:mod:`.models`, :mod:`.serve`), whose sequence mixers run
+the same split-and-parallelize idea along the sequence axis on two more
+CUDA kernels.  Imports no JAX."""
 
 from .core import (
     SaPFactorization,

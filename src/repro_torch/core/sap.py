@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import reorder as reorder_mod
 from .banded import band_to_block_tridiag, diag_dominance_factor
 from .block_lu import DEFAULT_BOOST
@@ -122,18 +123,6 @@ def _resolve_iter_dtype(b_dtype: torch.dtype, iter_dtype: Optional[str]) -> torc
 def _tensor(x) -> torch.Tensor:
     """A tensor as is; anything else (numpy, lists) copied into one."""
     return x if isinstance(x, torch.Tensor) else torch.tensor(np.asarray(x))
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller names a device; no card is an error."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the solver runs on the card; pass device='cpu' "
-                "to run the plain PyTorch versions on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("btf", "bts", "fused_spike", "bcr")
+SOURCES = ("btf", "bts", "fused_spike", "bcr", "wkv", "ssd")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -57,6 +57,12 @@ SIGNATURES = {
         "bcr_reduce_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
         "bcr_rhs_reduce_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
         "bcr_backsub_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    },
+    "wkv": {
+        "wkv_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    },
+    "ssd": {
+        "ssd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     },
 }
 for _fns in SIGNATURES.values():

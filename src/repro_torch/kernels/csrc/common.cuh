@@ -6,7 +6,8 @@
 // chain; two for the fused pass, one per LU / UL side); the block walks the
 // chain's M block rows in a loop, which takes the place of the TPU
 // kernels' sequential grid axis.  All arithmetic is
-// float32 FMA on the CUDA cores: no tensor cores, no TF32.
+// float32 FMA on the CUDA cores: no tensor cores, no TF32.  The scan
+// kernels (wkv.cu, ssd.cu) include this header only for sap_error_string.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,11 +1,12 @@
-"""Public entry points of the block-tridiagonal kernels.
+"""Public entry points of the port's kernels.
 
 Dispatch goes by tensor device alone: the wrappers in :mod:`.btf`,
-:mod:`.bts`, :mod:`.fused_spike` and :mod:`.bcr` run the plain PyTorch
-version for a CPU tensor and launch the CUDA kernel for a CUDA tensor.
-This module adds the factor containers, the single-chain forms (the SaP-E
-reduced interface system), the per-partition coupling layout of the fused
-pass and the level loops of block cyclic reduction.
+:mod:`.bts`, :mod:`.fused_spike`, :mod:`.bcr`, :mod:`.wkv` and :mod:`.ssd`
+run the plain PyTorch version for a CPU tensor and launch the CUDA kernel
+for a CUDA tensor.  This module adds the factor containers, the
+single-chain forms (the SaP-E reduced interface system), the per-partition
+coupling layout of the fused pass, the level loops of block cyclic
+reduction, and the (batch, head) layout of the two SaP-scan recurrences.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from . import bcr
 from .btf import btf
 from .bts import bts
 from .fused_spike import fused_factor_spike as _fused
+from .ssd import ssd as _ssd
+from .wkv import wkv6 as _wkv6
 
 
 def block_tridiag_factor(
@@ -106,3 +109,60 @@ def bcr_solve(factors: BCRFactors, b: torch.Tensor) -> torch.Tensor:
     for lv, bl in zip(reversed(factors.levels), reversed(rhs)):
         x = bcr.backsub(lv.a_odd, lv.e_odd, lv.f_odd, bl, x)
     return x[: factors.m]
+
+
+# ---------------------------------------------------------------------------
+# Sequence-mixing recurrences (flattened over batch x heads)
+# ---------------------------------------------------------------------------
+
+
+def _scan_dtype_on_card(what: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type == "cuda" and t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{what}: the CUDA kernel takes float32 scan tensors, got {t.dtype} "
+                "(scan_dtype='bfloat16' is not ported to the card yet)"
+            )
+
+
+def wkv6(
+    r: torch.Tensor,  # (B, H, T, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    logw: torch.Tensor,
+    u: torch.Tensor,  # (H, D)
+    state: torch.Tensor,  # (B, H, D, D)
+    chunk: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV6 recurrence; returns (output (B, H, T, D), final state)."""
+    _scan_dtype_on_card("wkv6", r, k, v, logw)
+    bsz, h, t, d = r.shape
+    flat = lambda x: x.reshape(bsz * h, *x.shape[2:]).contiguous()  # noqa: E731
+    u_full = u.expand(bsz, h, d).reshape(bsz * h, d).contiguous()
+    o, s_out = _wkv6(flat(r), flat(k), flat(v), flat(logw), u_full, flat(state), chunk)
+    return o.reshape(bsz, h, t, d), s_out.reshape(bsz, h, d, d)
+
+
+def ssd(
+    x: torch.Tensor,  # (B, H, T, P)
+    b: torch.Tensor,  # (B, H, T, N)
+    c: torch.Tensor,  # (B, H, T, N)
+    loga: torch.Tensor,  # (B, H, T)
+    state: torch.Tensor,  # (B, H, N, P)
+    chunk: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (state-space dual) scan; returns (output, final state).
+
+    ``b`` and ``c`` broadcast over the heads (stride 0 on the head axis, as
+    ``expand`` makes them) are handed to the kernel once per batch row.
+    """
+    _scan_dtype_on_card("ssd", x, b, c)
+    bsz, h, t, p = x.shape
+    n = b.shape[-1]
+    flat = lambda a: a.reshape(bsz * h, *a.shape[2:]).contiguous()  # noqa: E731
+    if h > 1 and b.stride(1) == 0 and c.stride(1) == 0:
+        bq, cq, hshare = b[:, 0].contiguous(), c[:, 0].contiguous(), h
+    else:
+        bq, cq, hshare = flat(b), flat(c), 1
+    y, s_out = _ssd(flat(x), bq, cq, flat(loga), flat(state), chunk, hshare)
+    return y.reshape(bsz, h, t, p), s_out.reshape(bsz, h, n, p)

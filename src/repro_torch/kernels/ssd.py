@@ -1,0 +1,74 @@
+"""Chunked Mamba-2 SSD kernel (the SaP-scan of the Mamba-2 mixer).
+
+Replaces the TPU kernel ``repro/kernels/ssd_chunk.py:_ssd_kernel``
+(``ssd_pallas``).  The CUDA source is ``csrc/ssd.cu``: one thread block
+per (batch, head) row walks the chunks in order with the N x P state in
+shared memory.  ``b`` and ``c`` may be shared by ``hshare`` consecutive
+rows (Mamba-2 broadcasts them over the heads of a token): the kernel then
+reads row ``i // hshare`` and no per-head copy is made.
+
+Bound on the H100: bytes at decode (T = 1: the state is read and written
+once per token), operations at prefill (~4 C N P flops per chunk).
+
+On a CPU tensor the wrapper runs the plain version (:func:`ssd_plain`,
+:func:`repro_torch.kernels.ref.ssd_chunked_ref` on the flattened rows);
+on a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from ._launch import check_operands, check_shape, stream_handle
+from .ref import ssd_chunked_ref
+from .wkv import check_chunk
+
+
+def ssd_plain(x, b, c, loga, state, chunk: int = 64, hshare: int = 1):
+    """The plain version on flattened rows, on any device (B and C repeated
+    for the rows that share them): (y, state_out).  Computes in float32 and
+    returns y in x's dtype and the state in its own, as the TPU kernel does."""
+    rep = lambda a: a.float().repeat_interleave(hshare, dim=0)[None]  # noqa: E731
+    y, s = ssd_chunked_ref(x.float()[None], rep(b), rep(c), loga.float()[None],
+                           state.float()[None], chunk)
+    return y[0].to(x.dtype), s[0].to(state.dtype)
+
+
+def ssd(
+    x: torch.Tensor,  # (BH, T, P)
+    b: torch.Tensor,  # (BH / hshare, T, N)
+    c: torch.Tensor,  # (BH / hshare, T, N)
+    loga: torch.Tensor,  # (BH, T), <= 0
+    state: torch.Tensor,  # (BH, N, P)
+    chunk: int = 64,
+    hshare: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD over flattened (batch x head) rows: (y, state_out)."""
+    bh, t, p = x.shape
+    n = b.shape[-1]
+    check_chunk("ssd", t, chunk)
+    if hshare <= 0 or bh % hshare:
+        raise ValueError(f"ssd: {bh} rows are not a multiple of hshare={hshare}")
+    if x.device.type == "cpu":
+        return ssd_plain(x, b, c, loga, state, chunk, hshare)
+    check_operands("ssd", x.device, x=x, b=b, c=c, loga=loga, state=state)
+    check_shape("ssd", "b", b, (bh // hshare, t, n))
+    check_shape("ssd", "c", c, (bh // hshare, t, n))
+    check_shape("ssd", "loga", loga, (bh, t))
+    check_shape("ssd", "state", state, (bh, n, p))
+    lib = build.load("ssd")
+    y = torch.empty_like(x)
+    s_out = torch.empty_like(state)
+    if bh == 0:
+        return y, s_out
+    code = lib.ssd_launch(
+        x.data_ptr(), b.data_ptr(), c.data_ptr(), loga.data_ptr(), state.data_ptr(),
+        y.data_ptr(), s_out.data_ptr(), bh, t, n, p, chunk, hshare, stream_handle(x.device),
+    )
+    build.check(lib, code, "ssd")
+    ssd.launches += 1
+    return y, s_out
+
+
+ssd.launches = 0

@@ -1,0 +1,43 @@
+"""Carry the JAX package's model parameters across to the port.
+
+``params_from_jax(cfg, tree)`` maps a parameter pytree of
+:mod:`repro.models.rwkv` / :mod:`repro.models.mamba` -- nested dicts with
+numpy leaves, per-layer leaves stacked along a leading ``n_layers`` axis
+-- onto the port's modules, so that both packages compute the same model.
+Every leaf is copied as float32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .api import ModelConfig
+
+
+def _tensors(tree, device) -> dict:
+    if isinstance(tree, dict):
+        return {name: _tensors(v, device) for name, v in tree.items()}
+    return torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+
+
+def _layer(tree: dict, i: int) -> dict:
+    return {name: _layer(v, i) if isinstance(v, dict) else v[i].clone()
+            for name, v in tree.items()}
+
+
+def params_from_jax(cfg: ModelConfig, tree: dict, device=None):
+    """The port's model (an ``nn.Module``) holding the parameters of
+    ``tree``; on the card unless ``device`` names another."""
+    t = _tensors(tree, resolve_device(device))
+    blocks = [_layer(t["blocks"], i) for i in range(cfg.n_layers)]
+    if cfg.family == "rwkv":
+        from .rwkv import RWKV6
+
+        return RWKV6(cfg, t["embed"], blocks, t["final_norm"], t["lm_head"])
+    if cfg.family == "hybrid":
+        from .mamba import Zamba2
+
+        return Zamba2(cfg, t["embed"], blocks, t["shared_attn"], t["final_norm"], t["lm_head"])
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")

@@ -236,3 +236,98 @@ def test_sparse_plan_on_the_card(cuda):
     res = factor(pl).solve(b)
     assert float(res.true_resnorm) <= 1e-6
     assert float(np.linalg.norm(res.x.cpu().numpy() - xstar) / np.linalg.norm(xstar)) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the SaP-scan kernels (WKV6, SSD) and the LM path
+# ---------------------------------------------------------------------------
+
+
+# (bh, t, d, chunk): small heads, ragged chunks, and RWKV6-1.6B's head
+# width D=64 at decode (T=1) and prefill (chunk 64)
+WKV_SHAPES = [(3, 32, 8, 8), (4, 37, 16, 37), (256, 1, 64, 1), (64, 256, 64, 64)]
+
+
+@pytest.mark.parametrize("bh,t,d,chunk", WKV_SHAPES)
+@pytest.mark.parametrize("strong", [False, True])
+def test_wkv_kernel_matches_plain(cuda, bh, t, d, chunk, strong):
+    from repro_torch.kernels.wkv import wkv6, wkv6_plain
+
+    g = torch.Generator(device=cuda).manual_seed(bh + t)
+    r, k, v = (torch.randn(bh, t, d, generator=g, device=cuda) for _ in range(3))
+    if strong:  # log w = -30: every exponent stays <= 0, the output finite
+        logw = torch.full((bh, t, d), -30.0, device=cuda)
+    else:
+        logw = -torch.exp(0.5 * torch.randn(bh, t, d, generator=g, device=cuda))
+    u = torch.randn(bh, d, generator=g, device=cuda)
+    s0 = 0.1 * torch.randn(bh, d, d, generator=g, device=cuda)
+    before = wkv6.launches
+    o, s = wkv6(r, k, v, logw, u, s0, chunk)
+    assert wkv6.launches == before + 1
+    want = wkv6_plain(r, k, v, logw, u, s0, chunk)
+    _close(o, want[0])
+    _close(s, want[1])
+
+
+# (b, h, t, n, p, chunk, B/C shared by the heads); Zamba2-2.7B's heads
+# (H=80, N=P=64) at decode and prefill
+SSD_SHAPES = [(2, 3, 32, 4, 8, 8, False), (1, 4, 37, 8, 16, 37, True),
+              (8, 80, 1, 64, 64, 1, True), (2, 80, 128, 64, 64, 64, True)]
+
+
+@pytest.mark.parametrize("b,h,t,n,p,chunk,shared", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, b, h, t, n, p, chunk, shared):
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+
+    g = torch.Generator(device=cuda).manual_seed(b * h + t)
+    x = torch.randn(b * h, t, p, generator=g, device=cuda)
+    hs = h if shared else 1
+    bm, cm = (torch.randn(b * h // hs, t, n, generator=g, device=cuda) for _ in range(2))
+    la = -torch.exp(0.5 * torch.randn(b * h, t, generator=g, device=cuda))
+    s0 = 0.1 * torch.randn(b * h, n, p, generator=g, device=cuda)
+    before = ssd.launches
+    y, s = ssd(x, bm, cm, la, s0, chunk, hs)
+    assert ssd.launches == before + 1
+    want = ssd_plain(x, bm, cm, la, s0, chunk, hs)
+    _close(y, want[0])
+    _close(s, want[1])
+
+
+def test_scan_kernels_reject_what_they_do_not_take(cuda):
+    from repro_torch.kernels import ops
+
+    r = torch.randn(1, 2, 96, 8, device=cuda)
+    u, s0 = torch.randn(2, 8, device=cuda), torch.zeros(1, 2, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        ops.wkv6(r, r, r, -r.abs(), u, s0, chunk=64)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        rb = r.bfloat16()
+        ops.wkv6(rb, rb, rb, -rb.abs(), u, s0, chunk=32)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_reduced_model_on_the_card_matches_the_cpu(cuda, arch):
+    """forward and decode_step of the reduced model on the card (through
+    the kernels) against the same parameters on the CPU (plain versions):
+    within 1e-4 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+    from repro_torch.models import get_family
+
+    cfg = get_config(arch, reduced=True)
+    fam = get_family(cfg)
+    cpu_params = fam.init(cfg, device="cpu")
+    gpu_params = fam.init(cfg, device="cpu").to(cuda)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 32)))
+    before = wkv6.launches + ssd.launches
+    got, _ = fam.forward(cfg, gpu_params, toks.to(cuda))
+    want, _ = fam.forward(cfg, cpu_params, toks)
+    _close(got.cpu(), want)
+    cache_g = fam.init_cache(cfg, 2, 16)
+    cache_c = fam.init_cache(cfg, 2, 16, device="cpu")
+    for i in range(4):
+        lg, cache_g = fam.decode_step(cfg, gpu_params, cache_g, toks[:, i:i + 1].to(cuda))
+        lc, cache_c = fam.decode_step(cfg, cpu_params, cache_c, toks[:, i:i + 1])
+        _close(lg.cpu(), lc)
+    assert wkv6.launches + ssd.launches >= before + 5 * cfg.n_layers

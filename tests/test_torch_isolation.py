@@ -14,6 +14,8 @@ from repro_torch.kernels import bcr, build
 from repro_torch.kernels.btf import btf
 from repro_torch.kernels.bts import bts
 from repro_torch.kernels.fused_spike import fused_factor_spike
+from repro_torch.kernels.ssd import ssd
+from repro_torch.kernels.wkv import wkv6
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -40,7 +42,12 @@ def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
     assert {"sap.py", "spike.py", "krylov.py", "btf.py", "bts.py", "fused_spike.py",
             "chip_smoke.py", "cyclic_reduction.py", "bcr.py", "sparse.py", "reorder.py",
-            "operators.py", "convert.py"} <= names
+            "operators.py", "convert.py", "api.py", "layers.py", "rwkv.py", "mamba.py",
+            "engine.py", "ref.py", "wkv.py", "ssd.py", "rwkv6_1_6b.py", "zamba2_2_7b.py",
+            "device.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/models/convert.py", "src/repro_torch/serve/engine.py",
+            "src/repro_torch/configs/__init__.py"} <= rel
 
 
 def test_plan_banded_needs_a_card_unless_cpu_is_asked(monkeypatch):
@@ -65,7 +72,8 @@ def test_wrappers_on_cpu_tensors_use_the_plain_version_and_do_not_count(monkeypa
         raise AssertionError(f"kernel {name} must not be built for a CPU tensor")
 
     monkeypatch.setattr(build, "load", no_build)
-    wrappers = (btf, bts, fused_factor_spike, bcr.inv_odd, bcr.reduce, bcr.rhs_reduce, bcr.backsub)
+    wrappers = (btf, bts, fused_factor_spike, bcr.inv_odd, bcr.reduce, bcr.rhs_reduce, bcr.backsub,
+                wkv6, ssd)
     before = [w.launches for w in wrappers]
     d, e, f = _chain()
     sinv, l = btf(d, e, f)
@@ -81,6 +89,12 @@ def test_wrappers_on_cpu_tensors_use_the_plain_version_and_do_not_count(monkeypa
     bb = torch.randn(2, 4, 3)
     x = bcr.backsub(a_odd, e[0, 1:2], f[0, 1:2], bb, bcr.rhs_reduce(lo, hi, bb))
     assert x.shape == bb.shape
+    r, k, v = torch.randn(3, 4, 8, 4)
+    o, s = wkv6(r, k, v, -torch.rand(4, 8, 4), torch.randn(4, 4), torch.zeros(4, 4, 4), chunk=4)
+    assert o.shape == (4, 8, 4) and s.shape == (4, 4, 4)
+    y, s = ssd(torch.randn(4, 8, 3), torch.randn(2, 8, 5), torch.randn(2, 8, 5), -torch.rand(4, 8),
+               torch.zeros(4, 5, 3), chunk=8, hshare=2)
+    assert y.shape == (4, 8, 3) and s.shape == (4, 5, 3)
     assert [w.launches for w in wrappers] == before
 
 
