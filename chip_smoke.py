@@ -164,36 +164,24 @@ def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
     }
 
 
-def wkv_work(bh: int, t: int, d: int, chunk: int) -> tuple[float, float]:
-    """(operations, bytes) of the chunked WKV6 over BH rows of T tokens:
-    per chunk of C, the cumulative decay (C D), the bonus (3 C D), the
-    intra-chunk weights over the s < t pairs (5 D each: product, exponent
-    difference, exponential, multiply-add -- the exponentials counted as
-    operations), the decay factors of r and k (5 C D), the inter term and
-    the state update (2 C D^2 each), the intra and bonus outputs, the state
-    decay (D exponentials, 2 D^2).  Reads r, k, v, log w, u and the state;
-    writes o and the state."""
-    c = chunk
-    pairs = c * (c - 1) // 2
-    per_chunk = (c * d + 3 * c * d + 5 * d * pairs + 5 * c * d + 4 * c * d * d
-                 + 2 * d * pairs + 3 * c * d + d + 2 * d * d)
-    ops = float(bh) * (t // c) * per_chunk
+def wkv_work(bh: int, t: int, d: int) -> tuple[float, float]:
+    """(operations, bytes) of WKV6 over BH rows of T tokens, counted in the
+    least-work form of the function, the token-by-token recurrence (the
+    chunked form the kernel runs does more): per token, o = r S + (r . (u
+    k)) v (2 D^2 + 5 D) and S <- diag(exp(log w)) S + k v^T (3 D^2, the D
+    exponentials counted as operations).  Reads r, k, v, log w, u and the
+    state; writes o and the state."""
+    ops = float(bh) * t * (5 * d * d + 6 * d)
     return ops, 4.0 * bh * (5 * t * d + d + 2 * d * d)
 
 
-def ssd_work(bh: int, t: int, n: int, p: int, chunk: int, hshare: int) -> tuple[float, float]:
-    """(operations, bytes) of the chunked SSD over BH rows of T tokens:
-    per chunk of C, the cumulative decay (C), the weights over the s <= t
-    pairs (2N + 3 each, the exponential counted), the inter term
-    (2 C N P + C P + C), the intra term (2 P per pair + C P), the decay
-    factors of B (2 C + C N) and the state update (2 C N P + 2 N P + 1).
-    Reads x, log a, the state and B, C once per BH / hshare rows; writes y
-    and the state."""
-    c = chunk
-    pairs = c * (c + 1) // 2
-    per_chunk = (c + pairs * (2 * n + 3) + 2 * c * n * p + c * p + c + 2 * p * pairs + c * p
-                 + 2 * c + c * n + 2 * c * n * p + 2 * n * p + 1)
-    ops = float(bh) * (t // c) * per_chunk
+def ssd_work(bh: int, t: int, n: int, p: int, hshare: int) -> tuple[float, float]:
+    """(operations, bytes) of SSD over BH rows of T tokens, counted in the
+    least-work form, the token-by-token recurrence: per token, S <- exp(log
+    a) S + B x^T (3 N P + 1, the exponential counted) and y = C^T S
+    (2 N P).  Reads x, log a, the state and B, C once per BH / hshare rows;
+    writes y and the state."""
+    ops = float(bh) * t * (5 * n * p + 1)
     nbytes = 4.0 * (2 * bh * t * p + 2 * (bh // hshare) * t * n + bh * t + 2 * bh * n * p)
     return ops, nbytes
 
@@ -660,7 +648,7 @@ def main() -> int:
         torch.cuda.synchronize()
         other_bytes = torch.cuda.memory_allocated()  # what the solver phases still hold
         t0 = time.perf_counter()
-        params = fam.init(cfg, torch.Generator(dev).manual_seed(SEED))
+        params = fam.init(cfg, torch.Generator(dev).manual_seed(SEED), device=dev)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = sum(q.numel() for q in params.parameters())
@@ -682,15 +670,16 @@ def main() -> int:
                     cache = fam.init_cache(c32, 2, CONSISTENCY_T)
                 else:
                     cache = {nm: v.clone() for nm, v in state.items()}
-                d = 0.0
+                d = []
                 for i in range(CONSISTENCY_T):
                     logits, cache = fam.decode_step(c32, params, cache, toks[:, i:i + 1])
-                    d = max(d, float((logits - full[:, i]).abs().max()))
-                return d, float(full.abs().max())
+                    d.append(float((logits - full[:, i]).abs().max()))
+                return max(d), float(full.abs().max()), d[0]
 
             reset()
             consistency = {"t": CONSISTENCY_T, "batch": 2, "rtol": LM_RTOL}
-            consistency["cold_max_abs_diff"], max_logit = against_decode(None)
+            (consistency["cold_max_abs_diff"], max_logit,
+             consistency["cold_first_token_abs_diff"]) = against_decode(None)
             # the model's own float32 sensitivity: embeddings scaled by 1 + 1e-7 N(0, 1)
             emb = params["embed"].data
             saved = emb.clone()
@@ -702,6 +691,8 @@ def main() -> int:
             base, _ = fam.forward(c32, params, toks)
             consistency["embed_perturbed_max_abs_diff"] = float(
                 (moved - base)[..., : cfg.vocab].abs().max())
+            consistency["embed_perturbed_first_token_abs_diff"] = float(
+                (moved - base)[:, 0, : cfg.vocab].abs().max())
             # the two kernel paths inside one forward: 64 chunks of 1 token
             # against one chunk of 64, from zero (checked below)
             ones, _ = fam.forward(dataclasses.replace(c32, ssm_chunk=1), params, toks)
@@ -709,10 +700,30 @@ def main() -> int:
                 (ones - base)[..., : cfg.vocab].abs().max())
             del moved, base, ones
             if cfg.family == "rwkv":
+                # witness of RWKV6's cold start (PERF.md, L1): the variance of
+                # each head's GroupNorm input over its eps, by position
+                gn_ratio, plain_gn = [], fam.group_norm
+
+                def spy(x, w, b, groups, eps=1e-5):
+                    heads = x.float().reshape(*x.shape[:-1], groups, -1)
+                    gn_ratio.append(heads.var(dim=-1, unbiased=False) / eps)  # (B, T, H)
+                    return plain_gn(x, w, b, groups, eps)
+
+                fam.group_norm = spy
+                try:
+                    fam.forward(c32, params, toks)
+                finally:
+                    fam.group_norm = plain_gn
+                ratio = torch.stack(gn_ratio)  # (layers, B, T, H)
+                for where, r in (("t0", ratio[:, :, 0]), ("later", ratio[:, :, 1:])):
+                    consistency[f"gn_var_over_eps_{where}"] = {
+                        "min": float(r.min()), "median": float(r.median()),
+                        "share_below_1": float((r < 1).float().mean())}
+                del gn_ratio, ratio
                 # RWKV6's first token from a zero state is ill-conditioned (see
                 # PERF.md): the check runs from the state of a 64-token prefix
                 _, warm = fam.forward(c32, params, prefix)
-                consistency["warm_max_abs_diff"], max_logit = against_decode(warm)
+                consistency["warm_max_abs_diff"], max_logit, _ = against_decode(warm)
                 del warm
                 diff = consistency["warm_max_abs_diff"]
             else:
@@ -911,12 +922,12 @@ def main() -> int:
             if name == "wkv":
                 args = wkv_inputs(dev, b * rw_h, t, rw_d, SEED)
                 shape = [b * rw_h, t, rw_d, c]
-                flops, nbytes = wkv_work(b * rw_h, t, rw_d, c)
+                flops, nbytes = wkv_work(b * rw_h, t, rw_d)
                 kern, plain = (lambda: wkv6(*args, c)), (lambda: wkv6_plain(*args, c))
             else:
                 args = ssd_inputs(dev, b * zb_h, t, zb_n, zb_p, zb_h, SEED)
                 shape = [b * zb_h, t, zb_n, zb_p, c]
-                flops, nbytes = ssd_work(b * zb_h, t, zb_n, zb_p, c, zb_h)
+                flops, nbytes = ssd_work(b * zb_h, t, zb_n, zb_p, zb_h)
                 kern, plain = (lambda: ssd(*args, c, zb_h)), (lambda: ssd_plain(*args, c, zb_h))
             saved = wrappers[name].launches
             ms = cuda_ms(kern, 200 if tag == "decode" else 20)

@@ -16,7 +16,6 @@ def full() -> ModelConfig:
         vocab=65_536,
         rwkv_head_dim=64,
         rwkv_lora=64,
-        tie_embeddings=False,
     )
 
 
@@ -34,5 +33,4 @@ def reduced() -> ModelConfig:
         rwkv_lora=8,
         ssm_chunk=16,
         compute_dtype="float32",
-        remat="none",
     )

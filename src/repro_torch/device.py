@@ -15,3 +15,18 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def generator_on(device=None, generator: torch.Generator | None = None) -> torch.Generator:
+    """``generator`` if it draws on the resolved ``device`` (an error if it
+    draws elsewhere), else a new one there seeded with 0."""
+    dev = resolve_device(device)
+    if generator is None:
+        return torch.Generator(dev).manual_seed(0)
+    own = generator.device
+    if own.type != dev.type or (None not in (own.index, dev.index) and own.index != dev.index):
+        raise ValueError(
+            f"the generator draws on {own} but the parameters are asked for on {dev}: "
+            f"pass device={str(own)!r} or a torch.Generator({str(dev)!r})"
+        )
+    return generator

@@ -9,6 +9,9 @@ implementing the family protocol:
     init_cache(cfg, batch, max_len, device) -> decode cache (dict of tensors)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
 
+Only the fields the ported families read are copied; the MoE,
+encoder-decoder and VLM fields and the JAX execution knobs (``remat``,
+``scan_layers``, ``kernel_impl``) come with the code that reads them.
 ``ShapeSpec`` and the sharding helpers wait for the distributed path.
 """
 
@@ -25,7 +28,7 @@ class ModelConfig:
     """One architecture: widths, family knobs and execution knobs."""
 
     name: str
-    family: str  # dense | moe | rwkv | hybrid | encdec
+    family: str  # rwkv | hybrid ported; dense | moe | encdec not yet
     n_layers: int
     d_model: int
     n_heads: int
@@ -34,19 +37,8 @@ class ModelConfig:
     vocab: int
     d_head: Optional[int] = None  # default d_model // n_heads
     act: str = "silu"
-    gated_mlp: bool = True
-    norm: str = "rms"
     rope_theta: float = 10_000.0
     window: Optional[int] = None  # sliding-window attention
-    tie_embeddings: bool = False
-    # --- MoE ---------------------------------------------------------------
-    n_experts: int = 0
-    n_shared_experts: int = 0
-    top_k: int = 2
-    capacity_factor: float = 1.25
-    expert_sharding: str = "ep"  # "ep" (experts on model axis) | "tp"
-    router_aux_coef: float = 0.01
-    moe_group: int = 512  # token group size for GShard-style dispatch
     # --- RWKV6 ---------------------------------------------------------------
     rwkv_head_dim: int = 64
     rwkv_lora: int = 32
@@ -56,19 +48,11 @@ class ModelConfig:
     ssm_expand: int = 2
     conv_width: int = 4
     attn_every: int = 0  # hybrid: shared attention block every N layers
-    # --- encoder-decoder -------------------------------------------------------
-    n_enc_layers: int = 0
-    enc_seq: int = 1500
-    # --- VLM stub ---------------------------------------------------------------
-    n_patches: int = 0  # precomputed patch embeddings prepended to text
     # --- execution knobs ---------------------------------------------------------
     compute_dtype: str = "bfloat16"
-    remat: str = "full"  # none | full | dots
-    scan_layers: bool = True
     ssm_chunk: int = 64
     scan_dtype: str = "float32"  # dtype of the SaP-scan tensors
     attn_block_k: int = 512
-    kernel_impl: Optional[str] = None
 
     @property
     def vocab_padded(self) -> int:

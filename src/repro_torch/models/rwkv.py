@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import resolve_device
+from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
 from .api import ModelConfig
 from .layers import ParamTree, group_norm, normal, rms_norm
@@ -93,11 +93,10 @@ class RWKV6(ParamTree):
 
 
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None) -> RWKV6:
-    """Random float32 parameters drawn from ``generator`` (seed 0 on
-    ``device`` when none is given), with the JAX init's shapes and scales;
-    on the card unless ``device`` names another."""
-    dev = resolve_device(device) if generator is None else generator.device
-    gen = generator if generator is not None else torch.Generator(dev).manual_seed(0)
+    """Random float32 parameters drawn from ``generator`` (seed 0 when none
+    is given), with the JAX init's shapes and scales; on the card unless
+    ``device`` names another.  The generator must draw on that device."""
+    gen = generator_on(device, generator)
     vp = cfg.vocab_padded
     embed = normal(gen, (vp, cfg.d_model), 0.02)
     blocks = [block_tree(cfg, gen) for _ in range(cfg.n_layers)]

@@ -59,8 +59,9 @@ def test_configs_match_the_jax_registry():
     assert arch_names() == ARCHS
     for name in ARCHS:
         for reduced in (False, True):
-            want = dataclasses.asdict(jax_config(name, reduced=reduced))
-            assert dataclasses.asdict(get_config(name, reduced=reduced)) == want
+            mine = dataclasses.asdict(get_config(name, reduced=reduced))
+            theirs = jax_config(name, reduced=reduced)
+            assert mine == {f: getattr(theirs, f) for f in mine}
             want_count = jax_config(name, reduced).params_count()
             assert get_config(name, reduced).params_count() == want_count
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -122,7 +123,7 @@ def test_prompt_longer_than_a_chunk_must_be_a_multiple_of_it(pair):
 
 def test_port_init_has_the_jax_tree_shapes_and_scales(pair):
     (jc, jf, jp), (tc, tf, _) = pair
-    mine = tf.init(tc, torch.Generator().manual_seed(0))
+    mine = tf.init(tc, torch.Generator().manual_seed(0), device="cpu")
     assert isinstance(mine, torch.nn.Module)
     want = dict(jax.tree_util.tree_flatten_with_path(jp)[0])
     flat = {}
@@ -153,6 +154,17 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         fam.init_cache(cfg, 2, 16)
     assert next(fam.init(cfg, device="cpu").parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_init_refuses_a_generator_on_another_device(name, monkeypatch):
+    cfg = get_config(name, reduced=True)
+    fam = get_family(cfg)
+    with pytest.raises(ValueError, match="generator draws on cpu"):
+        fam.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):  # the default is the card
+        fam.init(cfg, torch.Generator().manual_seed(0))
 
 
 # ---------------------------------------------------------------------------
