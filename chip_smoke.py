@@ -20,7 +20,11 @@ of the JAX package.  Phases, each printing one JSON line:
    K=37 with R=K); the two SaP-scan kernels (WKV6, SSD) at the LM path's
    decode (T=1, 8 slots) and prefill (B=4, T=512, chunk 64) shapes, at
    chunk 16, under strong decay, and a chunk that does not tile T (which
-   must be refused);
+   must be refused); the flash-attention kernel in bfloat16 and float32 at
+   Minitron-8B's prefill (32 query heads over 8, T=4096, D=128, causal),
+   starcoder2-15b's (48 over 4, T=8192, window 4096), phi3-mini's D=96,
+   stablelm's D=64, the reduced D=16, bidirectional, a ragged Tk and a
+   window smaller than one tile;
 4. the slices at full size: N=200,000, K=200 banded systems (paper Table
    4.1/4.2 setting), float32 band storage and preconditioner, float64
    iteration, tol=1e-8, through ``factor(plan_banded(...)).solve`` for the
@@ -37,6 +41,13 @@ lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
    (B=4, T=512) timed, and a ``ServeEngine`` with 8 slots draining 16
    requests (prompts of 16-48 tokens, 32 new tokens each), with the
    WKV / SSD launches of each path and a profiler window of decode ticks;
+dense. Minitron-8B at its published width and depth (32 layers, d=4096,
+   GQA 32 over 8, vocab 256,000), random float32 weights from a seeded
+   generator, after the other models are freed: ``forward`` over 128
+   tokens (through the flash kernel) against 128 ``decode_step`` calls
+   from an empty cache in float32, bfloat16 prefills at B=4, T=512 and
+   B=1, T=4096 (each a forward with one flash launch a layer, profiled
+   once), and the same serving run and decode window as above;
 5. timing of each kernel beside its plain version (and a library call
    where one computes the same function), with CUDA events.
 
@@ -58,10 +69,11 @@ SRC = ROOT / "src"
 SEED = 0
 N, K = 200_000, 200
 TOL, MAXITER = 1e-8, 200
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 FMA rate
-# outside the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 FMA rate
+# outside the tensor cores, and the tensor cores' dense bfloat16 rate.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
 # Kernel against plain version, both float32 on the card: the largest
 # difference at most this fraction of the largest plain value.  The same
 # recurrences in float32 with the sums of every K x K product taken in
@@ -72,6 +84,19 @@ KERNEL_RTOL = 1e-4
 LM_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
 LM_SLOTS, LM_REQUESTS, LM_NEW_TOKENS, LM_PROMPT = 8, 16, 32, (16, 48)
 PREFILL_B, PREFILL_T, CONSISTENCY_T = 4, 512, 64
+# The dense run: Minitron-8B; its forward (through the flash kernel)
+# against DENSE_CONSISTENCY_T decode steps, and a second prefill at the
+# kernel's long shape.
+DENSE_ARCH = "minitron-8b"
+DENSE_CONSISTENCY_T, DENSE_LONG_T = 128, 4096
+# flash kernel against its plain version in bfloat16, element by element:
+# both compute in float32 and round the output to bfloat16 once, so where
+# the float32 values straddle a rounding boundary they differ by one
+# bfloat16 step, 2^-8 to 2^-7 of the value.  Limit: FLASH_BF16_STEP of the
+# plain value plus FLASH_BF16_ATOL of the largest plain value, for the
+# float32 difference before the rounding (the float32 check measures it:
+# ~5e-7 of the largest value on the H100).
+FLASH_BF16_STEP, FLASH_BF16_ATOL = 2.0**-7, 1e-5
 # forward (chunk-64 scans) against CONSISTENCY_T decode steps (chunk-1
 # scans), and against a forward at chunk 1, float32 throughout: the
 # largest logit difference at most this fraction of the largest logit.
@@ -102,15 +127,33 @@ def rel_err(kernel, plain) -> tuple[float, float]:
     return diff, diff / max(float(plain.double().abs().max()), 1e-30)
 
 
-def check_close(what: str, kernel, plain) -> float:
+def check_close(what: str, kernel, plain, rtol: float = KERNEL_RTOL) -> float:
     import torch
 
     if not bool(torch.isfinite(kernel).all()):
         raise AssertionError(f"{what}: kernel output is not finite")
     err, rel = rel_err(kernel, plain)
-    if rel > KERNEL_RTOL:
-        raise AssertionError(f"{what}: max abs err {err:.3e} = {rel:.3e} of max > {KERNEL_RTOL}")
+    if rel > rtol:
+        raise AssertionError(f"{what}: max abs err {err:.3e} = {rel:.3e} of max > {rtol}")
     return err
+
+
+def check_close_bf16(what: str, kernel, plain) -> tuple[float, float]:
+    """(max abs difference, largest difference over its limit): every
+    element within FLASH_BF16_STEP |plain| + FLASH_BF16_ATOL max |plain|."""
+    import torch
+
+    if not bool(torch.isfinite(kernel).all()):
+        raise AssertionError(f"{what}: kernel output is not finite")
+    got, want = kernel.double(), plain.double()
+    diff = (got - want).abs()
+    limit = FLASH_BF16_STEP * want.abs() + FLASH_BF16_ATOL * float(want.abs().max())
+    share = float((diff / limit).max())
+    if share > 1.0:
+        bad = int((diff > limit).sum())
+        raise AssertionError(f"{what}: {bad} elements beyond one bfloat16 step "
+                             f"(worst at {share:.3f} of its limit)")
+    return float(diff.max()), share
 
 
 def btf_work(p: int, m: int, k: int) -> tuple[float, float]:
@@ -184,6 +227,35 @@ def ssd_work(bh: int, t: int, n: int, p: int, hshare: int) -> tuple[float, float
     ops = float(bh) * t * (5 * n * p + 1)
     nbytes = 4.0 * (2 * bh * t * p + 2 * (bh // hshare) * t * n + bh * t + 2 * bh * n * p)
     return ops, nbytes
+
+
+def flash_work(b: int, hq: int, hk: int, tq: int, tk: int, d: int, causal: bool,
+               window, elt_bytes: int) -> tuple[float, float, float]:
+    """(q.k operations, p.v and exponential operations, bytes) of attention
+    counted in its least-work form: per query head and (query, key) pair
+    the masks leave visible, 2 D operations for q.k -- products of the
+    inputs' type, so on the tensor cores for bfloat16 -- and 2 D + 1 for
+    p.v and the exponential, float32 as the TPU kernel computes them.
+    Reads q, k, v once and writes o once."""
+    import numpy as np
+
+    t = np.arange(tq)
+    hi = np.minimum(t, tk - 1) if causal else np.full(tq, tk - 1)
+    lo = np.maximum(t - window + 1, 0) if window else np.zeros(tq, dtype=np.int64)
+    pairs = float(np.maximum(hi - lo + 1, 0).sum())
+    return (b * hq * pairs * 2 * d, b * hq * pairs * (2 * d + 1),
+            float(elt_bytes * (2 * b * hq * tq * d + 2 * b * hk * tk * d)))
+
+
+def flash_inputs(dev, b: int, hq: int, hk: int, tq: int, tk: int, d: int, dtype, seed: int):
+    """q (B, Hq, Tq, D), k and v (B, Hk, Tk, D), normal, from a seeded
+    generator on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, hq, tq, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(b, hk, tk, d, generator=g, device=dev).to(dtype) for _ in range(2))
+    return q, k, v
 
 
 def wkv_inputs(dev, bh: int, t: int, d: int, seed: int, strong: bool = False):
@@ -275,7 +347,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.btf import btf
     from repro_torch.kernels.bts import bts
+    from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.kernels.fused_spike import fused_factor_spike
+    from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.kernels.ssd import ssd, ssd_plain
     from repro_torch.kernels.wkv import wkv6, wkv6_plain
     from repro_torch.models import get_family
@@ -512,9 +586,50 @@ def main() -> int:
             refused.append(f"{name}: {exc}")
         else:
             raise AssertionError(f"{name}: T=96 with chunk 64 was not refused")
+    # the flash kernel at the dense configurations' attention shapes, in
+    # bfloat16 (the prefill) and float32 (the consistency check)
+    def attn_shape(name, reduced=False):
+        c = get_config(name, reduced)
+        return c.n_heads, c.n_kv_heads, c.head_dim, c.window
+
+    mt_hq, mt_hk, mt_d, _ = attn_shape(DENSE_ARCH)
+    sc_hq, sc_hk, sc_d, sc_w = attn_shape("starcoder2-15b")
+    flash_shapes = {
+        # tag: (b, hq, hk, tq, tk, d, causal, window)
+        "minitron": (1, mt_hq, mt_hk, DENSE_LONG_T, DENSE_LONG_T, mt_d, True, None),
+        "starcoder2": (1, sc_hq, sc_hk, 2 * sc_w, 2 * sc_w, sc_d, True, sc_w),
+        "phi3_d96": (1, *attn_shape("phi3-mini-3.8b")[:2], 1024, 1024,
+                     attn_shape("phi3-mini-3.8b")[2], True, None),
+        "stablelm_d64": (1, *attn_shape("stablelm-1.6b")[:2], 1024, 1024,
+                         attn_shape("stablelm-1.6b")[2], True, None),
+        "reduced_d16": (2, *attn_shape(DENSE_ARCH, True)[:2], 128, 128,
+                        attn_shape(DENSE_ARCH, True)[2], True, None),
+        "bidirectional": (1, 8, 8, 512, 512, 64, False, None),
+        "ragged_tk": (1, mt_hq, mt_hk, 1000, 1000, mt_d, True, None),
+        "ragged_tq_tk": (1, 8, 2, 256, 333, mt_d, False, None),
+        "window16": (1, mt_hq, mt_hk, 512, 512, mt_d, True, 16),
+    }
+    assert flash_shapes["starcoder2"][1:] == (48, 4, 8192, 8192, 128, True, 4096)
+    bf16_share = {}  # each bfloat16 check's worst element over its limit
+    for tag, (b, hq, hk, tq, tk, d, causal, window) in flash_shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = flash_inputs(dev, b, hq, hk, tq, tk, d, dtype, SEED)
+            got = flash_attention(q, k, v, causal, window)
+            want = flash_attention_ref(q, k, v, causal, window)
+            if got.dtype != dtype:
+                raise AssertionError(f"flash {tag}: output is {got.dtype}, not {dtype}")
+            what = f"flash {tag} {dtype}"
+            if dtype == torch.bfloat16:
+                err, bf16_share[tag] = check_close_bf16(what, got, want)
+            else:
+                err = check_close(what, got, want)
+            errs[f"flash_{tag}_{str(dtype)[6:]}"] = err
+            del q, k, v, got, want
     torch.cuda.synchronize()
-    emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL, "max_abs_err": errs,
-          "chain_coupling": coupling, "refused": refused})
+    emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL,
+          "flash_bfloat16_step_atol": [FLASH_BF16_STEP, FLASH_BF16_ATOL],
+          "flash_bfloat16_worst_share": bf16_share, "max_abs_err": errs,
+          "chain_coupling": coupling, "refused": refused, "flash_shapes": flash_shapes})
 
     # ---- 4. the slices at full size ------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -526,7 +641,7 @@ def main() -> int:
     wrappers = {"btf": btf, "bts": bts, "fused_factor_spike": fused_factor_spike,
                 "bcr_inv_odd": bcr.inv_odd, "bcr_reduce": bcr.reduce,
                 "bcr_rhs_reduce": bcr.rhs_reduce, "bcr_backsub": bcr.backsub,
-                "wkv": wkv6, "ssd": ssd}
+                "wkv": wkv6, "ssd": ssd, "flash": flash_attention}
     bcr_names = ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")
 
     def reset():
@@ -639,6 +754,79 @@ def main() -> int:
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
+
+    def device_profile(prof, top_n: int = 8) -> dict:
+        """Device time by kernel from a profiler run: busy ms, launches and
+        the largest kernels (name, ms, count)."""
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:top_n]
+        return {"device_busy_ms": (sum(e.self_device_time_total for e in events) / 1e3
+                                   if events else None),
+                "device_kernel_launches": sum(e.count for e in events),
+                "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                                for e in top]}
+
+    def serve(arch, cfg, params, prompts, other_bytes):
+        """A ServeEngine with LM_SLOTS slots draining ``prompts`` (after a
+        warm-up engine that pays first-call costs): the emitted line, and
+        every wrapper's launches in the drain."""
+        max_len = LM_PROMPT[1] + LM_NEW_TOKENS
+        warm = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=max_len)
+        warm.submit(Request(rid=-1, prompt=prompts[0][:2], max_new_tokens=1))
+        warm.run_until_drained()  # first-call costs (torch's lazy loading)
+        del warm
+        engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=max_len)
+        reqs = [Request(rid=i, prompt=pr, max_new_tokens=LM_NEW_TOKENS)
+                for i, pr in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        ticks = engine.run_until_drained()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        drained = counts()
+        # the model's own peak: weights, cache and temporaries
+        serve_peak = torch.cuda.max_memory_allocated() - other_bytes
+        if not all(r.done and len(r.out) == LM_NEW_TOKENS for r in reqs):
+            raise AssertionError(f"{arch}: not every request ended with {LM_NEW_TOKENS} tokens")
+        if not all(0 <= tok < cfg.vocab for r in reqs for tok in r.out):
+            raise AssertionError(f"{arch}: a generated token is outside the vocabulary")
+        generated = LM_REQUESTS * LM_NEW_TOKENS
+        return {"slots": LM_SLOTS, "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
+                "prompt_lengths": [len(p) for p in prompts], "ticks": ticks,
+                "seconds": serve_s, "ms_per_tick": serve_s * 1e3 / ticks,
+                "generated_tokens_per_s": generated / serve_s,
+                "peak_mem_bytes": serve_peak, "other_phases_bytes": other_bytes}, drained
+
+    def decode_window(cfg, fam, params, rng):
+        """Five decode ticks at LM_SLOTS slots, timed, then the same five
+        under the profiler: device time by kernel (the profiler slows the
+        host, not the kernels; the busy share is taken against the
+        unprofiled window)."""
+        cache = fam.init_cache(cfg, LM_SLOTS, LM_PROMPT[1] + LM_NEW_TOKENS)
+        step_toks = torch.tensor(rng.integers(0, cfg.vocab, size=(LM_SLOTS, 1)), device=dev)
+        fam.decode_step(cfg, params, cache, step_toks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            _, cache = fam.decode_step(cfg, params, cache, step_toks)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                _, cache = fam.decode_step(cfg, params, cache, step_toks)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+        del cache
+        line = device_profile(prof)
+        busy = line["device_busy_ms"]
+        return {"ticks": 5, "wall_ms": window_ms, "profiled_wall_ms": profiled_ms, **line,
+                "device_busy_share": busy / window_ms if busy is not None else None}
 
     lm_launches = {}
     for arch in LM_ARCHS:
@@ -755,81 +943,111 @@ def main() -> int:
             # serving: 16 requests through 8 slots
             prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
                        for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)]
-            max_len = LM_PROMPT[1] + LM_NEW_TOKENS
-            warm = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=max_len)
-            warm.submit(Request(rid=-1, prompt=prompts[0][:2], max_new_tokens=1))
-            warm.run_until_drained()  # first-call costs (torch's lazy loading)
-            del warm
-            engine = ServeEngine(cfg, params, slots=LM_SLOTS, max_len=max_len)
-            reqs = [Request(rid=i, prompt=pr, max_new_tokens=LM_NEW_TOKENS)
-                    for i, pr in enumerate(prompts)]
-            for r in reqs:
-                engine.submit(r)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset()
-            t0 = time.perf_counter()
-            ticks = engine.run_until_drained()
-            torch.cuda.synchronize()
-            serve_s = time.perf_counter() - t0
-            launches["serve"] = counts()[kernel]
-            # the model's own peak: weights, cache and temporaries
-            serve_peak = torch.cuda.max_memory_allocated() - other_bytes
-            if not all(r.done and len(r.out) == LM_NEW_TOKENS for r in reqs):
-                raise AssertionError(f"{arch}: not every request ended with "
-                                     f"{LM_NEW_TOKENS} tokens")
-            if not all(0 <= tok < cfg.vocab for r in reqs for tok in r.out):
-                raise AssertionError(f"{arch}: a generated token is outside the vocabulary")
-            # a profiler window of decode ticks at 8 slots
-            cache = fam.init_cache(cfg, LM_SLOTS, max_len)
-            step_toks = torch.tensor(rng.integers(0, cfg.vocab, size=(LM_SLOTS, 1)), device=dev)
-            fam.decode_step(cfg, params, cache, step_toks)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                _, cache = fam.decode_step(cfg, params, cache, step_toks)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-            # the same five ticks under the profiler: device time by kernel (the
-            # profiler slows the host, not the kernels; the share is taken
-            # against the unprofiled window)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(5):
-                    _, cache = fam.decode_step(cfg, params, cache, step_toks)
-                torch.cuda.synchronize()
-                profiled_ms = (time.perf_counter() - t0) * 1e3
-            del cache
-        dev_events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-        n_launch = sum(e.count for e in dev_events)
-        top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+            serve_line, serve_counts = serve(arch, cfg, params, prompts, other_bytes)
+            launches["serve"] = serve_counts[kernel]
+            window_line = decode_window(cfg, fam, params, rng)
         for nm in ("prefill", "serve"):
             if launches[nm] == 0:
                 raise AssertionError(f"{arch}: the {nm} path never launched the {kernel} kernel")
         lm_launches[kernel] = launches["serve"] + launches["prefill"]
-        generated = LM_REQUESTS * LM_NEW_TOKENS
         emit({
             "phase": "lm", "arch": arch, "params": n_params, "weight_bytes": weight_bytes,
             "init_s": init_s, "compute_dtype": cfg.compute_dtype,
             "consistency": consistency,
             "prefill_ms": prefill_ms, "prefill_shape": [PREFILL_B, PREFILL_T],
-            "serve": {"slots": LM_SLOTS, "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
-                      "prompt_lengths": [len(p) for p in prompts], "ticks": ticks,
-                      "seconds": serve_s, "ms_per_tick": serve_s * 1e3 / ticks,
-                      "generated_tokens_per_s": generated / serve_s,
-                      "peak_mem_bytes": serve_peak, "other_phases_bytes": other_bytes},
-            "decode_window": {"ticks": 5, "wall_ms": window_ms, "profiled_wall_ms": profiled_ms,
-                              "device_kernel_launches": n_launch,
-                              "device_busy_ms": busy_ms if dev_events else None,
-                              "device_busy_share": busy_ms / window_ms if dev_events else None,
-                              "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3,
-                                               e.count] for e in top]},
+            "serve": serve_line, "decode_window": window_line,
             "launches": {kernel: launches},
         })
-        del params, engine, reqs
+        del params
         torch.cuda.empty_cache()
+
+    # ---- dense. Minitron-8B at full width and depth ----------------------------
+    cfg = get_config(DENSE_ARCH)
+    fam = get_family(cfg)
+    torch.cuda.synchronize()
+    other_bytes = torch.cuda.memory_allocated()  # what the solver phases still hold
+    t0 = time.perf_counter()
+    params = fam.init(cfg, torch.Generator(dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(q.numel() for q in params.parameters())
+    weight_bytes = sum(q.numel() * q.element_size() for q in params.parameters())
+    rng = np.random.default_rng(SEED)
+    launches = {}
+    with torch.inference_mode():
+        # forward (through the flash kernel: T = 128) against decode steps
+        # (plain decode attention over the KV cache), float32
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        toks = torch.tensor(rng.integers(0, cfg.vocab, size=(2, DENSE_CONSISTENCY_T)), device=dev)
+        reset()
+        full, _ = fam.forward(c32, params, toks)
+        launches["consistency_f32"] = counts()["flash"]
+        full = full[..., : cfg.vocab]
+        cache = fam.init_cache(c32, 2, DENSE_CONSISTENCY_T)
+        diffs = []
+        for i in range(DENSE_CONSISTENCY_T):
+            logits, cache = fam.decode_step(c32, params, cache, toks[:, i:i + 1])
+            diffs.append(float((logits - full[:, i]).abs().max()))
+        max_logit = float(full.abs().max())
+        del full, cache, logits
+        consistency = {"t": DENSE_CONSISTENCY_T, "batch": 2, "rtol": LM_RTOL,
+                       "max_abs_diff": max(diffs), "first_token_abs_diff": diffs[0],
+                       "max_abs_logit": max_logit}
+        if not max(diffs) <= LM_RTOL * max_logit:
+            raise AssertionError(f"{DENSE_ARCH}: forward and decode steps differ by "
+                                 f"{max(diffs):.3e}, max |logit| {max_logit:.3e}")
+        # bfloat16 prefills: launches are each shape's first call's
+        prefill = {}
+        for b, t in ((PREFILL_B, PREFILL_T), (1, DENSE_LONG_T)):
+            ptoks = torch.tensor(rng.integers(0, cfg.vocab, size=(b, t)), device=dev)
+            reset()
+            out, _ = fam.forward(cfg, params, ptoks)
+            torch.cuda.synchronize()
+            launches[f"prefill_b{b}_t{t}"] = counts()["flash"]
+            if not (bool(torch.isfinite(out).all()) and out.shape == (b, t, cfg.vocab_padded)):
+                raise AssertionError(f"{DENSE_ARCH}: prefill logits bad: {tuple(out.shape)}")
+            del out
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fam.forward(cfg, params, ptoks)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            prefill[f"b{b}_t{t}"] = {"shape": [b, t], "ms": ms}
+        # the long prefill once more under the profiler: the flash kernel's
+        # share of device time
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fam.forward(cfg, params, ptoks)
+            torch.cuda.synchronize()
+        line = device_profile(prof)
+        flash_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                       if "flash_kernel" in e.key) / 1e3
+        busy = line["device_busy_ms"]
+        prefill[f"b1_t{DENSE_LONG_T}"]["profile"] = {
+            **line, "flash_device_ms": flash_ms,
+            "flash_share": flash_ms / busy if busy else None}
+        del ptoks
+        # serving: as many requests, of the same prompt lengths, as above
+        dense_prompts = [rng.integers(0, cfg.vocab, size=len(pr)).tolist() for pr in prompts]
+        serve_line, serve_counts = serve(DENSE_ARCH, cfg, params, dense_prompts, other_bytes)
+        launches["serve"] = serve_counts["flash"]  # decode runs no flash kernel
+        window_line = decode_window(cfg, fam, params, rng)
+    for nm in (f"prefill_b{PREFILL_B}_t{PREFILL_T}", f"prefill_b1_t{DENSE_LONG_T}",
+               "consistency_f32"):
+        if launches[nm] != cfg.n_layers:
+            raise AssertionError(f"{DENSE_ARCH}: {nm} launched the flash kernel "
+                                 f"{launches[nm]} times, not once a layer ({cfg.n_layers})")
+    lm_launches["flash"] = (launches[f"prefill_b{PREFILL_B}_t{PREFILL_T}"]
+                            + launches[f"prefill_b1_t{DENSE_LONG_T}"])
+    emit({
+        "phase": "dense", "arch": DENSE_ARCH, "params": n_params,
+        "params_count_formula": cfg.params_count(), "weight_bytes": weight_bytes,
+        "init_s": init_s, "compute_dtype": cfg.compute_dtype, "consistency": consistency,
+        "prefill": prefill, "serve": serve_line, "decode_window": window_line,
+        "launches": {"flash": launches},
+    })
+    del params
+    torch.cuda.empty_cache()
 
     # ---- 5. timing at the main path's shapes ---------------------------------
     p, m, k = bt.p, bt.m, bt.k
@@ -944,6 +1162,39 @@ def main() -> int:
             else:
                 entry[tag] = row
         summary.append(entry)
+    # the flash kernel in bfloat16, as the prefill runs it: at Minitron-8B's
+    # prefill (the summary row; the library call is PyTorch's fused causal
+    # attention at that shape) and at starcoder2-15b's windowed shape (row
+    # "windowed")
+    entry = {"name": "flash", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
+             "replaces": "src/repro/kernels/flash_attn.py:31", "launches": lm_launches["flash"]}
+    for tag in ("minitron", "starcoder2"):
+        b, hq, hk, tq, tk, d, causal, window = flash_shapes[tag]
+        q, k, v = flash_inputs(dev, b, hq, hk, tq, tk, d, torch.bfloat16, SEED)
+        saved = flash_attention.launches
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal, window), 10)
+        plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal, window), 2)
+        flash_attention.launches = saved  # timing launches are not the path's
+        library_ms = None
+        if window is None:
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), 10)
+        qk_ops, pv_ops, nbytes = flash_work(b, hq, hk, tq, tk, d, causal, window,
+                                            q.element_size())
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = (qk_ops / PEAK_BF16_FLOP_S + pv_ops / PEAK_F32_FLOP_S) * 1e3
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library_ms, "max_abs_err": errs[f"flash_{tag}_bfloat16"],
+               "shape": [b, hq, hk, tq, tk, d, causal, window]}
+        emit({"phase": "timing", "kernel": "flash", "at": tag, **row, "bytes": nbytes,
+              "flops_qk_bfloat16": qk_ops, "flops_pv_exp_float32": pv_ops})
+        if tag == "minitron":
+            entry.update(row)
+        else:
+            entry["windowed"] = row
+        del q, k, v
+    summary.append(entry)
     # host-orchestrated torch code of the path, timed for the record
     x64 = torch.randn(N, device=dev, dtype=torch.float64)
     emit({

@@ -8,10 +8,21 @@ CPU tests).  Only the architectures whose family is ported are listed.
 from __future__ import annotations
 
 from ..models.api import ModelConfig
-from . import rwkv6_1_6b, zamba2_2_7b
+from . import (
+    minitron_8b,
+    phi3_mini_3_8b,
+    rwkv6_1_6b,
+    stablelm_1_6b,
+    starcoder2_15b,
+    zamba2_2_7b,
+)
 
 ARCHS = {
     "rwkv6-1.6b": rwkv6_1_6b,
+    "phi3-mini-3.8b": phi3_mini_3_8b,
+    "stablelm-1.6b": stablelm_1_6b,
+    "minitron-8b": minitron_8b,
+    "starcoder2-15b": starcoder2_15b,
     "zamba2-2.7b": zamba2_2_7b,
 }
 

@@ -1,8 +1,8 @@
 """Hand-written CUDA kernels of the port and their wrappers.
 
 ``csrc/`` holds the sources (built by :mod:`.build` at first use);
-:mod:`.btf`, :mod:`.bts`, :mod:`.fused_spike`, :mod:`.bcr`, :mod:`.wkv`
-and :mod:`.ssd` are the wrappers, each with its launch counter; :mod:`.ref`
-holds the plain versions of the two scan kernels; :mod:`.ops` is the
-public dispatch layer.
+:mod:`.btf`, :mod:`.bts`, :mod:`.fused_spike`, :mod:`.bcr`, :mod:`.wkv`,
+:mod:`.ssd` and :mod:`.flash_attn` are the wrappers, each with its launch
+counter; :mod:`.ref` holds the plain versions of the two scan kernels and
+of flash attention; :mod:`.ops` is the public dispatch layer.
 """

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("btf", "bts", "fused_spike", "bcr", "wkv", "ssd")
+SOURCES = ("btf", "bts", "fused_spike", "bcr", "wkv", "ssd", "flash_attn")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -63,6 +63,9 @@ SIGNATURES = {
     },
     "ssd": {
         "ssd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    },
+    "flash_attn": {
+        "flash_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     },
 }
 for _fns in SIGNATURES.values():

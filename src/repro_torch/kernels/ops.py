@@ -1,15 +1,18 @@
 """Public entry points of the port's kernels.
 
 Dispatch goes by tensor device alone: the wrappers in :mod:`.btf`,
-:mod:`.bts`, :mod:`.fused_spike`, :mod:`.bcr`, :mod:`.wkv` and :mod:`.ssd`
-run the plain PyTorch version for a CPU tensor and launch the CUDA kernel
-for a CUDA tensor.  This module adds the factor containers, the
-single-chain forms (the SaP-E reduced interface system), the per-partition
-coupling layout of the fused pass, the level loops of block cyclic
-reduction, and the (batch, head) layout of the two SaP-scan recurrences.
+:mod:`.bts`, :mod:`.fused_spike`, :mod:`.bcr`, :mod:`.wkv`, :mod:`.ssd`
+and :mod:`.flash_attn` run the plain PyTorch version for a CPU tensor and
+launch the CUDA kernel for a CUDA tensor.  This module adds the factor
+containers, the single-chain forms (the SaP-E reduced interface system),
+the per-partition coupling layout of the fused pass, the level loops of
+block cyclic reduction, the (batch, head) layout of the two SaP-scan
+recurrences, and the contiguous operands of flash attention.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -18,6 +21,7 @@ from ..core.cyclic_reduction import BCRFactors, BCRLevel, pad_chain, pad_rhs
 from . import bcr
 from .btf import btf
 from .bts import bts
+from .flash_attn import flash_attention as _flash
 from .fused_spike import fused_factor_spike as _fused
 from .ssd import ssd as _ssd
 from .wkv import wkv6 as _wkv6
@@ -166,3 +170,21 @@ def ssd(
         bq, cq, hshare = flat(b), flat(c), 1
     y, s_out = _ssd(flat(x), bq, cq, flat(loga), flat(state), chunk, hshare)
     return y.reshape(bsz, h, t, p), s_out.reshape(bsz, h, n, p)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, Tq, D)
+    k: torch.Tensor,  # (B, Hk, Tk, D)
+    v: torch.Tensor,  # (B, Hk, Tk, D)
+    causal: bool = True,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """Causal / sliding-window GQA attention in the JAX layout; the
+    operands are made contiguous first (RoPE and the head transpose leave
+    them strided)."""
+    return _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal, window)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the two SaP-scan kernels (WKV6 and SSD).
+"""Plain PyTorch versions of the two SaP-scan kernels (WKV6 and SSD) and
+of the flash-attention kernel.
 
 A copy of the sequence-mixing oracles of :mod:`repro.kernels.ref`: the
 sequential recurrences (``wkv6_ref``, ``ssd_ref``, one step per token) and
@@ -11,11 +12,21 @@ exponential, where the JAX package's ``wkv6_chunked_ref`` multiplies
 ``exp(diff)`` by the mask afterwards and so returns NaN (inf * 0) under
 strong decay.  The chunked forms run every (batch, head) row at once and
 loop over chunks.
+
+:func:`flash_attention_ref` is the function of the TPU kernel
+``repro/kernels/flash_attn.py:_flash_kernel``: the online softmax over
+key tiles, with that kernel's masks, tile skip and finite ``NEG_INF``.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30  # finite: -inf - -inf = NaN breaks the online softmax
 
 # ---------------------------------------------------------------------------
 # RWKV6 WKV recurrence (matrix-valued state, per-channel data-dependent decay)
@@ -121,3 +132,81 @@ def ssd_chunked_ref(x, b, c, loga, state, chunk: int):
         )
         ys.append(y_inter + y_intra)
     return torch.cat(ys, dim=2), s
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (online softmax over key tiles), GQA + causal / window
+# ---------------------------------------------------------------------------
+
+
+def _tile_rows(tq: int, k_start: int, block_q: int, block_k: int, causal: bool,
+               window: Optional[int], q_offset: int) -> tuple[int, int]:
+    """The rows [r0, r1) whose query tile visits the key tile at ``k_start``:
+    causal, ``k_start <= q_end``; windowed, ``k_end >= q_start - (window -
+    1)`` (the TPU kernel's block skip).  The visiting rows are contiguous."""
+    r0, r1 = 0, tq
+    if causal:  # first tile with q_offset + i*Bq + Bq - 1 >= k_start
+        r0 = min(tq, max(0, -(-(k_start - q_offset - block_q + 1) // block_q)) * block_q)
+    if window is not None:  # last tile with q_offset + i*Bq <= k_end + window - 1
+        last = (k_start + block_k + window - 2 - q_offset) // block_q
+        r1 = max(0, min(tq, (last + 1) * block_q))
+    return r0, r1
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, Hq, Tq, D)
+    k: torch.Tensor,  # (B, Hk, Tk, D)
+    v: torch.Tensor,  # (B, Hk, Tk, D)
+    causal: bool = True,
+    window: Optional[int] = None,
+    block_q: int = 64,
+    block_k: int = 64,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Attention by the online softmax over key tiles of ``block_k``, never
+    forming the (Tq, Tk) scores; the function of the CUDA kernel at its
+    tiles (64 x 64).
+
+    Key ``s`` is visible to query ``t`` (position ``q_offset + t``) iff
+    ``s < Tk``, ``t >= s`` when causal and ``t - s < window`` when a window
+    is given.  GQA: query head ``h`` reads key/value head ``h // (Hq //
+    Hk)``.  A query tile of ``block_q`` rows skips the key tiles the masks
+    leave empty for the whole tile; masked scores are the finite
+    ``NEG_INF``, so a row's fully masked tiles before its first visible key
+    are wiped by ``exp(NEG_INF - m) = 0``.  Computes in float32 and returns
+    ``acc / max(l, 1e-30)`` in q's dtype.
+    """
+    b, hq, tq, d = q.shape
+    hk, tk = k.shape[1], k.shape[2]
+    g = hq // hk
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, hk, g, tq, d).float()
+    m_run = torch.full((b, hk, g, tq), NEG_INF, dtype=torch.float32, device=q.device)
+    l_run = torch.zeros((b, hk, g, tq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hk, g, tq, d), dtype=torch.float32, device=q.device)
+    for k_start in range(0, tk, block_k):
+        r0, r1 = _tile_rows(tq, k_start, block_q, block_k, causal, window, q_offset)
+        if r0 >= r1:
+            continue
+        pad = max(0, k_start + block_k - tk)  # ragged last tile: zero keys and values
+        kj = F.pad(k[:, :, k_start:k_start + block_k].float(), (0, 0, 0, pad))
+        vj = F.pad(v[:, :, k_start:k_start + block_k].float(), (0, 0, 0, pad))
+        q_pos = q_offset + torch.arange(r0, r1, device=q.device)[:, None]
+        k_pos = k_start + torch.arange(block_k, device=q.device)[None, :]
+        mask = k_pos < tk
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        if window is not None:
+            mask = mask & (q_pos - k_pos < window)
+        s = torch.einsum("bhgtd,bhcd->bhgtc", qg[:, :, :, r0:r1], kj) * scale
+        s = torch.where(mask, s, NEG_INF)
+        m_prev = m_run[..., r0:r1]
+        m_new = torch.maximum(m_prev, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m_prev - m_new)
+        l_run[..., r0:r1] = l_run[..., r0:r1] * corr + p.sum(dim=-1)
+        acc[..., r0:r1, :] = (acc[..., r0:r1, :] * corr[..., None]
+                              + torch.einsum("bhgtc,bhcd->bhgtd", p, vj))
+        m_run[..., r0:r1] = m_new
+    out = acc / torch.clamp(l_run[..., None], min=1e-30)
+    return out.reshape(b, hq, tq, d).to(q.dtype)

@@ -1,18 +1,20 @@
 """Model configuration and the family dispatch of the port's LM zoo.
 
 A copy of :mod:`repro.models.api` for the families ported so far
-(``"rwkv"`` and ``"hybrid"``).  ``get_family(cfg)`` returns the module
-implementing the family protocol:
+(``"rwkv"``, ``"hybrid"`` and ``"dense"``).
+``get_family(cfg)`` returns the module implementing the family protocol:
 
     init(cfg, generator, device)            -> parameters (an nn.Module)
-    forward(cfg, params, tokens, state)     -> (logits, state)
+    forward(cfg, params, tokens, ...)       -> (logits, state or aux)
     init_cache(cfg, batch, max_len, device) -> decode cache (dict of tensors)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
 
-Only the fields the ported families read are copied; the MoE,
+Only the fields the ported families read are copied; the MoE routing,
 encoder-decoder and VLM fields and the JAX execution knobs (``remat``,
 ``scan_layers``, ``kernel_impl``) come with the code that reads them.
-``ShapeSpec`` and the sharding helpers wait for the distributed path.
+``n_experts`` is copied so that a mixture-of-experts configuration is
+refused rather than run as a dense one.  ``ShapeSpec`` and the sharding
+helpers wait for the distributed path.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ class ModelConfig:
     """One architecture: widths, family knobs and execution knobs."""
 
     name: str
-    family: str  # rwkv | hybrid ported; dense | moe | encdec not yet
+    family: str  # rwkv | hybrid | dense ported; moe | encdec not yet
     n_layers: int
     d_model: int
     n_heads: int
@@ -37,8 +39,12 @@ class ModelConfig:
     vocab: int
     d_head: Optional[int] = None  # default d_model // n_heads
     act: str = "silu"
+    gated_mlp: bool = True
     rope_theta: float = 10_000.0
     window: Optional[int] = None  # sliding-window attention
+    tie_embeddings: bool = False
+    # --- MoE (not ported: a configuration with experts is refused) -------------
+    n_experts: int = 0
     # --- RWKV6 ---------------------------------------------------------------
     rwkv_head_dim: int = 64
     rwkv_lora: int = 32
@@ -81,6 +87,9 @@ class ModelConfig:
         d, f, v = self.d_model, self.d_ff, self.vocab
         hd = self.head_dim
         attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads + hd * self.n_heads * d
+        if self.family == "dense" and not self.n_experts:
+            blk = attn + d * f * (3 if self.gated_mlp else 2)
+            return v * d * (1 if self.tie_embeddings else 2) + self.n_layers * blk
         if self.family == "rwkv":
             att = 4 * d * d + 2 * d * self.rwkv_lora * 6
             ffn = 2 * d * f + d * d
@@ -104,6 +113,11 @@ def get_family(cfg: ModelConfig):
         from . import mamba
 
         return mamba
+    if cfg.family == "dense" and not cfg.n_experts:
+        from . import transformer
+
+        return transformer
     if cfg.family in ("dense", "moe", "encdec"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+        what = "mixture of experts" if cfg.n_experts else f"family {cfg.family!r}"
+        raise NotImplementedError(f"{what} is not ported yet")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,10 +1,13 @@
 """Carry the JAX package's model parameters across to the port.
 
 ``params_from_jax(cfg, tree)`` maps a parameter pytree of
-:mod:`repro.models.rwkv` / :mod:`repro.models.mamba` -- nested dicts with
-numpy leaves, per-layer leaves stacked along a leading ``n_layers`` axis
--- onto the port's modules, so that both packages compute the same model.
-Every leaf is copied as float32.
+:mod:`repro.models.rwkv`, :mod:`repro.models.mamba` or the dense
+:mod:`repro.models.transformer` -- nested dicts with numpy leaves,
+per-layer leaves stacked along a leading ``n_layers`` axis -- onto the
+port's modules, so that both packages compute the same model.  Every leaf
+is copied as float32.  A dense model with tied embeddings has no
+``lm_head``; its forward uses the transposed embedding, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -40,4 +43,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device=None):
         from .mamba import Zamba2
 
         return Zamba2(cfg, t["embed"], blocks, t["shared_attn"], t["final_norm"], t["lm_head"])
+    if cfg.family == "dense" and not cfg.n_experts:
+        from .transformer import TransformerLM
+
+        return TransformerLM(cfg, t["embed"], blocks, t["final_norm"], t.get("lm_head"))
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet")

@@ -2,10 +2,9 @@
 the parameter container.
 
 A copy of :mod:`repro.models.layers` in PyTorch, with every float32 cast
-point the JAX code has.  Attention is the JAX package's plain chunked
-online-softmax ("flash") formulation, a loop over key blocks that never
-materializes the (Tq, Tk) scores; the Pallas flash kernel is a separate
-TPU kernel, not this function.
+point the JAX code has.  Prompt attention is the flash kernel's plain
+version, :func:`repro_torch.kernels.ref.flash_attention_ref` (the JAX
+package's chunked online softmax); decoding attends to a KV cache here.
 """
 
 from __future__ import annotations
@@ -16,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.ref import NEG_INF
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -124,66 +125,8 @@ def mlp(params, x: torch.Tensor, act: str = "silu", gated: bool = True) -> torch
 
 
 # ---------------------------------------------------------------------------
-# Attention (chunked online softmax), GQA + causal/SWA masks
+# Decode attention over a KV cache, GQA
 # ---------------------------------------------------------------------------
-
-
-NEG_INF = -1e30  # finite: -inf - -inf = NaN breaks the online softmax
-
-
-def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
-               window: Optional[int]) -> torch.Tensor:
-    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
-    if causal:
-        m &= q_pos[:, None] >= k_pos[None, :]
-    if window is not None:
-        m &= q_pos[:, None] - k_pos[None, :] < window
-    return torch.where(m, 0.0, NEG_INF).float()
-
-
-def flash_attention(
-    q: torch.Tensor,  # (B, Hq, Tq, Dh)
-    k: torch.Tensor,  # (B, Hk, Tk, Dh)
-    v: torch.Tensor,  # (B, Hk, Tk, Dh)
-    causal: bool = True,
-    window: Optional[int] = None,
-    block_k: int = 512,
-    q_offset: int = 0,
-) -> torch.Tensor:
-    """Chunked online-softmax attention over key blocks of ``block_k``.
-
-    GQA: Hq must be a multiple of Hk; query heads are grouped.
-    ``q_offset``: absolute position of q[0].
-    """
-    b, hq, tq, dh = q.shape
-    hk, tk = k.shape[1], k.shape[2]
-    g = hq // hk
-    scale = 1.0 / math.sqrt(dh)
-    qg = q.reshape(b, hk, g, tq, dh).float()
-    nblk = -(-tk // block_k)
-    pad = nblk * block_k - tk
-    if pad:
-        k = F.pad(k, (0, 0, 0, pad))
-        v = F.pad(v, (0, 0, 0, pad))
-    q_pos = q_offset + torch.arange(tq, device=q.device)
-    m_run = torch.full((b, hk, g, tq), NEG_INF, dtype=torch.float32, device=q.device)
-    l_run = torch.zeros((b, hk, g, tq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hk, g, tq, dh), dtype=torch.float32, device=q.device)
-    for j in range(nblk):
-        kj = k[:, :, j * block_k:(j + 1) * block_k].float()
-        vj = v[:, :, j * block_k:(j + 1) * block_k].float()
-        k_pos = j * block_k + torch.arange(block_k, device=q.device)
-        bias = _mask_bias(q_pos, k_pos, causal, window)
-        bias = torch.where((k_pos < tk)[None, :], bias, NEG_INF)
-        s = torch.einsum("bhgtd,bhcd->bhgtc", qg, kj) * scale + bias
-        m_new = torch.maximum(m_run, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m_run - m_new)
-        l_run = l_run * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgtc,bhcd->bhgtd", p, vj)
-        m_run = m_new
-    out = acc / torch.clamp(l_run[..., None], min=1e-30)
-    return out.reshape(b, hq, tq, dh).to(q.dtype)
 
 
 def decode_attention(

@@ -26,12 +26,12 @@ from torch import nn
 
 from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
+from ..kernels.ref import flash_attention_ref
 from .api import ModelConfig
 from .layers import (
     ParamTree,
     apply_rope,
     decode_attention,
-    flash_attention,
     mlp,
     normal,
     rms_norm,
@@ -189,7 +189,7 @@ def _shared_attn_fwd(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tens
     v = (h1 @ p["wv"].to(x.dtype)).reshape(bsz, t, cfg.n_kv_heads, hd)
     q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
     k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta)
-    o = flash_attention(q, k, v.transpose(1, 2), causal=True, block_k=cfg.attn_block_k)
+    o = flash_attention_ref(q, k, v.transpose(1, 2), causal=True, block_k=cfg.attn_block_k)
     o = o.transpose(1, 2).reshape(bsz, t, cfg.n_heads * hd)
     x = x + o @ p["wo"].to(x.dtype)
     h2 = rms_norm(x, p["ln2"])

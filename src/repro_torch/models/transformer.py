@@ -1,0 +1,206 @@
+"""Decoder-only transformer LM (the dense family) on PyTorch.
+
+A port of :mod:`repro.models.transformer` for the dense configurations
+(stablelm-1.6b, phi3-mini-3.8b, minitron-8b, starcoder2-15b): pre-norm
+blocks of grouped-query attention with RoPE (and a sliding window where
+the configuration has one) and a gated or plain MLP.  A prompt pass's
+attention runs on the hand-written CUDA flash kernel
+(:func:`repro_torch.kernels.ops.flash_attention`; its plain version on the
+CPU) at every length: the kernel masks ragged tiles itself, so the JAX
+package's T % 128 condition for its Pallas kernel has no counterpart here.
+Decoding attends to a KV cache with the plain ``decode_attention``, as the
+JAX package does.
+Mixture-of-experts configurations (``n_experts > 0``) are not ported.
+
+Parameters are float32 in the JAX package's layout (one
+:class:`~repro_torch.models.layers.ParamTree` per layer), cast to the
+compute dtype at each use, as the JAX code does.  The decode cache holds
+``k`` and ``v`` (L, B, Hkv, S, Dh) in the compute dtype -- S is ``max_len``
+or the window if smaller, a ring buffer that keeps position p in slot
+p % S -- and the scalar ``len``, one length for every row, as in the JAX
+package.  ``decode_step`` writes the new key and value into ``k`` / ``v``
+in place.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..device import generator_on, resolve_device
+from ..kernels import ops as kops
+from .api import ModelConfig
+from .layers import (
+    ParamTree,
+    apply_rope,
+    decode_attention,
+    mlp,
+    normal,
+    rms_norm,
+)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def block_tree(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    """One layer's parameters, with the JAX init's shapes and scales."""
+    d, hd = cfg.d_model, cfg.head_dim
+    dev = gen.device
+    wi_cols = 2 * cfg.d_ff if cfg.gated_mlp else cfg.d_ff
+    return {
+        "ln1": torch.ones(d, device=dev),
+        "ln2": torch.ones(d, device=dev),
+        "attn": {
+            "wq": normal(gen, (d, cfg.n_heads * hd), d**-0.5),
+            "wk": normal(gen, (d, cfg.n_kv_heads * hd), d**-0.5),
+            "wv": normal(gen, (d, cfg.n_kv_heads * hd), d**-0.5),
+            "wo": normal(gen, (cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
+        },
+        "mlp": {
+            "wi": normal(gen, (d, wi_cols), d**-0.5),
+            "wo": normal(gen, (cfg.d_ff, d), cfg.d_ff**-0.5),
+        },
+    }
+
+
+class TransformerLM(ParamTree):
+    """A dense transformer: ``embed``, ``blocks`` (one tree per layer),
+    ``final_norm`` and, unless the embeddings are tied, ``lm_head``."""
+
+    def __init__(self, cfg: ModelConfig, embed, blocks: list[dict], final_norm,
+                 lm_head=None):
+        if (lm_head is None) != cfg.tie_embeddings:
+            raise ValueError(f"{cfg.name}: lm_head must be given exactly when the "
+                             "embeddings are not tied")
+        tree = {
+            "embed": embed,
+            "blocks": nn.ModuleList(ParamTree(b) for b in blocks),
+            "final_norm": final_norm,
+        }
+        if lm_head is not None:
+            tree["lm_head"] = lm_head
+        super().__init__(tree)
+        self.cfg = cfg
+
+    def forward(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None):
+        """Logits (B, T, vocab_padded) and the auxiliary loss (0)."""
+        return forward(self.cfg, self, tokens, patches)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None = None,
+         device=None) -> TransformerLM:
+    """Random float32 parameters drawn from ``generator`` (seed 0 when none
+    is given), with the JAX init's shapes and scales; on the card unless
+    ``device`` names another.  The generator must draw on that device."""
+    if cfg.n_experts:
+        raise NotImplementedError("mixture of experts is not ported yet")
+    gen = generator_on(device, generator)
+    embed = normal(gen, (cfg.vocab_padded, cfg.d_model), 0.02)
+    blocks = [block_tree(cfg, gen) for _ in range(cfg.n_layers)]
+    lm_head = None if cfg.tie_embeddings else normal(gen, (cfg.d_model, cfg.vocab_padded), 0.02)
+    return TransformerLM(cfg, embed, blocks, torch.ones(cfg.d_model, device=gen.device), lm_head)
+
+
+def _head(cfg: ModelConfig, params) -> torch.Tensor:
+    """The output projection (D, vocab_padded): the transposed embedding
+    when the embeddings are tied."""
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, t, cfg.n_heads, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
+    q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
+    k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta)
+    v = v.transpose(1, 2)
+    o = kops.flash_attention(q, k, v, causal=True, window=cfg.window)
+    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * hd)
+    return o @ p["wo"].to(x.dtype)
+
+
+def _block_fwd(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    x = x + _attention(cfg, p["attn"], rms_norm(x, p["ln1"]), positions)
+    return x + mlp(p["mlp"], rms_norm(x, p["ln2"]), cfg.act, cfg.gated_mlp)
+
+
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
+            patches: Optional[torch.Tensor] = None):
+    """Prompt pass: tokens (B, T), and ``patches`` (B, Pn, D) prepended to
+    their embeddings (the VLM stub) -> (logits (B, Pn + T, vocab_padded),
+    aux loss 0 as a float32 scalar)."""
+    cdt = cfg.cdtype
+    x = params["embed"][tokens].to(cdt)
+    if patches is not None:
+        x = torch.cat([patches.to(cdt), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for blk in params["blocks"]:
+        x = _block_fwd(cfg, blk, x, positions)
+    x = rms_norm(x, params["final_norm"])
+    logits = x @ _head(cfg, params).to(cdt)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# Decode (KV cache; ring buffer under a sliding window)
+# ---------------------------------------------------------------------------
+
+
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Cache slots: ``max_len``, or the window if it is smaller."""
+    return min(max_len, cfg.window) if cfg.window else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, prefilled: int = 0, device=None):
+    """An empty KV cache of ``cache_len(cfg, max_len)`` slots, with length
+    ``prefilled``; on the card unless ``device`` names another."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, cache_len(cfg, max_len), cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+        "len": torch.tensor(prefilled, dtype=torch.int32, device=dev),
+    }
+
+
+def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor):
+    """One token per row (tokens (B, 1)): (logits (B, vocab), new cache).
+    The key and value caches are updated in place at slot ``len % S``."""
+    cdt = cfg.cdtype
+    b = tokens.shape[0]
+    hd = cfg.head_dim
+    cur = cache["len"]
+    s_cache = cache["k"].shape[3]
+    slot = (cur % s_cache).long().reshape(1)  # == cur without a window
+    n_valid = torch.clamp(cur + 1, max=s_cache)
+    positions = cur[None]
+    x = params["embed"][tokens[:, 0]].to(cdt)[:, None, :]
+    for i, p in enumerate(params["blocks"]):
+        k_c, v_c = cache["k"][i], cache["v"][i]
+        h = rms_norm(x, p["ln1"])
+        pa = p["attn"]
+        q = (h @ pa["wq"].to(cdt)).reshape(b, 1, cfg.n_heads, hd)
+        k = (h @ pa["wk"].to(cdt)).reshape(b, 1, cfg.n_kv_heads, hd)
+        v = (h @ pa["wv"].to(cdt)).reshape(b, 1, cfg.n_kv_heads, hd)
+        q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
+        k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta)
+        k_c.index_copy_(2, slot, k.to(k_c.dtype))
+        v_c.index_copy_(2, slot, v.transpose(1, 2).to(v_c.dtype))
+        o = decode_attention(q, k_c, v_c, n_valid)
+        x = x + o.transpose(1, 2).reshape(b, 1, cfg.n_heads * hd) @ pa["wo"].to(cdt)
+        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"]), cfg.act, cfg.gated_mlp)
+    x = rms_norm(x, params["final_norm"])
+    logits = (x @ _head(cfg, params).to(cdt))[:, 0, : cfg.vocab]
+    return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}

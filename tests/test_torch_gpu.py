@@ -7,7 +7,12 @@ pytest worker collects the same tests.
 
 Tolerance: the largest difference at most 1e-4 of the largest plain value
 -- the same float32 recurrences with the K x K product sums taken in
-another order, compounding over the M block rows.
+another order, compounding over the M block rows.  The flash kernel's
+bfloat16 outputs are held element by element: both sides compute in
+float32 and round once, so they differ by at most one bfloat16 step
+where the float32 values straddle a rounding boundary -- |got - want| <=
+2^-7 |want| (a step is 2^-8 to 2^-7 of the value) plus 1e-5 of the
+largest plain value for the float32 difference before the rounding.
 """
 
 import numpy as np
@@ -41,6 +46,13 @@ def _close(kernel, plain):
     assert bool(torch.isfinite(kernel).all())
     diff = (kernel.double() - plain.double()).abs().max()
     assert float(diff) <= 1e-4 * max(float(plain.double().abs().max()), 1e-30)
+
+
+def _close_bf16(kernel, plain):
+    assert bool(torch.isfinite(kernel).all())
+    got, want = kernel.double(), plain.double()
+    limit = 2.0**-7 * want.abs() + 1e-5 * float(want.abs().max())
+    assert bool(((got - want).abs() <= limit).all())
 
 
 def _split(cuda, n, k, p):
@@ -331,3 +343,108 @@ def test_reduced_model_on_the_card_matches_the_cpu(cuda, arch):
         lc, cache_c = fam.decode_step(cfg, cpu_params, cache_c, toks[:, i:i + 1])
         _close(lg.cpu(), lc)
     assert wkv6.launches + ssd.launches >= before + 5 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the flash-attention kernel and the dense transformer
+# ---------------------------------------------------------------------------
+
+
+# (b, hq, hk, tq, tk, d, causal, window): the shapes of chip_smoke.py's
+# phase 3 at shorter lengths -- Minitron-8B's GQA (32 over 8, D=128),
+# starcoder2-15b's (48 over 4) with a window, phi3-mini's D=96,
+# stablelm's D=64, the reduced D=16, bidirectional, a ragged Tk (Tq != Tk)
+# and a window smaller than one tile
+FLASH_SHAPES = [(1, 32, 8, 512, 512, 128, True, None), (1, 48, 4, 1024, 1024, 128, True, 256),
+                (1, 32, 32, 256, 256, 96, True, None), (1, 32, 32, 256, 256, 64, True, None),
+                (2, 4, 2, 128, 128, 16, True, None), (1, 8, 8, 256, 256, 64, False, None),
+                (1, 8, 2, 200, 333, 128, False, None), (1, 8, 2, 256, 256, 128, True, 16)]
+
+
+@pytest.mark.parametrize("b,hq,hk,tq,tk,d,causal,window", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, b, hq, hk, tq, tk, d, causal, window, dtype):
+    """Within 1e-4 of the largest plain value in float32; in bfloat16,
+    element by element within one bfloat16 step (the module docstring)."""
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    g = torch.Generator(device=cuda).manual_seed(tq + d)
+    q = torch.randn(b, hq, tq, d, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, hk, tk, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype
+    want = flash_attention_ref(q, k, v, causal, window)
+    (_close if dtype == torch.float32 else _close_bf16)(got, want)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attn import flash_attention
+
+    def qkv(d, hq=4, hk=2, dtype=torch.float32):
+        return (torch.randn(1, h, 64, d, device=cuda, dtype=dtype) for h in (hq, hk, hk))
+
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*qkv(136))
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*qkv(12))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        flash_attention(*qkv(64, dtype=torch.float16))
+    with pytest.raises(ValueError, match="multiple of Hk"):
+        flash_attention(*qkv(64, hq=6, hk=4))
+    q, k, v = qkv(64)
+    shifted = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(shifted, k, v)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("arch", ["minitron-8b", "starcoder2-15b"])
+def test_reduced_transformer_on_the_card_matches_the_cpu(cuda, arch):
+    """forward at T=128 (through the flash kernel on the card, its plain
+    version on the CPU) and decode steps past starcoder2-reduced's window,
+    the same parameters on both: within 1e-4 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.models import get_family
+
+    cfg = get_config(arch, reduced=True)
+    fam = get_family(cfg)
+    cpu_params = fam.init(cfg, device="cpu")
+    gpu_params = fam.init(cfg, device="cpu").to(cuda)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 128)))
+    before = flash_attention.launches
+    got, _ = fam.forward(cfg, gpu_params, toks.to(cuda))
+    assert flash_attention.launches == before + cfg.n_layers
+    want, _ = fam.forward(cfg, cpu_params, toks)
+    _close(got.cpu(), want)
+    cache_g = fam.init_cache(cfg, 2, 64)
+    cache_c = fam.init_cache(cfg, 2, 64, device="cpu")
+    for i in range(40):
+        lg, cache_g = fam.decode_step(cfg, gpu_params, cache_g, toks[:, i:i + 1].to(cuda))
+        lc, cache_c = fam.decode_step(cfg, cpu_params, cache_c, toks[:, i:i + 1])
+        _close(lg.cpu(), lc)
+
+
+def test_reduced_transformer_at_a_ragged_length_on_the_card(cuda):
+    """forward at T=40, not a multiple of the kernel's tiles, still takes
+    the flash kernel (one launch a layer) and agrees with the CPU within
+    1e-4 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.models import get_family
+
+    cfg = get_config("starcoder2-15b", reduced=True)
+    fam = get_family(cfg)
+    cpu_params = fam.init(cfg, device="cpu")
+    gpu_params = fam.init(cfg, device="cpu").to(cuda)
+    toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab, size=(2, 40)))
+    before = flash_attention.launches
+    got, _ = fam.forward(cfg, gpu_params, toks.to(cuda))
+    assert flash_attention.launches == before + cfg.n_layers
+    want, _ = fam.forward(cfg, cpu_params, toks)
+    _close(got.cpu(), want)

@@ -13,6 +13,7 @@ import repro_torch.core as T
 from repro_torch.kernels import bcr, build
 from repro_torch.kernels.btf import btf
 from repro_torch.kernels.bts import bts
+from repro_torch.kernels.flash_attn import check_card_operands, flash_attention
 from repro_torch.kernels.fused_spike import fused_factor_spike
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.wkv import wkv6
@@ -44,7 +45,8 @@ def test_port_files_are_found():
             "chip_smoke.py", "cyclic_reduction.py", "bcr.py", "sparse.py", "reorder.py",
             "operators.py", "convert.py", "api.py", "layers.py", "rwkv.py", "mamba.py",
             "engine.py", "ref.py", "wkv.py", "ssd.py", "rwkv6_1_6b.py", "zamba2_2_7b.py",
-            "device.py"} <= names
+            "device.py", "transformer.py", "flash_attn.py", "stablelm_1_6b.py",
+            "phi3_mini_3_8b.py", "minitron_8b.py", "starcoder2_15b.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/models/convert.py", "src/repro_torch/serve/engine.py",
             "src/repro_torch/configs/__init__.py"} <= rel
@@ -73,7 +75,7 @@ def test_wrappers_on_cpu_tensors_use_the_plain_version_and_do_not_count(monkeypa
 
     monkeypatch.setattr(build, "load", no_build)
     wrappers = (btf, bts, fused_factor_spike, bcr.inv_odd, bcr.reduce, bcr.rhs_reduce, bcr.backsub,
-                wkv6, ssd)
+                wkv6, ssd, flash_attention)
     before = [w.launches for w in wrappers]
     d, e, f = _chain()
     sinv, l = btf(d, e, f)
@@ -95,6 +97,9 @@ def test_wrappers_on_cpu_tensors_use_the_plain_version_and_do_not_count(monkeypa
     y, s = ssd(torch.randn(4, 8, 3), torch.randn(2, 8, 5), torch.randn(2, 8, 5), -torch.rand(4, 8),
                torch.zeros(4, 5, 3), chunk=8, hshare=2)
     assert y.shape == (4, 8, 3) and s.shape == (4, 5, 3)
+    o = flash_attention(torch.randn(1, 4, 8, 8), torch.randn(1, 2, 8, 8), torch.randn(1, 2, 8, 8),
+                        causal=True, window=4)
+    assert o.shape == (1, 4, 8, 8)
     assert [w.launches for w in wrappers] == before
 
 
@@ -111,6 +116,19 @@ def test_wrappers_reject_bad_operands_before_launching(monkeypatch):
         _launch.check_operands("btf", torch.device("meta"), d=d, e=e, f=f)
     with pytest.raises(ValueError, match="shape"):
         _launch.check_shape("btf", "e", e[:, :2], tuple(d.shape))
+    q = torch.randn(1, 4, 8, 16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        check_card_operands(q.double(), q[:, :2].double(), q[:, :2].double())
+    with pytest.raises(ValueError, match="contiguous"):
+        check_card_operands(q.transpose(2, 3).contiguous().transpose(2, 3), q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="head dim"):
+        check_card_operands(*(torch.zeros(1, h, 8, 12) for h in (4, 2, 2)))
+    shifted = torch.zeros(q.numel() + 1)[1:].view(q.shape)  # contiguous, 4 bytes off
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        check_card_operands(shifted, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="multiple of Hk"):
+        flash_attention(q, q[:, :3], q[:, :3])
 
 
 def test_kernel_sources_and_build_plan():

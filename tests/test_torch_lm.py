@@ -5,8 +5,10 @@ Reduced configurations (float32), the JAX parameters carried across by
 continued by a second ``forward`` from the carried state, ``decode_step``
 token by token with the state carried, and the port's own ``init`` (the
 JAX init's tree, shapes and scales; other random values).  The shared
-layers (norms, RoPE, MLP, chunked and decode attention) against
-``repro.models.layers``, and the configurations against ``repro.configs``.
+layers (norms, RoPE, MLP, decode attention) and the chunked attention
+(``flash_attention_ref``) against ``repro.models.layers``, and the configurations of every ported
+architecture (these two and the four dense ones) against
+``repro.configs``.
 
 Tolerance: rtol = atol = 2e-4 on logits and states -- the same float32
 model with the matrix products' and the scans' sums taken in another
@@ -25,6 +27,7 @@ from repro.configs import get_config as jax_config
 from repro.models import get_family as jax_family
 from repro.models import layers as jl
 from repro_torch.configs import arch_names, get_config
+from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models import get_family
 from repro_torch.models import layers as tl
 from repro_torch.models.convert import params_from_jax
@@ -56,18 +59,22 @@ def _close_state(ts, js):
 
 
 def test_configs_match_the_jax_registry():
-    assert arch_names() == ARCHS
-    for name in ARCHS:
+    registry = ["rwkv6-1.6b", "phi3-mini-3.8b", "stablelm-1.6b", "minitron-8b",
+                "starcoder2-15b", "zamba2-2.7b"]
+    assert arch_names() == registry
+    for name in registry:
         for reduced in (False, True):
             mine = dataclasses.asdict(get_config(name, reduced=reduced))
             theirs = jax_config(name, reduced=reduced)
             assert mine == {f: getattr(theirs, f) for f in mine}
             want_count = jax_config(name, reduced).params_count()
             assert get_config(name, reduced).params_count() == want_count
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("stablelm-1.6b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_family(dataclasses.replace(get_config("rwkv6-1.6b"), family="dense"))
+    for name in ("mixtral-8x22b", "deepseek-moe-16b", "phi-3-vision-4.2b", "whisper-medium"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(name)
+    for family in ("moe", "encdec"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_family(dataclasses.replace(get_config("rwkv6-1.6b"), family=family))
 
 
 def test_forward_and_carried_state_match(pair):
@@ -202,8 +209,8 @@ def test_attention_matches(window, block_k, q_offset):
     rng = np.random.default_rng(1)
     q, k, v = _arr(rng, 2, 4, 6, 8), _arr(rng, 2, 2, 11, 8), _arr(rng, 2, 2, 11, 8)
     t = torch.tensor
-    got = tl.flash_attention(t(q), t(k), t(v), causal=True, window=window, block_k=block_k,
-                             q_offset=q_offset)
+    got = flash_attention_ref(t(q), t(k), t(v), causal=True, window=window, block_k=block_k,
+                              q_offset=q_offset)
     want = jl.flash_attention(q, k, v, causal=True, window=window, block_k=block_k,
                               q_offset=q_offset)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

@@ -1,10 +1,12 @@
 """The port's ServeEngine against the JAX package's, token for token.
 
-Reduced RWKV6 and Zamba2 (float32), the JAX parameters carried across by
-``params_from_jax``, the same submissions to both engines: every tick's
-logits must agree, and so must every generated token, through queues that
-refill slots.  A refilled slot keeps the state its previous request left
-(ROADMAP fault R5 of the reference), and the port must reproduce that too.
+Reduced RWKV6, Zamba2 and starcoder2 (a dense transformer with a sliding
+window of 32, so a long queue wraps its ring-buffer KV cache; float32),
+the JAX parameters carried across by ``params_from_jax``, the same
+submissions to both engines: every tick's logits must agree, and so must
+every generated token, through queues that refill slots.  A refilled slot
+keeps the state its previous request left (ROADMAP fault R5 of the
+reference), and the port must reproduce that too.
 
 Tolerance: rtol = atol = 2e-4 on each tick's logits (the same float32
 model, sums in another order).  Where the two engines' greedy tokens
@@ -27,7 +29,7 @@ from repro_torch.serve import Request, ServeEngine
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-@pytest.fixture(scope="module", params=["rwkv6-1.6b", "zamba2-2.7b"])
+@pytest.fixture(scope="module", params=["rwkv6-1.6b", "zamba2-2.7b", "starcoder2-15b"])
 def models(request):
     jc = jax_config(request.param, reduced=True)
     tc = get_config(request.param, reduced=True)
@@ -117,3 +119,14 @@ def test_refilled_slot_keeps_the_previous_state_like_jax(models):
     _compare(*after)
     _compare(*alone)
     assert after[1][1].out != alone[1][0].out
+
+
+def test_long_queue_matches_jax(models):
+    """45 ticks of one slot: past starcoder2-reduced's window of 32, so the
+    ring buffer of its KV cache wraps at the shared length."""
+    rng = np.random.default_rng(1)
+    vocab = models[1][0].vocab
+    prompts = [rng.integers(0, vocab, size=n).tolist() for n in (10, 12, 8)]
+    jr, tr, ticks, jl, tl = _serve(models, 1, prompts, [6, 6, 6])
+    assert ticks[1] == 45  # a request takes len(prompt) + max_new - 1 ticks
+    _compare(jr, tr, ticks, jl, tl)
