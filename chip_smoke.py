@@ -49,7 +49,9 @@ dense. Minitron-8B at its published width and depth (32 layers, d=4096,
    B=1, T=4096 (each a forward with one flash launch a layer, profiled
    once), and the same serving run and decode window as above;
 5. timing of each kernel beside its plain version (and a library call
-   where one computes the same function), with CUDA events.
+   where one computes the same function), with CUDA events; the BCR
+   inverse level by level with each launch's cluster size and route; no
+   kernel or library time may read under the kernel's bound.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -74,6 +76,11 @@ TOL, MAXITER = 1e-8, 200
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_BF16_FLOP_S = 989e12
+# The H100 SXM5's special-function (exponential) rate, 3.9 T/s, as the
+# FlashAttention-3 paper gives it beside the 989 TFLOP/s (Shah et al.,
+# 2024, "FlashAttention-3: Fast and Accurate Attention with Asynchrony and
+# Low-precision", Sec. 3.1).
+PEAK_SFU_S = 3.9e12
 # Kernel against plain version, both float32 on the card: the largest
 # difference at most this fraction of the largest plain value.  The same
 # recurrences in float32 with the sums of every K x K product taken in
@@ -231,20 +238,27 @@ def ssd_work(bh: int, t: int, n: int, p: int, hshare: int) -> tuple[float, float
 
 def flash_work(b: int, hq: int, hk: int, tq: int, tk: int, d: int, causal: bool,
                window, elt_bytes: int) -> tuple[float, float, float]:
-    """(q.k operations, p.v and exponential operations, bytes) of attention
-    counted in its least-work form: per query head and (query, key) pair
-    the masks leave visible, 2 D operations for q.k -- products of the
-    inputs' type, so on the tensor cores for bfloat16 -- and 2 D + 1 for
-    p.v and the exponential, float32 as the TPU kernel computes them.
-    Reads q, k, v once and writes o once."""
+    """(tensor-core operations, exponentials, bytes) of attention counted
+    in its least-work form: per query head and (query, key) pair the masks
+    leave visible, 2 D operations for q.k and 2 D for p.v, both products the
+    tensor cores can take at their dense bfloat16 rate, and one
+    exponential.  Reads q, k, v once and writes o once."""
     import numpy as np
 
     t = np.arange(tq)
     hi = np.minimum(t, tk - 1) if causal else np.full(tq, tk - 1)
     lo = np.maximum(t - window + 1, 0) if window else np.zeros(tq, dtype=np.int64)
-    pairs = float(np.maximum(hi - lo + 1, 0).sum())
-    return (b * hq * pairs * 2 * d, b * hq * pairs * (2 * d + 1),
+    pairs = b * hq * float(np.maximum(hi - lo + 1, 0).sum())
+    return (pairs * 4 * d, pairs,
             float(elt_bytes * (2 * b * hq * tq * d + 2 * b * hk * tk * d)))
+
+
+def flash_bound(tc_ops: float, exps: float, nbytes: float) -> tuple[float, str]:
+    """(ms, what bounds it): the largest of the bytes' time, the tensor
+    cores' time and the exponentials' time."""
+    t_bytes, t_tc, t_exp = (nbytes / PEAK_BYTES_S * 1e3, tc_ops / PEAK_BF16_FLOP_S * 1e3,
+                            exps / PEAK_SFU_S * 1e3)
+    return max(t_bytes, t_tc, t_exp), "bytes" if t_bytes >= max(t_tc, t_exp) else "operations"
 
 
 def flash_inputs(dev, b: int, hq: int, hk: int, tq: int, tk: int, d: int, dtype, seed: int):
@@ -647,9 +661,12 @@ def main() -> int:
     def reset():
         for w in wrappers.values():
             w.launches = 0
+        bcr.inv_odd.block_launches = 0
 
     def counts():
-        return {nm: w.launches for nm, w in wrappers.items()}
+        """Every wrapper's launches, and inv_odd's on its one-block route apart."""
+        return {**{nm: w.launches for nm, w in wrappers.items()},
+                "bcr_inv_odd_block": bcr.inv_odd.block_launches}
 
     runs = [
         # name, system, options, R, kernels the path must launch
@@ -1124,6 +1141,22 @@ def main() -> int:
         shape = list(chain[0].shape) if name in bcr_specs else [p, m, k]
         emit({"phase": "timing", "kernel": name, "ms": ms, "plain_ms": plain_ms,
               "library_ms": library_ms, "bytes": nbytes, "flops": flops, "shape": shape})
+    # inv_odd level by level (32, 16, ..., 1 odd blocks, then the root), with
+    # the cluster size and route of each launch
+    lib_bcr = build.load("bcr")
+    saved = bcr.inv_odd.launches, bcr.inv_odd.block_launches
+    by_level = []
+    for blocks, first in [(a[0], 1) for a in facts] + [(root, 0)]:
+        kb = blocks.shape[1]
+        cs = lib_bcr.bcr_inv_cluster_size(kb)
+        by_level.append({
+            "blocks": len(range(first, blocks.shape[0], 2)), "k": kb, "cluster": cs,
+            "route": "cluster" if cs else "block",
+            "max_active_clusters": lib_bcr.bcr_inv_max_clusters(kb, cs) if cs else None,
+            "ms": cuda_ms(lambda: bcr.inv_odd(blocks, first=first), 5)})
+    bcr.inv_odd.launches, bcr.inv_odd.block_launches = saved
+    emit({"phase": "timing", "kernel": "bcr_inv_odd", "by_level": by_level,
+          "levels_ms": sum(lv["ms"] for lv in by_level)})
     # the SaP-scan kernels at the LM path's decode shapes (the summary row:
     # the serving engine's step) and prefill shapes (row "prefill")
     scan_specs = {
@@ -1165,7 +1198,7 @@ def main() -> int:
     # the flash kernel in bfloat16, as the prefill runs it: at Minitron-8B's
     # prefill (the summary row; the library call is PyTorch's fused causal
     # attention at that shape) and at starcoder2-15b's windowed shape (row
-    # "windowed")
+    # "windowed"; the library call takes the window as an explicit mask)
     entry = {"name": "flash", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
              "replaces": "src/repro/kernels/flash_attn.py:31", "launches": lm_launches["flash"]}
     for tag in ("minitron", "starcoder2"):
@@ -1175,20 +1208,23 @@ def main() -> int:
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal, window), 10)
         plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal, window), 2)
         flash_attention.launches = saved  # timing launches are not the path's
-        library_ms = None
         if window is None:
             library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=True), 10)
-        qk_ops, pv_ops, nbytes = flash_work(b, hq, hk, tq, tk, d, causal, window,
-                                            q.element_size())
-        t_bytes = nbytes / PEAK_BYTES_S * 1e3
-        t_ops = (qk_ops / PEAK_BF16_FLOP_S + pv_ops / PEAK_F32_FLOP_S) * 1e3
-        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        else:  # the window as an explicit boolean mask (True: attend)
+            pos = torch.arange(tq, device=dev)
+            mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), 10)
+            del mask
+        tc_ops, exps, nbytes = flash_work(b, hq, hk, tq, tk, d, causal, window,
+                                          q.element_size())
+        bound_ms, bound_by = flash_bound(tc_ops, exps, nbytes)
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms, "max_abs_err": errs[f"flash_{tag}_bfloat16"],
                "shape": [b, hq, hk, tq, tk, d, causal, window]}
         emit({"phase": "timing", "kernel": "flash", "at": tag, **row, "bytes": nbytes,
-              "flops_qk_bfloat16": qk_ops, "flops_pv_exp_float32": pv_ops})
+              "flops_tensor_core": tc_ops, "exponentials": exps})
         if tag == "minitron":
             entry.update(row)
         else:
@@ -1203,6 +1239,13 @@ def main() -> int:
         "band_to_block_tridiag_p64_ms": cuda_ms(lambda: band_to_block_tridiag(band_d1, K, 64), 5),
     })
 
+    # no measured time may read under the least time the card could take
+    for entry in summary:
+        for row in [entry] + [entry[t] for t in ("prefill", "windowed") if t in entry]:
+            for what in ("ms", "library_ms"):
+                if row.get(what) is not None and row[what] < row["bound_ms"]:
+                    raise AssertionError(f"{entry['name']}: {what} {row[what]:.4g} reads under "
+                                         f"its bound {row['bound_ms']:.4g} ms")
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({

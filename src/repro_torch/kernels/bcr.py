@@ -11,9 +11,14 @@ of the first); each wrapper counts one launch per call.
 
 Bound on the H100: the factor (``inv_odd`` + ``reduce``) by operations,
 ~14 (2K)^3 flops per eliminated row; the solve (``rhs_reduce`` +
-``backsub``) at small R by bytes, every factor block read once.  At
-2K = 400 a block does not fit in shared memory: ``inv_odd`` inverts in
-its output slot in device memory, one thread block per inverted block.
+``backsub``) at small R by bytes, every factor block read once.
+``inv_odd`` inverts each block on a thread-block cluster that holds the
+block in its distributed shared memory (``inv_cluster_kernel``; at
+2K = 400, four CTAs of 100 rows), by blocked Gauss-Jordan in panels of 32
+columns.  The kernel's ``bcr_inv_cluster_size`` picks the cluster size
+from the block size; blocks too large for a cluster of 16 go to the
+one-block kernel (``inv_kernel``, the block in device memory), and those
+launches are also counted apart, in ``inv_odd.block_launches``.
 
 On a CPU tensor each wrapper runs its plain version from
 :mod:`repro_torch.core.cyclic_reduction`; on a CUDA tensor it launches the
@@ -46,7 +51,9 @@ def inv_odd(d: torch.Tensor, boost_eps: float = DEFAULT_BOOST, first: int = 1) -
     """Boosted Gauss-Jordan inverses of d[first::2]: (m, K, K) -> (len, K, K).
 
     ``first=1`` inverts a level's odd diagonal blocks; ``first=0`` on a
-    one-block chain inverts the root.
+    one-block chain inverts the root.  On the card the block size picks
+    the route (``bcr_inv_cluster_size``): a cluster of that many CTAs, or
+    the one-block kernel, counted also in ``inv_odd.block_launches``.
     """
     if d.device.type == "cpu":
         return bcr_inv_odd_ref(d, boost_eps, first)
@@ -56,11 +63,17 @@ def inv_odd(d: torch.Tensor, boost_eps: float = DEFAULT_BOOST, first: int = 1) -
     lib = build.load("bcr")
     out = torch.empty((count, k, k), dtype=d.dtype, device=d.device)
     if count:
+        cluster = lib.bcr_inv_cluster_size(k)
+        if cluster < 0:
+            build.check(lib, -cluster, "bcr inv_odd cluster size")
         code = lib.bcr_inv_launch(
-            d.data_ptr(), out.data_ptr(), count, first, k, boost_eps, stream_handle(d.device)
+            d.data_ptr(), out.data_ptr(), count, first, k, boost_eps, cluster,
+            stream_handle(d.device),
         )
-        build.check(lib, code, "bcr inv_odd")
+        build.check(lib, code, f"bcr inv_odd (cluster {cluster})")
         inv_odd.launches += 1
+        if cluster == 0:
+            inv_odd.block_launches += 1
     return out
 
 
@@ -143,6 +156,7 @@ def backsub(
 
 
 inv_odd.launches = 0
+inv_odd.block_launches = 0  # those of them on the one-block kernel
 reduce.launches = 0
 rhs_reduce.launches = 0
 backsub.launches = 0

@@ -53,7 +53,9 @@ SIGNATURES = {
         "fused_workspace_floats": (_L, [_I]),
     },
     "bcr": {
-        "bcr_inv_launch": (_I, [_P, _P, _I, _I, _I, _F, _P]),
+        "bcr_inv_launch": (_I, [_P, _P, _I, _I, _I, _F, _I, _P]),
+        "bcr_inv_max_clusters": (_I, [_I, _I]),
+        "bcr_inv_cluster_size": (_I, [_I]),
         "bcr_reduce_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
         "bcr_rhs_reduce_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
         "bcr_backsub_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),

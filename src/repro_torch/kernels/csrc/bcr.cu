@@ -19,12 +19,15 @@
 // inverse per eliminated row, ~14 (2K)^3 flops on ~16 blocks moved); the
 // solve at small R is byte-bound (each apply reads lo, hi, a, e, f once).
 // Design:
-//   * inv_kernel: one thread block per inverted block.  At 2K = 400 the
-//     block (640 KB) exceeds shared memory, so it is copied into its output
+//   * inv_cluster_kernel: one thread-block cluster per inverted block, the
+//     block resident in the cluster's distributed shared memory (below).
+//   * inv_kernel: one thread block per inverted block, for blocks too large
+//     for a 16-CTA cluster (and, by the wrapper's choice, for blocks that
+//     fit one block's shared memory): the block is copied into its output
 //     slot and inverted there by the shared boosted Gauss-Jordan
-//     (common.cuh), which keeps the structural-zero pivot rule: the
-//     identity padding inverts to the identity.  Smaller blocks eliminate
-//     in shared memory.  Only m/2 SMs work per level.
+//     (common.cuh), or in shared memory when it fits.
+//     Both keep the structural-zero pivot rule: the identity padding
+//     inverts to the identity.
 //   * reduce: a shared-memory tiled product, 64 x 64 output tiles of
 //     C = base + sign (A1 B1 + A2 B2) with 16-deep K slices, 256 threads
 //     and a 4 x 4 register tile each; the grid is (tiles, product, row), so
@@ -36,8 +39,11 @@
 //     t = b_odd - e x_i - f x_i+1 in a workspace in one launch and
 //     x_odd = a t with the interleave in a second, since a t needs all of t.
 // All arithmetic is float32 FMA on the CUDA cores: no tensor cores, no TF32.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
 using namespace sap;
 
 namespace {
@@ -134,6 +140,230 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// dst[i] = inv(src[first + 2 i]) by boosted Gauss-Jordan on a cluster of
+// cs CTAs per block; grid (count * cs), cluster (cs), kClusterThreads
+// threads.
+//
+// Bound: 2 K^3 float32 operations a block (0.1223 ms for the 64 blocks of
+// 400 x 400 of the P = 64 interface chain, H100 at 67 TFLOP/s); inverting
+// one block per thread block left the deep levels, which have one or two
+// blocks, on one or two SMs, streaming the block through L2 at every
+// column.  Here the block lives in the cluster's shared memory: CTA r owns
+// the rows [r R, r R + R), R = ceil(K / cs), in a slab of R x ld floats.
+// The elimination is blocked Gauss-Jordan in panels of kPanel columns,
+// in the in-place form of gj_inverse_inplace (common.cuh): for the panel
+// P = [t0, t0 + b),
+//   (i)   every CTA copies the b pivot rows (the strip) from their owners'
+//         shared memory into its own, then into registers, thread c
+//         holding column c;
+//   (ii)  every CTA runs the b sequential steps of the unblocked
+//         algorithm on its copy of the strip -- the pivot, its boost, the
+//         structural-zero test of W[t, t..K-1] and the updates, exactly as
+//         gj_inverse_inplace does them -- one barrier a step; the result,
+//         the processed strip R, goes to shared memory;
+//   (iii) every CTA updates each of its non-panel rows i as
+//         row_i <- (row_i, the P columns zeroed) - row_i[P] R,
+//         a rank-b product, 4 x 4 register tiles of (rows, columns);
+//   (iv)  cluster barrier: every strip has been read and every row updated,
+//         so the owners write R into their panel rows (at the start of the
+//         next panel) and the next strip can be read.
+// The composite of the panel's b steps on a row outside P is that rank-b
+// update, so this is the column-by-column algorithm up to the order of
+// each element's sum.  scale = max |A| is a cluster-wide maximum before
+// the first panel; a structurally zero row stays zero under (iii), as
+// under the unblocked steps.  float32 FMA on the CUDA cores.
+constexpr int kPanel = 32;
+constexpr int kClusterMax = 16;
+constexpr int kClusterThreads = 512;
+
+// shared floats of one CTA: the slab, its rows' panel columns (rows
+// padded to 4), the processed strip R, two pivot columns of the strip
+// and the reduction scratch
+inline size_t cluster_smem_bytes(int k, int cs) {
+  const size_t rows = (k + cs - 1) / cs, ld = (k + 3) & ~3, rows4 = (rows + 3) & ~3;
+  return sizeof(float) * (rows * ld + kPanel * rows4 + kPanel * ld + 2 * kPanel + kRed);
+}
+
+// NC: columns a thread owns in the strip (c = threadIdx.x + n
+// kClusterThreads, n < NC)
+template <int NC>
+__global__ void __launch_bounds__(kClusterThreads)
+    inv_cluster_kernel(const float* __restrict__ src, float* __restrict__ dst, int first, int k,
+                       float boost_eps) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int rows = (k + cs - 1) / cs, ld = (k + 3) & ~3, rows4 = (rows + 3) & ~3;
+  const int row0 = rank * rows, nrows = max(0, min(rows, k - row0));
+  extern __shared__ __align__(16) float smem[];
+  float* slab = smem;                     // rows x ld: W[row0 + r, c] at r * ld + c
+  float* rowp = slab + rows * ld;         // kPanel x rows4: W[row0 + r, t0 + j] at j * rows4 + r
+  float* strip = rowp + kPanel * rows4;   // kPanel x ld: the strip as copied, then R
+  float* colbuf = strip + kPanel * ld;    // 2 x kPanel: the strip's pivot column, by step parity
+  float* red = colbuf + 2 * kPanel;       // kRed
+  const int tid = threadIdx.x;
+  const long kk = (long)k * k;
+  const float* a = src + (first + 2L * (blockIdx.x / cs)) * kk;
+  float* out = dst + (long)(blockIdx.x / cs) * kk;
+
+  // this CTA's rows are contiguous in the row-major block: 8 loads in flight a thread
+  float mx = 0.f;
+  const float* mine = a + (long)row0 * k;
+  for (int e0 = 0; e0 < nrows * k; e0 += 8 * kClusterThreads) {
+    float x[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * kClusterThreads + tid;
+      x[u] = e < nrows * k ? mine[e] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * kClusterThreads + tid;
+      if (e < nrows * k) slab[(e / k) * ld + e % k] = x[u];
+      mx = fmaxf(mx, fabsf(x[u]));
+    }
+  }
+  block_max(mx, red);  // red[32]: this CTA's max |A|
+  cluster.sync();      // slabs and maxima visible to the cluster
+  float scale = 0.f;
+  for (int r = 0; r < cs; ++r) scale = fmaxf(scale, cluster.map_shared_rank(red, r)[32]);
+  const float thr = boost_eps * fmaxf(scale, 1e-30f);
+
+  // this CTA's rows of the panel at p0 (b0 rows) take R from `strip`
+  auto take_r = [&](int p0, int b0) {
+    const int lo = max(p0, row0), hi = min(p0 + b0, row0 + nrows), n4 = ld / 4;
+    for (int e = tid; e < (hi - lo) * n4; e += kClusterThreads) {
+      const int row = lo + e / n4, c4 = e % n4;
+      reinterpret_cast<float4*>(slab + (row - row0) * ld)[c4] =
+          reinterpret_cast<const float4*>(strip + (row - p0) * ld)[c4];
+    }
+  };
+
+  int prev = 0, prev_b = 0;  // the previous panel, whose R is in `strip`
+  for (int t0 = 0; t0 < k; t0 += kPanel) {
+    const int b = min(kPanel, k - t0);
+    take_r(prev, prev_b);  // (iv) of the previous panel
+    __syncthreads();        // `strip` has been read
+    // (i) the strip, from its owners: 16-byte copies into `strip` (remote
+    // shared memory serves few requests a cycle, so 4-byte reads are slow),
+    // then each thread takes its columns
+    const int n4 = ld / 4;
+    for (int e = tid; e < b * n4; e += kClusterThreads) {
+      const int j = e / n4, row = t0 + j, owner = row / rows;
+      reinterpret_cast<float4*>(strip + j * ld)[e - j * n4] = reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(slab, owner) + (row - owner * rows) * ld)[e - j * n4];
+    }
+    __syncthreads();
+    float s[NC][kPanel];  // s[n][j] = W[t0 + j, c_n]
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j)
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        const int c = tid + n * kClusterThreads;
+        s[n][j] = j < b && c < k ? strip[j * ld + c] : 0.f;
+      }
+    // (ii) the b steps on the strip
+#pragma unroll
+    for (int j = 0; j < kPanel; ++j) {
+      if (j < b) {
+        const int t = t0 + j;
+        float* cb = colbuf + (j & 1) * kPanel;
+        bool nz = false;
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          const int c = tid + n * kClusterThreads;
+          if (c == t) {
+#pragma unroll
+            for (int i4 = 0; i4 < kPanel / 4; ++i4)
+              reinterpret_cast<float4*>(cb)[i4] =
+                  make_float4(s[n][4 * i4], s[n][4 * i4 + 1], s[n][4 * i4 + 2], s[n][4 * i4 + 3]);
+          }
+          nz |= c >= t && c < k && s[n][j] != 0.f;
+        }
+        nz = __syncthreads_or(nz);  // W[t, t..K-1] has a nonzero; cb is written
+        float piv = cb[j];
+        if (fabsf(piv) < thr) piv = piv >= 0.f ? thr : -thr;
+        if (!nz) piv = 1.f;
+        const float4* cb4 = reinterpret_cast<const float4*>(cb);
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          // row t / piv, column t of the I half 1 / piv; the other rows
+          // subtract cb[i] times it, column t (own) starting from 0
+          if (tid + n * kClusterThreads >= k) continue;  // whole warps past K skip the work
+          const bool own = tid + n * kClusterThreads == t;
+          const float rv = (own ? 1.f : s[n][j]) / piv;
+          if (own) {
+#pragma unroll
+            for (int i = 0; i < kPanel; ++i) s[n][i] = 0.f;
+          }
+#pragma unroll
+          for (int i4 = 0; i4 < kPanel / 4; ++i4) {
+            const float4 c4 = cb4[i4];
+            const float ci[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (4 * i4 + e != j) s[n][4 * i4 + e] = fmaf(-ci[e], rv, s[n][4 * i4 + e]);
+          }
+          s[n][j] = rv;
+        }
+      }
+    }
+    // R and this CTA's rows' panel columns to shared memory
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int c = tid + n * kClusterThreads;
+      if (c < ld) {
+#pragma unroll
+        for (int j = 0; j < kPanel; ++j) strip[j * ld + c] = s[n][j];
+      }
+    }
+    for (int e = tid; e < kPanel * nrows; e += kClusterThreads) {
+      const int j = e / nrows, r = e - j * nrows;
+      rowp[j * rows4 + r] = j < b ? slab[r * ld + t0 + j] : 0.f;
+    }
+    __syncthreads();
+    // (iii) tiles of 4 rows x 4 columns; panel rows are computed, not stored
+    const int ntiles = ((nrows + 3) / 4) * n4;
+    for (int e = tid; e < ntiles; e += kClusterThreads) {
+      const int r0 = 4 * (e / n4), c0 = 4 * (e % n4);
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 w = r0 + i < nrows ? *reinterpret_cast<const float4*>(slab + (r0 + i) * ld + c0)
+                                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = c0 + q >= t0 && c0 + q < t0 + b ? 0.f : wv[q];
+      }
+#pragma unroll 8
+      for (int j = 0; j < kPanel; ++j) {
+        const float4 pa = *reinterpret_cast<const float4*>(rowp + j * rows4 + r0);
+        const float4 rb = *reinterpret_cast<const float4*>(strip + j * ld + c0);
+        const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, rv[4] = {rb.x, rb.y, rb.z, rb.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(-pv[i], rv[q], acc[i][q]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + r0 + i;
+        if (r0 + i < nrows && (row < t0 || row >= t0 + b))
+          *reinterpret_cast<float4*>(slab + (r0 + i) * ld + c0) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+    cluster.sync();  // (iv)
+    prev = t0;
+    prev_b = b;
+  }
+  take_r(prev, prev_b);  // the last panel's rows; then the slab goes out
+  __syncthreads();
+  for (int e = tid; e < nrows * k; e += kClusterThreads) {
+    const int r = e / k, c = e - r * k;
+    out[(long)(row0 + r) * k + c] = slab[r * ld + c];
+  }
+}
+
 // lo_i = E_2i a_max(i-1,0) (y = 0),  hi_i = F_2i a_i (y = 1); grid (tiles, 2, m2).
 __global__ void __launch_bounds__(kTileThreads)
     reduce_lohi_kernel(const float* __restrict__ e, const float* __restrict__ f,
@@ -215,16 +445,104 @@ inline int row_tiles(int k) { return (k + kRows - 1) / kRows; }
 inline int tiles(int k) { return ((k + kTile - 1) / kTile) * ((k + kTile - 1) / kTile); }
 }  // namespace
 
+namespace {
+
+using InvClusterKernel = void (*)(const float*, float*, int, int, float);
+
+// The cluster kernel for K x K blocks on `cluster` CTAs, its launch
+// configuration (grid left to the caller) and the clusters the card holds
+// at once (cudaOccupancyMaxActiveClusters).  These are host calls of tens
+// of microseconds, so each kernel's attributes are set once per device
+// (shared memory up to the opt-in maximum, clusters above 8) and the
+// occupancy is cached per device, K and cluster size.
+cudaError_t cluster_setup(int k, int cluster, InvClusterKernel* kern, cudaLaunchConfig_t* cfg,
+                          cudaLaunchAttribute* attr, int* active) {
+  static int attrs_dev[2] = {-1, -1};
+  static int cached_dev[kClusterMax + 1], cached_k[kClusterMax + 1] = {},
+      cached_active[kClusterMax + 1];
+  const int nc = k > kClusterThreads ? 2 : 1;
+  *kern = nc == 1 ? inv_cluster_kernel<1> : inv_cluster_kernel<2>;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = cluster_smem_bytes(k, cluster);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (attrs_dev[nc - 1] != dev) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(*kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(*kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    attrs_dev[nc - 1] = dev;
+  }
+  if (cached_k[cluster] == k && cached_dev[cluster] == dev) {
+    *active = cached_active[cluster];
+    return cudaSuccess;
+  }
+  err = cudaOccupancyMaxActiveClusters(active, *kern, cfg);
+  if (err != cudaSuccess) return err;
+  cached_k[cluster] = k;
+  cached_dev[cluster] = dev;
+  cached_active[cluster] = *active;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// cluster > 0: inv_cluster_kernel on clusters of that many CTAs (at most
+// kClusterMax; K <= 2 kClusterThreads); cluster == 0: inv_kernel, one
+// block per inverted block.  A cluster size the card cannot schedule, or a
+// slab that does not fit, is an error, never a fallback.
 extern "C" int bcr_inv_launch(const float* src, float* dst, int count, int first, int k,
-                              float boost_eps, void* stream) {
-  int w_in_smem = 0;
-  const size_t smem = gj_smem_bytes(k, &w_in_smem);
-  cudaError_t err =
-      cudaFuncSetAttribute(inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                              float boost_eps, int cluster, void* stream) {
+  if (count <= 0 || k <= 0 || cluster < 0 || cluster > kClusterMax ||
+      (cluster > 0 && k > 2 * kClusterThreads))
+    return (int)cudaErrorInvalidValue;
+  if (cluster == 0) {
+    int w_in_smem = 0;
+    const size_t smem = gj_smem_bytes(k, &w_in_smem);
+    cudaError_t err =
+        cudaFuncSetAttribute(inv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    inv_kernel<<<count, kThreads, smem, (cudaStream_t)stream>>>(src, dst, first, k, boost_eps,
+                                                                w_in_smem);
+    return (int)cudaGetLastError();
+  }
+  InvClusterKernel kern;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  cudaError_t err = cluster_setup(k, cluster, &kern, &cfg, &attr, &active);
   if (err != cudaSuccess) return (int)err;
-  inv_kernel<<<count, kThreads, smem, (cudaStream_t)stream>>>(src, dst, first, k, boost_eps,
-                                                              w_in_smem);
+  if (active < 1) return (int)cudaErrorLaunchOutOfResources;
+  cfg.gridDim = dim3(count * cluster);
+  cfg.stream = (cudaStream_t)stream;
+  err = cudaLaunchKernelEx(&cfg, kern, src, dst, first, k, boost_eps);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The clusters of `cluster` CTAs the card can hold at once for K x K blocks
+// (cudaOccupancyMaxActiveClusters), or a negative cudaError_t code.
+extern "C" int bcr_inv_max_clusters(int k, int cluster) {
+  if (k <= 0 || cluster < 1 || cluster > kClusterMax || k > 2 * kClusterThreads)
+    return -(int)cudaErrorInvalidValue;
+  InvClusterKernel kern;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int active = 0;
+  const cudaError_t err = cluster_setup(k, cluster, &kern, &cfg, &attr, &active);
+  return err == cudaSuccess ? active : -(int)err;
 }
 
 extern "C" int bcr_reduce_launch(const float* d, const float* e, const float* f, const float* a,
@@ -256,5 +574,23 @@ extern "C" int bcr_backsub_launch(const float* a, const float* e, const float* f
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  return 0;
+}
+
+// The cluster size that inverts K x K blocks on the current device: the
+// smallest power of two up to kClusterMax whose slab (cluster_smem_bytes)
+// fits the shared memory one block may opt in to; 0 when none does, or K
+// exceeds the columns a cluster's threads own -- the one-block kernel then
+// inverts in device memory.  A negative cudaError_t code on failure.
+extern "C" int bcr_inv_cluster_size(int k) {
+  if (k <= 0) return -(int)cudaErrorInvalidValue;
+  if (k > 2 * kClusterThreads) return 0;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(int)err;
+  for (int cs = 1; cs <= kClusterMax; cs *= 2)
+    if (cluster_smem_bytes(k, cs) <= (size_t)optin) return cs;
   return 0;
 }

@@ -10,14 +10,16 @@ memory.  The TPU kernel's interleaved fold of the G query heads of a KV
 head (for its 128-row matrix unit) is not carried over: a block reads its
 KV head ``h // G`` directly.
 
-Bound on the H100: operations, per visible (query, key) pair and query
-head -- 2 D for q . k, which for bfloat16 operands are exact products
-with float32 sums, so the tensor cores' bfloat16 rate (989 TFLOP/s)
-gives the TPU kernel's result; 2 D + 1 for p . v and the exponential, in
-float32 on the CUDA cores (67 TFLOP/s) as the TPU kernel computes them;
-q, k, v and o move once.  The design keeps each key and value tile in
-shared memory for 64 query rows and does both products on 4 x 4 register
-tiles in float32; it does not use the tensor cores.
+Two kernels, by dtype.  bfloat16 (the prefill) runs on the tensor cores:
+``mma.sync`` m16n8k16 for q . k -- exact products of bfloat16 inputs with
+float32 sums, the TPU kernel's arithmetic up to summation order -- and for
+p . v with p split into two bfloat16 terms (hi + lo, ~16 bits of the
+TPU kernel's float32 p) into one float32 accumulator; K and V tiles
+stream through a two-stage ``cp.async`` ring in shared memory.  Bound on
+the H100: the tensor cores, 4 D operations per visible (query, key) pair
+and query head at 989 TFLOP/s, beside one exponential a pair and q, k, v
+and o moved once.  float32 (the consistency check) keeps the CUDA-core
+kernel: 4 x 4 register tiles of float32 FMA.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`, the same 64 x 64

@@ -252,3 +252,68 @@ def test_carry_across_a_jax_bcr_factorization():
 def test_carry_across_rejects_unknown_bcr_leaves():
     with pytest.raises(ValueError, match="unknown"):
         T.factorization_from_numpy({"red_bcr.0.lower": np.zeros(1)}, {}, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the cluster inverse's blocked Gauss-Jordan (csrc/bcr.cu, inv_cluster_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _panel_gj_inverse(a, boost_eps, b):
+    """The cluster kernel's algorithm in numpy float32, in the in-place form
+    of its slab: for each panel P of b columns, (i) copy the strip of pivot
+    rows, (ii) run the b unblocked steps on the copy -- the pivot, its
+    boost below boost_eps max|A|, the structural-zero test of W[t, t:] --
+    (iii) update every row outside P as (row, P columns zeroed) - row[P] R,
+    (iv) write the processed strip R into the panel rows.  Returns the
+    inverse and the number of boosted pivots."""
+    k = a.shape[0]
+    w = a.astype(np.float32)
+    thr = np.float32(boost_eps) * max(np.abs(w).max(), np.float32(1e-30))
+    boosts = 0
+    for t0 in range(0, k, b):
+        p = np.arange(t0, min(t0 + b, k))
+        r = w[p].copy()  # (i)
+        for j, t in enumerate(p):  # (ii)
+            col = r[:, t].copy()
+            piv = col[j]
+            nz = bool((r[j, t:] != 0).any())
+            if abs(piv) < thr and nz:
+                piv, boosts = (thr if piv >= 0 else -thr), boosts + 1
+            piv = piv if nz else np.float32(1)
+            rv = r[j] / piv
+            rv[t] = np.float32(1) / piv
+            r[:, t] = 0
+            r -= np.outer(col, rv)
+            r[j] = rv
+        rest = np.setdiff1d(np.arange(k), p)  # (iii)
+        wp = w[np.ix_(rest, p)].copy()
+        w[np.ix_(rest, p)] = 0
+        w[rest] -= wp @ r
+        w[p] = r  # (iv)
+    return w, boosts
+
+
+@pytest.mark.parametrize("k", [7, 40, 100])
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_panel_gauss_jordan_matches_the_plain_and_jax_inverse(b, k):
+    """Panels of 1 (the unblocked steps), 8 and 32 columns, a last panel
+    that is partial, pivots boosted under boost_eps = 0.05 (zeroed
+    diagonal entries), and rows and columns that are exactly zero, which
+    invert to the identity."""
+    from repro.core.block_lu import gj_inverse as jax_gj_inverse
+
+    rng = np.random.default_rng(k + b)
+    a = (k**-0.5 * rng.normal(size=(k, k)) + 4 * np.eye(k)).astype(np.float32)
+    boosted, zero = [1, k // 3, k - 2], [0, k // 2, k - 1]
+    a[boosted, boosted] = 0
+    a[zero, :] = 0
+    a[:, zero] = 0
+    got, boosts = _panel_gj_inverse(a, 0.05, b)
+    assert boosts > 0
+    np.testing.assert_array_equal(got[zero], np.eye(k, dtype=np.float32)[zero])
+    np.testing.assert_array_equal(got[:, zero], np.eye(k, dtype=np.float32)[:, zero])
+    want = tcr.bcr_inv_odd_ref(torch.tensor(a)[None], 0.05, first=0)[0].numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, np.asarray(jax_gj_inverse(jnp.asarray(a), 0.05)), **TOL)
+

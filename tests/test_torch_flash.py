@@ -119,3 +119,62 @@ def test_operands_the_kernel_does_not_take_are_refused():
         qd, kd, vd = (torch.zeros(1, 2, 8, d) for _ in range(3))
         with pytest.raises(ValueError, match="head dim"):
             check_card_operands(qd, kd, vd)
+
+
+def test_hi_lo_bfloat16_split_of_p_keeps_about_16_bits():
+    """The tensor-core kernel's p . v: p in two bfloat16 terms, hi = bf16(p)
+    and lo = bf16(p - hi), each product exact and summed in float32,
+    against float32 p . v: within 2^-16 of sum |p| |v| for every output.
+    One bfloat16 p, as SDPA rounds it, is off by up to 2^-9 of a term."""
+    rng = np.random.default_rng(11)
+    p = np.exp(-rng.exponential(3.0, size=(64, 64))).astype(np.float32)  # (0, 1]
+    p[:, 0] = 1.0  # a row's maximum
+    p[:4] *= 1e-20  # rows far below their maximum
+    v = torch.tensor(rng.normal(size=(64, 128)).astype(np.float32)).bfloat16().float()
+    pt = torch.tensor(p)
+    hi = pt.bfloat16().float()
+    lo = (pt - hi).bfloat16().float()
+    got = hi @ v + lo @ v
+    exact = pt.double() @ v.double()
+    scale = pt.double().abs() @ v.double().abs()
+    assert float(((got.double() - exact) / scale).abs().max()) <= 2.0**-16
+    one = hi.double() @ v.double()
+    assert float(((one - exact) / scale).abs().max()) > 2.0**-16
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it imports torch only when run)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("b,hq,hk,tq,tk,d,causal,window", [
+    (1, 4, 2, 100, 100, 16, True, None),  # causal
+    (2, 3, 3, 90, 90, 8, True, 16),  # causal with a window
+    (1, 2, 1, 37, 70, 24, False, None),  # Tq != Tk, bidirectional
+    (1, 2, 2, 70, 37, 8, True, 5),  # Tq > Tk, causal, windowed
+])
+def test_flash_work_counts_the_pairs_the_masks_leave(b, hq, hk, tq, tk, d, causal, window):
+    """flash_work's exponentials are the visible (query, key) pairs of an
+    explicit mask, times B Hq; its tensor-core operations 4 D a pair; its
+    bytes q, k, v and o once."""
+    smoke = _chip_smoke()
+    t, s = np.arange(tq)[:, None], np.arange(tk)[None, :]
+    mask = np.ones((tq, tk), dtype=bool)
+    if causal:
+        mask &= t >= s
+    if window:
+        mask &= t - s < window
+    tc_ops, exps, nbytes = smoke.flash_work(b, hq, hk, tq, tk, d, causal, window, 2)
+    assert exps == b * hq * int(mask.sum())
+    assert tc_ops == 4 * d * exps
+    assert nbytes == 2 * (2 * b * hq * tq * d + 2 * b * hk * tk * d)
+    ms, by = smoke.flash_bound(tc_ops, exps, nbytes)
+    assert ms == max(nbytes / smoke.PEAK_BYTES_S, tc_ops / smoke.PEAK_BF16_FLOP_S,
+                     exps / smoke.PEAK_SFU_S) * 1e3 and by in ("bytes", "operations")

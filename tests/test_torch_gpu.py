@@ -213,6 +213,43 @@ def test_bcr_on_the_interface_chain_at_block_size_400(cuda, p):
     assert float((ax - h).norm() / h.norm()) <= 1e-4
 
 
+# (2K, cluster size on an H100, whose blocks may opt in to 232,448 bytes of
+# shared memory): one CTA; the P = 64 interface chain's 400 on four; a
+# ragged 401; 700, which needs sixteen; 800, too large for a cluster of 16,
+# on the one-block kernel in device memory
+INV_SIZES = [(190, 1), (400, 4), (401, 4), (700, 16), (800, 0)]
+
+
+@pytest.mark.parametrize("k,cluster", INV_SIZES)
+def test_inv_odd_on_its_cluster_matches_plain(cuda, k, cluster):
+    """Three blocks (an odd count) with boosted pivots -- zeroed diagonal
+    entries under boost_eps = 0.05, so the boost changes the inverse --
+    and, in the middle block, rows and columns that are exactly zero,
+    which must invert to the identity; within 1e-4 of the largest plain
+    value, one launch, on the route the block size picks."""
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.kernels import bcr, build
+
+    assert build.load("bcr").bcr_inv_cluster_size(k) == cluster
+    d = _bcr_chain(cuda, 6, k, 1, seed=k)[0]
+    boosted = [1, k // 3, k - 2]
+    d[:, boosted, boosted] = 0.0
+    zero = [0, k // 2, k - 1]
+    d[3, zero, :] = 0.0
+    d[3, :, zero] = 0.0
+    eps = 0.05
+    before = bcr.inv_odd.launches, bcr.inv_odd.block_launches
+    got = bcr.inv_odd(d, eps)
+    torch.cuda.synchronize()
+    assert (bcr.inv_odd.launches, bcr.inv_odd.block_launches) == (
+        before[0] + 1, before[1] + (cluster == 0))
+    want = cr.bcr_inv_odd_ref(d, eps)
+    assert not torch.allclose(want, cr.bcr_inv_odd_ref(d, 0.0))  # a pivot was boosted
+    _close(got, want)
+    eye = torch.eye(k, device=cuda)
+    assert torch.equal(got[1][zero], eye[zero]) and torch.equal(got[1][:, zero], eye[:, zero])
+
+
 def test_bcr_wrappers_reject_bad_operands(cuda):
     from repro_torch.kernels import bcr
 
@@ -379,6 +416,31 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hk, tq, tk, d, causal, window, 
     assert got.dtype == dtype
     want = flash_attention_ref(q, k, v, causal, window)
     (_close if dtype == torch.float32 else _close_bf16)(got, want)
+
+
+# (b, hq, hk, tq, tk, d, causal, window): Tk = 0, where no row sees a key;
+# a causal Tq = 65, one row spilling into a second tile; D = 8 and D = 24,
+# whose q . k depth is zero-padded to a multiple of 16
+FLASH_EDGE_SHAPES = [(1, 4, 2, 64, 0, 64, True, None), (1, 4, 2, 65, 65, 128, True, None),
+                     (1, 4, 2, 130, 130, 8, True, None), (2, 4, 1, 100, 150, 24, False, None)]
+
+
+@pytest.mark.parametrize("b,hq,hk,tq,tk,d,causal,window", FLASH_EDGE_SHAPES)
+def test_bf16_flash_kernel_at_edge_shapes(cuda, b, hq, hk, tq, tk, d, causal, window):
+    """The tensor-core kernel: one launch, and element by element within
+    one bfloat16 step of the plain version (the module docstring)."""
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    g = torch.Generator(device=cuda).manual_seed(tq + d)
+    q = torch.randn(b, hq, tq, d, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(b, hk, tk, d, generator=g, device=cuda).bfloat16() for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _close_bf16(got, flash_attention_ref(q, k, v, causal, window))
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
