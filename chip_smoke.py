@@ -12,7 +12,8 @@ of the JAX package.  Phases, each printing one JSON line:
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (P=64, M=16, K=200), at the SaP-E reduced chain's
    (P=1, M=7 and M=63, K=400), at the sparse run's (P=64, M=33, K=95) and
-   at edge cases (M=1, K=37, K=256); the four block cyclic reduction
+   at edge cases (M=1, K=37, K=256), with the cluster size (the route) of
+   every btf and fused launch; the four block cyclic reduction
    (BCR) kernels and the whole BCR factor / solve at the P=64 interface
    chain of the d=0.5 band (63 blocks of 2K=400, R=1, 4), at the coupled
    P=500 chain (499 blocks of 400), at the sparse run's chain (63 blocks
@@ -49,7 +50,9 @@ dense. Minitron-8B at its published width and depth (32 layers, d=4096,
    B=1, T=4096 (each a forward with one flash launch a layer, profiled
    once), and the same serving run and decode window as above;
 5. timing of each kernel beside its plain version (and a library call
-   where one computes the same function), with CUDA events; the BCR
+   where one computes the same function: for btf and the fused pass a loop
+   over the block rows of batched ``torch.linalg.inv`` and ``torch.matmul``,
+   with its difference from the plain version), with CUDA events; the BCR
    inverse level by level with each launch's cluster size and route; no
    kernel or library time may read under the kernel's bound.
 
@@ -313,6 +316,42 @@ def chain_coupling(d, e, f) -> dict[str, float]:
                                                      ("max_abs_f", f))}
 
 
+def btf_library(d, e, f):
+    """btf's function from PyTorch calls: a loop over the M block rows of
+    batched ``torch.linalg.inv`` (LU with partial pivoting, no boost) over
+    the P partitions and ``torch.matmul`` for L_j and S_j."""
+    import torch
+
+    sinv, l = torch.empty_like(d), torch.zeros_like(d)
+    sinv[:, 0] = torch.linalg.inv(d[:, 0])
+    for j in range(1, d.shape[1]):
+        l[:, j] = torch.matmul(e[:, j], sinv[:, j - 1])
+        sinv[:, j] = torch.linalg.inv(d[:, j] - torch.matmul(l[:, j], f[:, j - 1]))
+    return sinv, l
+
+
+def fused_library(d, e, f, bq, cq):
+    """The fused pass's function from PyTorch calls: btf_library's loop on
+    the LU and on the reversed (UL) recurrence, the two spike carries and
+    the four corner products; ``(sinv, l, vb, vt, wt, wb)``."""
+    import torch
+
+    m = d.shape[1]
+    sinv, l = btf_library(d, e, f)
+    c_w = cq
+    for j in range(1, m):
+        c_w = -torch.matmul(l[:, j], c_w)
+    c_ul = torch.linalg.inv(d[:, m - 1].flip(-2, -1))
+    c_v = bq.flip(-2)
+    for j in range(1, m):
+        l_ul = torch.matmul(f[:, m - 1 - j].flip(-2, -1), c_ul)
+        c_ul = torch.linalg.inv(d[:, m - 1 - j].flip(-2, -1)
+                                - torch.matmul(l_ul, e[:, m - j].flip(-2, -1)))
+        c_v = -torch.matmul(l_ul, c_v)
+    return (sinv, l, torch.matmul(sinv[:, -1], bq), torch.matmul(c_ul, c_v).flip(-2),
+            torch.matmul(c_ul, cq.flip(-2)).flip(-2), torch.matmul(sinv[:, -1], c_w))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` on the card, timed by CUDA events."""
     import torch
@@ -405,8 +444,11 @@ def main() -> int:
     bt = band_to_block_tridiag(band_d1, K, 64)
     assert (bt.p, bt.m, bt.k) == (64, 16, 200)
     errs: dict[str, float] = {}
+    routes: dict[str, int] = {}  # cluster size of each btf / fused launch (0: one-block kernel)
+    lib_btf, lib_fused = build.load("btf"), build.load("fused_spike")
 
     def check_kernels(tag, d, e, f, b_cpl, c_cpl, rs):
+        routes[f"btf{tag}"] = lib_btf.btf_cluster_size(d.shape[0], d.shape[2])
         sinv, l = btf(d, e, f)
         ref = bl.btf_ref(d, e, f)
         errs[f"btf{tag}"] = max(check_close(f"btf{tag} sinv", sinv, ref.sinv),
@@ -419,6 +461,7 @@ def main() -> int:
             )
         if b_cpl is not None:
             bq, cq = bl.pad_couplings(b_cpl, c_cpl, d.shape[0])
+            routes[f"fused{tag}"] = lib_fused.fused_cluster_size(d.shape[0], d.shape[2])
             out = fused_factor_spike(d, e, f, bq, cq)
             want = bl.fused_factor_spike_padded_ref(d, e, f, bq, cq)
             errs[f"fused{tag}"] = max(
@@ -441,8 +484,8 @@ def main() -> int:
     check_kernels("_chain", rd[None], re[None], rf[None], None, None, (1, 4))
     # edge cases: a single block row with an all-padding last partition; K
     # not a power of two with a partly padded last partition; K = 256, whose
-    # elimination block no longer fits in shared memory (btf and the fused
-    # pass then keep it, and the fused carries, in device memory)
+    # block no longer fits one CTA's shared memory (btf and the fused pass
+    # then spread it over a cluster of at least two)
     edge = {"_m1": (15, 5, 4), "_k37": (259, 37, 3), "_k256": (1400, 256, 2)}
     for tag, (n, k, p) in edge.items():
         small = torch.tensor(random_banded(n, k, 1.0, seed=SEED).astype(np.float32), device=dev)
@@ -640,7 +683,9 @@ def main() -> int:
             errs[f"flash_{tag}_{str(dtype)[6:]}"] = err
             del q, k, v, got, want
     torch.cuda.synchronize()
-    emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL,
+    if min(routes.values()) < 1:
+        raise AssertionError(f"a btf / fused launch left the cluster route: {routes}")
+    emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL, "routes": routes,
           "flash_bfloat16_step_atol": [FLASH_BF16_STEP, FLASH_BF16_ATOL],
           "flash_bfloat16_worst_share": bf16_share, "max_abs_err": errs,
           "chain_coupling": coupling, "refused": refused, "flash_shapes": flash_shapes})
@@ -662,11 +707,15 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         bcr.inv_odd.block_launches = 0
+        btf.block_launches = fused_factor_spike.block_launches = 0
 
     def counts():
-        """Every wrapper's launches, and inv_odd's on its one-block route apart."""
+        """Every wrapper's launches, and inv_odd's, btf's and the fused pass's
+        on their one-block routes apart."""
         return {**{nm: w.launches for nm, w in wrappers.items()},
-                "bcr_inv_odd_block": bcr.inv_odd.block_launches}
+                "bcr_inv_odd_block": bcr.inv_odd.block_launches,
+                "btf_block": btf.block_launches,
+                "fused_factor_spike_block": fused_factor_spike.block_launches}
 
     runs = [
         # name, system, options, R, kernels the path must launch
@@ -759,6 +808,8 @@ def main() -> int:
         for nm in must:
             if factor_counts[nm] + solve_counts[nm] == 0:
                 raise AssertionError(f"slice {name}: kernel {nm} was never launched")
+        if factor_counts["btf_block"] or factor_counts["fused_factor_spike_block"]:
+            raise AssertionError(f"slice {name}: btf / fused took the one-block kernel")
         del fac, res, x
     # the exact reduced system solves what truncated SPIKE drops: with the
     # couplings active, E must not need more sweeps than C
@@ -1077,6 +1128,9 @@ def main() -> int:
             replaces="src/repro/kernels/btf.py:40",
             kernel=lambda: btf(bt.d, bt.e, bt.f),
             plain=lambda: bl.btf_ref(bt.d, bt.e, bt.f),
+            library=lambda: btf_library(bt.d, bt.e, bt.f),
+            library_vs_plain=lambda: zip(btf_library(bt.d, bt.e, bt.f),
+                                         bl.btf_ref(bt.d, bt.e, bt.f)[:2]),
             work=btf_work(p, m, k), reps=10, plain_reps=1, err=main_path_errs["btf"],
         ),
         "bts": dict(
@@ -1091,6 +1145,9 @@ def main() -> int:
             replaces="src/repro/kernels/fused_spike.py:47",
             kernel=lambda: fused_factor_spike(bt.d, bt.e, bt.f, bq, cq),
             plain=lambda: bl.fused_factor_spike_padded_ref(bt.d, bt.e, bt.f, bq, cq),
+            library=lambda: fused_library(bt.d, bt.e, bt.f, bq, cq),
+            library_vs_plain=lambda: zip(fused_library(bt.d, bt.e, bt.f, bq, cq),
+                                         bl.fused_factor_spike_padded_ref(bt.d, bt.e, bt.f, bq, cq)),
             work=fused_work(p, m, k), reps=5, plain_reps=1, err=main_path_errs["fused"],
         ),
     }
@@ -1129,6 +1186,10 @@ def main() -> int:
         ms = cuda_ms(s["kernel"], s["reps"])
         plain_ms = cuda_ms(s["plain"], s["plain_reps"])
         library_ms = cuda_ms(s["library"], s["reps"]) if "library" in s else None
+        # the library call against the plain version: torch.linalg.inv pivots
+        # and does not boost, so they agree only where no pivot needs either
+        library_err = (max(float((a - b).abs().max()) for a, b in s["library_vs_plain"]())
+                       if "library_vs_plain" in s else None)
         wrappers[name].launches = saved  # timing launches are not the path's
         flops, nbytes = s["work"]
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
@@ -1140,7 +1201,8 @@ def main() -> int:
         })
         shape = list(chain[0].shape) if name in bcr_specs else [p, m, k]
         emit({"phase": "timing", "kernel": name, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bytes": nbytes, "flops": flops, "shape": shape})
+              "library_ms": library_ms, "library_max_abs_err_vs_plain": library_err,
+              "bytes": nbytes, "flops": flops, "shape": shape})
     # inv_odd level by level (32, 16, ..., 1 odd blocks, then the root), with
     # the cluster size and route of each launch
     lib_bcr = build.load("bcr")

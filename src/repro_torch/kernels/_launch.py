@@ -5,8 +5,22 @@ from __future__ import annotations
 import torch
 
 
+def check_no_grad(what: str, **tensors: torch.Tensor) -> None:
+    """Raise for a tensor that requires grad while grad mode is on: the
+    kernels write through raw pointers, so their outputs carry no autograd
+    graph, and a loss through them would get no gradient without an error."""
+    if not torch.is_grad_enabled():
+        return
+    for name, t in tensors.items():
+        if t.requires_grad:
+            raise ValueError(f"{what}: {name} requires grad; the kernel has no backward "
+                             "(call it under torch.no_grad() or detach the operand)")
+
+
 def check_operands(what: str, device: torch.device, **tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous float32 tensor on ``device``."""
+    """Raise unless every tensor is a contiguous float32 tensor on ``device``
+    that needs no gradient (:func:`check_no_grad`)."""
+    check_no_grad(what, **tensors)
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")

@@ -1,16 +1,18 @@
 """Block-tridiagonal LU factorization kernel (SaP factor stage).
 
 Replaces the TPU kernel ``repro/kernels/btf.py:_btf_kernel`` (``btf_pallas``).
-The CUDA source is ``csrc/btf.cu``: one thread block per partition walks
-the M block rows, ``S_0 = D_0``, ``L_j = E_j inv(S_{j-1})``,
-``S_j = D_j - L_j F_{j-1}``, inverting each ``S_j`` by boosted Gauss-Jordan
-in shared memory (in a device workspace when K x K floats do not fit, as
-for the SaP-E reduced chain at block size 2K = 400).
+The CUDA source is ``csrc/btf.cu``: each partition walks the M block rows,
+``S_0 = D_0``, ``L_j = E_j inv(S_{j-1})``, ``S_j = D_j - L_j F_{j-1}``,
+inverting each ``S_j`` by boosted Gauss-Jordan.
 
 Bound on the H100: operations (~6 K^3 flops per block row against 5 K^2
-floats moved).  The design keeps the elimination block and the running
-inverse in shared memory; parallelism is one block per partition, so at
-P = 64 about half the SMs are idle.
+floats moved).  Each partition runs on a thread-block cluster whose CTAs
+own rows of the running block in shared memory and invert it by panel
+Gauss-Jordan (``csrc/gj_cluster.cuh``); the kernel's ``btf_cluster_size``
+picks the cluster size from (P, K) -- 2 CTAs a partition at P = 64,
+K = 200; 16 for the SaP-E reduced chain of 2K = 400.  Blocks no cluster of
+16 holds (K above ~720) take the one-block kernel, the block in device
+memory; those launches are also counted apart, in ``btf.block_launches``.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.core.block_lu.btf_ref`); on a CUDA tensor it launches
@@ -38,16 +40,23 @@ def btf(
     for name, t in (("d", d), ("e", e), ("f", f)):
         check_shape("btf", name, t, (p, m, k, k))
     lib = build.load("btf")
+    cluster = lib.btf_cluster_size(p, k)
+    if cluster < 0:
+        build.check(lib, -cluster, "btf cluster size")
     sinv = torch.empty_like(d)
     l = torch.empty_like(d)
-    ws = torch.empty((p * lib.btf_workspace_floats(k),), dtype=torch.float32, device=d.device)
+    ws = torch.empty((p * lib.btf_workspace_floats(k, cluster),), dtype=torch.float32,
+                     device=d.device)
     code = lib.btf_launch(
         d.data_ptr(), e.data_ptr(), f.data_ptr(), sinv.data_ptr(), l.data_ptr(),
-        ws.data_ptr(), p, m, k, boost_eps, stream_handle(d.device),
+        ws.data_ptr(), p, m, k, boost_eps, cluster, stream_handle(d.device),
     )
-    build.check(lib, code, "btf")
+    build.check(lib, code, f"btf (cluster {cluster})")
     btf.launches += 1
+    if cluster == 0:
+        btf.block_launches += 1
     return sinv, l
 
 
 btf.launches = 0
+btf.block_launches = 0  # those of them on the one-block kernel

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels in ``csrc/`` at first use.
 
-Each ``csrc/<name>.cu`` (with the shared ``common.cuh``) is compiled by
+Each ``csrc/<name>.cu`` (with the shared headers ``csrc/*.cuh``) is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
 loaded with ``ctypes``.  Libraries go to ``build/torch_kernels/`` at the
-repository root, named by a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is compiled at
+repository root, named by a hash of the source, every header and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.  Nothing is compiled at
 import time: :func:`load` runs on a kernel wrapper's first launch, and
 :func:`build_all` compiles every source in parallel up front.
 """
@@ -39,8 +40,9 @@ _L = ctypes.c_long
 # C signatures of every exported function: name -> (restype, argtypes)
 SIGNATURES = {
     "btf": {
-        "btf_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
-        "btf_workspace_floats": (_L, [_I]),
+        "btf_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+        "btf_workspace_floats": (_L, [_I, _I]),
+        "btf_cluster_size": (_I, [_I, _I]),
     },
     "bts": {
         "bts_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -48,9 +50,10 @@ SIGNATURES = {
     "fused_spike": {
         "fused_launch": (
             _I,
-            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
         ),
-        "fused_workspace_floats": (_L, [_I]),
+        "fused_workspace_floats": (_L, [_I, _I]),
+        "fused_cluster_size": (_I, [_I, _I]),
     },
     "bcr": {
         "bcr_inv_launch": (_I, [_P, _P, _I, _I, _I, _F, _I, _P]),
@@ -86,7 +89,8 @@ def nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

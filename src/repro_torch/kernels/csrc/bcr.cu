@@ -39,11 +39,8 @@
 //     t = b_odd - e x_i - f x_i+1 in a workspace in one launch and
 //     x_odd = a t with the interleave in a second, since a t needs all of t.
 // All arithmetic is float32 FMA on the CUDA cores: no tensor cores, no TF32.
-#include <cooperative_groups.h>
+#include "gj_cluster.cuh"
 
-#include "common.cuh"
-
-namespace cg = cooperative_groups;
 using namespace sap;
 
 namespace {
@@ -148,41 +145,13 @@ __global__ void __launch_bounds__(kThreads)
 // 400 x 400 of the P = 64 interface chain, H100 at 67 TFLOP/s); inverting
 // one block per thread block left the deep levels, which have one or two
 // blocks, on one or two SMs, streaming the block through L2 at every
-// column.  Here the block lives in the cluster's shared memory: CTA r owns
-// the rows [r R, r R + R), R = ceil(K / cs), in a slab of R x ld floats.
-// The elimination is blocked Gauss-Jordan in panels of kPanel columns,
-// in the in-place form of gj_inverse_inplace (common.cuh): for the panel
-// P = [t0, t0 + b),
-//   (i)   every CTA copies the b pivot rows (the strip) from their owners'
-//         shared memory into its own, then into registers, thread c
-//         holding column c;
-//   (ii)  every CTA runs the b sequential steps of the unblocked
-//         algorithm on its copy of the strip -- the pivot, its boost, the
-//         structural-zero test of W[t, t..K-1] and the updates, exactly as
-//         gj_inverse_inplace does them -- one barrier a step; the result,
-//         the processed strip R, goes to shared memory;
-//   (iii) every CTA updates each of its non-panel rows i as
-//         row_i <- (row_i, the P columns zeroed) - row_i[P] R,
-//         a rank-b product, 4 x 4 register tiles of (rows, columns);
-//   (iv)  cluster barrier: every strip has been read and every row updated,
-//         so the owners write R into their panel rows (at the start of the
-//         next panel) and the next strip can be read.
-// The composite of the panel's b steps on a row outside P is that rank-b
-// update, so this is the column-by-column algorithm up to the order of
-// each element's sum.  scale = max |A| is a cluster-wide maximum before
-// the first panel; a structurally zero row stays zero under (iii), as
-// under the unblocked steps.  float32 FMA on the CUDA cores.
-constexpr int kPanel = 32;
-constexpr int kClusterMax = 16;
-constexpr int kClusterThreads = 512;
+// column.  Here the block lives in the cluster's shared memory, CTA r
+// owning the rows [r R, r R + R), R = ceil(K / cs), and is inverted by the
+// blocked Gauss-Jordan of gj_cluster.cuh (gj_cluster_inverse), in panels of
+// kPanel columns whose pivot rows travel by DSMEM.
 
-// shared floats of one CTA: the slab, its rows' panel columns (rows
-// padded to 4), the processed strip R, two pivot columns of the strip
-// and the reduction scratch
-inline size_t cluster_smem_bytes(int k, int cs) {
-  const size_t rows = (k + cs - 1) / cs, ld = (k + 3) & ~3, rows4 = (rows + 3) & ~3;
-  return sizeof(float) * (rows * ld + kPanel * rows4 + kPanel * ld + 2 * kPanel + kRed);
-}
+// shared bytes of one CTA: the slab and the elimination's scratch
+inline size_t cluster_smem_bytes(int k, int cs) { return slab_smem_bytes(k, cs, false); }
 
 // NC: columns a thread owns in the strip (c = threadIdx.x + n
 // kClusterThreads, n < NC)
@@ -191,16 +160,11 @@ __global__ void __launch_bounds__(kClusterThreads)
     inv_cluster_kernel(const float* __restrict__ src, float* __restrict__ dst, int first, int k,
                        float boost_eps) {
   cg::cluster_group cluster = cg::this_cluster();
-  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int rows = (k + cs - 1) / cs, ld = (k + 3) & ~3, rows4 = (rows + 3) & ~3;
-  const int row0 = rank * rows, nrows = max(0, min(rows, k - row0));
+  const int cs = (int)cluster.num_blocks();
   extern __shared__ __align__(16) float smem[];
-  float* slab = smem;                     // rows x ld: W[row0 + r, c] at r * ld + c
-  float* rowp = slab + rows * ld;         // kPanel x rows4: W[row0 + r, t0 + j] at j * rows4 + r
-  float* strip = rowp + kPanel * rows4;   // kPanel x ld: the strip as copied, then R
-  float* colbuf = strip + kPanel * ld;    // 2 x kPanel: the strip's pivot column, by step parity
-  float* red = colbuf + 2 * kPanel;       // kRed
-  const int tid = threadIdx.x;
+  const Slab s = make_slab(smem, k, cs, (int)cluster.block_rank(), false);
+  const int tid = threadIdx.x, ld = s.ld, row0 = s.row0, nrows = s.nrows;
+  float* slab = s.w;
   const long kk = (long)k * k;
   const float* a = src + (first + 2L * (blockIdx.x / cs)) * kk;
   float* out = dst + (long)(blockIdx.x / cs) * kk;
@@ -222,142 +186,8 @@ __global__ void __launch_bounds__(kClusterThreads)
       mx = fmaxf(mx, fabsf(x[u]));
     }
   }
-  block_max(mx, red);  // red[32]: this CTA's max |A|
-  cluster.sync();      // slabs and maxima visible to the cluster
-  float scale = 0.f;
-  for (int r = 0; r < cs; ++r) scale = fmaxf(scale, cluster.map_shared_rank(red, r)[32]);
-  const float thr = boost_eps * fmaxf(scale, 1e-30f);
-
-  // this CTA's rows of the panel at p0 (b0 rows) take R from `strip`
-  auto take_r = [&](int p0, int b0) {
-    const int lo = max(p0, row0), hi = min(p0 + b0, row0 + nrows), n4 = ld / 4;
-    for (int e = tid; e < (hi - lo) * n4; e += kClusterThreads) {
-      const int row = lo + e / n4, c4 = e % n4;
-      reinterpret_cast<float4*>(slab + (row - row0) * ld)[c4] =
-          reinterpret_cast<const float4*>(strip + (row - p0) * ld)[c4];
-    }
-  };
-
-  int prev = 0, prev_b = 0;  // the previous panel, whose R is in `strip`
-  for (int t0 = 0; t0 < k; t0 += kPanel) {
-    const int b = min(kPanel, k - t0);
-    take_r(prev, prev_b);  // (iv) of the previous panel
-    __syncthreads();        // `strip` has been read
-    // (i) the strip, from its owners: 16-byte copies into `strip` (remote
-    // shared memory serves few requests a cycle, so 4-byte reads are slow),
-    // then each thread takes its columns
-    const int n4 = ld / 4;
-    for (int e = tid; e < b * n4; e += kClusterThreads) {
-      const int j = e / n4, row = t0 + j, owner = row / rows;
-      reinterpret_cast<float4*>(strip + j * ld)[e - j * n4] = reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(slab, owner) + (row - owner * rows) * ld)[e - j * n4];
-    }
-    __syncthreads();
-    float s[NC][kPanel];  // s[n][j] = W[t0 + j, c_n]
-#pragma unroll
-    for (int j = 0; j < kPanel; ++j)
-#pragma unroll
-      for (int n = 0; n < NC; ++n) {
-        const int c = tid + n * kClusterThreads;
-        s[n][j] = j < b && c < k ? strip[j * ld + c] : 0.f;
-      }
-    // (ii) the b steps on the strip
-#pragma unroll
-    for (int j = 0; j < kPanel; ++j) {
-      if (j < b) {
-        const int t = t0 + j;
-        float* cb = colbuf + (j & 1) * kPanel;
-        bool nz = false;
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          const int c = tid + n * kClusterThreads;
-          if (c == t) {
-#pragma unroll
-            for (int i4 = 0; i4 < kPanel / 4; ++i4)
-              reinterpret_cast<float4*>(cb)[i4] =
-                  make_float4(s[n][4 * i4], s[n][4 * i4 + 1], s[n][4 * i4 + 2], s[n][4 * i4 + 3]);
-          }
-          nz |= c >= t && c < k && s[n][j] != 0.f;
-        }
-        nz = __syncthreads_or(nz);  // W[t, t..K-1] has a nonzero; cb is written
-        float piv = cb[j];
-        if (fabsf(piv) < thr) piv = piv >= 0.f ? thr : -thr;
-        if (!nz) piv = 1.f;
-        const float4* cb4 = reinterpret_cast<const float4*>(cb);
-#pragma unroll
-        for (int n = 0; n < NC; ++n) {
-          // row t / piv, column t of the I half 1 / piv; the other rows
-          // subtract cb[i] times it, column t (own) starting from 0
-          if (tid + n * kClusterThreads >= k) continue;  // whole warps past K skip the work
-          const bool own = tid + n * kClusterThreads == t;
-          const float rv = (own ? 1.f : s[n][j]) / piv;
-          if (own) {
-#pragma unroll
-            for (int i = 0; i < kPanel; ++i) s[n][i] = 0.f;
-          }
-#pragma unroll
-          for (int i4 = 0; i4 < kPanel / 4; ++i4) {
-            const float4 c4 = cb4[i4];
-            const float ci[4] = {c4.x, c4.y, c4.z, c4.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (4 * i4 + e != j) s[n][4 * i4 + e] = fmaf(-ci[e], rv, s[n][4 * i4 + e]);
-          }
-          s[n][j] = rv;
-        }
-      }
-    }
-    // R and this CTA's rows' panel columns to shared memory
-#pragma unroll
-    for (int n = 0; n < NC; ++n) {
-      const int c = tid + n * kClusterThreads;
-      if (c < ld) {
-#pragma unroll
-        for (int j = 0; j < kPanel; ++j) strip[j * ld + c] = s[n][j];
-      }
-    }
-    for (int e = tid; e < kPanel * nrows; e += kClusterThreads) {
-      const int j = e / nrows, r = e - j * nrows;
-      rowp[j * rows4 + r] = j < b ? slab[r * ld + t0 + j] : 0.f;
-    }
-    __syncthreads();
-    // (iii) tiles of 4 rows x 4 columns; panel rows are computed, not stored
-    const int ntiles = ((nrows + 3) / 4) * n4;
-    for (int e = tid; e < ntiles; e += kClusterThreads) {
-      const int r0 = 4 * (e / n4), c0 = 4 * (e % n4);
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 w = r0 + i < nrows ? *reinterpret_cast<const float4*>(slab + (r0 + i) * ld + c0)
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = c0 + q >= t0 && c0 + q < t0 + b ? 0.f : wv[q];
-      }
-#pragma unroll 8
-      for (int j = 0; j < kPanel; ++j) {
-        const float4 pa = *reinterpret_cast<const float4*>(rowp + j * rows4 + r0);
-        const float4 rb = *reinterpret_cast<const float4*>(strip + j * ld + c0);
-        const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, rv[4] = {rb.x, rb.y, rb.z, rb.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(-pv[i], rv[q], acc[i][q]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = row0 + r0 + i;
-        if (r0 + i < nrows && (row < t0 || row >= t0 + b))
-          *reinterpret_cast<float4*>(slab + (r0 + i) * ld + c0) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
-    }
-    cluster.sync();  // (iv)
-    prev = t0;
-    prev_b = b;
-  }
-  take_r(prev, prev_b);  // the last panel's rows; then the slab goes out
-  __syncthreads();
+  const float scale = cluster_max(cluster, mx, s.red);  // slabs and maxima visible to the cluster
+  gj_cluster_inverse<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));
   for (int e = tid; e < nrows * k; e += kClusterThreads) {
     const int r = e / k, c = e - r * k;
     out[(long)(row0 + r) * k + c] = slab[r * ld + c];

@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from . import build
-from ._launch import stream_handle
+from ._launch import check_no_grad, stream_handle
 from .ref import flash_attention_ref
 
 DTYPES = (torch.bfloat16, torch.float32)
@@ -60,7 +60,9 @@ def check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_card_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise unless the kernel takes these operands: one device, one dtype
     (bfloat16 or float32), contiguous from a 16-byte-aligned start (the
-    kernel loads 16 bytes at a time), D a multiple of 8 up to 128."""
+    kernel loads 16 bytes at a time), D a multiple of 8 up to 128, and no
+    gradient needed (:func:`._launch.check_no_grad`)."""
+    check_no_grad("flash_attention", q=q, k=k, v=v)
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")

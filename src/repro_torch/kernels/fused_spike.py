@@ -7,12 +7,17 @@ LU inverse, the UL inverse of the reversed chain (read through flipped
 views, never copied), and the left and right spike right-hand sides -- and
 writes the LU factors plus the four spike corners (v_bot, v_top, w_top,
 w_bot).  The LU and UL recurrences never read each other, so each
-partition runs them in two thread blocks side by side.
+partition runs them side by side.
 
 Bound on the H100: operations (two inverses and six K x K products per
-block row).  The four carries (640 KB at K = 200) exceed a block's shared
-memory: each side keeps its running inverse in its shared-memory
-elimination block and its spike carry in an L2-resident workspace.
+block row).  Each side of each partition runs on a thread-block cluster
+whose CTAs own rows of its running inverse in shared memory and invert it
+by panel Gauss-Jordan (``csrc/gj_cluster.cuh``); the spike carries, which
+every CTA reads whole, stay in an L2-resident workspace.  The kernel's
+``fused_cluster_size`` picks the cluster size from (P, K) -- 1 CTA a side
+at P = 64, K = 200.  Blocks no cluster of 16 holds take the one-block
+kernel; those launches are also counted apart, in
+``fused_factor_spike.block_launches``.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.core.block_lu.fused_factor_spike_padded_ref`); on a CUDA
@@ -52,18 +57,25 @@ def fused_factor_spike(
     for name, t in (("bq", bq), ("cq", cq)):
         check_shape("fused_factor_spike", name, t, (p, k, k))
     lib = build.load("fused_spike")
+    cluster = lib.fused_cluster_size(p, k)
+    if cluster < 0:
+        build.check(lib, -cluster, "fused_factor_spike cluster size")
     sinv = torch.empty_like(d)
     l = torch.empty_like(d)
     vb, vt, wt, wb = (torch.empty_like(bq) for _ in range(4))
-    ws = torch.empty((p * lib.fused_workspace_floats(k),), dtype=torch.float32, device=d.device)
+    ws = torch.empty((p * lib.fused_workspace_floats(k, cluster),), dtype=torch.float32,
+                     device=d.device)
     code = lib.fused_launch(
         d.data_ptr(), e.data_ptr(), f.data_ptr(), bq.data_ptr(), cq.data_ptr(),
         sinv.data_ptr(), l.data_ptr(), vb.data_ptr(), vt.data_ptr(), wt.data_ptr(),
-        wb.data_ptr(), ws.data_ptr(), p, m, k, boost_eps, stream_handle(d.device),
+        wb.data_ptr(), ws.data_ptr(), p, m, k, boost_eps, cluster, stream_handle(d.device),
     )
-    build.check(lib, code, "fused_factor_spike")
+    build.check(lib, code, f"fused_factor_spike (cluster {cluster})")
     fused_factor_spike.launches += 1
+    if cluster == 0:
+        fused_factor_spike.block_launches += 1
     return sinv, l, vb, vt, wt, wb
 
 
 fused_factor_spike.launches = 0
+fused_factor_spike.block_launches = 0  # those of them on the one-block kernel

@@ -223,3 +223,139 @@ def test_plain_versions_compute_in_float32_and_store_the_input_dtype():
     fac32 = tbl.btf_ref(_t(d), _t(e), _t(f))
     assert fac64.sinv.dtype == torch.float64
     torch.testing.assert_close(fac64.sinv.float(), fac32.sinv, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the clustered btf and fused pass (csrc/btf.cu, csrc/fused_spike.cu)
+# ---------------------------------------------------------------------------
+#
+# The kernels run each chain on a cluster of cs CTAs, CTA r owning the rows
+# [r R, r R + R), R = ceil(K / cs), of the running block; each forms the
+# products for its own rows, and the cluster inverts by panel Gauss-Jordan.
+# A numpy float32 model of that bookkeeping, with the inverse by the cluster
+# inverse's own model, is held against the Pallas kernels in interpret mode
+# and the port's plain versions.  Tolerance: the largest difference at
+# most 1e-4 of the largest reference value, the card tests' norm-wise
+# limit for the kernels -- the same float32 recurrences with the panel
+# inverse's and the products' sums taken in another order, as the kernels
+# take them, the rounding amplified by the boosted pivots (a twentieth of
+# the block's largest entry) over the block rows.
+
+from test_torch_cyclic_reduction import _panel_gj_inverse  # noqa: E402
+
+CLUSTER_EPS = 0.05  # boosts the zeroed diagonal entries below
+
+
+def _close_normwise(got, want):
+    want = np.asarray(want, dtype=np.float64)
+    assert np.abs(np.asarray(got, dtype=np.float64) - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def _owned(k, cs):
+    """The rows each of cs CTAs owns (empty past K)."""
+    rows = -(-k // cs)
+    return [np.arange(r * rows, min(k, (r + 1) * rows)) for r in range(cs)]
+
+
+def _invert(slabs, eps):
+    """The cluster's inverse of the block its CTAs hold row-wise."""
+    return _panel_gj_inverse(np.concatenate(slabs), eps, 32)[0]
+
+
+def _cluster_btf(d, e, f, cs, eps):
+    """btf_cluster_kernel: per chain, S_0 = D_0; per block row each CTA's
+    rows of L_j = E_j inv(S_{j-1}) and of S_j = D_j - L_j F_{j-1}."""
+    p, m, k, _ = d.shape
+    own = _owned(k, cs)
+    sinv, l = np.empty_like(d), np.zeros_like(d)
+    for q in range(p):
+        sinv[q, 0] = _invert([d[q, 0][o] for o in own], eps)
+        for j in range(1, m):
+            for o in own:
+                l[q, j][o] = e[q, j][o] @ sinv[q, j - 1]
+            sinv[q, j] = _invert([d[q, j][o] - l[q, j][o] @ f[q, j - 1] for o in own], eps)
+    return sinv, l
+
+
+def _cluster_fused(d, e, f, bq, cq, cs, eps):
+    """fused_cluster_kernel: side 0 is btf's recurrence with the left-spike
+    carry by owned rows; side 1 the UL recurrence on flipped views with the
+    right-spike carry; the corners by the rows of the last inverse each CTA
+    owns, side 1's row i giving output row K-1-i."""
+    p, m, k, _ = d.shape
+    own = _owned(k, cs)
+    sinv, l = _cluster_btf(d, e, f, cs, eps)
+    vb, vt, wt, wb = (np.empty_like(bq) for _ in range(4))
+    for q in range(p):
+        c_w = cq[q]
+        for j in range(1, m):
+            c_w = np.concatenate([-(l[q, j][o] @ c_w) for o in own])
+        c_ul = _invert([d[q, m - 1][::-1, ::-1][o] for o in own], eps)
+        c_v = bq[q][::-1]
+        for j in range(1, m):
+            l_ul = np.concatenate([f[q, m - 1 - j][::-1, ::-1][o] @ c_ul for o in own])
+            s = [d[q, m - 1 - j][::-1, ::-1][o] - l_ul[o] @ e[q, m - j][::-1, ::-1] for o in own]
+            c_v = np.concatenate([-(l_ul[o] @ c_v) for o in own])
+            c_ul = _invert(s, eps)
+        for o in own:
+            vb[q][o] = sinv[q, m - 1][o] @ bq[q]
+            wb[q][o] = sinv[q, m - 1][o] @ c_w
+            wt[q][k - 1 - o] = c_ul[o] @ cq[q][::-1]
+            vt[q][k - 1 - o] = c_ul[o] @ c_v
+    return sinv, l, vb, vt, wt, wb
+
+
+def _cluster_chain(k, seed):
+    """Three partitions of three block rows, the last all identity padding;
+    random parts scaled by 1/sqrt(K) beside 4 I, and zeroed diagonal
+    entries in the first partition, which the boost at CLUSTER_EPS lifts."""
+    rng = np.random.default_rng(seed)
+    p, m, sc = 3, 3, k**-0.5
+    d = sc * rng.normal(size=(p, m, k, k)) + 4 * np.eye(k)
+    e, f = (0.3 * sc * rng.normal(size=(p, m, k, k)) for _ in range(2))
+    e[:, 0] = f[:, m - 1] = 0.0
+    boosted = [1, k // 3, k - 2]
+    d[0][:, boosted, boosted] = 0.0
+    b_cpl, c_cpl = (0.3 * sc * rng.normal(size=(p - 1, k, k)) for _ in range(2))
+    d[-1], e[-1], f[-1] = np.eye(k), 0.0, 0.0
+    b_cpl[-1] = c_cpl[-1] = 0.0
+    return tuple(x.astype(np.float32) for x in (d, e, f, b_cpl, c_cpl))
+
+
+@pytest.mark.parametrize("k", [7, 40])
+@pytest.mark.parametrize("cs", [1, 2, 3, 16])
+def test_clustered_btf_model_matches_interpret_kernel_and_plain(cs, k):
+    d, e, f, _, _ = _cluster_chain(k, seed=50 + k + cs)
+    sinv, l = _cluster_btf(d, e, f, cs, CLUSTER_EPS)
+    ref = jops.block_tridiag_factor(*(jnp.asarray(x) for x in (d, e, f)), CLUSTER_EPS,
+                                    impl="interpret")
+    plain = tbl.btf_ref(_t(d), _t(e), _t(f), CLUSTER_EPS)
+    unboosted = tbl.btf_ref(_t(d), _t(e), _t(f), 0.0)
+    assert not torch.allclose(plain.sinv[0], unboosted.sinv[0])  # a pivot was boosted
+    for got, jax_ref, torch_ref in ((sinv, ref.sinv, plain.sinv), (l, ref.l, plain.l)):
+        _close_normwise(got, jax_ref)
+        _close_normwise(got, torch_ref.numpy())
+    # the all-padding partition inverts to the identity exactly
+    np.testing.assert_array_equal(sinv[-1], np.broadcast_to(np.eye(k, dtype=np.float32), sinv[-1].shape))
+    np.testing.assert_array_equal(l[-1], 0.0)
+
+
+@pytest.mark.parametrize("k", [7, 40])
+@pytest.mark.parametrize("cs", [1, 2, 3, 16])
+def test_clustered_fused_model_matches_interpret_kernel_and_plain(cs, k):
+    d, e, f, b_cpl, c_cpl = _cluster_chain(k, seed=60 + k + cs)
+    bq, cq = (x.numpy() for x in tbl.pad_couplings(_t(b_cpl), _t(c_cpl), d.shape[0]))
+    got = _cluster_fused(d, e, f, bq, cq, cs, CLUSTER_EPS)
+    plain = tbl.fused_factor_spike_padded_ref(*(_t(x) for x in (d, e, f, bq, cq)), CLUSTER_EPS)
+    for g, w in zip(got, plain):
+        _close_normwise(g, w.numpy())
+    ref = jops.fused_factor_spike(*(jnp.asarray(x) for x in (d, e, f, b_cpl, c_cpl)), CLUSTER_EPS,
+                                  impl="interpret")
+    sinv, l, vb, vt, wt, wb = got
+    for g, w in ((sinv, ref.lu.sinv), (l, ref.lu.l), (vb[:-1], ref.v_bot), (vt[:-1], ref.v_top),
+                 (wt[1:], ref.w_top), (wb[1:], ref.w_bot)):
+        _close_normwise(g, w)
+    np.testing.assert_array_equal(sinv[-1], np.broadcast_to(np.eye(k, dtype=np.float32), sinv[-1].shape))
+    # the padding partition's couplings are zero, so are its corners
+    for corner in (vb[-1], wt[-1]):
+        np.testing.assert_array_equal(corner, 0.0)

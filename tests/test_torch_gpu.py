@@ -28,9 +28,8 @@ from repro_torch.kernels.fused_spike import fused_factor_spike
 
 pytestmark = pytest.mark.gpu
 
-# (n, k, p).  At K = 256 the K x K elimination block does not fit in one
-# block's shared memory, so btf and the fused pass eliminate in device
-# memory (and the fused pass keeps its fourth workspace slot there).
+# (n, k, p).  At K = 256 the K x K block does not fit in one CTA's shared
+# memory, so btf and the fused pass spread it over a cluster of at least two.
 SHAPES = [(15, 5, 4), (259, 37, 3), (3200, 20, 8), (12800, 200, 4), (1400, 256, 2)]
 
 
@@ -104,14 +103,106 @@ def test_chain_kernels_at_block_size_400(cuda):
     _close(ops.block_tridiag_solve_chain(got, h), bl.bts_chain(want, h))
 
 
-def test_k256_elimination_block_lives_in_device_memory(cuda):
-    """The K = 256 shapes above take the device-memory layout: btf needs a
-    K x K workspace per partition, the fused pass four slots per side."""
+def _btf_on(cuda, d, e, f, cluster):
+    """btf through the C entry point on a forced route: a cluster of that
+    many CTAs, or the one-block kernel (0)."""
     from repro_torch.kernels import build
 
-    assert build.load("btf").btf_workspace_floats(256) == 256 * 256
-    assert build.load("fused_spike").fused_workspace_floats(256) == 2 * 4 * 256 * 256
-    assert build.load("btf").btf_workspace_floats(200) == 0
+    lib = build.load("btf")
+    p, m, k, _ = d.shape
+    sinv, l = torch.empty_like(d), torch.empty_like(d)
+    ws = torch.empty(max(1, p * lib.btf_workspace_floats(k, cluster)), device=cuda)
+    code = lib.btf_launch(d.data_ptr(), e.data_ptr(), f.data_ptr(), sinv.data_ptr(),
+                          l.data_ptr(), ws.data_ptr(), p, m, k, bl.DEFAULT_BOOST, cluster,
+                          torch.cuda.current_stream(cuda).cuda_stream)
+    build.check(lib, code, f"btf (cluster {cluster})")
+    return sinv, l
+
+
+def _fused_on(cuda, d, e, f, bq, cq, cluster):
+    from repro_torch.kernels import build
+
+    lib = build.load("fused_spike")
+    p, m, k, _ = d.shape
+    outs = [torch.empty_like(d), torch.empty_like(d)] + [torch.empty_like(bq) for _ in range(4)]
+    ws = torch.empty(max(1, p * lib.fused_workspace_floats(k, cluster)), device=cuda)
+    code = lib.fused_launch(d.data_ptr(), e.data_ptr(), f.data_ptr(), bq.data_ptr(),
+                            cq.data_ptr(), *[o.data_ptr() for o in outs], ws.data_ptr(), p, m, k,
+                            bl.DEFAULT_BOOST, cluster, torch.cuda.current_stream(cuda).cuda_stream)
+    build.check(lib, code, f"fused (cluster {cluster})")
+    return outs
+
+
+@pytest.mark.parametrize("n,k,p", [(259, 37, 3), (3200, 20, 8), (12800, 200, 4)])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_cluster_kernels_at_every_cluster_size(cuda, n, k, p, cluster):
+    """btf and the fused pass forced onto each cluster size the route can
+    pick (K = 37 on 16 CTAs leaves three of them no rows)."""
+    bt = _split(cuda, n, k, p)
+    ref = bl.btf_ref(bt.d, bt.e, bt.f)
+    sinv, l = _btf_on(cuda, bt.d, bt.e, bt.f, cluster)
+    torch.cuda.synchronize()
+    _close(sinv, ref.sinv)
+    _close(l, ref.l)
+    bq, cq = bl.pad_couplings(bt.b_cpl, bt.c_cpl, p)
+    for got, want in zip(_fused_on(cuda, bt.d, bt.e, bt.f, bq, cq, cluster),
+                         bl.fused_factor_spike_padded_ref(bt.d, bt.e, bt.f, bq, cq)):
+        _close(got, want)
+
+
+def test_k256_takes_a_cluster_and_k800_the_one_block_kernel(cuda):
+    """K = 256 does not fit one CTA: both kernels take a cluster of at least
+    two, no device workspace for btf and four K x K slots a side for the
+    fused pass.  K = 800 fits no cluster of 16: the wrappers take the
+    one-block kernel (counted in ``block_launches``) and still match."""
+    from repro_torch.kernels import build
+
+    lb, lf = build.load("btf"), build.load("fused_spike")
+    assert lb.btf_cluster_size(2, 256) >= 2 and lf.fused_cluster_size(2, 256) >= 2
+    assert lb.btf_workspace_floats(256, 2) == 0
+    assert lf.fused_workspace_floats(256, 2) == 2 * 4 * 256 * 256
+    assert lb.btf_cluster_size(1, 800) == 0 and lf.fused_cluster_size(1, 800) == 0
+    g = torch.Generator(device=cuda).manual_seed(0)
+    k, sc = 800, 800**-0.5
+    d = sc * torch.randn(2, 2, k, k, generator=g, device=cuda) + 4 * torch.eye(k, device=cuda)
+    e, f = (0.3 * sc * torch.randn(2, 2, k, k, generator=g, device=cuda) for _ in range(2))
+    e[:, 0] = 0.0
+    f[:, -1] = 0.0
+    bq, cq = (0.3 * sc * torch.randn(2, k, k, generator=g, device=cuda) for _ in range(2))
+    before = btf.launches, btf.block_launches, fused_factor_spike.block_launches
+    sinv, l = btf(d, e, f)
+    out = fused_factor_spike(d, e, f, bq, cq)
+    torch.cuda.synchronize()
+    assert (btf.launches, btf.block_launches, fused_factor_spike.block_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    ref = bl.btf_ref(d, e, f)
+    _close(sinv, ref.sinv)
+    _close(l, ref.l)
+    for got, want in zip(out, bl.fused_factor_spike_padded_ref(d, e, f, bq, cq)):
+        _close(got, want)
+
+
+def test_kernels_refuse_operands_that_require_grad(cuda):
+    """The card kernels have no backward: btf and flash_attention refuse an
+    operand that requires grad while grad mode is on, and take it under
+    torch.no_grad()."""
+    from repro_torch.kernels.flash_attn import flash_attention
+
+    bt = _split(cuda, 64, 4, 2)
+    d = bt.d.clone().requires_grad_(True)
+    before = btf.launches
+    with pytest.raises(ValueError, match="requires grad"):
+        btf(d, bt.e, bt.f)
+    assert btf.launches == before
+    with torch.no_grad():
+        sinv, _ = btf(d, bt.e, bt.f)
+    _close(sinv, bl.btf_ref(bt.d, bt.e, bt.f).sinv)
+    q, k, v = (torch.randn(1, 2, 64, 64, device=cuda) for _ in range(3))
+    q.requires_grad_(True)
+    with pytest.raises(ValueError, match="requires grad"):
+        flash_attention(q, k, v)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).shape == q.shape
 
 
 def test_wrappers_reject_non_float32(cuda):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the two redesigned kernels goes, on one NVIDIA card.
+"""Where the time of the redesigned kernels goes, on one NVIDIA card.
 
     python3 tools/kernel_phases.py
 
@@ -13,11 +13,21 @@ prints one JSON line each:
   one phase removed -- the lo term of p.v, the p.v products, the q.k
   products, the next tile's loads, both products -- each by CUDA events
   (the copies compute wrong results; only their time is read);
-- ``inv_phases``: the cluster inverse (``inv_cluster_kernel``) with
-  ``clock64`` marks around its phases, read by thread 0 of the first CTA
-  and summed over the panels, at 2K = 400 on clusters of 4 and 8 and at
-  2K = 190 on one CTA; a phase's cycles include thread 0's waits at the
-  barriers that end it;
+- ``inv_phases``: the panel inverse on a cluster (``gj_cluster.cuh:
+  gj_cluster_inverse``, which ``inv_cluster_kernel``, btf and the fused
+  pass call) with ``clock64`` marks around its phases, read by thread 0 of
+  the first CTA and summed over the panels, in ``inv_cluster_kernel`` at
+  2K = 400 on clusters of 4 and 8 and at 2K = 190 on one CTA; a phase's
+  cycles include thread 0's waits at the barriers that end it;
+- ``btf_phases``, ``fused_phases``: the two kernels with marks after each
+  step of a block row (the products, the scale's cluster barrier, the
+  inverse, the store), summed over the rows, beside the inverse's phases
+  summed over its calls; and each kernel's time by CUDA events as built
+  (the previous inverse read back from device memory) against a copy that
+  reads it from the peers' slabs over DSMEM, in turns (``as_is``,
+  ``inv_from_peers``, ``as_is_again``): btf at the main shape (P=64,
+  M=16, K=200) and on a 63-block chain of 2K = 400, the fused pass at the
+  main shape and at SaP-E's P=8 (M=125);
 - ``inv_routes``: the built library's two routes for 32 blocks of
   2K = 190, which fit one CTA's shared memory: the cluster kernel on one
   CTA (the route ``bcr_inv_cluster_size`` gives) against the one-block
@@ -71,38 +81,117 @@ def flash_variants(src: str) -> dict[str, str]:
     }
 
 
-INV_PHASES = ("setup", "take_r", "strip_load", "strip_steps", "strip_out", "update",
-              "cluster_sync", "final")
+GJ_PHASES = ("take_r", "strip_load", "strip_steps", "strip_out", "update", "cluster_sync",
+             "final")
 
 
-def inv_instrumented(src: str) -> str:
-    """The cluster inverse with clock64 marks after each phase, summed
-    into P[i] by every thread; thread 0 of block 0 writes them out."""
+def gj_instrumented(hdr: str) -> str:
+    """gj_cluster.cuh with clock64 marks after each phase of the panel
+    inverse, summed into P[i] by every thread; thread 0 of the first CTA
+    adds them to g_gj, and the kernels' own marks (kernel_instrumented) go
+    to g_kern."""
+    return patched(
+        hdr,
+        ("namespace sap {\n",
+         "namespace sap {\n__device__ long long g_gj[8], g_kern[8];\n"
+         "#define KMARK(i) U0 = clock64(); Q[i] += U0 - T0; T0 = U0;\n"
+         "#define KDONE(n) if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) "
+         "for (int i = 0; i < n; ++i) g_kern[i] += Q[i];\n"),
+        ("  float* colbuf = s.colbuf;\n\n",
+         "  float* colbuf = s.colbuf;\n  long long P[8] = {}, T = clock64(), U;\n"
+         "#define MARK(i) U = clock64(); P[i] += U - T; T = U;\n"),
+        ("    take_r(prev, prev_b);  // (iv) of the previous panel\n",
+         "    take_r(prev, prev_b);  // (iv) of the previous panel\n    MARK(0)\n"),
+        ("    float sv[NC][kPanel];", "    MARK(1)\n    float sv[NC][kPanel];"),
+        ("    // R and this CTA's rows' panel columns to shared memory\n",
+         "    MARK(2)\n    // R and this CTA's rows' panel columns to shared memory\n"),
+        ("    // (iii) tiles of 4 rows x 4 columns; panel rows are computed, not stored\n",
+         "    MARK(3)\n    // (iii) tiles of 4 rows x 4 columns; panel rows are computed, not stored\n"),
+        ("    cluster.sync();  // (iv)\n", "    MARK(4)\n    cluster.sync();  // (iv)\n    MARK(5)\n"),
+        ("  take_r(prev, prev_b);  // the last panel's rows\n  __syncthreads();\n}",
+         "  take_r(prev, prev_b);  // the last panel's rows\n  __syncthreads();\n  MARK(6)\n"
+         "  if (blockIdx.x == 0 && blockIdx.y == 0 && tid == 0)\n"
+         "    for (int i = 0; i < 8; ++i) g_gj[i] += P[i];\n}\n"
+         "extern \"C\" int read_phases(long long* gj, long long* kern) {\n"
+         "  cudaError_t err = cudaMemcpyFromSymbol(gj, g_gj, sizeof(long long) * 8);\n"
+         "  return (int)(err ? err : cudaMemcpyFromSymbol(kern, g_kern, sizeof(long long) * 8));\n}\n"
+         "extern \"C\" int reset_phases() {\n  const long long z[8] = {};\n"
+         "  cudaError_t err = cudaMemcpyToSymbol(g_gj, z, sizeof(z));\n"
+         "  return (int)(err ? err : cudaMemcpyToSymbol(g_kern, z, sizeof(z)));\n}"),
+    )
+
+
+BTF_PHASES = ("row0", "l_product", "s_product", "scale", "inverse", "store")
+FUSED_PHASES = ("row0", "l_product", "s_product", "carry_product", "scale", "inverse", "store",
+                "corners")
+# The DSMEM variant of btf and the fused pass: L_j's right operand, the
+# previous inverse, read from the peers' slabs (B.p == nullptr) in place of
+# the copy in device memory; a cluster barrier after the product, since the
+# next one overwrites the slabs.
+DSMEM_STAGE = (
+    "  if (b_vec) {\n",
+    "  if (B.p == nullptr) {  // the block in the peers' slabs, 16 bytes at a time\n"
+    "    cg::cluster_group cluster = cg::this_cluster();\n"
+    "    for (int e = tid; e < kStage * n4; e += kClusterThreads) {\n"
+    "      const int kk = e / n4, c4 = e - kk * n4, row = k0 + kk;\n"
+    "      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);\n"
+    "      if (row < q) {\n"
+    "        const int owner = row / s.rows;\n"
+    "        v = reinterpret_cast<const float4*>(cluster.map_shared_rank(s.w, owner) +\n"
+    "                                            (row - owner * s.rows) * ld)[c4];\n"
+    "      }\n"
+    "      reinterpret_cast<float4*>(bs + kk * ld)[c4] = v;\n"
+    "    }\n"
+    "  } else if (b_vec) {\n")
+DSMEM_BTF = ("rowmajor(sinv + blk - kk, k), none(), 1.f, n, k, k);\n    __syncthreads();",
+             "none(), none(), 1.f, n, k, k);\n    cluster.sync();")
+DSMEM_FUSED = ("rowmajor(side == 0 ? inv - kk : inv, k), none(), 1.f, n, k, k);\n"
+               "    __syncthreads();", "none(), none(), 1.f, n, k, k);\n    cluster.sync();")
+
+
+def btf_instrumented(src: str) -> str:
+    """btf.cu with clock64 marks after each step of a block row, summed
+    over the rows into g_kern by thread 0 of the first CTA."""
     return patched(
         src,
-        ("template <int NC>\n__global__ void __launch_bounds__(kClusterThreads)\n"
-         "    inv_cluster_kernel(",
-         "__device__ long long g_phase[8];\ntemplate <int NC>\n"
-         "__global__ void __launch_bounds__(kClusterThreads)\n    inv_cluster_kernel("),
-        ("  float mx = 0.f;\n  const float* mine",
-         "  long long P[8] = {}, T = clock64(), U;\n"
-         "#define MARK(i) U = clock64(); P[i] += U - T; T = U;\n"
-         "  float mx = 0.f;\n  const float* mine"),
-        ("  const float thr = boost_eps * fmaxf(scale, 1e-30f);\n",
-         "  const float thr = boost_eps * fmaxf(scale, 1e-30f);\n  MARK(0)\n"),
-        ("    take_r(prev, prev_b);  // (iv) of the previous panel\n",
-         "    take_r(prev, prev_b);  // (iv) of the previous panel\n    MARK(1)\n"),
-        ("    // (ii) the b steps on the strip\n", "    MARK(2)\n    // (ii) the b steps on the strip\n"),
-        ("    // R and this CTA's rows' panel columns to shared memory\n",
-         "    MARK(3)\n    // R and this CTA's rows' panel columns to shared memory\n"),
-        ("    // (iii) tiles of 4 rows x 4 columns; panel rows are computed, not stored\n",
-         "    MARK(4)\n    // (iii) tiles of 4 rows x 4 columns; panel rows are computed, not stored\n"),
-        ("    cluster.sync();  // (iv)\n", "    MARK(5)\n    cluster.sync();  // (iv)\n    MARK(6)\n"),
-        ("    out[(long)(row0 + r) * k + c] = slab[r * ld + c];\n  }\n}",
-         "    out[(long)(row0 + r) * k + c] = slab[r * ld + c];\n  }\n  MARK(7)\n"
-         "  if (blockIdx.x == 0 && tid == 0)\n    for (int i = 0; i < 8; ++i) g_phase[i] = P[i];\n}\n"
-         "extern \"C\" int read_phases(long long* out) {\n"
-         "  return (int)cudaMemcpyFromSymbol(out, g_phase, sizeof(long long) * 8);\n}"),
+        ("  const int n = s.nrows;\n  const long kk",
+         "  long long Q[8] = {}, T0 = clock64(), U0;\n  const int n = s.nrows;\n  const long kk"),
+        ("  slab_store(s, rowmajor(sinv + chain + mine, k), n);\n",
+         "  slab_store(s, rowmajor(sinv + chain + mine, k), n);\n  KMARK(0)\n"),
+        ("    __syncthreads();  // l_j's rows are written\n",
+         "    __syncthreads();  // l_j's rows are written\n    KMARK(1)\n"),
+        ("    // 3. inv(S_j)\n", "    KMARK(2)\n"),
+        ("    scale = cluster_max(cluster, mx, s.red);\n",
+         "    scale = cluster_max(cluster, mx, s.red);\n    KMARK(3)\n"),
+        ("    slab_store(s, rowmajor(sinv + blk + mine, k), n);\n  }\n}",
+         "    slab_store(s, rowmajor(sinv + blk + mine, k), n);\n    KMARK(5)\n  }\n  KDONE(6)\n}"),
+        ("    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));\n    slab_store",
+         "    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));\n    KMARK(4)\n"
+         "    slab_store"),
+    )
+
+
+def fused_instrumented(src: str) -> str:
+    """fused_spike.cu with the same marks (and the spike carry's product and
+    the corners apart)."""
+    return patched(
+        src,
+        ("  const int n = s.nrows, row0 = s.row0;\n",
+         "  long long Q[8] = {}, T0 = clock64(), U0;\n  const int n = s.nrows, row0 = s.row0;\n"),
+        ("  slab_store(s, rowmajor((side == 0 ? sinv + chain : inv_ul) + mine, k), n);\n",
+         "  slab_store(s, rowmajor((side == 0 ? sinv + chain : inv_ul) + mine, k), n);\n  KMARK(0)\n"),
+        ("    __syncthreads();  // the multiplier's rows are written\n",
+         "    __syncthreads();  // the multiplier's rows are written\n    KMARK(1)\n"),
+        ("    // the spike carry: c <- -(mult c), all of the previous carry read\n",
+         "    KMARK(2)\n"),
+        ("    scale = cluster_max(cluster, mx, s.red);",
+         "    KMARK(3)\n    scale = cluster_max(cluster, mx, s.red);"),
+        ("    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));\n    slab_store",
+         "    KMARK(4)\n    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));\n"
+         "    KMARK(5)\n    slab_store"),
+        ("    slab_store(s, rowmajor(inv + mine, k), n);\n  }\n",
+         "    slab_store(s, rowmajor(inv + mine, k), n);\n    KMARK(6)\n  }\n"),
+        ("none(), 1.f, n, k, k);\n  }\n}", "none(), 1.f, n, k, k);\n  }\n  KMARK(7)\n  KDONE(8)\n}"),
     )
 
 
@@ -115,26 +204,43 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    shutil.copy(CSRC / "common.cuh", OUT / "common.cuh")
-    sources = {f"flash_{nm}": text
+    # OUT: the flash variants and the instrumented solver kernels; OUT/peers:
+    # btf and the fused pass reading the previous inverse from the peers' slabs
+    peers = OUT / "peers"
+    peers.mkdir(parents=True, exist_ok=True)
+    for hdr in CSRC.glob("*.cuh"):
+        shutil.copy(hdr, OUT / hdr.name)
+        shutil.copy(hdr, peers / hdr.name)
+    hdr = (CSRC / "gj_cluster.cuh").read_text()
+    (OUT / "gj_cluster.cuh").write_text(gj_instrumented(hdr))
+    (peers / "gj_cluster.cuh").write_text(patched(hdr, DSMEM_STAGE))
+    sources = {f"flash_{nm}": (OUT, text)
                for nm, text in flash_variants((CSRC / "flash_attn.cu").read_text()).items()}
-    sources["inv_phases"] = inv_instrumented((CSRC / "bcr.cu").read_text())
+    sources["inv_phases"] = (OUT, (CSRC / "bcr.cu").read_text())
+    sources["btf_phases"] = (OUT, btf_instrumented((CSRC / "btf.cu").read_text()))
+    sources["fused_phases"] = (OUT, fused_instrumented((CSRC / "fused_spike.cu").read_text()))
+    sources["btf_peers"] = (peers, patched((CSRC / "btf.cu").read_text(), DSMEM_BTF))
+    sources["fused_peers"] = (peers, patched((CSRC / "fused_spike.cu").read_text(), DSMEM_FUSED))
     procs = {}
-    for nm, text in sources.items():
-        (OUT / f"{nm}.cu").write_text(text)
+    for nm, (where, text) in sources.items():
+        (where / f"{nm}.cu").write_text(text)
         procs[nm] = subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"{nm}.so"), str(OUT / f"{nm}.cu")],
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(where / f"{nm}.so"),
+             str(where / f"{nm}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    kinds = {"flash": "flash_attn", "inv": "bcr", "btf": "btf", "fused": "fused_spike"}
     libs = {}
     for nm, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {nm}:\n{log}")
-        libs[nm] = ctypes.CDLL(str(OUT / f"{nm}.so"))
-        for fn, (restype, argtypes) in build.SIGNATURES[
-                "flash_attn" if nm.startswith("flash") else "bcr"].items():
+        libs[nm] = ctypes.CDLL(str(sources[nm][0] / f"{nm}.so"))
+        for fn, (restype, argtypes) in build.SIGNATURES[kinds[nm.split("_")[0]]].items():
             getattr(libs[nm], fn).restype, getattr(libs[nm], fn).argtypes = restype, argtypes
+        if nm.endswith("_phases"):
+            libs[nm].read_phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+
+    import numpy as np
 
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
@@ -166,21 +272,85 @@ def main() -> int:
             flash[nm[6:]] = cuda_ms(run, 20)
     print(json.dumps({"flash": flash, "shape": [b, hq, hk, t, t, d, True, None]}), flush=True)
 
+    def phases(lib, launch):
+        """(the panel inverse's cycles by phase, the kernel's by phase) of
+        one launch, read from thread 0 of the first CTA."""
+        launch()  # warm
+        torch.cuda.synchronize()
+        if lib.reset_phases():
+            raise RuntimeError("resetting the phase counters failed")
+        launch()
+        torch.cuda.synchronize()
+        gj, kern = (ctypes.c_longlong * 8)(), (ctypes.c_longlong * 8)()
+        if lib.read_phases(gj, kern):
+            raise RuntimeError("reading the phase counters failed")
+        return list(gj), list(kern)
+
+    def checked(code, what):
+        if code:
+            raise RuntimeError(f"{what} launch failed: {code}")
+
     lib = libs["inv_phases"]
     for kb, cs in ((400, 4), (400, 8), (190, 1)):
         blocks = kb**-0.5 * torch.randn(2, kb, kb, generator=g, device=dev) + 4 * torch.eye(
             kb, device=dev)
         out = torch.empty(1, kb, kb, device=dev)
-        for _ in range(3):
-            code = lib.bcr_inv_launch(blocks.data_ptr(), out.data_ptr(), 1, 1, kb, 1e-10, cs, stream)
-            if code:
-                raise RuntimeError(f"inverse launch failed: {code}")
-        torch.cuda.synchronize()
-        cycles = (ctypes.c_longlong * 8)()
-        if lib.read_phases(cycles):
-            raise RuntimeError("reading the phase counters failed")
-        print(json.dumps({"inv_phases": {"k": kb, "cluster": cs, "cycles": sum(cycles),
-                                         **dict(zip(INV_PHASES, cycles))}}), flush=True)
+        gj, _ = phases(lib, lambda: checked(lib.bcr_inv_launch(
+            blocks.data_ptr(), out.data_ptr(), 1, 1, kb, 1e-10, cs, stream), "inverse"))
+        print(json.dumps({"inv_phases": {"k": kb, "cluster": cs, "cycles": sum(gj),
+                                         **dict(zip(GJ_PHASES, gj))}}), flush=True)
+
+    # btf and the fused pass: the main shape (P=64, M=16, K=200), the fused
+    # pass at SaP-E's P=8 (M=125) and btf on a 63-block chain of 2K=400
+    from repro_torch.core import band_to_block_tridiag, random_banded
+    from repro_torch.core.block_lu import pad_couplings
+
+    def split(p):
+        band = torch.tensor(random_banded(200_000, 200, 1.0, seed=0).astype(np.float32),
+                            device=dev)
+        bt = band_to_block_tridiag(band, 200, p)
+        return bt.d, bt.e, bt.f, *pad_couplings(bt.b_cpl, bt.c_cpl, p)
+
+    def btf_run(lib, d, e, f):
+        p, m, k, _ = d.shape
+        cs = lib.btf_cluster_size(p, k)
+        sinv, l = torch.empty_like(d), torch.empty_like(d)
+        ws = torch.empty(max(1, p * lib.btf_workspace_floats(k, cs)), device=dev)
+        return cs, lambda: checked(lib.btf_launch(
+            d.data_ptr(), e.data_ptr(), f.data_ptr(), sinv.data_ptr(), l.data_ptr(),
+            ws.data_ptr(), p, m, k, 1e-10, cs, stream), "btf")
+
+    def fused_run(lib, d, e, f, bq, cq):
+        p, m, k, _ = d.shape
+        cs = lib.fused_cluster_size(p, k)
+        outs = [torch.empty_like(d), torch.empty_like(d)] + [torch.empty_like(bq) for _ in range(4)]
+        ws = torch.empty(max(1, p * lib.fused_workspace_floats(k, cs)), device=dev)
+        return cs, lambda: checked(lib.fused_launch(
+            d.data_ptr(), e.data_ptr(), f.data_ptr(), bq.data_ptr(), cq.data_ptr(),
+            *[o.data_ptr() for o in outs], ws.data_ptr(), p, m, k, 1e-10, cs, stream), "fused")
+
+    main, p8 = split(64), split(8)
+    kb = 400
+    sc = kb**-0.5
+    chain = (sc * torch.randn(1, 63, kb, kb, generator=g, device=dev) + 4 * torch.eye(kb, device=dev),
+             0.3 * sc * torch.randn(1, 63, kb, kb, generator=g, device=dev),
+             0.3 * sc * torch.randn(1, 63, kb, kb, generator=g, device=dev))
+    shipped = {"btf": build.load("btf"), "fused": build.load("fused_spike")}
+    cases = (("btf", "main", main[:3]), ("btf", "chain400", chain), ("fused", "main", main),
+             ("fused", "p8", p8))
+    for kind, tag, args in cases:
+        run = btf_run if kind == "btf" else fused_run
+        cs, launch = run(libs[f"{kind}_phases"], *args)
+        gj, kern = phases(libs[f"{kind}_phases"], launch)
+        names = BTF_PHASES if kind == "btf" else FUSED_PHASES
+        ms = {}
+        for nm, lib in (("as_is", shipped[kind]), ("inv_from_peers", libs[f"{kind}_peers"]),
+                        ("as_is_again", shipped[kind])):
+            ms[nm] = cuda_ms(run(lib, *args)[1], 3)
+        print(json.dumps({f"{kind}_phases": {
+            "at": tag, "shape": list(args[0].shape), "cluster": cs, "ms": ms,
+            "kernel_cycles": sum(kern), **dict(zip(names, kern)),
+            "inverse_by_phase": dict(zip(GJ_PHASES, gj))}}), flush=True)
     lib = build.load("bcr")
     blocks = 190**-0.5 * torch.randn(64, 190, 190, generator=g, device=dev) + 4 * torch.eye(
         190, device=dev)
