@@ -11,14 +11,15 @@ of the JAX package.  Phases, each printing one JSON line:
    one nvcc per source, all started together;
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (P=64, M=16, K=200), at the SaP-E reduced chain's
-   (P=1, M=7 and M=63, K=400), at the sparse run's (P=64, M=33, K=95) and
-   at edge cases (M=1, K=37, K=256), with the cluster size (the route) of
-   every btf and fused launch; the four block cyclic reduction
+   (P=1, M=7 and M=63, K=400), at the sparse run's (P=64, M=33, K=95), at
+   edge cases (M=1, K=37, K=256), and bts also at SaP-E's P=8 split
+   (M=125) and the P=500 split (M=2), with the cluster size (the route) of
+   every btf, fused and bts launch; the four block cyclic reduction
    (BCR) kernels and the whole BCR factor / solve at the P=64 interface
    chain of the d=0.5 band (63 blocks of 2K=400, R=1, 4), at the coupled
    P=500 chain (499 blocks of 400), at the sparse run's chain (63 blocks
    of 2K=190, eliminated in shared memory) and at edge cases (m=1, m=3,
-   K=37 with R=K); the two SaP-scan kernels (WKV6, SSD) at the LM path's
+   K=37 with R=K), with each reduce level's tile size; the two SaP-scan kernels (WKV6, SSD) at the LM path's
    decode (T=1, 8 slots) and prefill (B=4, T=512, chunk 64) shapes, at
    chunk 16, under strong decay, and a chunk that does not tile T (which
    must be refused); the flash-attention kernel in bfloat16 and float32 at
@@ -35,7 +36,8 @@ of the JAX package.  Phases, each printing one JSON line:
    interface chain stays coupled); and the sparse front end:
    ``random_sparse(200,000, 20, d=1.0, structured_band=50)`` through
    ``factor(plan(...)).solve`` at P=64 (host DB + CM timed once, in
-   phase 3); with every kernel wrapper's launch count;
+   phase 3); with every kernel wrapper's launch count, bts's launches by
+   cluster size and reduce's by tile size;
 lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
    random weights from a seeded generator: ``forward`` over 64 tokens
    against 64 ``decode_step`` calls in float32, a bfloat16 prefill
@@ -52,9 +54,13 @@ dense. Minitron-8B at its published width and depth (32 layers, d=4096,
 5. timing of each kernel beside its plain version (and a library call
    where one computes the same function: for btf and the fused pass a loop
    over the block rows of batched ``torch.linalg.inv`` and ``torch.matmul``,
-   with its difference from the plain version), with CUDA events; the BCR
-   inverse level by level with each launch's cluster size and route; no
-   kernel or library time may read under the kernel's bound.
+   for reduce each level's six batched ``torch.matmul`` products, with its
+   difference from the plain version), with CUDA events; bts at every
+   shape the main path gives it, beside the one-block kernel; the BCR
+   inverse level by level with each launch's cluster size and route, and
+   reduce level by level over the P=64 and the P=500 chain with each
+   launch's tile size; no kernel or library time may read under the
+   kernel's bound.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -215,6 +221,28 @@ def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
         "rhs_reduce": (rows * (4.0 * k * k * r + 2 * k * r), rows * (2 * blk + 3 * vec)),
         "backsub": (rows * (6.0 * k * k * r + 2 * k * r), rows * (3 * blk + 4 * vec)),
     }
+
+
+def reduce_level_work(m2: int, k: int) -> tuple[float, float]:
+    """(flops, bytes) of one reduce level of m2 even rows, as bcr_work
+    counts a row: six K x K products and two block subtractions, reading
+    D_2i, E, F, a and writing lo, hi, D', E', F' (11 blocks)."""
+    return m2 * (12.0 * k**3 + 2 * k * k), m2 * 11 * 4.0 * k * k
+
+
+def reduce_library(d, e, f, a):
+    """bcr_reduce's function from PyTorch calls: its six K x K products a
+    level as batched ``torch.matmul`` (float32, TF32 off), on the clamped
+    neighbours max(i-1, 0) and max(2i-1, 0) that the kernel reads, gathered
+    by ``index_select`` (E_0 = 0 zeroes the terms they bring in)."""
+    import torch
+
+    i = torch.arange(a.shape[0], device=a.device)
+    prv = (2 * i - 1).clamp(min=0)
+    lo = torch.matmul(e[0::2], a.index_select(0, (i - 1).clamp(min=0)))
+    hi = torch.matmul(f[0::2], a)
+    dn = d[0::2] - torch.matmul(lo, f.index_select(0, prv)) - torch.matmul(hi, e[1::2])
+    return lo, hi, dn, -torch.matmul(lo, e.index_select(0, prv)), -torch.matmul(hi, f[1::2])
 
 
 def wkv_work(bh: int, t: int, d: int) -> tuple[float, float]:
@@ -444,8 +472,9 @@ def main() -> int:
     bt = band_to_block_tridiag(band_d1, K, 64)
     assert (bt.p, bt.m, bt.k) == (64, 16, 200)
     errs: dict[str, float] = {}
-    routes: dict[str, int] = {}  # cluster size of each btf / fused launch (0: one-block kernel)
+    routes: dict[str, int] = {}  # cluster size of each btf / fused / bts launch (0: one-block kernel)
     lib_btf, lib_fused = build.load("btf"), build.load("fused_spike")
+    lib_bts, lib_bcr = build.load("bts"), build.load("bcr")
 
     def check_kernels(tag, d, e, f, b_cpl, c_cpl, rs):
         routes[f"btf{tag}"] = lib_btf.btf_cluster_size(d.shape[0], d.shape[2])
@@ -456,6 +485,7 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(SEED)
         for r in rs:
             rhs = torch.randn(d.shape[:3] + (r,), generator=g, device=dev)
+            routes[f"bts{tag}_r{r}"] = lib_bts.bts_cluster_size(d.shape[0], d.shape[2], r)
             errs[f"bts{tag}_r{r}"] = check_close(
                 f"bts{tag} r={r}", bts(ref.sinv, ref.l, f, rhs), bl.bts_ref(ref, rhs)
             )
@@ -498,6 +528,20 @@ def main() -> int:
     band_d05 = torch.tensor(random_banded(N, K, 0.5, seed=SEED).astype(np.float32), device=dev)
     chain = split_chain(band_d05, K, 64)
     assert tuple(chain[0].shape) == (63, 2 * K, 2 * K)
+    # bts as SaP-E at P=8 and the P=500 splits run it: factors from the btf
+    # kernel (held to its plain version above), kept for the timing phase
+    bts_cases = {}
+    for tag, p_split in (("_p8", 8), ("_p500", 500)):
+        sbt = band_to_block_tridiag(band_d05, K, p_split)
+        sinv_k, l_k = btf(sbt.d, sbt.e, sbt.f)
+        facs = bl.BTFactors(sinv=sinv_k, l=l_k, f=sbt.f)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        rhs = torch.randn(sbt.d.shape[:3] + (1,), generator=g, device=dev)
+        routes[f"bts{tag}_r1"] = lib_bts.bts_cluster_size(sbt.p, K, 1)
+        errs[f"bts{tag}_r1"] = check_close(f"bts{tag} r=1", bts(sinv_k, l_k, sbt.f, rhs),
+                                           bl.bts_ref(facs, rhs))
+        bts_cases[tag] = (facs, rhs)
+        del sbt
 
     def bcr_inputs(d, e, f, r):
         """Per-level kernel inputs of one plain factor and one plain solve:
@@ -524,8 +568,12 @@ def main() -> int:
             x = cr.bcr_backsub_ref(level.a_odd, level.e_odd, level.f_odd, bl_, x)
         return facts, downs, ups, pd
 
+    reduce_tiles: dict[str, list] = {}  # each reduce level's (m/2, tile size)
+
     def check_bcr(tag, d, e, f, rs):
         facts, downs, ups, root = bcr_inputs(d, e, f, rs[0])
+        reduce_tiles[tag or "_p64"] = [(pd.shape[0] // 2, lib_bcr.bcr_reduce_tile(
+            pd.shape[0] // 2, pd.shape[1])) for pd, _, _, _ in facts]
         err = {nm: 0.0 for nm in ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")}
         for pd, pe, pf, a in facts:
             err["bcr_inv_odd"] = max(err["bcr_inv_odd"], check_close(
@@ -563,8 +611,7 @@ def main() -> int:
     # decay, so E, F and every coupling term of BCR stay active
     chain500 = split_chain(band_d05, K, 500)
     coupling["p500"] = chain_coupling(*chain500)
-    check_bcr("_p500", *chain500, (1,))
-    del chain500
+    check_bcr("_p500", *chain500, (1,))  # chain500 is kept for the timing phase
 
     # the sparse system: float32-exact values, so the float32 operator the
     # plan keeps is the matrix solved; b = A x* in float64
@@ -683,9 +730,14 @@ def main() -> int:
             errs[f"flash_{tag}_{str(dtype)[6:]}"] = err
             del q, k, v, got, want
     torch.cuda.synchronize()
-    if min(routes.values()) < 1:
-        raise AssertionError(f"a btf / fused launch left the cluster route: {routes}")
+    # btf and the fused pass always on a cluster here; bts on one exactly
+    # when R <= 8 (whole spikes, R = K, take the one-block kernel)
+    for nm, cs in routes.items():
+        wide = nm.startswith("bts") and int(nm.rsplit("_r", 1)[1]) > 8
+        if (cs == 0) != wide:
+            raise AssertionError(f"{nm} took cluster size {cs}: {routes}")
     emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL, "routes": routes,
+          "reduce_tiles": reduce_tiles,
           "flash_bfloat16_step_atol": [FLASH_BF16_STEP, FLASH_BF16_ATOL],
           "flash_bfloat16_worst_share": bf16_share, "max_abs_err": errs,
           "chain_coupling": coupling, "refused": refused, "flash_shapes": flash_shapes})
@@ -707,15 +759,18 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         bcr.inv_odd.block_launches = 0
-        btf.block_launches = fused_factor_spike.block_launches = 0
+        btf.block_launches = fused_factor_spike.block_launches = bts.block_launches = 0
+        bts.by_cluster.clear()
+        bcr.reduce.by_tile.clear()
 
     def counts():
-        """Every wrapper's launches, and inv_odd's, btf's and the fused pass's
-        on their one-block routes apart."""
+        """Every wrapper's launches, and inv_odd's, btf's, the fused pass's
+        and bts's on their one-block routes apart."""
         return {**{nm: w.launches for nm, w in wrappers.items()},
                 "bcr_inv_odd_block": bcr.inv_odd.block_launches,
                 "btf_block": btf.block_launches,
-                "fused_factor_spike_block": fused_factor_spike.block_launches}
+                "fused_factor_spike_block": fused_factor_spike.block_launches,
+                "bts_block": bts.block_launches}
 
     runs = [
         # name, system, options, R, kernels the path must launch
@@ -770,6 +825,8 @@ def main() -> int:
             t2 = time.perf_counter()
             if attempt == 0:
                 solve_counts = {nm: c - factor_counts[nm] for nm, c in counts().items()}
+                run_routes = {"bts_by_cluster": dict(sorted(bts.by_cluster.items())),
+                              "reduce_by_tile": dict(sorted(bcr.reduce.by_tile.items()))}
                 first = {"factor_ms_first_call": (t1 - t0) * 1e3,
                          "solve_ms_first_call": (t2 - t1) * 1e3}
                 peak = torch.cuda.max_memory_allocated()
@@ -786,7 +843,7 @@ def main() -> int:
             "forward_error": fwd.flatten().tolist(),
             "factor_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3, **first,
             "peak_mem_bytes": peak,
-            "launches_factor": factor_counts, "launches_solve": solve_counts,
+            "launches_factor": factor_counts, "launches_solve": solve_counts, **run_routes,
         }
         if name in bcr_runs:
             line["chain_coupling"] = coupling[bcr_runs[name]]
@@ -810,6 +867,8 @@ def main() -> int:
                 raise AssertionError(f"slice {name}: kernel {nm} was never launched")
         if factor_counts["btf_block"] or factor_counts["fused_factor_spike_block"]:
             raise AssertionError(f"slice {name}: btf / fused took the one-block kernel")
+        if factor_counts["bts_block"] + solve_counts["bts_block"]:  # every R here is <= 8
+            raise AssertionError(f"slice {name}: bts took the one-block kernel")
         del fac, res, x
     # the exact reduced system solves what truncated SPIKE drops: with the
     # couplings active, E must not need more sweeps than C
@@ -1167,6 +1226,10 @@ def main() -> int:
             + [cr.bcr_inv_odd_ref(root, first=0)],
             library=lambda: torch.linalg.inv(odd_blocks), replaces="src/repro/kernels/bcr.py:43"),
         "bcr_reduce": dict(kernel=each(bcr.reduce, facts), plain=each(cr.bcr_reduce_ref, facts),
+                           library=each(reduce_library, facts),
+                           library_vs_plain=lambda: [
+                               (o, w) for fa in facts
+                               for o, w in zip(reduce_library(*fa), cr.bcr_reduce_ref(*fa))],
                            replaces="src/repro/kernels/bcr.py:48"),
         "bcr_rhs_reduce": dict(kernel=each(bcr.rhs_reduce, downs),
                                plain=each(cr.bcr_rhs_reduce_ref, downs),
@@ -1219,6 +1282,88 @@ def main() -> int:
     bcr.inv_odd.launches, bcr.inv_odd.block_launches = saved
     emit({"phase": "timing", "kernel": "bcr_inv_odd", "by_level": by_level,
           "levels_ms": sum(lv["ms"] for lv in by_level)})
+
+    def bound(flops, nbytes):
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    # bts at every shape the main path gives it, on its cluster route, beside
+    # the one-block kernel (the route of R > 8) forced through the C entry
+    # point at the same shape
+    def bts_block(facs, rhs):
+        pp, mm, kk_, rr = rhs.shape
+        x = torch.empty_like(rhs)
+        ws = torch.empty(pp * kk_ * rr, device=dev)
+        build.check(lib_bts, lib_bts.bts_launch(
+            facs.sinv.data_ptr(), facs.l.data_ptr(), facs.f.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), ws.data_ptr(), pp, mm, kk_, rr, 0,
+            torch.cuda.current_stream().cuda_stream), "bts (one-block kernel)")
+        return x
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    chain_lu = ops.block_tridiag_factor_chain(*chain)
+    bts_shapes = {
+        "p64_r1": (bl.BTFactors(ref.sinv, ref.l, bt.f), rhs1),
+        "p64_r4": (bl.BTFactors(ref.sinv, ref.l, bt.f),
+                   torch.randn((p, m, k, 4), generator=g, device=dev)),
+        "p8_r1": bts_cases["_p8"],
+        "chain63_k400_r1": (chain_lu, torch.randn((1, 63, 2 * K, 1), generator=g, device=dev)),
+        "p500_r1": bts_cases["_p500"],
+    }
+    saved = bts.launches, bts.block_launches, dict(bts.by_cluster)
+    bts_rows = []
+    for tag, (facs, rhs) in bts_shapes.items():
+        pp, mm, kk_, rr = rhs.shape
+        cs = lib_bts.bts_cluster_size(pp, kk_, rr)
+        got = bts(facs.sinv, facs.l, facs.f, rhs)
+        err = check_close(f"bts {tag}", got, bl.bts_ref(facs, rhs))
+        bts_rows.append({
+            "at": tag, "shape": [pp, mm, kk_, rr], "cluster": cs,
+            "ring_stages": lib_bts.bts_ring_stages(kk_, cs, rr),
+            "copies": "tma" if lib_bts.bts_bulk_route(facs.sinv.data_ptr(), facs.l.data_ptr(),
+                                                      facs.f.data_ptr(), kk_) else "cp.async",
+            "ms": cuda_ms(lambda: bts(facs.sinv, facs.l, facs.f, rhs), 20),
+            "one_block_ms": cuda_ms(lambda: bts_block(facs, rhs), 10),
+            "plain_ms": cuda_ms(lambda: bl.bts_ref(facs, rhs), 3),
+            **dict(zip(("bound_ms", "bound_by"), bound(*bts_work(pp, mm, kk_, rr)))),
+            "library_ms": None, "max_abs_err": err})
+        emit({"phase": "timing", "kernel": "bts", **bts_rows[-1]})
+    bts.launches, bts.block_launches = saved[:2]
+    bts.by_cluster.clear()
+    bts.by_cluster.update(saved[2])
+    summary[[e["name"] for e in summary].index("bts")]["shapes"] = bts_rows
+    del bts_shapes, bts_cases, chain_lu
+
+    # reduce level by level over the P=64 and the P=500 chain: the kernel at
+    # the tile size it takes, the library call (six batched torch.matmul
+    # products) and the plain version
+    saved = bcr.reduce.launches, dict(bcr.reduce.by_tile)
+    reduce_levels = {}
+    for tag, lv_facts in (("p64", facts), ("p500", bcr_inputs(*chain500, 1)[0])):
+        rows = []
+        for fa in lv_facts:
+            m2, kb = fa[0].shape[0] // 2, fa[0].shape[1]
+            lib_out, plain_out = reduce_library(*fa), cr.bcr_reduce_ref(*fa)
+            reps = 3 if m2 >= 64 else 10
+            rows.append({
+                "m2": m2, "k": kb, "tile": lib_bcr.bcr_reduce_tile(m2, kb),
+                "ms": cuda_ms(lambda: bcr.reduce(*fa), reps),
+                "library_ms": cuda_ms(lambda: reduce_library(*fa), reps),
+                "plain_ms": cuda_ms(lambda: cr.bcr_reduce_ref(*fa), reps),
+                "library_max_abs_err_vs_plain": max(
+                    float((o - w).abs().max()) for o, w in zip(lib_out, plain_out)),
+                **dict(zip(("bound_ms", "bound_by"), bound(*reduce_level_work(m2, kb))))})
+            del lib_out, plain_out
+        reduce_levels[tag] = rows
+        emit({"phase": "timing", "kernel": "bcr_reduce", "at": tag, "by_level": rows,
+              "levels_ms": sum(r["ms"] for r in rows),
+              "levels_library_ms": sum(r["library_ms"] for r in rows),
+              "levels_plain_ms": sum(r["plain_ms"] for r in rows)})
+    bcr.reduce.launches = saved[0]
+    bcr.reduce.by_tile.clear()
+    bcr.reduce.by_tile.update(saved[1])
+    summary[[e["name"] for e in summary].index("bcr_reduce")]["by_level"] = reduce_levels
+    del chain500
     # the SaP-scan kernels at the LM path's decode shapes (the summary row:
     # the serving engine's step) and prefill shapes (row "prefill")
     scan_specs = {
@@ -1303,7 +1448,10 @@ def main() -> int:
 
     # no measured time may read under the least time the card could take
     for entry in summary:
-        for row in [entry] + [entry[t] for t in ("prefill", "windowed") if t in entry]:
+        rows = ([entry] + [entry[t] for t in ("prefill", "windowed") if t in entry]
+                + entry.get("shapes", [])
+                + [r for lv in entry.get("by_level", {}).values() for r in lv])
+        for row in rows:
             for what in ("ms", "library_ms"):
                 if row.get(what) is not None and row[what] < row["bound_ms"]:
                     raise AssertionError(f"{entry['name']}: {what} {row[what]:.4g} reads under "

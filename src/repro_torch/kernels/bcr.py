@@ -12,7 +12,11 @@ of the first); each wrapper counts one launch per call.
 Bound on the H100: the factor (``inv_odd`` + ``reduce``) by operations,
 ~14 (2K)^3 flops per eliminated row; the solve (``rhs_reduce`` +
 ``backsub``) at small R by bytes, every factor block read once.
-``inv_odd`` inverts each block on a thread-block cluster that holds the
+``reduce`` computes each level's products as staged, register-tiled
+tiles whose size the kernel's ``bcr_reduce_tile`` picks from the level's
+shape (64 wide, or 80 / 96 on a level wide enough to give every SM eight
+CTAs of a tile that pads K by at most 5%).  ``inv_odd`` inverts each block on a
+thread-block cluster that holds the
 block in its distributed shared memory (``inv_cluster_kernel``; at
 2K = 400, four CTAs of 100 rows), by blocked Gauss-Jordan in panels of 32
 columns.  The kernel's ``bcr_inv_cluster_size`` picks the cluster size
@@ -92,14 +96,18 @@ def reduce(
         check_shape("bcr reduce", name, t, (m, k, k))
     check_shape("bcr reduce", "a_odd", a_odd, (m // 2, k, k))
     lib = build.load("bcr")
+    tile = lib.bcr_reduce_tile(m // 2, k)
+    if tile < 0:
+        build.check(lib, -tile, "bcr reduce tile")
     lo, hi, dn, en, fn = (torch.empty_like(a_odd) for _ in range(5))
     code = lib.bcr_reduce_launch(
         d.data_ptr(), e.data_ptr(), f.data_ptr(), a_odd.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), dn.data_ptr(), en.data_ptr(), fn.data_ptr(), m // 2, k,
+        hi.data_ptr(), dn.data_ptr(), en.data_ptr(), fn.data_ptr(), m // 2, k, tile,
         stream_handle(d.device),
     )
-    build.check(lib, code, "bcr reduce")
+    build.check(lib, code, f"bcr reduce (tile {tile})")
     reduce.launches += 1
+    reduce.by_tile[tile] = reduce.by_tile.get(tile, 0) + 1
     return lo, hi, dn, en, fn
 
 
@@ -158,5 +166,6 @@ def backsub(
 inv_odd.launches = 0
 inv_odd.block_launches = 0  # those of them on the one-block kernel
 reduce.launches = 0
+reduce.by_tile = {}  # launches by tile size
 rhs_reduce.launches = 0
 backsub.launches = 0

@@ -1,15 +1,20 @@
 """Block-tridiagonal solve kernel (SaP preconditioner apply).
 
 Replaces the TPU kernels ``repro/kernels/bts.py:_fwd_kernel`` and
-``_bwd_kernel`` (``bts_pallas``).  The CUDA source is ``csrc/bts.cu``: one
-thread block per partition runs the forward sweep
-``y_j = b_j - L_j y_{j-1}`` and then the backward sweep
+``_bwd_kernel`` (``bts_pallas``).  The CUDA source is ``csrc/bts.cu``: the
+forward sweep ``y_j = b_j - L_j y_{j-1}`` and then the backward sweep
 ``x_j = Sinv_j (y_j - F_j x_{j+1})`` from j = M-1 down, in one launch.
 
 Bound on the H100: bytes.  Every apply reads sinv, l and f once (for R = 1
-about half a flop per byte).  The narrow-R product reads each block row
-with a warp's consecutive lanes; with one block per partition only P SMs
-stream memory, so the kernel stays below the card's bandwidth at P = 64.
+about half a flop per byte).  For R <= 8 each partition runs on a
+thread-block cluster whose CTAs own rows of every block, stream them
+through a ring of shared-memory stages ahead of the sweep (TMA bulk
+copies when K % 4 == 0, else ``cp.async``) and exchange the running
+vector over DSMEM; the kernel's ``bts_cluster_size`` picks the cluster
+size from (P, K, R) -- 1, doubled while the P clusters fit on the card at
+once.  Wider R (whole spikes, R = K) and blocks above K = 1024 take the
+one-block kernel, whose launches are also counted apart, in
+``bts.block_launches``.
 
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.core.block_lu.bts_ref`); on a CUDA tensor it launches
@@ -39,15 +44,24 @@ def bts(
     for name, t in (("sinv", sinv), ("l", l), ("f", f)):
         check_shape("bts", name, t, (p, m, k, k))
     lib = build.load("bts")
+    cluster = lib.bts_cluster_size(p, k, r)
+    if cluster < 0:
+        build.check(lib, -cluster, "bts cluster size")
     x = torch.empty_like(b)
-    ws = torch.empty((p * k * r,), dtype=torch.float32, device=b.device)
+    ws = torch.empty((max(1, p * lib.bts_workspace_floats(k, r, cluster)),), dtype=torch.float32,
+                     device=b.device)
     code = lib.bts_launch(
         sinv.data_ptr(), l.data_ptr(), f.data_ptr(), b.data_ptr(), x.data_ptr(),
-        ws.data_ptr(), p, m, k, r, stream_handle(b.device),
+        ws.data_ptr(), p, m, k, r, cluster, stream_handle(b.device),
     )
-    build.check(lib, code, "bts")
+    build.check(lib, code, f"bts (cluster {cluster})")
     bts.launches += 1
+    bts.by_cluster[cluster] = bts.by_cluster.get(cluster, 0) + 1
+    if cluster == 0:
+        bts.block_launches += 1
     return x
 
 
 bts.launches = 0
+bts.block_launches = 0  # those of them on the one-block kernel
+bts.by_cluster = {}  # launches by cluster size (0: the one-block kernel)

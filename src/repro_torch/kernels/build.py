@@ -45,7 +45,11 @@ SIGNATURES = {
         "btf_cluster_size": (_I, [_I, _I]),
     },
     "bts": {
-        "bts_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "bts_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "bts_cluster_size": (_I, [_I, _I, _I]),
+        "bts_ring_stages": (_I, [_I, _I, _I]),
+        "bts_workspace_floats": (_L, [_I, _I, _I]),
+        "bts_bulk_route": (_I, [_P, _P, _P, _I]),
     },
     "fused_spike": {
         "fused_launch": (
@@ -59,7 +63,8 @@ SIGNATURES = {
         "bcr_inv_launch": (_I, [_P, _P, _I, _I, _I, _F, _I, _P]),
         "bcr_inv_max_clusters": (_I, [_I, _I]),
         "bcr_inv_cluster_size": (_I, [_I]),
-        "bcr_reduce_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P]),
+        "bcr_reduce_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "bcr_reduce_tile": (_I, [_I, _I]),
         "bcr_rhs_reduce_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
         "bcr_backsub_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     },

@@ -3,7 +3,7 @@
 //
 // Replaces the TPU kernels of repro/kernels/bcr.py:
 //   inv_kernel        <- _inv_odd_kernel     a_i = inv(D_{2i+1}) (boosted GJ)
-//   reduce_*_kernel   <- _reduce_kernel      lo, hi, then D', E', F'
+//   reduce_kernel     <- _reduce_kernel      lo, hi, then D', E', F'
 //   rhs_reduce_kernel <- _rhs_reduce_kernel  b'_i = b_2i - lo_i b_2i-1 - hi_i b_2i+1
 //   backsub_kernel    <- _backsub_kernel     x_2i+1 = a_i (b_2i+1 - e_i x_i - f_i x_i+1)
 // The TPU kernels run one grid cell per even row; here every level is a
@@ -28,11 +28,14 @@
 //     (common.cuh), or in shared memory when it fits.
 //     Both keep the structural-zero pivot rule: the identity padding
 //     inverts to the identity.
-//   * reduce: a shared-memory tiled product, 64 x 64 output tiles of
-//     C = base + sign (A1 B1 + A2 B2) with 16-deep K slices, 256 threads
-//     and a 4 x 4 register tile each; the grid is (tiles, product, row), so
-//     level 0 at P = 64 runs 32 rows x 2 (then 3) products x 49 tiles.
-//     Two launches: lo and hi first, since D', E', F' read them.
+//   * reduce_kernel: a staged, register-tiled product (below, kDepth): a
+//     CTA a BM x BM output tile, the tile size chosen per level from its
+//     shape (bcr_reduce_tile: 64 wide, or 80 / 96 when it pads K by at most
+//     5% and the level's grid gives every SM 8 CTAs -- the P = 500 chain's
+//     first levels at 2K = 400; chip_smoke.py prints each level's choice).  Two launches a level: lo and hi, then D',
+//     E', F', since those read all of lo and hi; in the second a D' tile
+//     (two products) and an E' + F' tile pair (one product each) are one
+//     CTA each, so every CTA does two products' work.
 //   * rhs_reduce / backsub: 64 output rows per thread block, the warps
 //     reading rows of the K x K blocks with consecutive lanes (the narrow
 //     product of common.cuh; the tiled one for R > 8).  backsub forms
@@ -45,76 +48,180 @@ using namespace sap;
 
 namespace {
 
-constexpr int kTile = 64;       // output tile of the tiled product (rows and columns)
-constexpr int kSlice = 16;      // K-slice depth per shared-memory stage
-constexpr int kTileThreads = 256;
-constexpr int kRows = 64;       // output rows per block of the narrow kernels
+constexpr int kRows = 64;  // output rows per block of the narrow kernels
 
-// One kTile x kTile output tile at (r0, c0) of
-//   C = base + sign * (A1 @ B1 + A2 @ B2)
-// with A* n x q and B* q x r row-major, C and base n x r row-major; A2 ==
-// nullptr drops the second product, base == nullptr means zero.  Thread
-// (ty, tx) of a 16 x 16 grid owns rows r0 + 4 ty .. +3 and columns
-// c0 + 4 tx .. +3; the slices of A are stored transposed so both operands
-// are read as float4 from shared memory.
-__device__ void tile_product(float* C, const float* base, float sign, const float* A1,
-                             const float* B1, const float* A2, const float* B2, int n, int q,
-                             int r, int r0, int c0) {
-  __shared__ __align__(16) float As[kSlice][kTile + 4];
-  __shared__ __align__(16) float Bs[kSlice][kTile];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+// ---- reduce: staged, register-tiled K x K products -------------------------
+//
+// A CTA computes one BM x BM output tile of a K x K product
+// C = base + sign * (A1 B1 [+ A2 B2]).  The depth (both products' in turn)
+// streams in slices of kDepth through kStages shared-memory buffers by
+// cp.async, 16 bytes at a time when K % 4 == 0 (4 bytes otherwise), two
+// slices in flight while a third is multiplied, one barrier a slice.
+// Both slices keep the global layout: A's kDepth-wide row pieces, so a
+// thread reads four depths of one of its rows as a float4, and B's rows.
+// (Staged transposed, A took 4-byte copies whose instructions cost more
+// cycles than the FMAs: tools/kernel_phases.py.)  Each thread keeps an 8 x TN
+// register tile: rows ty*4..+3 and BM/2 + ty*4..+3, columns tx*4..+3 (a
+// float4) and, for TN > 4, the single columns 4 kTx + e kTx + tx, so a
+// warp's reads of a slice row are of consecutive addresses and every CTA
+// is whole warps (8 x 6 at 96, 8 x 5 at 80, 8 x 4 at 64 and 32).  Edges
+// past K read zeros and are not stored.
+constexpr int kDepth = 16;
+constexpr int kStages = 3;
+// the tile sizes a launch may take: 96, 80, 64, 32 (reduce_tile_for)
 
-  for (int p = 0; p < 2; ++p) {
-    const float* A = p ? A2 : A1;
-    const float* B = p ? B2 : B1;
-    if (A == nullptr) break;  // uniform across the block
-    for (int k0 = 0; k0 < q; k0 += kSlice) {
-      for (int e = tid; e < kTile * kSlice; e += kTileThreads) {
-        const int mm = e / kSlice, kk = e % kSlice;
-        const int gr = r0 + mm, gk = k0 + kk;
-        As[kk][mm] = (gr < n && gk < q) ? A[(long)gr * q + gk] : 0.f;
-      }
-      for (int e = tid; e < kSlice * kTile; e += kTileThreads) {
-        const int kk = e / kTile, nn = e % kTile;
-        const int gk = k0 + kk, gc = c0 + nn;
-        Bs[kk][nn] = (gk < q && gc < r) ? B[(long)gk * r + gc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kSlice; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[kk][4 * ty]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
-        const float a4[4] = {av.x, av.y, av.z, av.w};
-        const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(a4[a], b4[b], acc[a][b]);
-      }
-      __syncthreads();
+template <int BM>
+struct TileShape {
+  static constexpr int TN = BM == 96 ? 6 : BM == 80 ? 5 : 4;
+  static constexpr int kTx = BM / TN, kTy = BM / 8, kThreads = kTx * kTy;
+  static constexpr int kLdA = kDepth + 4;  // row stride of the A slice
+  static constexpr int kStageFloats = BM * kLdA + kDepth * BM;
+  static_assert(kTx * TN == BM && kThreads % 32 == 0, "a tile is whole warps");
+  // column j of thread tx's register tile
+  __device__ static int col(int tx, int j) { return j < 4 ? tx * 4 + j : (j * kTx) + tx; }
+};
+
+// Stage slice s of the sequence (A1 B1's ns slices, then A2 B2's) into buf.
+template <int BM>
+__device__ inline void stage_tile_slice(float* buf, const float* A1, const float* B1,
+                                        const float* A2, const float* B2, int k, int ns, int s,
+                                        int r0, int c0, bool vec) {
+  using TS = TileShape<BM>;
+  const float* A = s < ns ? A1 : A2;
+  const float* B = s < ns ? B1 : B2;
+  const int k0 = (s < ns ? s : s - ns) * kDepth;
+  float* as = buf;
+  float* bs = buf + BM * TS::kLdA;
+  if (vec) {
+    for (int e = threadIdx.x; e < BM * (kDepth / 4); e += TS::kThreads) {
+      const int i = e / (kDepth / 4), kk = 4 * (e - i * (kDepth / 4)), row = r0 + i, col = k0 + kk;
+      float* dst = as + i * TS::kLdA + kk;
+      if (row < k && col < k)
+        cp_async16(dst, A + (long)row * k + col);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BM * kDepth; e += TS::kThreads) {
+      const int i = e / kDepth, kk = e - i * kDepth, row = r0 + i, col = k0 + kk;
+      float* dst = as + i * TS::kLdA + kk;
+      if (row < k && col < k)
+        cp_async4(dst, A + (long)row * k + col);
+      else
+        *dst = 0.f;
     }
   }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = r0 + 4 * ty + a;
-    if (row >= n) continue;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int col = c0 + 4 * tx + b;
-      if (col < r) {
-        const long at = (long)row * r + col;
-        C[at] = (base ? base[at] : 0.f) + sign * acc[a][b];
-      }
+  if (vec) {
+    for (int e = threadIdx.x; e < kDepth * (BM / 4); e += TS::kThreads) {
+      const int kk = e / (BM / 4), j = 4 * (e - kk * (BM / 4)), row = k0 + kk, col = c0 + j;
+      float* dst = bs + kk * BM + j;
+      if (row < k && col < k)
+        cp_async16(dst, B + (long)row * k + col);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kDepth * BM; e += TS::kThreads) {
+      const int kk = e / BM, j = e - kk * BM, row = k0 + kk, col = c0 + j;
+      float* dst = bs + kk * BM + j;
+      if (row < k && col < k)
+        cp_async4(dst, B + (long)row * k + col);
+      else
+        *dst = 0.f;
     }
   }
 }
 
-__device__ inline int tiles_per_side(int k) { return (k + kTile - 1) / kTile; }
+// acc = A1 B1 (+ A2 B2 when A2 != nullptr) on the tile at (r0, c0).
+template <int BM>
+__device__ inline void tile_gemm(float* smem, float (&acc)[8][TileShape<BM>::TN], const float* A1,
+                                 const float* B1, const float* A2, const float* B2, int k, int r0,
+                                 int c0, bool vec) {
+  using TS = TileShape<BM>;
+  constexpr int TN = TS::TN;
+  const int tx = threadIdx.x % TS::kTx, ty = threadIdx.x / TS::kTx;
+  const int ns = (k + kDepth - 1) / kDepth, total = A2 ? 2 * ns : ns;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  stage_tile_slice<BM>(smem, A1, B1, A2, B2, k, ns, 0, r0, c0, vec);
+  cp_async_commit();
+  if (total > 1)
+    stage_tile_slice<BM>(smem + TS::kStageFloats, A1, B1, A2, B2, k, ns, 1, r0, c0, vec);
+  cp_async_commit();
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait<1>();  // staging: slice s has landed
+    __syncthreads();     // ... for every thread; slice s-1's buffer is free
+    if (s + 2 < total)
+      stage_tile_slice<BM>(smem + ((s + 2) % kStages) * TS::kStageFloats, A1, B1, A2, B2, k, ns,
+                           s + 2, r0, c0, vec);
+    cp_async_commit();
+    const float* as = smem + (s % kStages) * TS::kStageFloats;
+    const float* bs = as + BM * TS::kLdA;
+#pragma unroll
+    for (int k4 = 0; k4 < kDepth; k4 += 4) {
+      float4 a4[8];  // depths k4..k4+3 of the thread's eight rows
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        a4[i] = *reinterpret_cast<const float4*>(
+            as + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4) * TS::kLdA + k4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int kk = k4 + u;
+        const float4 b0 = *reinterpret_cast<const float4*>(bs + kk * BM + tx * 4);
+        float bv[TN];
+        bv[0] = b0.x;
+        bv[1] = b0.y;
+        bv[2] = b0.z;
+        bv[3] = b0.w;
+#pragma unroll
+        for (int j = 4; j < TN; ++j) bv[j] = bs[kk * BM + TS::col(tx, j)];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float av = u == 0 ? a4[i].x : u == 1 ? a4[i].y : u == 2 ? a4[i].z : a4[i].w;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // the buffers are free for the caller's next tile_gemm
+}
+
+// C = base + sign * acc on the tile at (r0, c0); base == nullptr means zero.
+template <int BM>
+__device__ inline void tile_store(float* C, const float* base, float sign,
+                                  const float (&acc)[8][TileShape<BM>::TN], int k, int r0, int c0,
+                                  bool vec) {
+  using TS = TileShape<BM>;
+  const int tx = threadIdx.x % TS::kTx, ty = threadIdx.x / TS::kTx;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    if (row >= k) continue;
+    const long at = (long)row * k + c0;
+    const int c4 = tx * 4;
+    if (vec && c0 + c4 < k) {  // K % 4 == 0: the four columns are in range
+      float4 v = base ? *reinterpret_cast<const float4*>(base + at + c4)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      v.x += sign * acc[i][0];
+      v.y += sign * acc[i][1];
+      v.z += sign * acc[i][2];
+      v.w += sign * acc[i][3];
+      *reinterpret_cast<float4*>(C + at + c4) = v;
+    } else if (!vec) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c0 + c4 + j < k) C[at + c4 + j] = (base ? base[at + c4 + j] : 0.f) + sign * acc[i][j];
+    }
+#pragma unroll
+    for (int j = 4; j < TS::TN; ++j) {
+      const int c = TS::col(tx, j);
+      if (c0 + c < k) C[at + c] = (base ? base[at + c] : 0.f) + sign * acc[i][j];
+    }
+  }
+}
 
 }  // namespace
 
@@ -194,39 +301,40 @@ __global__ void __launch_bounds__(kClusterThreads)
   }
 }
 
-// lo_i = E_2i a_max(i-1,0) (y = 0),  hi_i = F_2i a_i (y = 1); grid (tiles, 2, m2).
-__global__ void __launch_bounds__(kTileThreads)
-    reduce_lohi_kernel(const float* __restrict__ e, const float* __restrict__ f,
-                       const float* __restrict__ a, float* lo, float* hi, int k) {
-  const int i = blockIdx.z, nt = tiles_per_side(k);
-  const int r0 = (blockIdx.x / nt) * kTile, c0 = (blockIdx.x % nt) * kTile;
+// phase 0: lo_i = E_2i a_max(i-1,0) (y = 0), hi_i = F_2i a_i (y = 1);
+// phase 1: D'_i = D_2i - (lo_i F_p + hi_i E_2i+1) (y = 0), and E'_i =
+// -(lo_i E_p) then F'_i = -(hi_i F_2i+1) (y = 1), p = max(2i-1, 0), so every
+// CTA of a launch does the same work.  Grid (tiles, 2, m2).
+template <int BM>
+__global__ void __launch_bounds__(TileShape<BM>::kThreads)
+    reduce_kernel(const float* __restrict__ d, const float* __restrict__ e,
+                  const float* __restrict__ f, const float* __restrict__ a, float* lo, float* hi,
+                  float* dn, float* en, float* fn, int k, int phase) {
+  __shared__ __align__(16) float smem[kStages * TileShape<BM>::kStageFloats];
+  const int i = blockIdx.z, nt = (k + BM - 1) / BM;
+  const int r0 = (blockIdx.x / nt) * BM, c0 = (blockIdx.x % nt) * BM;
   const long kk = (long)k * k;
-  if (blockIdx.y == 0)
-    tile_product(lo + i * kk, nullptr, 1.f, e + 2L * i * kk, a + (long)max(i - 1, 0) * kk,
-                 nullptr, nullptr, k, k, k, r0, c0);
-  else
-    tile_product(hi + i * kk, nullptr, 1.f, f + 2L * i * kk, a + i * kk, nullptr, nullptr, k, k,
-                 k, r0, c0);
-}
-
-// D'_i = D_2i - (lo_i F_p + hi_i E_2i+1)  (y = 0),  E'_i = -(lo_i E_p)  (y = 1),
-// F'_i = -(hi_i F_2i+1)  (y = 2), with p = max(2i-1, 0); grid (tiles, 3, m2).
-__global__ void __launch_bounds__(kTileThreads)
-    reduce_chain_kernel(const float* __restrict__ d, const float* __restrict__ e,
-                        const float* __restrict__ f, const float* __restrict__ lo,
-                        const float* __restrict__ hi, float* dn, float* en, float* fn, int k) {
-  const int i = blockIdx.z, nt = tiles_per_side(k);
-  const int r0 = (blockIdx.x / nt) * kTile, c0 = (blockIdx.x % nt) * kTile;
-  const long kk = (long)k * k;
+  const bool vec = (k & 3) == 0;
+  float acc[8][TileShape<BM>::TN];
+  if (phase == 0) {
+    const bool is_lo = blockIdx.y == 0;
+    tile_gemm<BM>(smem, acc, (is_lo ? e : f) + 2L * i * kk,
+                  a + (long)(is_lo ? max(i - 1, 0) : i) * kk, nullptr, nullptr, k, r0, c0, vec);
+    tile_store<BM>((is_lo ? lo : hi) + i * kk, nullptr, 1.f, acc, k, r0, c0, vec);
+    return;
+  }
   const long prv = (long)max(2 * i - 1, 0) * kk, nxt = (2L * i + 1) * kk;
   const float* loi = lo + i * kk;
   const float* hii = hi + i * kk;
-  if (blockIdx.y == 0)
-    tile_product(dn + i * kk, d + 2L * i * kk, -1.f, loi, f + prv, hii, e + nxt, k, k, k, r0, c0);
-  else if (blockIdx.y == 1)
-    tile_product(en + i * kk, nullptr, -1.f, loi, e + prv, nullptr, nullptr, k, k, k, r0, c0);
-  else
-    tile_product(fn + i * kk, nullptr, -1.f, hii, f + nxt, nullptr, nullptr, k, k, k, r0, c0);
+  if (blockIdx.y == 0) {
+    tile_gemm<BM>(smem, acc, loi, f + prv, hii, e + nxt, k, r0, c0, vec);
+    tile_store<BM>(dn + i * kk, d + 2L * i * kk, -1.f, acc, k, r0, c0, vec);
+  } else {
+    tile_gemm<BM>(smem, acc, loi, e + prv, nullptr, nullptr, k, r0, c0, vec);
+    tile_store<BM>(en + i * kk, nullptr, -1.f, acc, k, r0, c0, vec);
+    tile_gemm<BM>(smem, acc, hii, f + nxt, nullptr, nullptr, k, r0, c0, vec);
+    tile_store<BM>(fn + i * kk, nullptr, -1.f, acc, k, r0, c0, vec);
+  }
 }
 
 // out_i = b_2i - lo_i b_max(2i-1,0) - hi_i b_2i+1 for rows r0..r0+63 of
@@ -272,7 +380,6 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace {
 inline int row_tiles(int k) { return (k + kRows - 1) / kRows; }
-inline int tiles(int k) { return ((k + kTile - 1) / kTile) * ((k + kTile - 1) / kTile); }
 }  // namespace
 
 namespace {
@@ -375,16 +482,72 @@ extern "C" int bcr_inv_max_clusters(int k, int cluster) {
   return err == cudaSuccess ? active : -(int)err;
 }
 
+namespace {
+
+// The tile size of a reduce level of m2 rows of K x K blocks.  The
+// 64-wide tile (128 threads, four CTAs an SM) was the fastest on the H100
+// at every level measured but the widest, its ragged edge included; the
+// 80- and 96-wide tiles do more multiply-adds a load (8 x 5, 8 x 6) but
+// hold two CTAs an SM, so they pay only on a grid that gives every SM
+// many CTAs.  So: the largest of 96 and 80 that pads K by at most 5% and
+// whose launch of 2 m2 tiles^2 CTAs gives every SM at least 8, else 64;
+// 32 when K <= 32, where a 64-wide tile would be mostly padding.
+int reduce_tile_for(int m2, int k, int sms) {
+  if (k <= 32) return 32;
+  const int wide[2] = {96, 80};
+  for (const int t : wide) {
+    const long nt = (k + t - 1) / t;
+    if (nt * t * 100 <= 105L * k && 2L * m2 * nt * nt >= 8L * sms) return t;
+  }
+  return 64;
+}
+
+template <int BM>
+cudaError_t launch_reduce(const float* d, const float* e, const float* f, const float* a,
+                          float* lo, float* hi, float* dn, float* en, float* fn, int m2, int k,
+                          cudaStream_t s) {
+  const int nt = (k + BM - 1) / BM;
+  const dim3 grid(nt * nt, 2, m2);
+  for (int phase = 0; phase < 2; ++phase) {  // D', E', F' read all of lo and hi
+    reduce_kernel<BM><<<grid, TileShape<BM>::kThreads, 0, s>>>(d, e, f, a, lo, hi, dn, en, fn, k,
+                                                                phase);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// The tile size a reduce level of m2 rows of K x K blocks takes on the
+// current device (reduce_tile_for), or a negative cudaError_t code.
+extern "C" int bcr_reduce_tile(int m2, int k) {
+  if (m2 <= 0 || k <= 0) return -(int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  return reduce_tile_for(m2, k, sms);
+}
+
+// tile: 0 takes bcr_reduce_tile's choice; (tests) 96, 80, 64 or 32
+// forces it.  Two launches, lo and hi first.
 extern "C" int bcr_reduce_launch(const float* d, const float* e, const float* f, const float* a,
                                  float* lo, float* hi, float* dn, float* en, float* fn, int m2,
-                                 int k, void* stream) {
+                                 int k, int tile, void* stream) {
+  if (m2 <= 0 || k <= 0 || tile < 0) return (int)cudaErrorInvalidValue;
+  if (tile == 0) {
+    tile = bcr_reduce_tile(m2, k);
+    if (tile < 0) return -tile;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  reduce_lohi_kernel<<<dim3(tiles(k), 2, m2), kTileThreads, 0, s>>>(e, f, a, lo, hi, k);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_chain_kernel<<<dim3(tiles(k), 3, m2), kTileThreads, 0, s>>>(d, e, f, lo, hi, dn, en, fn,
-                                                                     k);
-  return (int)cudaGetLastError();
+  switch (tile) {
+    case 96: return (int)launch_reduce<96>(d, e, f, a, lo, hi, dn, en, fn, m2, k, s);
+    case 80: return (int)launch_reduce<80>(d, e, f, a, lo, hi, dn, en, fn, m2, k, s);
+    case 64: return (int)launch_reduce<64>(d, e, f, a, lo, hi, dn, en, fn, m2, k, s);
+    case 32: return (int)launch_reduce<32>(d, e, f, a, lo, hi, dn, en, fn, m2, k, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int bcr_rhs_reduce_launch(const float* lo, const float* hi, const float* b, float* out,

@@ -516,6 +516,23 @@ int max_active_clusters(Kernel kern, int cs, size_t smem) {
   return active;
 }
 
+// Starting from cs (a size whose smem_of(cs) bytes fit), the cluster size
+// doubled while the chains' clusters of the doubled size still fit on the
+// card at once, up to kClusterMax.  A negative cudaError_t code on failure.
+template <typename Kernel, typename SmemOf>
+int grow_cluster(Kernel kern, int chains, int cs, SmemOf smem_of) {
+  const int active = max_active_clusters(kern, cs, smem_of(cs));
+  if (active < 0) return active;
+  if (active < 1) return -(int)cudaErrorLaunchOutOfResources;
+  while (cs < kClusterMax) {
+    const int more = max_active_clusters(kern, 2 * cs, smem_of(2 * cs));
+    if (more < 0) return more;
+    if (more < chains) break;
+    cs *= 2;
+  }
+  return cs;
+}
+
 // The cluster size for `chains` independent K x K chains: the smallest
 // power of two whose slab fits the shared memory one block may opt in to,
 // doubled while the chains' clusters of the doubled size still fit on the
@@ -529,16 +546,7 @@ int cluster_size_for(Kernel kern, int chains, int k) {
   int cs = 1;
   while (cs <= kClusterMax && slab_smem_bytes(k, cs, true) > optin) cs *= 2;
   if (cs > kClusterMax) return 0;
-  const int active = max_active_clusters(kern, cs, slab_smem_bytes(k, cs, true));
-  if (active < 0) return active;
-  if (active < 1) return -(int)cudaErrorLaunchOutOfResources;
-  while (cs < kClusterMax) {
-    const int more = max_active_clusters(kern, 2 * cs, slab_smem_bytes(k, 2 * cs, true));
-    if (more < 0) return more;
-    if (more < chains) break;
-    cs *= 2;
-  }
-  return cs;
+  return grow_cluster(kern, chains, cs, [k](int c) { return slab_smem_bytes(k, c, true); });
 }
 
 }  // namespace sap

@@ -114,7 +114,12 @@ def test_btf_matches_jnp_and_interpret_kernel(p, m, k):
             _close(port.l, ref.l)
 
 
-@pytest.mark.parametrize("p,m,k,r", [(2, 3, 4, 1), (1, 1, 5, 3), (4, 2, 3, 8), (2, 4, 8, 2)])
+# the shapes the cluster route must handle besides: P = 1 with a long chain,
+# M = 1 and M = 2, K not a multiple of 4, and R in {1, 4, 9} (9: the
+# one-block kernel's R > 8)
+@pytest.mark.parametrize("p,m,k,r", [(2, 3, 4, 1), (1, 1, 5, 3), (4, 2, 3, 8), (2, 4, 8, 2),
+                                     (1, 24, 6, 1), (1, 24, 6, 9), (3, 1, 7, 4), (2, 2, 5, 9),
+                                     (2, 2, 12, 4), (1, 9, 10, 4)])
 def test_bts_matches_jnp_and_interpret_kernel(p, m, k, r):
     rng = np.random.default_rng(20 + p * m * k * r)
     d, e, f, _, _ = _chain(rng, p, m, k)
@@ -359,3 +364,59 @@ def test_clustered_fused_model_matches_interpret_kernel_and_plain(cs, k):
     # the padding partition's couplings are zero, so are its corners
     for corner in (vb[-1], wt[-1]):
         np.testing.assert_array_equal(corner, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the cluster sweep of bts (csrc/bts.cu, bts_cluster_kernel)
+# ---------------------------------------------------------------------------
+#
+# Each chain runs on a cluster of cs CTAs, CTA r owning the rows [r n,
+# r n + n), n = ceil(K / cs), of every block.  The sweep is 3M - 2
+# products in the kernel's order -- L_{t+1} (t < M-1), Sinv_{M-1}, then
+# F_j and Sinv_j for j = M-2 .. 0 -- each CTA forming its rows of the
+# product's output from the whole vector in slot t % 2, the base (b_{t+1},
+# or y_j still held in x_j) subtracted, the rows written to x (not T) and
+# pushed into every CTA's slot (t + 1) % 2.  A numpy float32 model of that
+# bookkeeping is held against the Pallas kernels in interpret mode and the
+# plain version, with the cluster kernels' norm-wise tolerance (1e-4 of
+# the largest reference value).
+
+
+def _cluster_bts(sinv, l, f, b, cs):
+    p, m, k, r = b.shape
+    own = _owned(k, cs)
+    x = np.empty_like(b)
+    for q in range(p):
+        slots = [b[q, 0].copy(), np.zeros((k, r), np.float32)]
+        x[q, 0] = b[q, 0]
+        for t in range(3 * m - 2):
+            if t < m - 1:
+                blk, base, out = l[q, t + 1], b[q, t + 1], t + 1
+            elif t == m - 1:
+                blk, base, out = sinv[q, m - 1], None, m - 1
+            else:
+                u = t - m
+                j = m - 2 - u // 2
+                blk, base, out = (f[q, j], x[q, j], None) if u % 2 == 0 else (sinv[q, j], None, j)
+            vin, vout = slots[t % 2], slots[(t + 1) % 2]
+            for o in own:
+                val = blk[o] @ vin if base is None else base[o] - blk[o] @ vin
+                if out is not None:
+                    x[q, out][o] = val
+                vout[o] = val
+    return x
+
+
+@pytest.mark.parametrize("m", [1, 2, 5])
+@pytest.mark.parametrize("k", [7, 40])
+@pytest.mark.parametrize("cs", [1, 2, 3, 16])
+def test_clustered_bts_model_matches_interpret_kernel_and_plain(cs, k, m):
+    rng = np.random.default_rng(70 + cs + k + m)
+    sc = k**-0.5
+    sinv = (sc * rng.normal(size=(2, m, k, k))).astype(np.float32)
+    l, f = ((0.3 * sc * rng.normal(size=(2, m, k, k))).astype(np.float32) for _ in range(2))
+    b = rng.normal(size=(2, m, k, 4)).astype(np.float32)
+    got = _cluster_bts(sinv, l, f, b, cs)
+    jfac = jbl.BTFactors(*(jnp.asarray(t) for t in (sinv, l, f)))
+    _close_normwise(got, jops.block_tridiag_solve(jfac, jnp.asarray(b), impl="interpret"))
+    _close_normwise(got, tbl.bts_ref(tbl.BTFactors(_t(sinv), _t(l), _t(f)), _t(b)).numpy())

@@ -36,9 +36,10 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 
 def _chain(m, k, r, seed):
     rng = np.random.default_rng(seed)
-    d = (rng.normal(size=(m, k, k)) + 4 * np.eye(k)).astype(np.float32)
-    e = (rng.normal(size=(m, k, k)) * 0.3).astype(np.float32)
-    f = (rng.normal(size=(m, k, k)) * 0.3).astype(np.float32)
+    sc = min(1.0, 8 / k)  # keeps the 4 I shift dominant at K = 37 (B3)
+    d = (sc * rng.normal(size=(m, k, k)) + 4 * np.eye(k)).astype(np.float32)
+    e = (sc * rng.normal(size=(m, k, k)) * 0.3).astype(np.float32)
+    f = (sc * rng.normal(size=(m, k, k)) * 0.3).astype(np.float32)
     b = rng.normal(size=(m, k, r)).astype(np.float32)
     return d, e, f, b
 
@@ -68,7 +69,10 @@ def test_bcr_matches_jax_reference(m, k, r):
     np.testing.assert_allclose(tcr.bcr_solve(tf, torch.tensor(b)).numpy(), np.asarray(jx), **TOL)
 
 
-@pytest.mark.parametrize("m,k,r", [(1, 2, 1), (2, 4, 3), (3, 8, 1), (5, 2, 3), (8, 4, 1), (16, 8, 3)])
+# besides: K = 37, which no reduce tile size (96, 80, 64, 32) divides, at
+# m/2 = 1 (m = 2) and through three levels (m = 5, padded to 8)
+@pytest.mark.parametrize("m,k,r", [(1, 2, 1), (2, 4, 3), (3, 8, 1), (5, 2, 3), (8, 4, 1), (16, 8, 3),
+                                   (2, 37, 1), (5, 37, 2)])
 def test_bcr_kernel_path_matches_jax_interpret_kernels(m, k, r):
     """The kernel wrappers' CPU path (ops.bcr_factor / bcr_solve, level by
     level through the four wrappers) against the Pallas kernels run in
@@ -317,3 +321,68 @@ def test_panel_gauss_jordan_matches_the_plain_and_jax_inverse(b, k):
     np.testing.assert_allclose(got, want, **TOL)
     np.testing.assert_allclose(got, np.asarray(jax_gj_inverse(jnp.asarray(a), 0.05)), **TOL)
 
+
+
+# ---------------------------------------------------------------------------
+# the tiled reduce (csrc/bcr.cu, reduce_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _tiled_reduce(d, e, f, a, bm):
+    """reduce_kernel's bookkeeping in numpy float32: each BM x BM output tile
+    of a level's products from operands zero-padded past K, the depth in
+    slices of 16; lo_i = E_2i a_max(i-1,0) and hi_i = F_2i a_i, then D'_i =
+    D_2i - (lo_i F_p + hi_i E_2i+1) as one sum over both products' slices,
+    E'_i = -(lo_i E_p), F'_i = -(hi_i F_2i+1), p = max(2i-1, 0)."""
+    m2, k = a.shape[0], a.shape[1]
+    kp, dp = -(-k // bm) * bm, -(-k // 16) * 16
+
+    def padded(x, rows, cols):
+        out = np.zeros((rows, cols), np.float32)
+        out[: x.shape[0], : x.shape[1]] = x
+        return out
+
+    def product(pairs):
+        c = np.zeros((kp, kp), np.float32)
+        for r0 in range(0, kp, bm):
+            for c0 in range(0, kp, bm):
+                acc = np.zeros((bm, bm), np.float32)
+                for A, B in pairs:
+                    ap, bp = padded(A, kp, dp), padded(B, dp, kp)
+                    for k0 in range(0, dp, 16):
+                        acc += ap[r0:r0 + bm, k0:k0 + 16] @ bp[k0:k0 + 16, c0:c0 + bm]
+                c[r0:r0 + bm, c0:c0 + bm] = acc
+        return c[:k, :k]
+
+    outs = [np.empty((m2, k, k), np.float32) for _ in range(5)]
+    for i in range(m2):
+        p = max(2 * i - 1, 0)
+        lo = product([(e[2 * i], a[max(i - 1, 0)])])
+        hi = product([(f[2 * i], a[i])])
+        outs[0][i], outs[1][i] = lo, hi
+        outs[2][i] = d[2 * i] - product([(lo, f[p]), (hi, e[2 * i + 1])])
+        outs[3][i] = -product([(lo, e[p])])
+        outs[4][i] = -product([(hi, f[2 * i + 1])])
+    return outs
+
+
+@pytest.mark.parametrize("m,k", [(2, 37), (4, 37), (2, 70)])
+@pytest.mark.parametrize("tile", [96, 80, 64, 32])
+def test_tiled_reduce_model_matches_the_interpret_kernel_and_plain(m, k, tile):
+    """Every tile size of reduce_kernel on a level whose K no tile divides
+    (37, 70), at m/2 = 1 and 2, against the Pallas level in interpret mode
+    (same inverses) and the port's plain reduce; E_0 = 0 as every level's
+    chain has it.  Tolerance as the module's."""
+    from repro.kernels.bcr import _reduce_level_pallas
+
+    d, e, f, _ = _chain(m, k, 1, seed=10 * m + k + tile)
+    e[0] = 0.0
+    f[-1] = 0.0
+    level, nxt = _reduce_level_pallas(jnp.asarray(d), jnp.asarray(e), jnp.asarray(f),
+                                      tbl.DEFAULT_BOOST, True)
+    a = np.asarray(level.a_odd)
+    got = _tiled_reduce(d, e, f, a, tile)
+    for g, w in zip(got, (level.lo, level.hi, *nxt)):
+        np.testing.assert_allclose(g, np.asarray(w), **TOL)
+    for g, w in zip(got, tcr.bcr_reduce_ref(*_torch(d, e, f, a))):
+        np.testing.assert_allclose(g, w.numpy(), **TOL)

@@ -150,6 +150,84 @@ def test_cluster_kernels_at_every_cluster_size(cuda, n, k, p, cluster):
         _close(got, want)
 
 
+def _bts_on(cuda, facs, b, cluster):
+    """bts through the C entry point on a forced route: a cluster of that
+    many CTAs, or the one-block kernel (0).  Returns (x, CUDA error code)."""
+    from repro_torch.kernels import build
+
+    lib = build.load("bts")
+    p, m, k, r = b.shape
+    x = torch.empty_like(b)
+    ws = torch.empty(max(1, p * lib.bts_workspace_floats(k, r, cluster)), device=cuda)
+    code = lib.bts_launch(facs.sinv.data_ptr(), facs.l.data_ptr(), facs.f.data_ptr(),
+                          b.data_ptr(), x.data_ptr(), ws.data_ptr(), p, m, k, r, cluster,
+                          torch.cuda.current_stream(cuda).cuda_stream)
+    return x, code
+
+
+# (n, k, p): K % 4 == 0 (TMA bulk copies: 20, 200) and not (cp.async: 37,
+# 95); K = 37 on 16 CTAs leaves three of them no rows; K = 95 is the
+# sparse run's reordered band
+BTS_ROUTE_SHAPES = [(259, 37, 3), (3200, 20, 8), (12800, 200, 4), (2280, 95, 4)]
+
+
+@pytest.mark.parametrize("n,k,p", BTS_ROUTE_SHAPES)
+@pytest.mark.parametrize("r", [1, 4, "k"])
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8, 16])
+def test_bts_at_every_cluster_size_and_copy_route(cuda, n, k, p, r, cluster):
+    """bts forced onto each cluster size (0: the one-block kernel) against
+    its plain version; R = K > 8 has only the one-block kernel, and a
+    cluster launch of it is refused with an error, never run elsewhere."""
+    from repro_torch.kernels import build
+
+    bt = _split(cuda, n, k, p)
+    ref = bl.btf_ref(bt.d, bt.e, bt.f)
+    rr = k if r == "k" else r
+    b = torch.randn(bt.d.shape[:3] + (rr,), device=cuda)
+    lib = build.load("bts")
+    assert lib.bts_bulk_route(ref.sinv.data_ptr(), ref.l.data_ptr(), bt.f.data_ptr(), k) == (
+        k % 4 == 0)
+    x, code = _bts_on(cuda, ref, b, cluster)
+    if rr > 8 and cluster > 0:
+        assert code != 0
+        return
+    build.check(lib, code, f"bts (cluster {cluster})")
+    torch.cuda.synchronize()
+    _close(x, bl.bts_ref(ref, b))
+
+
+def test_bts_block_launches_are_the_wide_rhs_only(cuda):
+    """Through the wrapper: R <= 8 takes a cluster (counted by size), R = K
+    the one-block kernel, counted in ``bts.block_launches``."""
+    from repro_torch.kernels import build
+
+    bt = _split(cuda, 12800, 200, 4)
+    ref = bl.btf_ref(bt.d, bt.e, bt.f)
+    lib = build.load("bts")
+    for r, cs in ((1, lib.bts_cluster_size(4, 200, 1)), (8, lib.bts_cluster_size(4, 200, 8)),
+                  (200, 0)):
+        assert (cs == 0) == (r > 8)
+        b = torch.randn(bt.d.shape[:3] + (r,), device=cuda)
+        before = bts.launches, bts.block_launches, bts.by_cluster.get(cs, 0)
+        x = bts(ref.sinv, ref.l, bt.f, b)
+        torch.cuda.synchronize()
+        assert (bts.launches, bts.block_launches, bts.by_cluster[cs]) == (
+            before[0] + 1, before[1] + (r > 8), before[2] + 1)
+        _close(x, bl.bts_ref(ref, b))
+
+
+def test_bts_cluster_size_follows_the_shape(cuda):
+    """The shapes of the main path on an H100: 2 CTAs a chain at P = 64,
+    16 on SaP-E's P = 8 split and on a single reduced chain, 1 at P = 500."""
+    from repro_torch.kernels import build
+
+    lib = build.load("bts")
+    sizes = {(p, k): lib.bts_cluster_size(p, k, 1) for p, k in ((64, 200), (8, 200), (1, 400),
+                                                               (500, 200))}
+    assert sizes == {(64, 200): 2, (8, 200): 16, (1, 400): 16, (500, 200): 1}
+    assert lib.bts_cluster_size(4, 200, 9) == 0 and lib.bts_cluster_size(4, 2000, 1) == 0
+
+
 def test_k256_takes_a_cluster_and_k800_the_one_block_kernel(cuda):
     """K = 256 does not fit one CTA: both kernels take a cluster of at least
     two, no device workspace for btf and four K x K slots a side for the
@@ -339,6 +417,58 @@ def test_inv_odd_on_its_cluster_matches_plain(cuda, k, cluster):
     _close(got, want)
     eye = torch.eye(k, device=cuda)
     assert torch.equal(got[1][zero], eye[zero]) and torch.equal(got[1][:, zero], eye[:, zero])
+
+
+def _reduce_on(d, e, f, a, tile):
+    from repro_torch.kernels import build
+
+    lib = build.load("bcr")
+    outs = [torch.empty_like(a) for _ in range(5)]
+    code = lib.bcr_reduce_launch(d.data_ptr(), e.data_ptr(), f.data_ptr(), a.data_ptr(),
+                                 *[o.data_ptr() for o in outs], a.shape[0], a.shape[1], tile,
+                                 torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, f"bcr reduce (tile {tile})")
+    return outs
+
+
+@pytest.mark.parametrize("m2", [1, 2, 32])
+@pytest.mark.parametrize("k", [190, 400])
+@pytest.mark.parametrize("tile", [96, 80, 64, 32])
+def test_reduce_at_every_tile(cuda, m2, k, tile):
+    """reduce forced onto each tile size against its plain version: 2K =
+    190 (the sparse run's chain; no tile divides it) and 400 (the P = 64
+    and P = 500 chains), m/2 = 1, 2 and 32, with E_0 = 0 as every level's
+    chain has it."""
+    from repro_torch.core import cyclic_reduction as cr
+
+    d, e, f, _ = _bcr_chain(cuda, 2 * m2, k, 1, seed=m2 + k)
+    e[0] = 0.0
+    f[-1] = 0.0
+    a = _bcr_chain(cuda, m2, k, 1, seed=k)[0]
+    for got, want in zip(_reduce_on(d, e, f, a, tile),
+                         cr.bcr_reduce_ref(d, e, f, a)):
+        _close(got, want)
+
+
+def test_reduce_tile_follows_the_shape(cuda):
+    """On an H100 (132 SMs): the 80-wide tile where it pads 2K = 400 not at
+    all and the level gives every SM eight CTAs (m/2 >= 22), else 64; 32
+    for K <= 32.  The wrapper counts its launches by tile."""
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.kernels import bcr, build
+
+    lib = build.load("bcr")
+    assert [lib.bcr_reduce_tile(m2, 400) for m2 in (256, 32, 16, 1)] == [80, 80, 64, 64]
+    assert [lib.bcr_reduce_tile(m2, 190) for m2 in (32, 1)] == [64, 64]
+    assert lib.bcr_reduce_tile(4, 20) == 32
+    d, e, f, _ = _bcr_chain(cuda, 4, 37, 1)
+    e[0] = 0.0
+    f[-1] = 0.0
+    a = bcr.inv_odd(d)
+    before = bcr.reduce.by_tile.get(64, 0)
+    for got, want in zip(bcr.reduce(d, e, f, a), cr.bcr_reduce_ref(d, e, f, a)):
+        _close(got, want)
+    assert bcr.reduce.by_tile[64] == before + 1
 
 
 def test_bcr_wrappers_reject_bad_operands(cuda):

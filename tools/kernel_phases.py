@@ -31,7 +31,20 @@ prints one JSON line each:
 - ``inv_routes``: the built library's two routes for 32 blocks of
   2K = 190, which fit one CTA's shared memory: the cluster kernel on one
   CTA (the route ``bcr_inv_cluster_size`` gives) against the one-block
-  kernel, by CUDA events.
+  kernel, by CUDA events;
+- ``bts_phases``: the cluster sweep with marks around each step's phases
+  -- its start (the base's load begun), waiting for the running vector
+  (the exchange), waiting for the ring's chunk, the product with its
+  pushes, the barrier and refill after a chunk -- read by
+  thread 0 of the first CTA and given per product, at the main shape
+  (P=64, M=16, K=200, R=1), at SaP-E's P=8 split (M=125) and on a 63-block
+  chain of 2K = 400, with each launch's time by CUDA events;
+- ``reduce_phases``: the reduce products with marks around each slice --
+  waiting for the staged slice (``cp.async`` wait and barrier), staging
+  the next slice, the FMAs -- summed over every row's first lo tile and
+  first D' tile (thread 0), at the first level (m/2 = 32) and the
+  last (m/2 = 1) of a 2K = 400 chain, with each level's tile size and
+  time.
 
 Then the card's ``nvidia-smi`` name and power limit.  Needs a CUDA card
 and nvcc; the patches are exact string replacements and fail loudly when
@@ -195,6 +208,55 @@ def fused_instrumented(src: str) -> str:
     )
 
 
+BTS_PHASES = ("step_start", "exchange_wait", "ring_wait", "product", "sync_refill")
+
+
+def bts_instrumented(src: str) -> str:
+    """bts.cu with clock64 marks around the phases of a product (and of
+    each chunk), summed over the sweep into g_kern by thread 0 of the
+    first CTA."""
+    return patched(
+        src,
+        ("  int q = 0;  // chunks consumed",
+         "  long long Q[8] = {}, T0 = clock64(), U0;\n  int q = 0;  // chunks consumed"),
+        ("    if (t > 0) mbar_wait(&vbar[t & 1], ((t - 1) >> 1) & 1);  // exchange: v_t has arrived\n",
+         "    KMARK(0)\n    if (t > 0) mbar_wait(&vbar[t & 1], ((t - 1) >> 1) & 1);\n    KMARK(1)\n"),
+        ("      mbar_wait(&full[st], (q / stages) & 1);  // ring: chunk q has landed\n",
+         "      mbar_wait(&full[st], (q / stages) & 1);\n      KMARK(2)\n"),
+        ("      __syncthreads();  // the stage is free (and, after the last chunk, slot t % 2)\n",
+         "      KMARK(3)\n      __syncthreads();\n"),
+        ("      if (q + stages < total) fetch(q + stages);\n    }\n",
+         "      if (q + stages < total) fetch(q + stages);\n      KMARK(4)\n    }\n"),
+        ("  cluster.sync();  // no CTA leaves while a peer's pushes may be in flight\n",
+         "  KDONE(5)\n  cluster.sync();\n"),
+    )
+
+
+REDUCE_PHASES = ("staging_wait", "stage_next", "fma")
+
+
+def reduce_instrumented(src: str) -> str:
+    """bcr.cu with clock64 marks around each slice of the reduce products,
+    summed into g_kern by thread 0 of the first tile of every row."""
+    return patched(
+        src,
+        ("  const int ns = (k + kDepth - 1) / kDepth, total = A2 ? 2 * ns : ns;\n",
+         "  const int ns = (k + kDepth - 1) / kDepth, total = A2 ? 2 * ns : ns;\n"
+         "  long long Q[8] = {}, T0 = clock64(), U0;\n"),
+        ("    cp_async_wait<1>();  // staging: slice s has landed\n",
+         "    T0 = clock64();\n    cp_async_wait<1>();\n"),
+        ("    __syncthreads();     // ... for every thread; slice s-1's buffer is free\n",
+         "    __syncthreads();\n    KMARK(0)\n"),
+        ("    cp_async_commit();\n    const float* as = smem",
+         "    cp_async_commit();\n    KMARK(1)\n    const float* as = smem"),
+        ("acc[i][j] = fmaf(av, bv[j], acc[i][j]);\n        }\n      }\n    }\n  }\n",
+         "acc[i][j] = fmaf(av, bv[j], acc[i][j]);\n        }\n      }\n    }\n    KMARK(2)\n  }\n"
+         "  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)\n"
+         "    for (int i = 0; i < 3; ++i) atomicAdd(reinterpret_cast<unsigned long long*>(&g_kern[i]),\n"
+         "                                          (unsigned long long)Q[i]);\n"),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -216,7 +278,8 @@ def main() -> int:
     (peers / "gj_cluster.cuh").write_text(patched(hdr, DSMEM_STAGE))
     sources = {f"flash_{nm}": (OUT, text)
                for nm, text in flash_variants((CSRC / "flash_attn.cu").read_text()).items()}
-    sources["inv_phases"] = (OUT, (CSRC / "bcr.cu").read_text())
+    sources["inv_phases"] = (OUT, reduce_instrumented((CSRC / "bcr.cu").read_text()))
+    sources["bts_phases"] = (OUT, bts_instrumented((CSRC / "bts.cu").read_text()))
     sources["btf_phases"] = (OUT, btf_instrumented((CSRC / "btf.cu").read_text()))
     sources["fused_phases"] = (OUT, fused_instrumented((CSRC / "fused_spike.cu").read_text()))
     sources["btf_peers"] = (peers, patched((CSRC / "btf.cu").read_text(), DSMEM_BTF))
@@ -228,7 +291,7 @@ def main() -> int:
             [build.nvcc(), *build.NVCC_FLAGS, "-o", str(where / f"{nm}.so"),
              str(where / f"{nm}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    kinds = {"flash": "flash_attn", "inv": "bcr", "btf": "btf", "fused": "fused_spike"}
+    kinds = {"flash": "flash_attn", "inv": "bcr", "btf": "btf", "fused": "fused_spike", "bts": "bts"}
     libs = {}
     for nm, proc in procs.items():
         log, _ = proc.communicate()
@@ -364,6 +427,54 @@ def main() -> int:
                 raise RuntimeError(f"inverse launch failed: {code}")
         routes[f"cluster{cs}" if cs else "block"] = cuda_ms(run, 5)
     print(json.dumps({"inv_routes": {"k": 190, "blocks": 32, "ms": routes}}), flush=True)
+
+    # bts: random factors (the sweep is linear; their values do not change
+    # its work), scaled so that the running vector stays bounded
+    lib = libs["bts_phases"]
+    for tag, (p, m, k) in (("main", (64, 16, 200)), ("p8", (8, 125, 200)),
+                           ("chain400", (1, 63, 400))):
+        sc = k**-0.5
+        sinv = sc * torch.randn(p, m, k, k, generator=g, device=dev)
+        l, f = (0.3 * sc * torch.randn(p, m, k, k, generator=g, device=dev) for _ in range(2))
+        b = torch.randn(p, m, k, 1, generator=g, device=dev)
+        x = torch.empty_like(b)
+        cs = lib.bts_cluster_size(p, k, 1)
+
+        def run(lib=lib, cs=cs):
+            checked(lib.bts_launch(sinv.data_ptr(), l.data_ptr(), f.data_ptr(), b.data_ptr(),
+                                   x.data_ptr(), x.data_ptr(), p, m, k, 1, cs, stream), "bts")
+        _, kern = phases(lib, run)
+        steps = 3 * m - 2
+        print(json.dumps({"bts_phases": {
+            "at": tag, "shape": [p, m, k, 1], "cluster": cs,
+            "stages": lib.bts_ring_stages(k, cs, 1), "products": steps,
+            "ms": cuda_ms(lambda: run(build.load("bts"), cs), 20),
+            "cycles_per_product": sum(kern) / steps,
+            **{nm: c / steps for nm, c in zip(BTS_PHASES, kern)}}}), flush=True)
+        del sinv, l, f
+
+    # reduce at the first and the last level of a 2K = 400 chain
+    lib = libs["inv_phases"]
+    for m2 in (32, 1):
+        kb, sc = 400, 400**-0.5
+        d = sc * torch.randn(2 * m2, kb, kb, generator=g, device=dev) + 4 * torch.eye(kb, device=dev)
+        e, f = (0.3 * sc * torch.randn(2 * m2, kb, kb, generator=g, device=dev) for _ in range(2))
+        a = sc * torch.randn(m2, kb, kb, generator=g, device=dev)
+        outs = [torch.empty_like(a) for _ in range(5)]
+        tile = lib.bcr_reduce_tile(m2, kb)
+
+        def run(lib=lib):
+            checked(lib.bcr_reduce_launch(d.data_ptr(), e.data_ptr(), f.data_ptr(), a.data_ptr(),
+                                          *[o.data_ptr() for o in outs], m2, kb, 0, stream),
+                    "reduce")
+        _, kern = phases(lib, run)
+        slices = m2 * 3 * -(-kb // 16)  # each row's first lo tile and first D' tile (2 products)
+        print(json.dumps({"reduce_phases": {
+            "m2": m2, "k": kb, "tile": tile, "ms": cuda_ms(lambda: run(build.load("bcr")), 10),
+            "slices": slices, "cycles": sum(kern[:3]),
+            **{nm: c for nm, c in zip(REDUCE_PHASES, kern)},
+            "fma_share": kern[2] / max(sum(kern[:3]), 1)}}), flush=True)
+        del d, e, f, a, outs
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0
