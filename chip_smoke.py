@@ -20,10 +20,12 @@ of the JAX package.  Phases, each printing one JSON line:
    P=500 chain (499 blocks of 400), at the sparse run's chain (63 blocks
    of 2K=190, eliminated in shared memory) and at edge cases (m=1, m=3,
    K=37 with R=K), with each reduce level's tile size; the two SaP-scan kernels (WKV6, SSD) at the LM path's
-   decode (T=1, 8 slots) and prefill (B=4, T=512, chunk 64) shapes, at
-   chunk 16, under strong decay, and a chunk that does not tile T (which
-   must be refused); the flash-attention kernel in bfloat16 and float32 at
-   Minitron-8B's prefill (32 query heads over 8, T=4096, D=128, causal),
+   decode (T=1, 8 slots: the step route) and prefill (B=4, T=512, chunk
+   64: the split route) shapes, at chunk 16, under strong decay, at a
+   ragged chunk (37), at chunk 1 with T > 1, with per-head B and C, and at
+   chunk 128 (the one-block kernel), each call's route printed, and a
+   chunk that does not tile T (which must be refused); the
+   flash-attention kernel in bfloat16 and float32 at Minitron-8B's prefill (32 query heads over 8, T=4096, D=128, causal),
    starcoder2-15b's (48 over 4, T=8192, window 4096), phi3-mini's D=96,
    stablelm's D=64, the reduced D=16, bidirectional, a ragged Tk and a
    window smaller than one tile;
@@ -43,7 +45,8 @@ lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
    against 64 ``decode_step`` calls in float32, a bfloat16 prefill
    (B=4, T=512) timed, and a ``ServeEngine`` with 8 slots draining 16
    requests (prompts of 16-48 tokens, 32 new tokens each), with the
-   WKV / SSD launches of each path and a profiler window of decode ticks;
+   WKV / SSD launches of each path by route (none may take the one-block
+   kernel) and a profiler window of decode ticks;
 dense. Minitron-8B at its published width and depth (32 layers, d=4096,
    GQA 32 over 8, vocab 256,000), random float32 weights from a seeded
    generator, after the other models are freed: ``forward`` over 128
@@ -59,8 +62,10 @@ dense. Minitron-8B at its published width and depth (32 layers, d=4096,
    shape the main path gives it, beside the one-block kernel; the BCR
    inverse level by level with each launch's cluster size and route, and
    reduce level by level over the P=64 and the P=500 chain with each
-   launch's tile size; no kernel or library time may read under the
-   kernel's bound.
+   launch's tile size; the rows whose calls are short (rhs_reduce,
+   backsub, WKV6 and SSD at decode and prefill) by the profiler's device
+   time, beside the wall time per call (``host_ms``); no kernel or library
+   time may read under the kernel's bound.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -90,6 +95,10 @@ PEAK_BF16_FLOP_S = 989e12
 # 2024, "FlashAttention-3: Fast and Accurate Attention with Asynchrony and
 # Low-precision", Sec. 3.1).
 PEAK_SFU_S = 3.9e12
+# The H100's L2 cache: a timed loop whose operands fit in it rotates among
+# enough copies of its inputs to exceed it three times, as the LM path's
+# layers do (each layer's state is its own).
+L2_BYTES = 50e6
 # Kernel against plain version, both float32 on the card: the largest
 # difference at most this fraction of the largest plain value.  The same
 # recurrences in float32 with the sums of every K x K product taken in
@@ -395,6 +404,54 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean wall milliseconds per call of ``fn`` over ``reps`` calls in a
+    row, ended by a synchronize (the host's cost where calls are short)."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def device_ms(fn, reps: int) -> tuple[float, dict]:
+    """Device milliseconds per call of ``fn`` from the profiler's kernel
+    time over ``reps`` calls in a row, and by kernel (name: [ms per launch,
+    launches per call, launches recorded]).  Unlike CUDA events around the
+    loop, it does not count the host's gaps between short launches.  The
+    profiler can miss a few launches of a window, so a call's time is each
+    kernel's mean time per recorded launch times its launches per call
+    (recorded launches over calls, rounded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler saw no kernel on the card")
+    by_kernel = {e.key[:72]: [e.self_device_time_total / 1e3 / e.count,
+                              max(1, round(e.count / reps)), e.count] for e in events}
+    return sum(ms * n for ms, n, _ in by_kernel.values()), by_kernel
+
+
+def rotating(make, nbytes: float):
+    """A function returning, call after call, the next of enough input sets
+    ``make(seed)`` that their ``nbytes`` each exceed the L2 cache three times."""
+    import itertools
+
+    sets = [make(SEED + i) for i in range(max(1, -(-int(3 * L2_BYTES) // int(nbytes))))]
+    return itertools.cycle(sets).__next__
+
+
 def main() -> int:
     import torch
 
@@ -432,7 +489,7 @@ def main() -> int:
     from repro_torch.kernels.fused_spike import fused_factor_spike
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.kernels.ssd import ssd, ssd_plain
-    from repro_torch.kernels.wkv import wkv6, wkv6_plain
+    from repro_torch.kernels.wkv import scan_route, wkv6, wkv6_plain
     from repro_torch.models import get_family
     from repro_torch.serve import Request, ServeEngine
 
@@ -663,23 +720,45 @@ def main() -> int:
     scan_shapes = {
         "decode": (LM_SLOTS, 1, 1), "prefill": (PREFILL_B, PREFILL_T, rw.ssm_chunk),
         "c16": (2, 64, 16), "strong": (2, 64, 64), "strong_c16": (2, 64, 16),
+        "ragged_c37": (2, 74, 37), "c1_t16": (2, 16, 1), "c128": (1, 128, 128),
     }
+    scan_routes = {}  # the route each call took
+
+    def scan_call(name, wrapper, route, fn):
+        """fn() through ``wrapper``, which must take ``route`` for it."""
+        before = wrapper.by_route[route]
+        out = fn()
+        if wrapper.by_route[route] != before + 1:
+            raise AssertionError(f"{name} did not take the {route} route: {wrapper.by_route}")
+        scan_routes[name] = route
+        return out
+
     for tag, (b, t, c) in scan_shapes.items():
         strong = tag.startswith("strong")
         args = wkv_inputs(dev, b * rw_h, t, rw_d, SEED, strong)
-        o, st = wkv6(*args, c)
+        o, st = scan_call(f"wkv_{tag}", wkv6, scan_route(c, rw_d), lambda: wkv6(*args, c))
         want = wkv6_plain(*args, c)
         errs[f"wkv_{tag}"] = max(check_close(f"wkv {tag} o", o, want[0]),
                                  check_close(f"wkv {tag} state", st, want[1]))
         args = ssd_inputs(dev, b * zb_h, t, zb_n, zb_p, zb_h, SEED, strong)
-        y, st = ssd(*args, c, zb_h)
+        y, st = scan_call(f"ssd_{tag}", ssd, scan_route(c, zb_n, zb_p),
+                          lambda: ssd(*args, c, zb_h))
         want = ssd_plain(*args, c, zb_h)
         errs[f"ssd_{tag}"] = max(check_close(f"ssd {tag} y", y, want[0]),
                                  check_close(f"ssd {tag} state", st, want[1]))
     # B and C per head (no sharing), and the chunk check: T=96 with chunk 64
     args = ssd_inputs(dev, 2 * 4, 64, zb_n, zb_p, 1, SEED)
-    errs["ssd_per_head"] = check_close("ssd per-head B, C", ssd(*args, 16)[0],
-                                       ssd_plain(*args, 16)[0])
+    errs["ssd_per_head"] = check_close(
+        "ssd per-head B, C",
+        scan_call("ssd_per_head", ssd, scan_route(16, zb_n, zb_p), lambda: ssd(*args, 16)[0]),
+        ssd_plain(*args, 16)[0])
+    # the LM path's shapes take the new routes; only chunk 128 keeps the old kernel
+    for name, route in scan_routes.items():
+        if (route == "block") != name.endswith("c128"):
+            raise AssertionError(f"{name} took the {route} route: {scan_routes}")
+    zb_rows = PREFILL_B * zb_h
+    ssd_head_group = build.load("ssd").ssd_split_head_group(zb_rows, PREFILL_T, rw.ssm_chunk,
+                                                            zb_h)
     refused = []
     for name, fn in (("wkv", lambda: wkv6(*wkv_inputs(dev, rw_h, 96, rw_d, SEED), 64)),
                      ("ssd", lambda: ssd(*ssd_inputs(dev, zb_h, 96, zb_n, zb_p, zb_h, SEED),
@@ -737,7 +816,8 @@ def main() -> int:
         if (cs == 0) != wide:
             raise AssertionError(f"{nm} took cluster size {cs}: {routes}")
     emit({"phase": "kernels_vs_plain", "rtol_normwise": KERNEL_RTOL, "routes": routes,
-          "reduce_tiles": reduce_tiles,
+          "reduce_tiles": reduce_tiles, "scan_routes": scan_routes,
+          "ssd_prefill_head_group": ssd_head_group,
           "flash_bfloat16_step_atol": [FLASH_BF16_STEP, FLASH_BF16_ATOL],
           "flash_bfloat16_worst_share": bf16_share, "max_abs_err": errs,
           "chain_coupling": coupling, "refused": refused, "flash_shapes": flash_shapes})
@@ -762,6 +842,8 @@ def main() -> int:
         btf.block_launches = fused_factor_spike.block_launches = bts.block_launches = 0
         bts.by_cluster.clear()
         bcr.reduce.by_tile.clear()
+        for w in (wkv6, ssd):
+            w.by_route.update(dict.fromkeys(w.by_route, 0))
 
     def counts():
         """Every wrapper's launches, and inv_odd's, btf's, the fused pass's
@@ -1045,6 +1127,7 @@ def main() -> int:
                 diff = consistency["cold_max_abs_diff"]
             consistency["max_abs_logit"] = max_logit
             launches["consistency_f32"] = counts()[kernel]
+            by_route = {"consistency_f32": dict(wrappers[kernel].by_route)}
             for what, d in (("decode steps", diff),
                             ("chunk-1 forward", consistency["chunk1_forward_max_abs_diff"])):
                 if not d <= LM_RTOL * max_logit:
@@ -1057,6 +1140,7 @@ def main() -> int:
             out, _ = fam.forward(cfg, params, ptoks)
             torch.cuda.synchronize()
             launches["prefill"] = counts()[kernel]
+            by_route["prefill"] = dict(wrappers[kernel].by_route)
             if not (bool(torch.isfinite(out).all())
                     and out.shape == (PREFILL_B, PREFILL_T, cfg.vocab_padded)):
                 raise AssertionError(f"{arch}: prefill logits bad: {tuple(out.shape)}")
@@ -1072,10 +1156,15 @@ def main() -> int:
                        for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)]
             serve_line, serve_counts = serve(arch, cfg, params, prompts, other_bytes)
             launches["serve"] = serve_counts[kernel]
+            by_route["serve"] = dict(wrappers[kernel].by_route)
             window_line = decode_window(cfg, fam, params, rng)
         for nm in ("prefill", "serve"):
             if launches[nm] == 0:
                 raise AssertionError(f"{arch}: the {nm} path never launched the {kernel} kernel")
+        for nm, taken in by_route.items():
+            if taken["block"]:
+                raise AssertionError(f"{arch}: the {nm} path took the one-block {kernel} kernel: "
+                                     f"{taken}")
         lm_launches[kernel] = launches["serve"] + launches["prefill"]
         emit({
             "phase": "lm", "arch": arch, "params": n_params, "weight_bytes": weight_bytes,
@@ -1083,7 +1172,7 @@ def main() -> int:
             "consistency": consistency,
             "prefill_ms": prefill_ms, "prefill_shape": [PREFILL_B, PREFILL_T],
             "serve": serve_line, "decode_window": window_line,
-            "launches": {kernel: launches},
+            "launches": {kernel: launches}, "launches_by_route": {kernel: by_route},
         })
         del params
         torch.cuda.empty_cache()
@@ -1238,15 +1327,21 @@ def main() -> int:
                             replaces="src/repro/kernels/bcr.py:89"),
     }
     for name, s in bcr_specs.items():
+        wide = name in ("bcr_inv_odd", "bcr_reduce")
+        # rhs_reduce's and backsub's launches are short: their time is the
+        # profiler's device time, the loop's wall time per call host_ms
         s.update(source="src/repro_torch/kernels/csrc/bcr.cu", work=work[name[4:]],
-                 reps=3 if name in ("bcr_inv_odd", "bcr_reduce") else 100,
-                 plain_reps=1 if name in ("bcr_inv_odd", "bcr_reduce") else 5,
-                 err=bcr_errs[name])
+                 reps=3 if wide else 100, plain_reps=1 if wide else 5, err=bcr_errs[name],
+                 device_time=not wide)
     specs.update(bcr_specs)
     summary = []
     for name, s in specs.items():
         saved = wrappers[name].launches
-        ms = cuda_ms(s["kernel"], s["reps"])
+        if s.get("device_time"):
+            ms, by_kernel = device_ms(s["kernel"], s["reps"])
+            wall_ms = host_ms(s["kernel"], s["reps"])
+        else:
+            ms, by_kernel, wall_ms = cuda_ms(s["kernel"], s["reps"]), None, None
         plain_ms = cuda_ms(s["plain"], s["plain_reps"])
         library_ms = cuda_ms(s["library"], s["reps"]) if "library" in s else None
         # the library call against the plain version: torch.linalg.inv pivots
@@ -1262,8 +1357,11 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms,
         })
+        if wall_ms is not None:
+            summary[-1].update(ms_is="device", host_ms=wall_ms)
         shape = list(chain[0].shape) if name in bcr_specs else [p, m, k]
-        emit({"phase": "timing", "kernel": name, "ms": ms, "plain_ms": plain_ms,
+        emit({"phase": "timing", "kernel": name, "ms": ms, "host_ms": wall_ms,
+              "device_ms_by_kernel": by_kernel, "plain_ms": plain_ms,
               "library_ms": library_ms, "library_max_abs_err_vs_plain": library_err,
               "bytes": nbytes, "flops": flops, "shape": shape})
     # inv_odd level by level (32, 16, ..., 1 odd blocks, then the root), with
@@ -1365,7 +1463,9 @@ def main() -> int:
     summary[[e["name"] for e in summary].index("bcr_reduce")]["by_level"] = reduce_levels
     del chain500
     # the SaP-scan kernels at the LM path's decode shapes (the summary row:
-    # the serving engine's step) and prefill shapes (row "prefill")
+    # the serving engine's step) and prefill shapes (row "prefill"): ms is
+    # the profiler's device time per call (both launches of the split
+    # route), host_ms the wall time per call of the loop
     scan_specs = {
         "wkv": dict(source="src/repro_torch/kernels/csrc/wkv.cu",
                     replaces="src/repro/kernels/wkv_chunk.py:38"),
@@ -1374,25 +1474,37 @@ def main() -> int:
     }
     for name, s in scan_specs.items():
         entry = {"name": name, "route": "cuda", "source": s["source"],
-                 "replaces": s["replaces"], "launches": lm_launches[name], "library_ms": None}
+                 "replaces": s["replaces"], "launches": lm_launches[name], "library_ms": None,
+                 "ms_is": "device"}
         for tag in ("decode", "prefill"):
             b, t, c = scan_shapes[tag]
             if name == "wkv":
-                args = wkv_inputs(dev, b * rw_h, t, rw_d, SEED)
+                make = lambda seed: wkv_inputs(dev, b * rw_h, t, rw_d, seed)  # noqa: E731
                 shape = [b * rw_h, t, rw_d, c]
                 flops, nbytes = wkv_work(b * rw_h, t, rw_d)
-                kern, plain = (lambda: wkv6(*args, c)), (lambda: wkv6_plain(*args, c))
+                nxt = rotating(make, nbytes)
+                args = make(SEED)
+                kern, plain = (lambda: wkv6(*nxt(), c)), (lambda: wkv6_plain(*args, c))
             else:
-                args = ssd_inputs(dev, b * zb_h, t, zb_n, zb_p, zb_h, SEED)
+                make = lambda seed: ssd_inputs(  # noqa: E731
+                    dev, b * zb_h, t, zb_n, zb_p, zb_h, seed)
                 shape = [b * zb_h, t, zb_n, zb_p, c]
                 flops, nbytes = ssd_work(b * zb_h, t, zb_n, zb_p, zb_h)
-                kern, plain = (lambda: ssd(*args, c, zb_h)), (lambda: ssd_plain(*args, c, zb_h))
-            saved = wrappers[name].launches
-            ms = cuda_ms(kern, 200 if tag == "decode" else 20)
+                nxt = rotating(make, nbytes)
+                args = make(SEED)
+                kern = lambda: ssd(*nxt(), c, zb_h)  # noqa: E731
+                plain = lambda: ssd_plain(*args, c, zb_h)  # noqa: E731
+            saved = wrappers[name].launches, dict(wrappers[name].by_route)
+            reps = 200 if tag == "decode" else 20
+            ms, by_kernel = device_ms(kern, reps)
+            wall_ms = host_ms(kern, reps)
             plain_ms = cuda_ms(plain, 5 if tag == "decode" else 2)
-            wrappers[name].launches = saved  # timing launches are not the path's
+            wrappers[name].launches = saved[0]  # timing launches are not the path's
+            wrappers[name].by_route.update(saved[1])
             t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
-            row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            row = {"ms": ms, "host_ms": wall_ms, "device_ms_by_kernel": by_kernel,
+                   "scan_route": scan_routes[f"{name}_{tag}"], "plain_ms": plain_ms,
+                   "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "max_abs_err": errs[f"{name}_{tag}"], "shape": shape}
             emit({"phase": "timing", "kernel": name, "at": tag, **row, "library_ms": None,

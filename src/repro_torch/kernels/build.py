@@ -69,10 +69,13 @@ SIGNATURES = {
         "bcr_backsub_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     },
     "wkv": {
-        "wkv_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "wkv_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "wkv_workspace_floats": (_L, [_I, _I, _I, _I]),
     },
     "ssd": {
-        "ssd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "ssd_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+        "ssd_workspace_floats": (_L, [_I, _I, _I, _I, _I]),
+        "ssd_split_head_group": (_I, [_I, _I, _I, _I]),
     },
     "flash_attn": {
         "flash_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

@@ -1,14 +1,17 @@
 """Chunked Mamba-2 SSD kernel (the SaP-scan of the Mamba-2 mixer).
 
 Replaces the TPU kernel ``repro/kernels/ssd_chunk.py:_ssd_kernel``
-(``ssd_pallas``).  The CUDA source is ``csrc/ssd.cu``: one thread block
-per (batch, head) row walks the chunks in order with the N x P state in
-shared memory.  ``b`` and ``c`` may be shared by ``hshare`` consecutive
-rows (Mamba-2 broadcasts them over the heads of a token): the kernel then
-reads row ``i // hshare`` and no per-head copy is made.
+(``ssd_pallas``).  The CUDA source is ``csrc/ssd.cu`` (with
+``csrc/scan.cuh``), on the routes of :func:`.wkv.scan_route` (``"step"``
+at chunk 1, ``"split"`` up to chunk 64, else ``"block"``), counted in
+``ssd.by_route``.  On the split route a CTA forms C B^T once for a group
+of heads that share B and C.  ``b`` and ``c`` may be shared by ``hshare``
+consecutive rows (Mamba-2 broadcasts them over the heads of a token): the
+kernel then reads row ``i // hshare`` and no per-head copy is made.
 
 Bound on the H100: bytes at decode (T = 1: the state is read and written
-once per token), operations at prefill (~4 C N P flops per chunk).
+once per token), operations at prefill (5 N P flops a token, counted in
+the token-by-token form).
 
 On a CPU tensor the wrapper runs the plain version (:func:`ssd_plain`,
 :func:`repro_torch.kernels.ref.ssd_chunked_ref` on the flattened rows);
@@ -22,7 +25,7 @@ import torch
 from . import build
 from ._launch import check_operands, check_shape, stream_handle
 from .ref import ssd_chunked_ref
-from .wkv import check_chunk
+from .wkv import ROUTES, aligned, check_chunk, scan_route
 
 
 def ssd_plain(x, b, c, loga, state, chunk: int = 64, hshare: int = 1):
@@ -58,17 +61,25 @@ def ssd(
     check_shape("ssd", "loga", loga, (bh, t))
     check_shape("ssd", "state", state, (bh, n, p))
     lib = build.load("ssd")
+    route = scan_route(chunk, n, p)
+    if route != "block":
+        x, b, c, state = map(aligned, (x, b, c, state))
     y = torch.empty_like(x)
     s_out = torch.empty_like(state)
     if bh == 0:
         return y, s_out
+    ws = (torch.empty(lib.ssd_workspace_floats(bh, t, n, p, chunk), dtype=torch.float32,
+                      device=x.device) if route == "split" else None)
     code = lib.ssd_launch(
         x.data_ptr(), b.data_ptr(), c.data_ptr(), loga.data_ptr(), state.data_ptr(),
-        y.data_ptr(), s_out.data_ptr(), bh, t, n, p, chunk, hshare, stream_handle(x.device),
+        y.data_ptr(), s_out.data_ptr(), None if ws is None else ws.data_ptr(), bh, t, n, p,
+        chunk, hshare, ROUTES.index(route), stream_handle(x.device),
     )
-    build.check(lib, code, "ssd")
+    build.check(lib, code, f"ssd ({route} route)")
     ssd.launches += 1
+    ssd.by_route[route] += 1
     return y, s_out
 
 
-ssd.launches = 0
+ssd.launches = 0  # wrapper calls that launched (the split route's two kernels count once)
+ssd.by_route = dict.fromkeys(ROUTES, 0)  # those calls by route

@@ -563,6 +563,173 @@ def test_ssd_kernel_matches_plain(cuda, b, h, t, n, p, chunk, shared):
     _close(s, want[1])
 
 
+def _wkv_args(cuda, bh, t, d, strong=False, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r, k, v = (torch.randn(bh, t, d, generator=g, device=cuda) for _ in range(3))
+    if strong:
+        logw = torch.full((bh, t, d), -30.0, device=cuda)
+    else:
+        logw = -torch.exp(0.5 * torch.randn(bh, t, d, generator=g, device=cuda))
+    u = torch.randn(bh, d, generator=g, device=cuda)
+    return r, k, v, logw, u, 0.1 * torch.randn(bh, d, d, generator=g, device=cuda)
+
+
+def _ssd_args(cuda, bh, t, n, p, hshare, strong=False, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(bh, t, p, generator=g, device=cuda)
+    bm, cm = (torch.randn(bh // hshare, t, n, generator=g, device=cuda) for _ in range(2))
+    if strong:
+        la = torch.full((bh, t), -30.0, device=cuda)
+    else:
+        la = -torch.exp(0.5 * torch.randn(bh, t, generator=g, device=cuda))
+    return x, bm, cm, la, 0.1 * torch.randn(bh, n, p, generator=g, device=cuda)
+
+
+# (bh, t, d, chunk, route): the decode step at RWKV6-1.6B's 8 x 32 rows, the
+# split route at its prefill (4 x 32 rows, T=512, chunk 64), a ragged chunk,
+# rows fewer and many more than the card's 132 SMs, chunk 1 with T > 1, and
+# the one-block kernel's shapes (D off a multiple of 4, a chunk of 128)
+WKV_ROUTE_SHAPES = [(256, 1, 64, 1, "step"), (128, 512, 64, 64, "split"),
+                    (6, 74, 64, 37, "split"), (3, 128, 64, 64, "split"),
+                    (1024, 64, 64, 16, "split"), (1000, 1, 64, 1, "step"),
+                    (4, 16, 64, 1, "step"), (5, 48, 16, 48, "split"),
+                    (4, 32, 6, 16, "block"), (2, 128, 64, 128, "block")]
+
+
+@pytest.mark.parametrize("bh,t,d,chunk,route", WKV_ROUTE_SHAPES)
+@pytest.mark.parametrize("strong", [False, True])
+def test_wkv_route_matches_plain(cuda, bh, t, d, chunk, route, strong):
+    from repro_torch.kernels.wkv import scan_route, wkv6, wkv6_plain
+
+    assert scan_route(chunk, d) == route
+    args = _wkv_args(cuda, bh, t, d, strong, seed=bh + t)
+    before = dict(wkv6.by_route)
+    o, s = wkv6(*args, chunk)
+    assert wkv6.by_route == {**before, route: before[route] + 1}
+    want = wkv6_plain(*args, chunk)
+    _close(o, want[0])
+    _close(s, want[1])
+
+
+# (b, h, t, n, p, chunk, B/C shared by the heads, route): the decode step at
+# Zamba2-2.7B's 8 x 80 rows, the split route at its prefill (4 x 80 rows,
+# T=512, chunk 64), a ragged chunk, few and many rows, chunk 1 with T > 1,
+# per-head B and C, and the one-block kernel's shapes
+SSD_ROUTE_SHAPES = [(8, 80, 1, 64, 64, 1, True, "step"), (4, 80, 512, 64, 64, 64, True, "split"),
+                    (1, 6, 74, 64, 64, 37, True, "split"), (1, 3, 128, 64, 64, 64, False, "split"),
+                    (16, 80, 64, 64, 64, 16, True, "split"), (2, 80, 16, 64, 64, 1, True, "step"),
+                    (3, 5, 48, 8, 16, 48, False, "split"), (2, 3, 32, 6, 8, 16, False, "block"),
+                    (1, 4, 128, 64, 64, 128, True, "block")]
+
+
+@pytest.mark.parametrize("b,h,t,n,p,chunk,shared,route", SSD_ROUTE_SHAPES)
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_route_matches_plain(cuda, b, h, t, n, p, chunk, shared, route, strong):
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    from repro_torch.kernels.wkv import scan_route
+
+    assert scan_route(chunk, n, p) == route
+    hs = h if shared else 1
+    args = _ssd_args(cuda, b * h, t, n, p, hs, strong, seed=b * h + t)
+    before = dict(ssd.by_route)
+    y, s = ssd(*args, chunk, hs)
+    assert ssd.by_route == {**before, route: before[route] + 1}
+    want = ssd_plain(*args, chunk, hs)
+    _close(y, want[0])
+    _close(s, want[1])
+
+
+@pytest.mark.parametrize("kernel", ["wkv", "ssd"])
+def test_scan_state_carries_from_the_split_route_to_the_step(cuda, kernel):
+    """A 64-token prefill on the split route, then four decode steps on the
+    step route, each from the state the last call returned, against one
+    plain pass over the 68 tokens."""
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    from repro_torch.kernels.wkv import wkv6, wkv6_plain
+
+    if kernel == "wkv":
+        *seq, u, s0 = _wkv_args(cuda, 12, 68, 64, seed=3)
+        run = lambda part, s, c: wkv6(*part, u, s, c)  # noqa: E731
+        want = wkv6_plain(*seq, u, s0, 4)
+    else:
+        x, bm, cm, la, s0 = _ssd_args(cuda, 12, 68, 64, 64, 6, seed=3)
+        seq = [x, bm, cm, la]
+        run = lambda part, s, c: ssd(*part, s, c, 6)  # noqa: E731
+        want = ssd_plain(*seq, s0, 4, 6)
+    routes = (wkv6 if kernel == "wkv" else ssd).by_route
+    before = dict(routes)
+    outs, s = [], s0
+    for lo, hi, c in ((0, 64, 64), (64, 65, 1), (65, 66, 1), (66, 67, 1), (67, 68, 1)):
+        o, s = run([a[:, lo:hi].contiguous() for a in seq], s, c)
+        outs.append(o)
+    assert routes["split"] == before["split"] + 1 and routes["step"] == before["step"] + 4
+    _close(torch.cat(outs, 1), want[0])
+    _close(s, want[1])
+
+
+@pytest.mark.parametrize("kernel", ["wkv", "ssd"])
+def test_scan_routes_agree_bitwise_on_the_first_token_from_zero(cuda, kernel):
+    """From a zero state the first token's output is the bonus (WKV) or
+    (c . b) x (SSD) alone, summed in one order by every new route: a
+    decode step, a chunk-1 forward and a chunk-64 forward give the same
+    bits there (RWKV6's cold first token amplifies any rounding, PERF.md
+    L1)."""
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+
+    if kernel == "wkv":
+        *seq, u, s0 = _wkv_args(cuda, 32, 64, 64, seed=5)
+        run = lambda part, c: wkv6(*part, u, torch.zeros_like(s0), c)[0]  # noqa: E731
+    else:
+        *seq, s0 = _ssd_args(cuda, 80, 64, 64, 64, 80, seed=5)
+        run = lambda part, c: ssd(*part, torch.zeros_like(s0), c, 80)[0]  # noqa: E731
+    first = [run(seq, 64)[:, 0], run(seq, 1)[:, 0],
+             run([a[:, :1].contiguous() for a in seq], 1)[:, 0]]
+    assert torch.equal(first[0], first[1]) and torch.equal(first[0], first[2])
+
+
+@pytest.mark.parametrize("chunk", [1, 16])
+def test_scan_routes_take_operands_off_a_16_byte_boundary(cuda, chunk):
+    """Contiguous operands that start one float past a 16-byte boundary
+    (views into a larger buffer) reach the step and split routes, which
+    load 16 bytes at a time, and give the aligned operands' result."""
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+
+    def shifted(a):
+        buf = torch.empty(a.numel() + 1, device=cuda)
+        view = buf[1:].view(a.shape)
+        view.copy_(a)
+        assert view.data_ptr() % 16 and view.is_contiguous()
+        return view
+
+    wargs = _wkv_args(cuda, 6, 32, 64, seed=7)
+    for got, want in zip(wkv6(*map(shifted, wargs), chunk), wkv6(*wargs, chunk)):
+        assert torch.equal(got, want)
+    sargs = _ssd_args(cuda, 6, 32, 64, 64, 3, seed=7)
+    for got, want in zip(ssd(*map(shifted, sargs), chunk, 3), ssd(*sargs, chunk, 3)):
+        assert torch.equal(got, want)
+
+
+def test_scan_routes_refuse_shapes_they_do_not_take(cuda):
+    """The C entry points refuse a route the shape does not fit (the split
+    route above chunk 64, the step route at chunk 16), and the wrappers'
+    check raises: nothing falls back."""
+    from repro_torch.kernels import build
+
+    x, bm, cm, la, s0 = _ssd_args(cuda, 2, 128, 64, 64, 1)
+    y, so = torch.empty_like(x), torch.empty_like(s0)
+    ws = torch.empty(1 << 20, device=cuda)
+    lib = build.load("ssd")
+    stream = torch.cuda.current_stream().cuda_stream
+    for chunk, route in ((128, 2), (16, 1)):
+        code = lib.ssd_launch(x.data_ptr(), bm.data_ptr(), cm.data_ptr(), la.data_ptr(),
+                              s0.data_ptr(), y.data_ptr(), so.data_ptr(), ws.data_ptr(), 2, 128,
+                              64, 64, chunk, 1, route, stream)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            build.check(lib, code, "ssd")
+
+
 def test_scan_kernels_reject_what_they_do_not_take(cuda):
     from repro_torch.kernels import ops
 

@@ -49,12 +49,25 @@ prints one JSON line each:
 Then the card's ``nvidia-smi`` name and power limit.  Needs a CUDA card
 and nvcc; the patches are exact string replacements and fail loudly when
 a kernel source no longer matches them.
+
+    python3 tools/kernel_phases.py --scan-parent DIR
+
+instead times the two SaP-scan wrappers (``wkv6``, ``ssd``) of another
+checkout of the repository at DIR (e.g. the parent commit, unpacked by
+``git archive``) against this one's, in turns (parent, change, change,
+parent), each in a process of its own that imports that tree's package
+and builds its kernels: one ``scan_times`` line each, with the device ms
+per call (profiler kernel time), the wall ms per call and each call's
+route, at RWKV6-1.6B's and Zamba2-2.7B's decode (8 slots, T=1) and
+prefill (B=4, T=512, chunk 64) shapes, the inputs rotated through more
+than the L2 cache as in chip_smoke.py.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -257,12 +270,63 @@ def reduce_instrumented(src: str) -> str:
     )
 
 
+def scan_times() -> dict:
+    """Device and wall ms per call of the ``wkv6`` and ``ssd`` wrappers on
+    the import path, at the LM path's decode and prefill shapes (the
+    inputs, shapes and timing of chip_smoke.py)."""
+    import torch
+
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+
+    dev = torch.device("cuda")
+    rw_h, d, zb_h, n = 32, 64, 80, 64  # RWKV6-1.6B's heads of D; Zamba2-2.7B's of N = P
+    out = {}
+    for tag, (b, t, c) in {"decode": (cs.LM_SLOTS, 1, 1),
+                           "prefill": (cs.PREFILL_B, cs.PREFILL_T, 64)}.items():
+        wnext = cs.rotating(lambda seed: cs.wkv_inputs(dev, b * rw_h, t, d, seed),
+                            cs.wkv_work(b * rw_h, t, d)[1])
+        snext = cs.rotating(lambda seed: cs.ssd_inputs(dev, b * zb_h, t, n, n, zb_h, seed),
+                            cs.ssd_work(b * zb_h, t, n, n, zb_h)[1])
+        for name, fn in (("wkv", lambda: wkv6(*wnext(), c)),
+                         ("ssd", lambda: ssd(*snext(), c, zb_h))):
+            reps = 200 if tag == "decode" else 20
+            ms, by_kernel = cs.device_ms(fn, reps)
+            out[f"{name}_{tag}"] = {"ms": ms, "host_ms": cs.host_ms(fn, reps),
+                                    "device_ms_by_kernel": by_kernel}
+    out["by_route"] = {nm: dict(getattr(w, "by_route", {})) for nm, w in
+                       (("wkv", wkv6), ("ssd", ssd))}
+    return out
+
+
+def scan_compare(parent: Path) -> None:
+    """scan_times of the checkout at ``parent`` and of this one, in turns."""
+    for who in ("parent", "change", "change", "parent"):
+        src = (parent if who == "parent" else ROOT) / "src"
+        run = subprocess.run([sys.executable, __file__, "--scan-times"], capture_output=True,
+                             text=True, env={**os.environ, "PYTHONPATH": str(src)})
+        if run.returncode:
+            raise RuntimeError(f"scan_times of {src} failed:\n{run.stdout}{run.stderr}")
+        print(json.dumps({"scan_times": who, "src": str(src),
+                          **json.loads(run.stdout.strip().splitlines()[-1])}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
         return 2
+    if "--scan-times" in sys.argv:
+        print(json.dumps(scan_times()), flush=True)
+        return 0
+    if "--scan-parent" in sys.argv:
+        scan_compare(Path(sys.argv[sys.argv.index("--scan-parent") + 1]).resolve())
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
