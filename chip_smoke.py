@@ -16,10 +16,12 @@ of the JAX package.  Phases, each printing one JSON line:
    (M=125) and the P=500 split (M=2), with the cluster size (the route) of
    every btf, fused and bts launch; the four block cyclic reduction
    (BCR) kernels and the whole BCR factor / solve at the P=64 interface
-   chain of the d=0.5 band (63 blocks of 2K=400, R=1, 4), at the coupled
-   P=500 chain (499 blocks of 400), at the sparse run's chain (63 blocks
-   of 2K=190, eliminated in shared memory) and at edge cases (m=1, m=3,
-   K=37 with R=K), with each reduce level's tile size; the two SaP-scan kernels (WKV6, SSD) at the LM path's
+   chain of the d=0.5 band (63 blocks of 2K=400), at the coupled P=500
+   chain (499 blocks of 400), at the sparse run's chain (63 blocks of
+   2K=190, eliminated in shared memory) -- rhs_reduce and backsub at
+   every level of each at R=1, 4 and 8 -- and at edge cases (m=1, m=3,
+   K=37 with R=K, the tiled solve kernels), with each reduce level's tile
+   size; the two SaP-scan kernels (WKV6, SSD) at the LM path's
    decode (T=1, 8 slots: the step route) and prefill (B=4, T=512, chunk
    64: the split route) shapes, at chunk 16, under strong decay, at a
    ragged chunk (37), at chunk 1 with T > 1, with per-head B and C, and at
@@ -39,7 +41,9 @@ of the JAX package.  Phases, each printing one JSON line:
    ``random_sparse(200,000, 20, d=1.0, structured_band=50)`` through
    ``factor(plan(...)).solve`` at P=64 (host DB + CM timed once, in
    phase 3); with every kernel wrapper's launch count, bts's launches by
-   cluster size and reduce's by tile size;
+   cluster size, reduce's by tile size, rhs_reduce's by CTAs a block and
+   backsub's by cluster size (an R <= 8 solve on the tiled kernels
+   fails);
 lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
    random weights from a seeded generator: ``forward`` over 64 tokens
    against 64 ``decode_step`` calls in float32, a bfloat16 prefill
@@ -57,15 +61,22 @@ dense. Minitron-8B at its published width and depth (32 layers, d=4096,
 5. timing of each kernel beside its plain version (and a library call
    where one computes the same function: for btf and the fused pass a loop
    over the block rows of batched ``torch.linalg.inv`` and ``torch.matmul``,
-   for reduce each level's six batched ``torch.matmul`` products, with its
-   difference from the plain version), with CUDA events; bts at every
+   for reduce each level's six batched ``torch.matmul`` products, for
+   rhs_reduce and backsub each level's ``torch.baddbmm`` / ``bmm`` calls
+   on gathered neighbours, with its difference from the plain version),
+   with CUDA events; bts at every
    shape the main path gives it, beside the one-block kernel; the BCR
    inverse level by level with each launch's cluster size and route, and
    reduce level by level over the P=64 and the P=500 chain with each
    launch's tile size; the rows whose calls are short (rhs_reduce,
    backsub, WKV6 and SSD at decode and prefill) by the profiler's device
-   time, beside the wall time per call (``host_ms``); no kernel or library
-   time may read under the kernel's bound.
+   time, beside the wall time per call (``host_ms``): rhs_reduce and
+   backsub over one R=1 solve's levels of the P=64 and the P=500 chain,
+   and level by level over both (``queued_ms``: launches queued behind a
+   spin kernel, timed by CUDA events; inputs rotated through 3x the L2),
+   with each level's share of bound, CTAs a block or cluster size, rows
+   and warps a CTA and row copy width; no kernel or library time may read
+   under the kernel's bound.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -252,6 +263,38 @@ def reduce_library(d, e, f, a):
     hi = torch.matmul(f[0::2], a)
     dn = d[0::2] - torch.matmul(lo, f.index_select(0, prv)) - torch.matmul(hi, e[1::2])
     return lo, hi, dn, -torch.matmul(lo, e.index_select(0, prv)), -torch.matmul(hi, f[1::2])
+
+
+def solve_level_work(m2: int, k: int, r: int) -> dict[str, tuple[float, float]]:
+    """(flops, bytes) of one rhs_reduce and one backsub level of m2 even
+    rows, as bcr_work counts a row."""
+    blk, vec = 4.0 * k * k, 4.0 * k * r
+    return {"rhs_reduce": (m2 * (4.0 * k * k * r + 2 * k * r), m2 * (2 * blk + 3 * vec)),
+            "backsub": (m2 * (6.0 * k * k * r + 2 * k * r), m2 * (3 * blk + 4 * vec))}
+
+
+def rhs_reduce_library(lo, hi, b):
+    """bcr_rhs_reduce's function from PyTorch calls: two ``torch.baddbmm``
+    on the neighbours the kernel reads, max(2i-1, 0) gathered by
+    ``index_select`` (lo_0 = 0 zeroes the term it brings in)."""
+    import torch
+
+    i = torch.arange(lo.shape[0], device=lo.device)
+    out = torch.baddbmm(b[0::2], lo, b.index_select(0, (2 * i - 1).clamp(min=0)), alpha=-1)
+    return torch.baddbmm(out, hi, b[1::2], alpha=-1)
+
+
+def backsub_library(a, e, f, b, x):
+    """bcr_backsub's function from PyTorch calls: ``torch.baddbmm`` twice
+    for t (the neighbour min(i+1, m2-1) gathered by ``index_select``;
+    f_{m2-1} = 0 zeroes it), ``torch.bmm`` for a t, then the interleave."""
+    import torch
+
+    m2, k, r = x.shape
+    nxt = torch.arange(1, m2 + 1, device=x.device).clamp(max=m2 - 1)
+    t = torch.baddbmm(b[1::2], e, x, alpha=-1)
+    t = torch.baddbmm(t, f, x.index_select(0, nxt), alpha=-1)
+    return torch.stack([x, torch.bmm(a, t)], dim=1).reshape(2 * m2, k, r)
 
 
 def wkv_work(bh: int, t: int, d: int) -> tuple[float, float]:
@@ -443,6 +486,33 @@ def device_ms(fn, reps: int) -> tuple[float, dict]:
     return sum(ms * n for ms, n, _ in by_kernel.values()), by_kernel
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls queued behind
+    a spin kernel (``torch.cuda._sleep``) that outlasts the host's enqueueing
+    of them, so the card runs them back to back, timed by CUDA events around
+    them.  Unlike events around a loop the host feeds, it does not count the
+    host's gaps; unlike the profiler's kernel time, it counts the card's own
+    gap from one launch to the next (~1.3 us on the H100).  It needs no
+    profiler, which in a long process stops seeing kernels."""
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * host_s) + 2_000_000)  # cycles: twice the host's time at 2 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def rotating(make, nbytes: float):
     """A function returning, call after call, the next of enough input sets
     ``make(seed)`` that their ``nbytes`` each exceed the L2 cache three times."""
@@ -600,10 +670,11 @@ def main() -> int:
         bts_cases[tag] = (facs, rhs)
         del sbt
 
-    def bcr_inputs(d, e, f, r):
-        """Per-level kernel inputs of one plain factor and one plain solve:
-        [(d, e, f, a_odd)], [(lo, hi, b)], [(a, e_odd, f_odd, b, x)] and the
-        root block, with a seeded R-column right-hand side."""
+    def bcr_inputs(d, e, f, rs):
+        """Per-level kernel inputs of one plain factor and, for each R in
+        ``rs``, of one plain solve with a seeded R-column right-hand side:
+        [(d, e, f, a_odd)], {R: ([(lo, hi, b)], [(a, e_odd, f_odd, b, x)])}
+        and the root block."""
         pd, pe, pf = cr.pad_chain(d, e, f)
         facts, lv = [], []
         while pd.shape[0] > 1:
@@ -611,24 +682,28 @@ def main() -> int:
             facts.append((pd, pe, pf, a))
             level, (pd, pe, pf) = cr.bcr_reduce_level_ref(pd, pe, pf)
             lv.append(level)
-        g = torch.Generator(device=dev).manual_seed(SEED)
-        b = cr.pad_rhs(torch.randn(d.shape[0], d.shape[1], r, generator=g, device=dev), len(lv))
-        downs, rhs = [], []
-        for level in lv:
-            downs.append((level.lo, level.hi, b))
-            rhs.append(b)
-            b = cr.bcr_rhs_reduce_ref(level.lo, level.hi, b)
-        x = (cr.bcr_inv_odd_ref(pd, first=0)[0] @ b[0])[None]
-        ups = []
-        for level, bl_ in zip(reversed(lv), reversed(rhs)):
-            ups.append((level.a_odd, level.e_odd.contiguous(), level.f_odd.contiguous(), bl_, x))
-            x = cr.bcr_backsub_ref(level.a_odd, level.e_odd, level.f_odd, bl_, x)
-        return facts, downs, ups, pd
+        root_inv = cr.bcr_inv_odd_ref(pd, first=0)[0]
+        solves = {}
+        for r in rs:
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            b = cr.pad_rhs(torch.randn(d.shape[0], d.shape[1], r, generator=g, device=dev), len(lv))
+            downs, rhs = [], []
+            for level in lv:
+                downs.append((level.lo, level.hi, b))
+                rhs.append(b)
+                b = cr.bcr_rhs_reduce_ref(level.lo, level.hi, b)
+            x = (root_inv @ b[0])[None]
+            ups = []
+            for level, bl_ in zip(reversed(lv), reversed(rhs)):
+                ups.append((level.a_odd, level.e_odd.contiguous(), level.f_odd.contiguous(), bl_, x))
+                x = cr.bcr_backsub_ref(level.a_odd, level.e_odd, level.f_odd, bl_, x)
+            solves[r] = (downs, ups)
+        return facts, solves, pd
 
     reduce_tiles: dict[str, list] = {}  # each reduce level's (m/2, tile size)
 
     def check_bcr(tag, d, e, f, rs):
-        facts, downs, ups, root = bcr_inputs(d, e, f, rs[0])
+        facts, solves, root = bcr_inputs(d, e, f, rs)
         reduce_tiles[tag or "_p64"] = [(pd.shape[0] // 2, lib_bcr.bcr_reduce_tile(
             pd.shape[0] // 2, pd.shape[1])) for pd, _, _, _ in facts]
         err = {nm: 0.0 for nm in ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")}
@@ -639,12 +714,15 @@ def main() -> int:
                 err["bcr_reduce"] = max(err["bcr_reduce"], check_close(f"bcr_reduce{tag}", o, w))
         err["bcr_inv_odd"] = max(err["bcr_inv_odd"], check_close(
             f"bcr_inv_odd{tag} root", bcr.inv_odd(root, first=0), cr.bcr_inv_odd_ref(root, first=0)))
-        for lo, hi, b in downs:
-            err["bcr_rhs_reduce"] = max(err["bcr_rhs_reduce"], check_close(
-                f"bcr_rhs_reduce{tag}", bcr.rhs_reduce(lo, hi, b), cr.bcr_rhs_reduce_ref(lo, hi, b)))
-        for a, eo, fo, b, x in ups:
-            err["bcr_backsub"] = max(err["bcr_backsub"], check_close(
-                f"bcr_backsub{tag}", bcr.backsub(a, eo, fo, b, x), cr.bcr_backsub_ref(a, eo, fo, b, x)))
+        for r, (downs, ups) in solves.items():  # every level at every R
+            for lo, hi, b in downs:
+                err["bcr_rhs_reduce"] = max(err["bcr_rhs_reduce"], check_close(
+                    f"bcr_rhs_reduce{tag} r={r} m2={lo.shape[0]}", bcr.rhs_reduce(lo, hi, b),
+                    cr.bcr_rhs_reduce_ref(lo, hi, b)))
+            for a, eo, fo, b, x in ups:
+                err["bcr_backsub"] = max(err["bcr_backsub"], check_close(
+                    f"bcr_backsub{tag} r={r} m2={a.shape[0]}", bcr.backsub(a, eo, fo, b, x),
+                    cr.bcr_backsub_ref(a, eo, fo, b, x)))
         for nm, v in err.items():
             errs[f"{nm}{tag}"] = v
         fac, want = ops.bcr_factor(d, e, f), cr.bcr_factor(d, e, f)
@@ -659,7 +737,7 @@ def main() -> int:
             errs[f"bcr_solve{tag}_r{r}"] = check_close(
                 f"bcr_solve{tag} r={r}", ops.bcr_solve(fac, h), cr.bcr_solve(want, h))
 
-    check_bcr("", *chain, (1, 4))
+    check_bcr("", *chain, (1, 4, 8))
     bcr_errs = {nm: errs[nm] for nm in ("bcr_inv_odd", "bcr_reduce", "bcr_rhs_reduce", "bcr_backsub")}
     # btf and bts as E_chain_p64 runs them: one partition of 63 block rows
     check_kernels("_chain64", chain[0][None], chain[1][None], chain[2][None], None, None, (1, 4))
@@ -668,7 +746,7 @@ def main() -> int:
     # decay, so E, F and every coupling term of BCR stay active
     chain500 = split_chain(band_d05, K, 500)
     coupling["p500"] = chain_coupling(*chain500)
-    check_bcr("_p500", *chain500, (1,))  # chain500 is kept for the timing phase
+    check_bcr("_p500", *chain500, (1, 4, 8))  # chain500 is kept for the timing phase
 
     # the sparse system: float32-exact values, so the float32 operator the
     # plan keeps is the matrix solved; b = A x* in float64
@@ -694,7 +772,7 @@ def main() -> int:
     del sbt
     chain_sp = split_chain(sparse_plan.band_pc, ks, 64)
     coupling["sparse"] = chain_coupling(*chain_sp)
-    check_bcr("_sparse", *chain_sp, (1, 4))
+    check_bcr("_sparse", *chain_sp, (1, 4, 8))
     del chain_sp
     # The far spike corners of this band have decayed to nothing, so its
     # chain's couplings E, F are (numerically) zero.  A random chain of the
@@ -842,14 +920,21 @@ def main() -> int:
         btf.block_launches = fused_factor_spike.block_launches = bts.block_launches = 0
         bts.by_cluster.clear()
         bcr.reduce.by_tile.clear()
+        for w in (bcr.rhs_reduce, bcr.backsub):
+            w.block_launches = 0
+        bcr.rhs_reduce.by_split.clear()
+        bcr.backsub.by_cluster.clear()
         for w in (wkv6, ssd):
             w.by_route.update(dict.fromkeys(w.by_route, 0))
 
     def counts():
         """Every wrapper's launches, and inv_odd's, btf's, the fused pass's
-        and bts's on their one-block routes apart."""
+        and bts's on their one-block routes and rhs_reduce's and backsub's
+        on their tiled ones apart."""
         return {**{nm: w.launches for nm, w in wrappers.items()},
                 "bcr_inv_odd_block": bcr.inv_odd.block_launches,
+                "bcr_rhs_reduce_block": bcr.rhs_reduce.block_launches,
+                "bcr_backsub_block": bcr.backsub.block_launches,
                 "btf_block": btf.block_launches,
                 "fused_factor_spike_block": fused_factor_spike.block_launches,
                 "bts_block": bts.block_launches}
@@ -908,7 +993,9 @@ def main() -> int:
             if attempt == 0:
                 solve_counts = {nm: c - factor_counts[nm] for nm, c in counts().items()}
                 run_routes = {"bts_by_cluster": dict(sorted(bts.by_cluster.items())),
-                              "reduce_by_tile": dict(sorted(bcr.reduce.by_tile.items()))}
+                              "reduce_by_tile": dict(sorted(bcr.reduce.by_tile.items())),
+                              "rhs_reduce_by_split": dict(sorted(bcr.rhs_reduce.by_split.items())),
+                              "backsub_by_cluster": dict(sorted(bcr.backsub.by_cluster.items()))}
                 first = {"factor_ms_first_call": (t1 - t0) * 1e3,
                          "solve_ms_first_call": (t2 - t1) * 1e3}
                 peak = torch.cuda.max_memory_allocated()
@@ -951,6 +1038,8 @@ def main() -> int:
             raise AssertionError(f"slice {name}: btf / fused took the one-block kernel")
         if factor_counts["bts_block"] + solve_counts["bts_block"]:  # every R here is <= 8
             raise AssertionError(f"slice {name}: bts took the one-block kernel")
+        if solve_counts["bcr_rhs_reduce_block"] + solve_counts["bcr_backsub_block"]:
+            raise AssertionError(f"slice {name}: rhs_reduce / backsub took the tiled kernels")
         del fac, res, x
     # the exact reduced system solves what truncated SPIKE drops: with the
     # couplings active, E must not need more sweeps than C
@@ -1301,7 +1390,8 @@ def main() -> int:
     }
     # BCR at the P=64 interface chain: each kernel over all levels of one
     # factor (inv_odd, reduce) or one solve at R=1 (rhs_reduce, backsub)
-    facts, downs, ups, root = bcr_inputs(*chain, 1)
+    facts, solves, root = bcr_inputs(*chain, (1,))
+    downs, ups = solves[1]
     odd_blocks = torch.cat([pd[1::2] for pd, _, _, _ in facts] + [root])
     work = bcr_work(chain[0].shape[0], chain[0].shape[1], 1)
 
@@ -1322,8 +1412,15 @@ def main() -> int:
                            replaces="src/repro/kernels/bcr.py:48"),
         "bcr_rhs_reduce": dict(kernel=each(bcr.rhs_reduce, downs),
                                plain=each(cr.bcr_rhs_reduce_ref, downs),
+                               library=each(rhs_reduce_library, downs),
+                               library_vs_plain=lambda: [
+                                   (rhs_reduce_library(*a), cr.bcr_rhs_reduce_ref(*a))
+                                   for a in downs],
                                replaces="src/repro/kernels/bcr.py:79"),
         "bcr_backsub": dict(kernel=each(bcr.backsub, ups), plain=each(cr.bcr_backsub_ref, ups),
+                            library=each(backsub_library, ups),
+                            library_vs_plain=lambda: [
+                                (backsub_library(*a), cr.bcr_backsub_ref(*a)) for a in ups],
                             replaces="src/repro/kernels/bcr.py:89"),
     }
     for name, s in bcr_specs.items():
@@ -1343,7 +1440,12 @@ def main() -> int:
         else:
             ms, by_kernel, wall_ms = cuda_ms(s["kernel"], s["reps"]), None, None
         plain_ms = cuda_ms(s["plain"], s["plain_reps"])
-        library_ms = cuda_ms(s["library"], s["reps"]) if "library" in s else None
+        if "library" not in s:
+            library_ms = None
+        elif s.get("device_time"):  # the library loop by the same clock as the kernel
+            library_ms = device_ms(s["library"], s["reps"])[0]
+        else:
+            library_ms = cuda_ms(s["library"], s["reps"])
         # the library call against the plain version: torch.linalg.inv pivots
         # and does not boost, so they agree only where no pivot needs either
         library_err = (max(float((a - b).abs().max()) for a, b in s["library_vs_plain"]())
@@ -1437,7 +1539,8 @@ def main() -> int:
     # products) and the plain version
     saved = bcr.reduce.launches, dict(bcr.reduce.by_tile)
     reduce_levels = {}
-    for tag, lv_facts in (("p64", facts), ("p500", bcr_inputs(*chain500, 1)[0])):
+    facts500, solves500, _ = bcr_inputs(*chain500, (1,))
+    for tag, lv_facts in (("p64", facts), ("p500", facts500)):
         rows = []
         for fa in lv_facts:
             m2, kb = fa[0].shape[0] // 2, fa[0].shape[1]
@@ -1461,7 +1564,64 @@ def main() -> int:
     bcr.reduce.by_tile.clear()
     bcr.reduce.by_tile.update(saved[1])
     summary[[e["name"] for e in summary].index("bcr_reduce")]["by_level"] = reduce_levels
-    del chain500
+    del facts500
+    # rows 6 and 7 over one R=1 solve's levels of the P=500 chain (row
+    # "p500"; the summary row is the P=64 chain's): the profiler's device
+    # time, whose launches per call count the grids; and level by level over
+    # both chains by queued_ms, each level's inputs rotated through 3x the
+    # L2 where they fit in it; the library loop (baddbmm on gathered
+    # neighbours) by the same clock; each level's route: CTAs a block
+    # (rhs_reduce) or cluster size (backsub), rows and warps a CTA, floats a
+    # row copy
+    solve_fns = {"bcr_rhs_reduce": (bcr.rhs_reduce, rhs_reduce_library, cr.bcr_rhs_reduce_ref),
+                 "bcr_backsub": (bcr.backsub, backsub_library, cr.bcr_backsub_ref)}
+    work500 = bcr_work(chain500[0].shape[0], chain500[0].shape[1], 1)
+    for which, (name, (kern, lib_fn, plain_fn)) in enumerate(solve_fns.items()):
+        entry = summary[[e["name"] for e in summary].index(name)]
+        routes_of = kern.by_split if which == 0 else kern.by_cluster
+        saved = kern.launches, kern.block_launches, dict(routes_of)
+        args500 = solves500[1][which]
+        ms, by_kernel = device_ms(each(kern, args500), 20)
+        entry["p500"] = {
+            "ms": ms, "host_ms": host_ms(each(kern, args500), 20), "device_ms_by_kernel": by_kernel,
+            "plain_ms": cuda_ms(each(plain_fn, args500), 2),
+            "library_ms": device_ms(each(lib_fn, args500), 20)[0],
+            **dict(zip(("bound_ms", "bound_by"), bound(*work500[name[4:]]))),
+            "shape": list(chain500[0].shape)}
+        emit({"phase": "timing", "kernel": name, "at": "p500", **entry["p500"]})
+        levels = {}
+        for tag, args_all in (("p64", solves[1][which]), ("p500", args500)):
+            rows = []
+            for args in args_all:
+                m2, kb, rr = args[0].shape[0], args[0].shape[1], args[-1].shape[-1]
+                flops, nbytes = solve_level_work(m2, kb, rr)[name[4:]]
+                nxt = rotating(lambda seed, args=args: tuple(t.clone() for t in args), nbytes)
+                reps = 20 if nbytes > L2_BYTES else 100
+                k_ms = queued_ms(lambda: kern(*nxt()), reps)
+                size = (lib_bcr.bcr_rhs_reduce_split(m2, kb, rr) if which == 0
+                        else lib_bcr.bcr_backsub_cluster(m2, kb, rr))
+                bound_ms, bound_by = bound(flops, nbytes)
+                rows.append({
+                    "m2": m2, "k": kb, "r": rr, "split" if which == 0 else "cluster": size,
+                    "rows_per_cta": -(-kb // size), "warps": lib_bcr.bcr_solve_warps(kb, size),
+                    "max_active_clusters": (lib_bcr.bcr_backsub_max_clusters(kb, rr, size)
+                                            if which else None),
+                    "row_copy_floats": lib_bcr.bcr_solve_vec(
+                        args[0].data_ptr(), args[1].data_ptr(), args[2 * which].data_ptr(), kb),
+                    "ms": k_ms, "ms_is": "queued",
+                    "library_ms": queued_ms(lambda: lib_fn(*nxt()), reps),
+                    "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / k_ms})
+                del nxt
+            levels[tag] = rows
+            emit({"phase": "timing", "kernel": name, "at": f"{tag}_by_level", "by_level": rows,
+                  "levels_ms": sum(r["ms"] for r in rows),
+                  "levels_library_ms": sum(r["library_ms"] for r in rows),
+                  "levels_bound_ms": sum(r["bound_ms"] for r in rows)})
+        kern.launches, kern.block_launches = saved[:2]
+        routes_of.clear()
+        routes_of.update(saved[2])
+        entry["by_level"] = levels
+    del chain500, solves500
     # the SaP-scan kernels at the LM path's decode shapes (the summary row:
     # the serving engine's step) and prefill shapes (row "prefill"): ms is
     # the profiler's device time per call (both launches of the split
@@ -1560,7 +1720,7 @@ def main() -> int:
 
     # no measured time may read under the least time the card could take
     for entry in summary:
-        rows = ([entry] + [entry[t] for t in ("prefill", "windowed") if t in entry]
+        rows = ([entry] + [entry[t] for t in ("prefill", "windowed", "p500") if t in entry]
                 + entry.get("shapes", [])
                 + [r for lv in entry.get("by_level", {}).values() for r in lv])
         for row in rows:

@@ -4,10 +4,10 @@ Replace the TPU kernels of ``repro/kernels/bcr.py``: ``_inv_odd_kernel``
 (:func:`inv_odd`), ``_reduce_kernel`` (:func:`reduce`),
 ``_rhs_reduce_kernel`` (:func:`rhs_reduce`) and ``_backsub_kernel``
 (:func:`backsub`).  The CUDA source is ``csrc/bcr.cu``: every elimination
-level is one grid over (row, output tile) -- the TPU kernels' per-row grid
-cell split further, since one level has only m/2 rows.  ``reduce`` and
-``backsub`` launch two grids per call (the second half of each reads all
-of the first); each wrapper counts one launch per call.
+level is one grid over (row, output tile) or (row slice) -- the TPU
+kernels' per-row grid cell split further, since one level has only m/2
+rows.  ``reduce`` launches two grids per call (D', E', F' read all of lo
+and hi); each wrapper counts one launch per call.
 
 Bound on the H100: the factor (``inv_odd`` + ``reduce``) by operations,
 ~14 (2K)^3 flops per eliminated row; the solve (``rhs_reduce`` +
@@ -23,6 +23,19 @@ columns.  The kernel's ``bcr_inv_cluster_size`` picks the cluster size
 from the block size; blocks too large for a cluster of 16 go to the
 one-block kernel (``inv_kernel``, the block in device memory), and those
 launches are also counted apart, in ``inv_odd.block_launches``.
+
+The solve at R <= 8 runs a warp per output row, each warp streaming its
+rows of the blocks two ahead through a ring in shared memory (TMA bulk
+copies for 16-byte rows, ``cp.async`` otherwise) against vectors staged
+in shared memory: ``rhs_reduce`` in one pass over ``split`` CTAs a block
+(``bcr_rhs_reduce_split``), ``backsub`` in one launch a level on a
+thread-block cluster per odd block (``bcr_backsub_cluster``), t passed
+between the CTAs in shared memory.  Both sizes come from one rule on
+(m/2, K, R): the largest split at which the card holds the whole level at
+once; they are counted in ``rhs_reduce.by_split`` and
+``backsub.by_cluster``.  R > 8 takes the tiled
+kernels (``backsub`` then two grids through a workspace), counted apart
+in ``rhs_reduce.block_launches`` and ``backsub.block_launches``.
 
 On a CPU tensor each wrapper runs its plain version from
 :mod:`repro_torch.core.cyclic_reduction`; on a CUDA tensor it launches the
@@ -122,13 +135,19 @@ def rhs_reduce(lo: torch.Tensor, hi: torch.Tensor, b: torch.Tensor) -> torch.Ten
     r = b.shape[-1]
     check_shape("bcr rhs_reduce", "b", b, (2 * m2, k, r))
     lib = build.load("bcr")
+    split = lib.bcr_rhs_reduce_split(m2, k, r)
+    if split < 0:
+        build.check(lib, -split, "bcr rhs_reduce split")
     out = torch.empty((m2, k, r), dtype=b.dtype, device=b.device)
     code = lib.bcr_rhs_reduce_launch(
-        lo.data_ptr(), hi.data_ptr(), b.data_ptr(), out.data_ptr(), m2, k, r,
+        lo.data_ptr(), hi.data_ptr(), b.data_ptr(), out.data_ptr(), m2, k, r, split,
         stream_handle(b.device),
     )
-    build.check(lib, code, "bcr rhs_reduce")
+    build.check(lib, code, f"bcr rhs_reduce (split {split})")
     rhs_reduce.launches += 1
+    rhs_reduce.by_split[split] = rhs_reduce.by_split.get(split, 0) + 1
+    if split == 0:
+        rhs_reduce.block_launches += 1
     return out
 
 
@@ -152,14 +171,21 @@ def backsub(
     check_shape("bcr backsub", "x", x, (m2, k, r))
     check_shape("bcr backsub", "b", b, (2 * m2, k, r))
     lib = build.load("bcr")
-    t = torch.empty_like(x)
+    cluster = lib.bcr_backsub_cluster(m2, k, r)
+    if cluster < 0:
+        build.check(lib, -cluster, "bcr backsub cluster size")
+    t = torch.empty_like(x) if cluster == 0 else None  # the tiled kernels' workspace
     out = torch.empty((2 * m2, k, r), dtype=x.dtype, device=x.device)
     code = lib.bcr_backsub_launch(
         a_odd.data_ptr(), e_odd.data_ptr(), f_odd.data_ptr(), b.data_ptr(), x.data_ptr(),
-        t.data_ptr(), out.data_ptr(), m2, k, r, stream_handle(b.device),
+        None if t is None else t.data_ptr(), out.data_ptr(), m2, k, r, cluster,
+        stream_handle(b.device),
     )
-    build.check(lib, code, "bcr backsub")
+    build.check(lib, code, f"bcr backsub (cluster {cluster})")
     backsub.launches += 1
+    backsub.by_cluster[cluster] = backsub.by_cluster.get(cluster, 0) + 1
+    if cluster == 0:
+        backsub.block_launches += 1
     return out
 
 
@@ -168,4 +194,8 @@ inv_odd.block_launches = 0  # those of them on the one-block kernel
 reduce.launches = 0
 reduce.by_tile = {}  # launches by tile size
 rhs_reduce.launches = 0
+rhs_reduce.block_launches = 0  # those of them on the tiled kernel
+rhs_reduce.by_split = {}  # launches by CTAs a block (0: the tiled kernel)
 backsub.launches = 0
+backsub.block_launches = 0  # those of them on the tiled kernels
+backsub.by_cluster = {}  # launches by cluster size (0: the tiled kernels)

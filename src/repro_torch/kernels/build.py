@@ -65,8 +65,13 @@ SIGNATURES = {
         "bcr_inv_cluster_size": (_I, [_I]),
         "bcr_reduce_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
         "bcr_reduce_tile": (_I, [_I, _I]),
-        "bcr_rhs_reduce_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
-        "bcr_backsub_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "bcr_rhs_reduce_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "bcr_rhs_reduce_split": (_I, [_I, _I, _I]),
+        "bcr_backsub_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+        "bcr_backsub_cluster": (_I, [_I, _I, _I]),
+        "bcr_backsub_max_clusters": (_I, [_I, _I, _I]),
+        "bcr_solve_warps": (_I, [_I, _I]),
+        "bcr_solve_vec": (_I, [_P, _P, _P, _I]),
     },
     "wkv": {
         "wkv_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),

@@ -1,15 +1,16 @@
 // Block cyclic reduction of one block-tridiagonal chain (the SaP-E reduced
-// interface system): four kernels, launched once (or twice) per level.
+// interface system): four kernels, launched once (reduce: twice) per level.
 //
 // Replaces the TPU kernels of repro/kernels/bcr.py:
 //   inv_kernel        <- _inv_odd_kernel     a_i = inv(D_{2i+1}) (boosted GJ)
 //   reduce_kernel     <- _reduce_kernel      lo, hi, then D', E', F'
-//   rhs_reduce_kernel <- _rhs_reduce_kernel  b'_i = b_2i - lo_i b_2i-1 - hi_i b_2i+1
-//   backsub_kernel    <- _backsub_kernel     x_2i+1 = a_i (b_2i+1 - e_i x_i - f_i x_i+1)
+//   rhs_reduce_warp_kernel <- _rhs_reduce_kernel  b'_i = b_2i - lo_i b_2i-1 - hi_i b_2i+1
+//   backsub_cluster_kernel <- _backsub_kernel     x_2i+1 = a_i (b_2i+1 - e_i x_i - f_i x_i+1)
+//   (rhs_reduce_kernel, backsub_kernel: the same for R > 8)
 // The TPU kernels run one grid cell per even row; here every level is a
-// grid over (row, output tile), since one level has only m/2 rows (32, 16,
-// ..., 1 at P = 64) and one block per row would leave most of the 132 SMs
-// idle.  Neighbours are read at the clamped indices max(2i-1, 0) and
+// grid over (row, output tile) or (row slice), since one level has only
+// m/2 rows (32, 16, ..., 1 at P = 64) and one block per row would leave
+// most of the 132 SMs idle.  Neighbours are read at the clamped indices max(2i-1, 0) and
 // min(i+1, m/2-1), as the TPU kernels' index maps do; the algebra zeroes
 // those terms (E_0 = 0, F_{m-1} = 0), and every clamped block is a real,
 // initialised block of the same tensor.  No lane padding: the (8, 128)
@@ -36,11 +37,22 @@
 //     E', F', since those read all of lo and hi; in the second a D' tile
 //     (two products) and an E' + F' tile pair (one product each) are one
 //     CTA each, so every CTA does two products' work.
-//   * rhs_reduce / backsub: 64 output rows per thread block, the warps
-//     reading rows of the K x K blocks with consecutive lanes (the narrow
-//     product of common.cuh; the tiled one for R > 8).  backsub forms
-//     t = b_odd - e x_i - f x_i+1 in a workspace in one launch and
-//     x_odd = a t with the interleave in a second, since a t needs all of t.
+//   * rhs_reduce_warp_kernel (R <= 8): a warp per output row, the rows of
+//     lo and hi streamed two ahead through a per-warp shared-memory ring
+//     (TMA bulk copies for 16-byte rows, cp.async otherwise), against b_p
+//     and b_n staged once per CTA in shared memory; one pass, no barrier
+//     between the products.  The level is split into as many CTAs a block
+//     as the card holds at once (solve_split), so the last levels spread
+//     over the card.
+//   * backsub_cluster_kernel (R <= 8): one launch a level, a thread-block
+//     cluster per odd block; each CTA forms its rows of t = b_odd - e x_i
+//     - f x_i+1 as rhs_reduce does and stores them into every CTA's shared
+//     copy of t by DSMEM, then, after one cluster barrier, its rows of a t
+//     (a's rows in flight since the start) and of the interleave.  No
+//     device workspace.
+//   * rhs_reduce_kernel / backsub_kernel: the tiled products of common.cuh,
+//     64 output rows per thread block, for R > 8; backsub there forms t in
+//     a workspace in one grid and a t in a second.
 // All arithmetic is float32 FMA on the CUDA cores: no tensor cores, no TF32.
 #include "gj_cluster.cuh"
 
@@ -337,6 +349,286 @@ __global__ void __launch_bounds__(TileShape<BM>::kThreads)
   }
 }
 
+// ---- the solve: rhs_reduce and backsub ------------------------------------
+//
+// Both are byte-bound GEMVs over independent K x K blocks at R <= 8.  A warp
+// owns one output row at a time, and streams the rows it owns through a
+// ring of kSolveStages stages in shared memory, kSolveStages rows ahead,
+// each stage one row of every block the row needs (lo and hi; e and f,
+// then a) behind an mbarrier: a TMA bulk copy a block row when K % 4 == 0
+// and the blocks are 16-byte aligned (VEC = 4), else cp.async pieces of
+// VEC = 2 or 1 floats, each lane's arriving on the stage's mbarrier.  The
+// bytes in flight are the ring's, not the registers' (holding the rows in
+// registers capped a warp at one row pair: 128 registers a thread, one CTA
+// an SM, 60% of the byte bound at the P = 64 chain's widest level), and
+// each ring waits only for its own rows.  The vectors the rows multiply are
+// staged once per CTA in shared memory, transposed (column c of the K x R
+// vector at c * ld), so a lane reads the piece of the vector that matches
+// its piece of the row, p VEC .. p VEC + VEC - 1 for p = lane, lane + 32,
+// ....  A lane sums its pieces in order -- piece, element, the two blocks'
+// terms interleaved -- and one butterfly of shuffles per column finishes
+// the row.  A level of m2 blocks is split into `split` CTAs a block
+// (solve_split), CTA c taking the rows [c n, c n + n), n = ceil(K / split),
+// with min(n, kSolveWarpsMax) warps.  A warp starts its first rows' copies
+// before the CTA stages the vectors, so the two overlap.
+constexpr int kSolveWarpsMax = 16;  // warps a CTA
+constexpr int kSolveStages = 2;     // rows a warp has in flight, per ring
+constexpr int kSolveMinRows = 8;    // a CTA takes at least this many rows
+constexpr int kRhsSplitMax = 32;    // CTAs a block for rhs_reduce
+// the mbarriers at the head of a CTA's shared memory: two rings a warp
+constexpr int kSolveBarBytes = kSolveWarpsMax * 2 * kSolveStages * 8;
+
+template <int VEC>
+__device__ inline void ring_copy(float* dst, const float* src) {
+  const uint32_t d = smem_addr(dst);
+  if constexpr (VEC == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+template <int VEC>
+__device__ inline void smem_piece(float (&dst)[VEC], const float* p) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    dst[0] = t.x, dst[1] = t.y, dst[2] = t.z, dst[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    dst[0] = t.x, dst[1] = t.y;
+  } else {
+    dst[0] = *p;
+  }
+}
+
+// One warp's ring: kSolveStages stages of one row of each of NM blocks
+// (block m's row at stage + m ld), each behind an mbarrier.
+template <int VEC, int NM>
+struct Ring {
+  float* base;
+  uint64_t* bars;
+  int ld;
+
+  __device__ float* stage(int st) const { return base + st * NM * ld; }
+  // lane 0 sets up the mbarriers: one arrival (the bulk copies' expect_tx)
+  // or 32 (every lane's cp.async)
+  __device__ void init(int lane) const {
+    if (lane == 0) {
+      for (int st = 0; st < kSolveStages; ++st) mbar_init(&bars[st], VEC == 4 ? 1 : 32);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+  }
+  // start copying row j of the blocks into stage st, when j < row1
+  __device__ void fetch(int st, const float* const (&blocks)[NM], int j, int row1, int k,
+                        int lane) const {
+    if (j >= row1) return;
+    if constexpr (VEC == 4) {
+      if (lane == 0) {
+        mbar_expect_tx(&bars[st], NM * k * sizeof(float));
+#pragma unroll
+        for (int m = 0; m < NM; ++m)
+          bulk_copy(stage(st) + m * ld, blocks[m] + (long)j * k, k * sizeof(float), &bars[st]);
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < NM; ++m)
+        for (int s = lane * VEC; s < k; s += 32 * VEC)
+          ring_copy<VEC>(stage(st) + m * ld + s, blocks[m] + (long)j * k + s);
+      cp_async_arrive(&bars[st]);
+    }
+  }
+  // the use-th row of stage st has landed
+  __device__ void wait(int st, int use) const { mbar_wait(&bars[st], use & 1); }
+};
+
+// acc[c] = sum_m row_m . v_m[:, c] for the row in a ring stage, summed
+// across the warp (every lane gets the sums).
+template <int RMAX, int VEC, int NM>
+__device__ inline void stage_dot(float (&acc)[RMAX], const float* stage,
+                                 const float* const (&v)[NM], int ld, int k, int r, int lane) {
+#pragma unroll
+  for (int c = 0; c < RMAX; ++c) acc[c] = 0.f;
+#pragma unroll 4
+  for (int s = lane * VEC; s < k; s += 32 * VEC) {
+    float x[NM][VEC];
+#pragma unroll
+    for (int m = 0; m < NM; ++m) smem_piece<VEC>(x[m], stage + m * ld + s);
+#pragma unroll
+    for (int c = 0; c < RMAX; ++c) {
+      if (c >= r) continue;
+      float y[NM][VEC];
+#pragma unroll
+      for (int m = 0; m < NM; ++m) smem_piece<VEC>(y[m], v[m] + c * ld + s);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+#pragma unroll
+        for (int m = 0; m < NM; ++m) acc[c] = fmaf(x[m][e], y[m][e], acc[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < RMAX; ++c) {
+    if (c >= r) continue;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
+  }
+}
+
+// dst[c * ld + s] = src[s * r + c] for s < K, c < r: a K x R vector staged
+// transposed by the whole CTA.
+__device__ inline void stage_vector(float* dst, const float* __restrict__ src, int k, int r,
+                                    int ld) {
+  for (int e = threadIdx.x; e < k * r; e += blockDim.x) dst[(e % r) * ld + e / r] = src[e];
+}
+
+__host__ __device__ inline int solve_ld(int k) { return (k + 3) & ~3; }
+__host__ __device__ inline int solve_rows(int k, int split) { return (k + split - 1) / split; }
+__host__ __device__ inline int solve_warps(int k, int split) {
+  return imin(kSolveWarpsMax, solve_rows(k, split));
+}
+
+// out_i = b_2i - lo_i b_max(2i-1,0) - hi_i b_2i+1: grid (m2 * split), CTA
+// (i, c) the rows [c n, c n + n) of block i; lo_0 = 0 zeroes the clamped
+// neighbour.  Shared: the mbarriers, b_p and b_n transposed (2 RMAX ld
+// floats), then each warp's ring (kSolveStages stages of 2 ld floats).
+template <int RMAX, int VEC>
+__global__ void __launch_bounds__(kSolveWarpsMax * 32)
+    rhs_reduce_warp_kernel(const float* __restrict__ lo, const float* __restrict__ hi,
+                           const float* __restrict__ b, float* __restrict__ out, int k, int r,
+                           int split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ld = solve_ld(k), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, i = blockIdx.x / split, n = solve_rows(k, split);
+  const int row0 = (blockIdx.x % split) * n, row1 = imin(row0 + n, k);
+  const long kk = (long)k * k, kr = (long)k * r;
+  const float* const blocks[2] = {lo + i * kk, hi + i * kk};
+  const float* b_even = b + 2L * i * kr;
+  float* out_i = out + i * kr;
+  float* vp = reinterpret_cast<float*>(smem_raw + kSolveBarBytes);
+  float* vn = vp + RMAX * ld;
+  const Ring<VEC, 2> ring{vn + RMAX * ld + warp * kSolveStages * 2 * ld,
+                          reinterpret_cast<uint64_t*>(smem_raw) + warp * kSolveStages, ld};
+  const float* const v[2] = {vp, vn};
+  ring.init(lane);
+#pragma unroll
+  for (int st = 0; st < kSolveStages; ++st)
+    ring.fetch(st, blocks, row0 + warp + st * nw, row1, k, lane);
+  stage_vector(vp, b + (long)max(2 * i - 1, 0) * kr, k, r, ld);
+  stage_vector(vn, b + (2L * i + 1) * kr, k, r, ld);
+  __syncthreads();
+  for (int j = row0 + warp, t = 0; j < row1; j += nw, ++t) {
+    const float base = lane < r ? b_even[(long)j * r + lane] : 0.f;
+    const int st = t % kSolveStages;
+    ring.wait(st, t / kSolveStages);
+    float acc[RMAX];
+    stage_dot<RMAX, VEC, 2>(acc, ring.stage(st), v, ld, k, r, lane);
+#pragma unroll
+    for (int c = 0; c < RMAX; ++c)
+      if (c < r && lane == c) out_i[(long)j * r + c] = base - acc[c];
+    __syncwarp();  // every lane has read the stage
+    ring.fetch(st, blocks, j + kSolveStages * nw, row1, k, lane);
+  }
+}
+
+__device__ inline void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ inline void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// backsub on a cluster of cs CTAs per odd block i: grid (m2 * cs), cluster
+// (cs).  CTA c forms its rows [c n, c n + n) of
+//   t_i = b_2i+1 - e_i x_i - f_i x_min(i+1,m2-1)
+// (f_{m2-1} = 0 zeroes the clamped neighbour) and stores each row into
+// every CTA's copy of t by DSMEM, then, after one cluster barrier, its rows
+// of out_2i+1 = a_i t_i from its own copy, and copies its rows of x_i to
+// out_2i.  One launch; t never leaves shared memory.  Each warp streams its
+// rows of e and f through one ring and of a through a second, whose first
+// rows are in flight from the start.  Shared: the mbarriers, x_i, x_next
+// and t transposed (3 RMAX ld floats), the e / f rings (kSolveStages stages
+// of 2 ld floats a warp) and the a rings (of ld floats).
+template <int RMAX, int VEC>
+__global__ void __launch_bounds__(kSolveWarpsMax * 32)
+    backsub_cluster_kernel(const float* __restrict__ a, const float* __restrict__ e,
+                           const float* __restrict__ f, const float* __restrict__ b,
+                           const float* __restrict__ x, float* __restrict__ out, int k, int r,
+                           int m2) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();  // waited on before the first store into a peer
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int ld = solve_ld(k), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, i = blockIdx.x / cs, n = solve_rows(k, cs);
+  const int row0 = rank * n, row1 = imin(row0 + n, k);
+  const long kk = (long)k * k, kr = (long)k * r;
+  const float* const ef[2] = {e + i * kk, f + i * kk};
+  const float* const a_i[1] = {a + i * kk};
+  const float* b_odd = b + (2L * i + 1) * kr;
+  const float* x_i = x + i * kr;
+  float* xv = reinterpret_cast<float*>(smem_raw + kSolveBarBytes);
+  float* xn = xv + RMAX * ld;
+  float* tv = xn + RMAX * ld;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem_raw) + warp * 2 * kSolveStages;
+  const Ring<VEC, 2> ef_ring{tv + RMAX * ld + warp * kSolveStages * 2 * ld, bars, ld};
+  const Ring<VEC, 1> a_ring{tv + RMAX * ld + nw * kSolveStages * 2 * ld + warp * kSolveStages * ld,
+                            bars + kSolveStages, ld};
+  ef_ring.init(lane);
+  a_ring.init(lane);
+#pragma unroll
+  for (int st = 0; st < kSolveStages; ++st)
+    ef_ring.fetch(st, ef, row0 + warp + st * nw, row1, k, lane);
+#pragma unroll
+  for (int st = 0; st < kSolveStages; ++st)
+    a_ring.fetch(st, a_i, row0 + warp + st * nw, row1, k, lane);
+  stage_vector(xv, x_i, k, r, ld);
+  stage_vector(xn, x + (long)min(i + 1, m2 - 1) * kr, k, r, ld);
+  float* out_even = out + 2L * i * kr;
+  for (long q = (long)row0 * r + threadIdx.x; q < (long)row1 * r; q += blockDim.x)
+    out_even[q] = x_i[q];
+  __syncthreads();
+  cluster_wait();  // every peer is running: its t may be written
+  {
+    const float* const v[2] = {xv, xn};
+    for (int j = row0 + warp, t = 0; j < row1; j += nw, ++t) {
+      const float base = lane < r ? b_odd[(long)j * r + lane] : 0.f;
+      const int st = t % kSolveStages;
+      ef_ring.wait(st, t / kSolveStages);
+      float acc[RMAX];
+      stage_dot<RMAX, VEC, 2>(acc, ef_ring.stage(st), v, ld, k, r, lane);
+#pragma unroll
+      for (int c = 0; c < RMAX; ++c)  // t[j, c]: b_odd[j, c] is lane c's base
+        if (c < r) acc[c] = __shfl_sync(0xffffffffu, base, c) - acc[c];
+      if (lane < cs) {  // lane q writes the row into CTA q's t
+        float* peer = cluster.map_shared_rank(tv, lane);
+#pragma unroll
+        for (int c = 0; c < RMAX; ++c)
+          if (c < r) peer[c * ld + j] = acc[c];
+      }
+      __syncwarp();  // every lane has read the stage
+      ef_ring.fetch(st, ef, j + kSolveStages * nw, row1, k, lane);
+    }
+  }
+  cluster.sync();  // every row of t is in every CTA's copy
+  const float* const v[1] = {tv};
+  float* out_odd = out + (2L * i + 1) * kr;
+  for (int j = row0 + warp, t = 0; j < row1; j += nw, ++t) {
+    const int st = t % kSolveStages;
+    a_ring.wait(st, t / kSolveStages);
+    float acc[RMAX];
+    stage_dot<RMAX, VEC, 1>(acc, a_ring.stage(st), v, ld, k, r, lane);
+#pragma unroll
+    for (int c = 0; c < RMAX; ++c)
+      if (c < r && lane == c) out_odd[(long)j * r + c] = acc[c];
+    __syncwarp();  // every lane has read the stage
+    a_ring.fetch(st, a_i, j + kSolveStages * nw, row1, k, lane);
+  }
+}
+
+// ---- the tiled solve kernels (R > 8, and any R when forced) -------------
+// 64 output rows per thread block, the products of common.cuh (block_gemm
+// for R > 8); backsub forms t in a device workspace in one grid and a t
+// with the interleave in a second, since a t needs all of t.
+
 // out_i = b_2i - lo_i b_max(2i-1,0) - hi_i b_2i+1 for rows r0..r0+63 of
 // block i; grid (row tiles, m2).
 __global__ void __launch_bounds__(kThreads)
@@ -484,6 +776,14 @@ extern "C" int bcr_inv_max_clusters(int k, int cluster) {
 
 namespace {
 
+// The SMs of the current device, or a negative cudaError_t code.
+int sm_count() {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return err == cudaSuccess ? sms : -(int)err;
+}
+
 // The tile size of a reduce level of m2 rows of K x K blocks.  The
 // 64-wide tile (128 threads, four CTAs an SM) was the fastest on the H100
 // at every level measured but the widest, its ragged edge included; the
@@ -523,11 +823,8 @@ cudaError_t launch_reduce(const float* d, const float* e, const float* f, const 
 // current device (reduce_tile_for), or a negative cudaError_t code.
 extern "C" int bcr_reduce_tile(int m2, int k) {
   if (m2 <= 0 || k <= 0) return -(int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return -(int)err;
-  return reduce_tile_for(m2, k, sms);
+  const int sms = sm_count();
+  return sms < 0 ? sms : reduce_tile_for(m2, k, sms);
 }
 
 // tile: 0 takes bcr_reduce_tile's choice; (tests) 96, 80, 64 or 32
@@ -550,24 +847,260 @@ extern "C" int bcr_reduce_launch(const float* d, const float* e, const float* f,
   }
 }
 
+namespace {
+
+inline int solve_rmax(int r) { return r == 1 ? 1 : r <= 4 ? 4 : 8; }
+// Dynamic shared bytes of a CTA of `warps` warps: the mbarriers, the staged
+// vectors (2 or 3 of K x RMAX) and the warps' rings (2 or 3 rows of K a
+// stage).
+inline size_t rhs_smem(int k, int r, int warps) {
+  return kSolveBarBytes + sizeof(float) * solve_ld(k) * (2 * solve_rmax(r) + warps * kSolveStages * 2);
+}
+inline size_t backsub_smem(int k, int r, int warps) {
+  return kSolveBarBytes + sizeof(float) * solve_ld(k) * (3 * solve_rmax(r) + warps * kSolveStages * 3);
+}
+// The warp route takes R <= 8 and a CTA of the widest split (min(K, 16)
+// warps) that fits the shared memory a block may opt in to.
+bool solve_route_fits(int k, int r, size_t (*smem_of)(int, int, int)) {
+  return k >= 1 && r >= 1 && r <= kNarrow &&
+         smem_of(k, r, solve_warps(k, 1)) <= (size_t)smem_optin();
+}
+
+// The floats a row copy takes: 4 when K % 4 == 0 and the blocks are
+// 16-byte aligned, 2 when K is even and they are 8-byte aligned, else 1.
+int solve_vec(int k, const float* p1, const float* p2, const float* p3) {
+  const uintptr_t any = reinterpret_cast<uintptr_t>(p1) | reinterpret_cast<uintptr_t>(p2) |
+                        reinterpret_cast<uintptr_t>(p3);
+  if (k % 4 == 0 && (any & 15) == 0) return 4;
+  if (k % 2 == 0 && (any & 7) == 0) return 2;
+  return 1;
+}
+inline int aligned_vec(int k) { return k % 4 == 0 ? 4 : k % 2 == 0 ? 2 : 1; }
+
+// The launch-shape rule of both solve kernels: CTAs a block (rhs_reduce)
+// or the cluster size (backsub) for a level of m2 blocks of K rows -- the
+// largest power of two, at most `cap`, at which the card holds the whole
+// level at once (`fits`: rhs_reduce's m2 * split CTAs within the CTAs an
+// SM takes times the SMs, backsub's m2 clusters within the clusters the
+// card holds), every CTA keeping at least kSolveMinRows rows: more CTAs
+// leave SMs idle less and put more rows in flight, a second wave would
+// wait for the first.  tests/test_torch_gpu.py pins its values on an H100.
+template <typename Fits>
+int solve_split(int k, int cap, Fits fits) {
+  int s = 1;
+  while (2 * s <= cap && solve_rows(k, 2 * s) >= kSolveMinRows && fits(2 * s)) s *= 2;
+  return s;
+}
+
+using RhsKernel = void (*)(const float*, const float*, const float*, float*, int, int, int);
+using BacksubKernel = void (*)(const float*, const float*, const float*, const float*,
+                               const float*, float*, int, int, int);
+
+template <int RMAX>
+RhsKernel rhs_kernel_r(int vec) {
+  return vec == 4 ? rhs_reduce_warp_kernel<RMAX, 4>
+                  : vec == 2 ? rhs_reduce_warp_kernel<RMAX, 2> : rhs_reduce_warp_kernel<RMAX, 1>;
+}
+RhsKernel rhs_kernel(int r, int vec) {
+  const int rm = solve_rmax(r);
+  return rm == 1 ? rhs_kernel_r<1>(vec) : rm == 4 ? rhs_kernel_r<4>(vec) : rhs_kernel_r<8>(vec);
+}
+template <int RMAX>
+BacksubKernel backsub_kernel_r(int vec) {
+  return vec == 4   ? backsub_cluster_kernel<RMAX, 4>
+         : vec == 2 ? backsub_cluster_kernel<RMAX, 2>
+                    : backsub_cluster_kernel<RMAX, 1>;
+}
+BacksubKernel backsub_kernel_for(int r, int vec) {
+  const int rm = solve_rmax(r);
+  return rm == 1   ? backsub_kernel_r<1>(vec)
+         : rm == 4 ? backsub_kernel_r<4>(vec)
+                   : backsub_kernel_r<8>(vec);
+}
+
+// rhs_reduce's kernel may take the opt-in shared memory (set once per kernel
+// and device).
+cudaError_t rhs_attributes(RhsKernel kern) {
+  static const void* done[9];
+  static int done_dev[9], ndone = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int q = 0; q < ndone; ++q)
+    if (done[q] == reinterpret_cast<const void*>(kern) && done_dev[q] == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_optin());
+  if (err == cudaSuccess && ndone < 9) {
+    done[ndone] = reinterpret_cast<const void*>(kern);
+    done_dev[ndone++] = dev;
+  }
+  return err;
+}
+
+// CTAs of rhs_reduce's kernel an SM holds at a split, or a negative code.
+int rhs_ctas_per_sm(RhsKernel kern, int k, int r, int split) {
+  const cudaError_t err = rhs_attributes(kern);
+  if (err != cudaSuccess) return -(int)err;
+  const int warps = solve_warps(k, split);
+  int n = 0;
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kern, 32 * warps, rhs_smem(k, r, warps));
+  return occ == cudaSuccess ? n : -(int)occ;
+}
+
+// The rule's value per (device, kernel, m2, K, R), since its occupancy
+// queries are host calls of microseconds and a solve asks at every level.
+struct RuleCache {
+  struct Entry {
+    int dev, kind, m2, k, r, value;
+  };
+  Entry e[128];
+  int used = 0;
+  bool find(int dev, int kind, int m2, int k, int r, int* value) const {
+    for (int q = 0; q < used; ++q)
+      if (e[q].dev == dev && e[q].kind == kind && e[q].m2 == m2 && e[q].k == k && e[q].r == r) {
+        *value = e[q].value;
+        return true;
+      }
+    return false;
+  }
+  void add(int dev, int kind, int m2, int k, int r, int value) {
+    if (used < 128) e[used++] = Entry{dev, kind, m2, k, r, value};
+  }
+};
+RuleCache rule_cache;
+
+int rhs_split_for(int m2, int k, int r) {
+  if (!solve_route_fits(k, r, rhs_smem)) return 0;
+  const int sms = sm_count();
+  if (sms < 0) return sms;
+  const RhsKernel kern = rhs_kernel(r, aligned_vec(k));
+  const int one = rhs_ctas_per_sm(kern, k, r, 1);
+  if (one < 0) return one;
+  if (one < 1) return -(int)cudaErrorLaunchOutOfResources;
+  return solve_split(k, kRhsSplitMax, [&](int s) {
+    const int per_sm = rhs_ctas_per_sm(kern, k, r, s);
+    return per_sm > 0 && (long)m2 * s <= (long)per_sm * sms;
+  });
+}
+
+int backsub_cluster_for(int m2, int k, int r) {
+  if (!solve_route_fits(k, r, backsub_smem)) return 0;
+  const BacksubKernel kern = backsub_kernel_for(r, aligned_vec(k));
+  auto active = [&](int cs) {
+    const int warps = solve_warps(k, cs);
+    return max_active_clusters(kern, cs, backsub_smem(k, r, warps), 32 * warps);
+  };
+  const int one = active(1);
+  if (one < 0) return one;
+  if (one < 1) return -(int)cudaErrorLaunchOutOfResources;
+  return solve_split(k, kClusterMax, [&](int cs) {
+    const int n = active(cs);
+    if (n < 0) cudaGetLastError();  // a size the card refuses
+    return n >= m2;
+  });
+}
+
+int cached_rule(int kind, int m2, int k, int r) {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(int)err;
+  int value = 0;
+  if (rule_cache.find(dev, kind, m2, k, r, &value)) return value;
+  value = kind == 0 ? rhs_split_for(m2, k, r) : backsub_cluster_for(m2, k, r);
+  if (value >= 0) rule_cache.add(dev, kind, m2, k, r, value);
+  return value;
+}
+
+}  // namespace
+
+// CTAs a block of an rhs_reduce level of m2 blocks of K x K with R right-hand
+// sides (solve_split, at most kRhsSplitMax); 0 for the tiled kernel (R > 8,
+// or rings and vectors too large for shared memory); a negative cudaError_t
+// code.
+extern "C" int bcr_rhs_reduce_split(int m2, int k, int r) {
+  if (m2 <= 0 || k <= 0 || r <= 0) return -(int)cudaErrorInvalidValue;
+  return cached_rule(0, m2, k, r);
+}
+
+// The cluster size of a backsub level (solve_split, at most kClusterMax);
+// 0 for the tiled kernels; a negative cudaError_t code.
+extern "C" int bcr_backsub_cluster(int m2, int k, int r) {
+  if (m2 <= 0 || k <= 0 || r <= 0) return -(int)cudaErrorInvalidValue;
+  return cached_rule(1, m2, k, r);
+}
+
+// The clusters of `cluster` CTAs the card holds at once for backsub at
+// (K, R) (cudaOccupancyMaxActiveClusters), or a negative cudaError_t code.
+extern "C" int bcr_backsub_max_clusters(int k, int r, int cluster) {
+  if (k <= 0 || r <= 0 || r > kNarrow || cluster < 1 || cluster > kClusterMax)
+    return -(int)cudaErrorInvalidValue;
+  const int warps = solve_warps(k, cluster);
+  return max_active_clusters(backsub_kernel_for(r, aligned_vec(k)), cluster,
+                             backsub_smem(k, r, warps), 32 * warps);
+}
+
+// Warps a CTA of either solve kernel runs when a block is split `split` ways.
+extern "C" int bcr_solve_warps(int k, int split) {
+  return k >= 1 && split >= 1 ? solve_warps(k, split) : -(int)cudaErrorInvalidValue;
+}
+
+// The floats of a row copy (4, 2 or 1) for blocks at p1..p3.
+extern "C" int bcr_solve_vec(const float* p1, const float* p2, const float* p3, int k) {
+  return solve_vec(k, p1, p2, p3);
+}
+
+// split: CTAs a block (bcr_rhs_reduce_split's, or (tests) any 1..K); 0
+// launches the tiled kernel.  A route that does not fit the shape is an
+// error, never a fallback.
 extern "C" int bcr_rhs_reduce_launch(const float* lo, const float* hi, const float* b, float* out,
-                                     int m2, int k, int r, void* stream) {
-  rhs_reduce_kernel<<<dim3(row_tiles(k), m2), kThreads, 0, (cudaStream_t)stream>>>(lo, hi, b, out,
-                                                                                  k, r);
+                                     int m2, int k, int r, int split, void* stream) {
+  if (m2 <= 0 || k <= 0 || r <= 0 || split < 0 || split > k) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (split == 0) {
+    rhs_reduce_kernel<<<dim3(row_tiles(k), m2), kThreads, 0, s>>>(lo, hi, b, out, k, r);
+    return (int)cudaGetLastError();
+  }
+  if (!solve_route_fits(k, r, rhs_smem)) return (int)cudaErrorInvalidValue;
+  const RhsKernel kern = rhs_kernel(r, solve_vec(k, lo, hi, hi));
+  const cudaError_t err = rhs_attributes(kern);
+  if (err != cudaSuccess) return (int)err;
+  const int warps = solve_warps(k, split);
+  kern<<<m2 * split, 32 * warps, rhs_smem(k, r, warps), s>>>(lo, hi, b, out, k, r, split);
   return (int)cudaGetLastError();
 }
 
+// cluster: bcr_backsub_cluster's size, or (tests) any 1..16 the card
+// schedules: one launch, t in shared memory (t unused); 0 launches the
+// tiled kernels, two grids through the K x R workspace t of each block.
 extern "C" int bcr_backsub_launch(const float* a, const float* e, const float* f, const float* b,
                                   const float* x, float* t, float* out, int m2, int k, int r,
-                                  void* stream) {
+                                  int cluster, void* stream) {
+  if (m2 <= 0 || k <= 0 || r <= 0 || cluster < 0 || cluster > kClusterMax)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  for (int phase = 0; phase < 2; ++phase) {
-    backsub_kernel<<<dim3(row_tiles(k), m2), kThreads, 0, s>>>(a, e, f, b, x, t, out, k, r, m2,
-                                                               phase);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (cluster == 0) {
+    if (t == nullptr) return (int)cudaErrorInvalidValue;
+    for (int phase = 0; phase < 2; ++phase) {
+      backsub_kernel<<<dim3(row_tiles(k), m2), kThreads, 0, s>>>(a, e, f, b, x, t, out, k, r, m2,
+                                                                 phase);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
   }
-  return 0;
+  if (!solve_route_fits(k, r, backsub_smem)) return (int)cudaErrorInvalidValue;
+  const BacksubKernel kern = backsub_kernel_for(r, solve_vec(k, a, e, f));
+  const int warps = solve_warps(k, cluster);
+  const size_t smem = backsub_smem(k, r, warps);
+  const int active = max_active_clusters(kern, cluster, smem, 32 * warps);
+  if (active < 0) return -active;
+  if (active < 1) return (int)cudaErrorLaunchOutOfResources;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, dim3(m2 * cluster), cluster, smem, s, 32 * warps);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a, e, f, b, x, out, k, r, m2);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // The cluster size that inverts K x K blocks on the current device: the

@@ -117,43 +117,8 @@ inline size_t cluster_smem(int k, int r) {
   return fixed_bytes(k, r) + sizeof(float) * (size_t)ring_stages(k, r) * stage_floats(k);
 }
 
-// ---- PTX helpers: mbarriers, bulk copies, cluster barrier -------------------
+// ---- PTX helpers: DSMEM pushes (mbarriers and bulk copies: gj_cluster.cuh) ----
 
-__device__ inline uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ inline void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
-}
-// the transfer's byte count, then the copy that completes it
-__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ inline void bulk_copy(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-// arrive on `bar` once this thread's earlier cp.async copies have landed
-__device__ inline void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-__device__ inline void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 // v into the peer CTA's shared memory at the cluster address `dst`,
 // completing `bytes` on the peer's mbarrier at cluster address `bar`
 __device__ inline void push4(uint32_t dst, float v, uint32_t bar) {

@@ -280,6 +280,44 @@ __device__ __noinline__ void gj_cluster_inverse_apart(cg::cluster_group& cluster
   gj_cluster_inverse<NC>(cluster, s, thr);
 }
 
+// mbarriers, TMA bulk copies and cp.async arrivals (bts.cu, bcr.cu's
+// solve rings)
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ inline void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+// the transfer's byte count, then the copy that completes it
+__device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ inline void bulk_copy(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// arrive on `bar` once this thread's earlier cp.async copies have landed
+__device__ inline void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ inline void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
 // 4 and 16 bytes global -> shared, asynchronously (cp.async)
 __device__ inline void cp_async4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
@@ -459,10 +497,10 @@ inline int smem_optin() {
 }
 
 inline void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, dim3 grid, int cs,
-                           size_t smem, cudaStream_t stream) {
+                           size_t smem, cudaStream_t stream, int threads = kClusterThreads) {
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = grid;
-  cfg->blockDim = dim3(kClusterThreads);
+  cfg->blockDim = dim3(threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -473,15 +511,15 @@ inline void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, d
   cfg->numAttrs = 1;
 }
 
-// The clusters of cs CTAs with `smem` bytes each that the card holds at
-// once for `kern`, or a negative cudaError_t code.
+// The clusters of cs CTAs of `threads` threads with `smem` bytes each that
+// the card holds at once for `kern`, or a negative cudaError_t code.
 template <typename Kernel>
-int max_active_clusters(Kernel kern, int cs, size_t smem) {
+int max_active_clusters(Kernel kern, int cs, size_t smem, int threads = kClusterThreads) {
   struct Entry {
     const void* kern;
     int dev, cs;
     size_t smem;
-    int active;
+    int threads, active;
   };
   static Entry cache[64];
   static int used = 0;
@@ -492,7 +530,8 @@ int max_active_clusters(Kernel kern, int cs, size_t smem) {
   if (err != cudaSuccess) return -(int)err;
   const void* key = reinterpret_cast<const void*>(kern);
   for (int i = 0; i < used; ++i)
-    if (cache[i].kern == key && cache[i].dev == dev && cache[i].cs == cs && cache[i].smem == smem)
+    if (cache[i].kern == key && cache[i].dev == dev && cache[i].cs == cs &&
+        cache[i].smem == smem && cache[i].threads == threads)
       return cache[i].active;
   bool set = false;
   for (int i = 0; i < nattrs; ++i) set |= attrs_set[i] == key && attrs_dev[i] == dev;
@@ -508,11 +547,11 @@ int max_active_clusters(Kernel kern, int cs, size_t smem) {
   }
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, dim3(cs), cs, smem, 0);
+  cluster_config(&cfg, &attr, dim3(cs), cs, smem, 0, threads);
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, kern, &cfg);
   if (err != cudaSuccess) return -(int)err;
-  if (used < 64) cache[used++] = Entry{key, dev, cs, smem, active};
+  if (used < 64) cache[used++] = Entry{key, dev, cs, smem, threads, active};
   return active;
 }
 

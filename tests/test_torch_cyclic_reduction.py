@@ -386,3 +386,152 @@ def test_tiled_reduce_model_matches_the_interpret_kernel_and_plain(m, k, tile):
         np.testing.assert_allclose(g, np.asarray(w), **TOL)
     for g, w in zip(got, tcr.bcr_reduce_ref(*_torch(d, e, f, a))):
         np.testing.assert_allclose(g, w.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the solve kernels (csrc/bcr.cu: rhs_reduce_warp_kernel,
+# backsub_cluster_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _row_width(k):
+    """Floats of the kernels' row copies for aligned blocks (solve_vec)."""
+    return 4 if k % 4 == 0 else 2 if k % 2 == 0 else 1
+
+
+def _widest_split(k, cap=16):
+    """The widest split the kernels' rule may take for 2K = k: the largest
+    power of two up to ``cap`` leaving every CTA at least 8 rows (the
+    small levels of every chain take it)."""
+    s = 1
+    while 2 * s <= cap and -(-k // (2 * s)) >= 8:
+        s *= 2
+    return s
+
+
+def _warp_rows(blocks, vectors):
+    """stage_dot in numpy float32: sum_m blocks[m] @ vectors[m] for (n, K)
+    rows and (K, R) vectors, as a warp forms one row.  Lane l takes the
+    pieces of VEC columns p VEC .. p VEC + VEC - 1, p = l, l + 32, ..., and
+    sums them in order -- piece, element, the blocks' terms interleaved;
+    then the butterfly (xor 16, 8, 4, 2, 1), after which column c is lane
+    c's sum, as lane c stores it."""
+    n, k = blocks[0].shape
+    r = vectors[0].shape[1]
+    vec = _row_width(k)
+    kp = -(-k // (32 * vec)) * 32 * vec
+    piece, elem = np.divmod(np.arange(kp), vec)
+    rnd, lane = np.divmod(piece, 32)
+    seq = rnd * vec + elem  # a column's place in its lane's order
+    terms = np.zeros((n, r, 32, seq.max() + 1, len(blocks)), np.float32)
+    for m, (rows, v) in enumerate(zip(blocks, vectors)):
+        rp = np.zeros((n, kp), np.float32)
+        rp[:, :k] = rows
+        vp = np.zeros((kp, r), np.float32)
+        vp[:k] = v
+        terms[:, :, lane, seq, m] = (rp[:, :, None] * vp[None]).transpose(0, 2, 1)
+    acc = np.zeros((n, r, 32), np.float32)
+    for t in range(terms.shape[3]):
+        for m in range(len(blocks)):
+            acc = acc + terms[:, :, :, t, m]
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, lanes ^ o]
+    return acc[:, np.arange(r), np.arange(r)]
+
+
+def _warp_rhs_reduce(lo, hi, b):
+    """rhs_reduce_warp_kernel: out_i = b_2i - (lo_i b_max(2i-1,0) + hi_i
+    b_2i+1), one warp a row."""
+    out = np.empty((lo.shape[0],) + b.shape[1:], np.float32)
+    for i in range(lo.shape[0]):
+        out[i] = b[2 * i] - _warp_rows([lo[i], hi[i]], [b[max(2 * i - 1, 0)], b[2 * i + 1]])
+    return out
+
+
+def _cluster_backsub(a, e, f, b, x, cs):
+    """backsub_cluster_kernel on clusters of cs CTAs: CTA c forms its rows
+    [c n, c n + n) of t_i = b_2i+1 - (e_i x_i + f_i x_min(i+1,m2-1)), the
+    whole t_i is gathered from the cluster's row slices, and CTA c forms its
+    rows of a_i t_i; out_2i = x_i."""
+    m2, k, _ = x.shape
+    n = -(-k // cs)
+    slices = [slice(c * n, min(c * n + n, k)) for c in range(cs) if c * n < k]
+    out = np.empty((2 * m2,) + x.shape[1:], np.float32)
+    for i in range(m2):
+        nxt = x[min(i + 1, m2 - 1)]
+        t = np.concatenate([b[2 * i + 1][sl] - _warp_rows([e[i][sl], f[i][sl]], [x[i], nxt])
+                            for sl in slices])
+        out[2 * i + 1] = np.concatenate([_warp_rows([a[i][sl]], [t]) for sl in slices])
+        out[2 * i] = x[i]
+    return out
+
+
+def _pallas_level(kernel, m2, k, r, blocks, vectors, block_maps, vector_maps, out_rows):
+    """One level of the JAX package's solve kernel (``_rhs_reduce_kernel`` or
+    ``_backsub_kernel``) through ``pallas_call`` in interpret mode without
+    lane padding, with the grid and index maps of ``bcr_solve_pallas``."""
+    import jax
+    from jax.experimental import pallas as pl
+    from repro.kernels.bcr import _PARALLEL, _specs
+
+    cur = lambda i: (i, 0, 0)  # noqa: E731
+    out = pl.pallas_call(
+        kernel, grid=(m2,), in_specs=_specs(k, k, *block_maps) + _specs(k, r, *vector_maps),
+        out_specs=pl.BlockSpec((out_rows, k, r), cur),
+        out_shape=jax.ShapeDtypeStruct((out_rows * m2, k, r), jnp.float32),
+        interpret=True, compiler_params=_PARALLEL,
+    )(*[jnp.asarray(t) for t in blocks + vectors])
+    return np.asarray(out)
+
+
+def _solve_level(m2, k, r, seed):
+    """A level's operands as a chain gives them: lo_0 = 0 (E_0 = 0) and
+    f_odd[m2-1] = 0 (the chain's tail), so the clamped neighbours the
+    kernels read contribute nothing, as in every real level."""
+    rng = np.random.default_rng(seed)
+    lo, hi, a, e, f = ((rng.normal(size=(m2, k, k)) / np.sqrt(k)).astype(np.float32)
+                       for _ in range(5))
+    lo[0] = 0.0
+    f[-1] = 0.0
+    b = rng.normal(size=(2 * m2, k, r)).astype(np.float32)
+    x = rng.normal(size=(m2, k, r)).astype(np.float32)
+    return lo, hi, a, e, f, b, x
+
+
+# 2K = 37 (4-byte rows), 70, 190 (8-byte: the sparse run's chain), 400
+# (16-byte); m/2 = 1, 2, 3 so that both clamped neighbours are read
+SOLVE_LEVELS = [(m2, k, r) for k in (37, 70, 190, 400) for m2 in (1, 2, 3) for r in (1, 4, 8)]
+
+
+@pytest.mark.parametrize("m2,k,r", SOLVE_LEVELS)
+def test_warp_rhs_reduce_model_matches_the_interpret_kernel_and_plain(m2, k, r):
+    """The warp-per-row rhs_reduce against the Pallas level in interpret
+    mode and the port's plain version.  Tolerance as the module's."""
+    from repro.kernels.bcr import _rhs_reduce_kernel
+
+    lo, hi, _, _, _, b, _ = _solve_level(m2, k, r, seed=100 * k + 10 * m2 + r)
+    got = _warp_rhs_reduce(lo, hi, b)
+    cur = lambda i: (i, 0, 0)  # noqa: E731
+    want = _pallas_level(_rhs_reduce_kernel, m2, k, r, [lo, hi], [b, b, b], (cur, cur),
+                         (lambda i: (2 * i, 0, 0), lambda i: (jnp.maximum(2 * i - 1, 0), 0, 0),
+                          lambda i: (2 * i + 1, 0, 0)), 1)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, tcr.bcr_rhs_reduce_ref(*_torch(lo, hi, b)).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("m2,k,r", SOLVE_LEVELS)
+def test_cluster_backsub_model_matches_the_interpret_kernel_and_plain(m2, k, r):
+    """The one-launch backsub on the widest cluster its rule may take (up to
+    16 CTAs, each at least 8 rows) against the Pallas level in interpret
+    mode and the port's plain version.  Tolerance as the module's."""
+    from repro.kernels.bcr import _backsub_kernel
+
+    _, _, a, e, f, b, x = _solve_level(m2, k, r, seed=100 * k + 10 * m2 + r + 1)
+    got = _cluster_backsub(a, e, f, b, x, _widest_split(k))
+    cur = lambda i: (i, 0, 0)  # noqa: E731
+    odd = b[1::2].copy()
+    want = _pallas_level(_backsub_kernel, m2, k, r, [a, e, f], [odd, x, x], (cur, cur, cur),
+                         (cur, cur, lambda i: (jnp.minimum(i + 1, m2 - 1), 0, 0)), 2)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, tcr.bcr_backsub_ref(*_torch(a, e, f, b, x)).numpy(), **TOL)

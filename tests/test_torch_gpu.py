@@ -471,6 +471,197 @@ def test_reduce_tile_follows_the_shape(cuda):
     assert bcr.reduce.by_tile[64] == before + 1
 
 
+# ---- the BCR solve kernels: rhs_reduce and backsub --------------------------
+
+
+def _rhs_on(lo, hi, b, split):
+    """rhs_reduce through the C entry point at a forced split (0: tiled)."""
+    from repro_torch.kernels import build
+
+    lib = build.load("bcr")
+    out = torch.empty(lo.shape[0], lo.shape[1], b.shape[-1], device=b.device)
+    code = lib.bcr_rhs_reduce_launch(lo.data_ptr(), hi.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                     lo.shape[0], lo.shape[1], b.shape[-1], split,
+                                     torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, f"bcr rhs_reduce (split {split})")
+    return out
+
+
+def _backsub_on(a, e, f, b, x, cluster):
+    """backsub through the C entry point at a forced cluster size (0: the
+    tiled kernels, with their workspace)."""
+    from repro_torch.kernels import build
+
+    lib = build.load("bcr")
+    m2, k, r = x.shape
+    t = torch.empty_like(x)
+    out = torch.empty(2 * m2, k, r, device=x.device)
+    code = lib.bcr_backsub_launch(a.data_ptr(), e.data_ptr(), f.data_ptr(), b.data_ptr(),
+                                  x.data_ptr(), t.data_ptr() if cluster == 0 else None,
+                                  out.data_ptr(), m2, k, r, cluster,
+                                  torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, f"bcr backsub (cluster {cluster})")
+    return out
+
+
+def _solve_level(cuda, m2, k, r, seed=0):
+    """One level's solve operands as the chain gives them: lo_0 = 0 (E_0 = 0)
+    and f_odd[m2-1] = 0 (the chain's tail), so the clamped neighbours the
+    kernels read are zeroed as in a real level."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    s = k**-0.5
+    lo, hi, a, e, f = (s * torch.randn(m2, k, k, generator=g, device=cuda) for _ in range(5))
+    lo[0] = 0.0
+    f[-1] = 0.0
+    b = torch.randn(2 * m2, k, r, generator=g, device=cuda)
+    x = torch.randn(m2, k, r, generator=g, device=cuda)
+    return lo, hi, a, e, f, b, x
+
+
+def _routes_taken(call, r):
+    """Run ``call`` and assert that its rhs_reduce / backsub calls took the
+    warp / cluster routes for R <= 8 and the tiled kernels above (counted
+    in ``block_launches``)."""
+    from repro_torch.kernels import bcr
+
+    wrappers = (bcr.rhs_reduce, bcr.backsub)
+    before = [(w.launches, w.block_launches) for w in wrappers]
+    out = call()
+    for w, (calls, tiled) in zip(wrappers, before):
+        calls, tiled = w.launches - calls, w.block_launches - tiled
+        assert tiled == (calls if r > 8 else 0), f"R={r}: {tiled} of {calls} calls tiled"
+    return out
+
+
+@pytest.mark.parametrize("r", [1, 4, 8, 9])
+@pytest.mark.parametrize("p", [64, 500])
+def test_solve_kernels_at_every_level_of_the_interface_chains(cuda, p, r):
+    """rhs_reduce and backsub at every level of the P = 64 and P = 500
+    interface chains (63 and 499 blocks of 2K = 400, padded to 64 and 512),
+    R = 1, 4, 8 on the warp / cluster routes and R = 9 on the tiled ones;
+    then ops.bcr_solve against the plain bcr_solve."""
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.kernels import bcr
+
+    chain = _interface_chain(cuda, p)
+    want = cr.bcr_factor(*chain)
+    g = torch.Generator(device=cuda).manual_seed(p + r)
+    h = torch.randn(p - 1, 400, r, generator=g, device=cuda)
+    b = cr.pad_rhs(h, want.n_levels)
+    rhs = []
+    for lv in want.levels:
+        rhs.append(b)
+        got = _routes_taken(lambda: bcr.rhs_reduce(lv.lo, lv.hi, b), r)
+        b = cr.bcr_rhs_reduce_ref(lv.lo, lv.hi, b)
+        _close(got, b)
+    x = (want.root_inv @ b[0])[None]
+    for lv, bl_ in zip(reversed(want.levels), reversed(rhs)):
+        eo, fo = lv.e_odd.contiguous(), lv.f_odd.contiguous()
+        got = _routes_taken(lambda: bcr.backsub(lv.a_odd, eo, fo, bl_, x), r)
+        x = cr.bcr_backsub_ref(lv.a_odd, eo, fo, bl_, x)
+        _close(got, x)
+    fac = ops.bcr_factor(*chain)
+    _close(ops.bcr_solve(fac, h), cr.bcr_solve(want, h))
+
+
+# 2K = 37 (4-byte loads), 70 and 190 (8-byte: the sparse run's chain), 400
+# (16-byte); m/2 = 1, 2, 3 so that both clamped neighbours are read
+@pytest.mark.parametrize("r", [1, 4, 8])
+@pytest.mark.parametrize("m2", [1, 2, 3])
+@pytest.mark.parametrize("k,vec", [(37, 1), (70, 2), (190, 2), (400, 4)])
+def test_solve_kernels_at_every_row_width(cuda, k, vec, m2, r):
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.kernels import bcr, build
+
+    lib = build.load("bcr")
+    lo, hi, a, e, f, b, x = _solve_level(cuda, m2, k, r, seed=k + m2 + r)
+    assert lib.bcr_solve_vec(lo.data_ptr(), hi.data_ptr(), hi.data_ptr(), k) == vec
+    assert lib.bcr_solve_vec(a.data_ptr(), e.data_ptr(), f.data_ptr(), k) == vec
+    got = _routes_taken(lambda: (bcr.rhs_reduce(lo, hi, b), bcr.backsub(a, e, f, b, x)), r)
+    _close(got[0], cr.bcr_rhs_reduce_ref(lo, hi, b))
+    _close(got[1], cr.bcr_backsub_ref(a, e, f, b, x))
+
+
+def test_solve_kernels_take_narrower_loads_off_alignment(cuda):
+    """Blocks that start 4 bytes past a 16-byte boundary take 4-byte loads
+    at 2K = 400, and still match the plain versions."""
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.kernels import bcr, build
+
+    m2, k, r = 2, 400, 1
+    lo, hi, a, e, f, b, x = _solve_level(cuda, m2, k, r)
+    shifted = []
+    for t in (lo, hi, a, e, f):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        buf[1:] = t.flatten()
+        shifted.append(buf[1:].view(t.shape))
+    lo, hi, a, e, f = shifted
+    assert build.load("bcr").bcr_solve_vec(lo.data_ptr(), hi.data_ptr(), hi.data_ptr(), k) == 1
+    _close(bcr.rhs_reduce(lo, hi, b), cr.bcr_rhs_reduce_ref(lo, hi, b))
+    _close(bcr.backsub(a, e, f, b, x), cr.bcr_backsub_ref(a, e, f, b, x))
+
+
+@pytest.mark.parametrize("size", [0, 1, 2, 4, 8, 16])
+def test_solve_kernels_at_every_forced_size(cuda, size):
+    """Both C entry points forced onto each split / cluster size (0: the
+    tiled kernels) at m/2 = 2, 2K = 400, R = 1 and 4."""
+    from repro_torch.core import cyclic_reduction as cr
+
+    for r in (1, 4):
+        lo, hi, a, e, f, b, x = _solve_level(cuda, 2, 400, r, seed=size + r)
+        _close(_rhs_on(lo, hi, b, size), cr.bcr_rhs_reduce_ref(lo, hi, b))
+        _close(_backsub_on(a, e, f, b, x, size), cr.bcr_backsub_ref(a, e, f, b, x))
+
+
+def test_solve_launch_shape_rule(cuda):
+    """The rule both solve kernels share, on an H100 (132 SMs): the largest
+    power of two at which the card holds the whole level at once
+    (rhs_reduce: its CTAs, one an SM at 2K = 400, up to 32 a block;
+    backsub: its clusters, up to 16 CTAs), each CTA at least 8 rows; 0
+    (the tiled kernels) for R > 8.  Warps a CTA: min(rows, 16)."""
+    from repro_torch.kernels import build
+
+    lib = build.load("bcr")
+    if torch.cuda.get_device_properties(0).multi_processor_count != 132:
+        pytest.skip("the pinned values are an H100 SXM's (132 SMs)")
+    levels = (256, 128, 64, 32, 16, 8, 4, 2, 1)
+    assert [lib.bcr_rhs_reduce_split(m2, 400, 1) for m2 in levels] == [1, 1, 2, 4, 8, 16, 32,
+                                                                        32, 32]
+    assert [lib.bcr_backsub_cluster(m2, 400, 1) for m2 in levels] == [1, 1, 2, 2, 4, 8, 16,
+                                                                       16, 16]
+    assert [lib.bcr_rhs_reduce_split(m2, 190, 1) for m2 in (32, 16, 1)] == [8, 16, 16]
+    assert [lib.bcr_backsub_cluster(m2, 190, 1) for m2 in (32, 16, 1)] == [4, 16, 16]
+    assert lib.bcr_rhs_reduce_split(1, 37, 1) == lib.bcr_backsub_cluster(1, 37, 1) == 4
+    assert lib.bcr_rhs_reduce_split(1, 400, 9) == lib.bcr_backsub_cluster(1, 400, 9) == 0
+    assert [lib.bcr_solve_warps(400, s) for s in (1, 16, 32)] == [16, 16, 13]
+    assert lib.bcr_solve_warps(37, 4) == 10
+    assert lib.bcr_backsub_max_clusters(400, 1, 16) >= 1
+
+
+def test_backsub_is_one_grid_without_a_workspace(cuda):
+    """At R <= 8 a backsub call launches one kernel (the profiler's count)
+    and allocates only its output; rhs_reduce one kernel too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import bcr
+
+    lo, hi, a, e, f, b, x = _solve_level(cuda, 4, 400, 1)
+    bcr.backsub(a, e, f, b, x)  # built and warm
+    bcr.rhs_reduce(lo, hi, b)
+    torch.cuda.synchronize()
+    for call, out_bytes in ((lambda: bcr.backsub(a, e, f, b, x), b.numel() * 4),
+                            (lambda: bcr.rhs_reduce(lo, hi, b), x.numel() * 4)):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = call()
+            torch.cuda.synchronize()
+        kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1, [ev.name for ev in kernels]
+        assert torch.cuda.max_memory_allocated() - base <= -(-out_bytes // 512) * 512
+        del out
+
+
 def test_bcr_wrappers_reject_bad_operands(cuda):
     from repro_torch.kernels import bcr
 

@@ -61,6 +61,19 @@ per call (profiler kernel time), the wall ms per call and each call's
 route, at RWKV6-1.6B's and Zamba2-2.7B's decode (8 slots, T=1) and
 prefill (B=4, T=512, chunk 64) shapes, the inputs rotated through more
 than the L2 cache as in chip_smoke.py.
+
+    python3 tools/kernel_phases.py --bcr-parent DIR
+
+does the same for the two BCR solve wrappers (``rhs_reduce``,
+``backsub``): one ``bcr_times`` line per turn, with the device ms of
+every level of one R=1 solve of the P=64 and the P=500 interface chains
+(the d=0.5 band of chip_smoke.py, 63 and 499 blocks of 2K=400) by the
+profiler and by chip_smoke.py's ``queued_ms``, each level's inputs
+rotated through more than the L2, the grids each call launched (the
+profiler's count) and each level's byte bound.  The default run also
+stamps the two solve kernels' phases (``solve_phases``: globaltimer and
+clock64 by thread 0 of each CTA at the boundaries ``RHS_MARKS`` /
+``BACKSUB_MARKS``) at the first and last levels of the P=64 chain.
 """
 
 from __future__ import annotations
@@ -270,6 +283,52 @@ def reduce_instrumented(src: str) -> str:
     )
 
 
+SOLVE_STAMPS = (
+    "using namespace sap;\n",
+    "using namespace sap;\n"
+    "__device__ unsigned long long g_stamp[256 * 8], g_clock[256 * 8];\n"
+    "__device__ inline unsigned long long gtimer() {\n"
+    "  unsigned long long t;\n  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+    "  return t;\n}\n"
+    "#define SMARK(i) if (threadIdx.x == 0 && blockIdx.x < 256) { "
+    "g_stamp[blockIdx.x * 8 + (i)] = gtimer(); g_clock[blockIdx.x * 8 + (i)] = clock64(); }\n"
+    "extern \"C\" int read_stamps(unsigned long long* t, unsigned long long* c) {\n"
+    "  cudaError_t err = cudaMemcpyFromSymbol(t, g_stamp, sizeof(g_stamp));\n"
+    "  return (int)(err ? err : cudaMemcpyFromSymbol(c, g_clock, sizeof(g_clock)));\n}\n"
+    "extern \"C\" int reset_stamps() {\n  static unsigned long long z[256 * 8];\n"
+    "  cudaError_t err = cudaMemcpyToSymbol(g_stamp, z, sizeof(z));\n"
+    "  return (int)(err ? err : cudaMemcpyToSymbol(g_clock, z, sizeof(z)));\n}\n")
+RHS_MARKS = ("entry", "staged", "end")
+BACKSUB_MARKS = ("entry", "staged", "peers_running", "t_stored", "cluster_synced", "end")
+
+
+def solve_instrumented(src: str) -> str:
+    """bcr.cu with globaltimer and clock64 stamps by thread 0 of every CTA
+    (the first 256) at the phase boundaries of the two solve kernels:
+    rhs_reduce RHS_MARKS, backsub BACKSUB_MARKS."""
+    return patched(
+        src, SOLVE_STAMPS,
+        ("  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+         "  const int ld = solve_ld(k), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+         "  const int nw = blockDim.x >> 5, i = blockIdx.x / split, n = solve_rows(k, split);\n",
+         "  SMARK(0)\n  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
+         "  const int ld = solve_ld(k), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+         "  const int nw = blockDim.x >> 5, i = blockIdx.x / split, n = solve_rows(k, split);\n"),
+        ("  stage_vector(vn, b + (2L * i + 1) * kr, k, r, ld);\n  __syncthreads();\n",
+         "  stage_vector(vn, b + (2L * i + 1) * kr, k, r, ld);\n  __syncthreads();\n  SMARK(1)\n"),
+        ("    ring.fetch(st, blocks, j + kSolveStages * nw, row1, k, lane);\n  }\n}\n",
+         "    ring.fetch(st, blocks, j + kSolveStages * nw, row1, k, lane);\n  }\n  SMARK(2)\n}\n"),
+        ("  cluster_arrive_relaxed();  // waited on before the first store into a peer\n",
+         "  SMARK(0)\n  cluster_arrive_relaxed();\n"),
+        ("  __syncthreads();\n  cluster_wait();  // every peer is running: its t may be written\n",
+         "  __syncthreads();\n  SMARK(1)\n  cluster_wait();\n  SMARK(2)\n"),
+        ("  cluster.sync();  // every row of t is in every CTA's copy\n",
+         "  SMARK(3)\n  cluster.sync();\n  SMARK(4)\n"),
+        ("    a_ring.fetch(st, a_i, j + kSolveStages * nw, row1, k, lane);\n  }\n}\n",
+         "    a_ring.fetch(st, a_i, j + kSolveStages * nw, row1, k, lane);\n  }\n  SMARK(5)\n}\n"),
+    )
+
+
 def scan_times() -> dict:
     """Device and wall ms per call of the ``wkv6`` and ``ssd`` wrappers on
     the import path, at the LM path's decode and prefill shapes (the
@@ -301,18 +360,78 @@ def scan_times() -> dict:
     return out
 
 
-def scan_compare(parent: Path) -> None:
-    """scan_times of the checkout at ``parent`` and of this one, in turns."""
+def parent_compare(parent: Path, what: str) -> None:
+    """``{what}_times`` (scan_times or bcr_times) of the checkout at
+    ``parent`` and of this one, in turns, each in a process of its own."""
     for who in ("parent", "change", "change", "parent"):
         src = (parent if who == "parent" else ROOT) / "src"
-        run = subprocess.run([sys.executable, __file__, "--scan-times"], capture_output=True,
+        run = subprocess.run([sys.executable, __file__, f"--{what}-times"], capture_output=True,
                              text=True, env={**os.environ, "PYTHONPATH": str(src)})
         if run.returncode:
-            raise RuntimeError(f"scan_times of {src} failed:\n{run.stdout}{run.stderr}")
-        print(json.dumps({"scan_times": who, "src": str(src),
+            raise RuntimeError(f"{what}_times of {src} failed:\n{run.stdout}{run.stderr}")
+        print(json.dumps({f"{what}_times": who, "src": str(src),
                           **json.loads(run.stdout.strip().splitlines()[-1])}), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+
+
+def bcr_times() -> dict:
+    """Device ms per call of the ``rhs_reduce`` and ``backsub`` wrappers on
+    the import path at every level of one R=1 solve of the P=64 and the
+    P=500 interface chains of chip_smoke.py's d=0.5 band (63 and 499 blocks
+    of 2K=400), each level's inputs rotated through more than the L2 as in
+    chip_smoke.py, with the kernels' grids per call."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.core import band_to_block_tridiag, random_banded
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.core.spike import _reduced_interface_system
+    from repro_torch.kernels import bcr, ops
+
+    dev = torch.device("cuda")
+    band = torch.tensor(random_banded(cs.N, cs.K, 0.5, seed=cs.SEED).astype(np.float32),
+                        device=dev)
+    out = {}
+    for p in (64, 500):
+        bt = band_to_block_tridiag(band, cs.K, p)
+        fs = ops.fused_factor_spike(bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl)
+        chain = _reduced_interface_system(fs.v_bot, fs.v_top, fs.w_top, fs.w_bot)
+        del bt, fs
+        fac = cr.bcr_factor(*chain)
+        g = torch.Generator(device=dev).manual_seed(cs.SEED)
+        b = cr.pad_rhs(torch.randn(chain[0].shape[0], chain[0].shape[1], 1, generator=g,
+                                   device=dev), fac.n_levels)
+        downs, rhs = [], []
+        for lv in fac.levels:
+            downs.append((lv.lo, lv.hi, b))
+            rhs.append(b)
+            b = cr.bcr_rhs_reduce_ref(lv.lo, lv.hi, b)
+        x = (fac.root_inv @ b[0])[None]
+        ups = []
+        for lv, bl_ in zip(reversed(fac.levels), reversed(rhs)):
+            ups.append((lv.a_odd, lv.e_odd.contiguous(), lv.f_odd.contiguous(), bl_, x))
+            x = cr.bcr_backsub_ref(lv.a_odd, lv.e_odd, lv.f_odd, bl_, x)
+        for name, kern, levels in (("rhs_reduce", bcr.rhs_reduce, downs),
+                                   ("backsub", bcr.backsub, ups)):
+            rows = []
+            for args in levels:
+                m2, k = args[0].shape[:2]
+                nbytes = cs.solve_level_work(m2, k, 1)[name][1]
+                nxt = cs.rotating(lambda seed, args=args: tuple(t.clone() for t in args), nbytes)
+                reps = 20 if nbytes > cs.L2_BYTES else 100
+                ms, by_kernel = cs.device_ms(lambda: kern(*nxt()), reps)
+                rows.append({"m2": m2, "ms": ms, "queued_ms": cs.queued_ms(lambda: kern(*nxt()), reps),
+                             "grids_per_call": sum(n for _, n, _ in by_kernel.values()),
+                             "bound_ms": nbytes / cs.PEAK_BYTES_S * 1e3})
+                del nxt
+            out[f"{name}_p{p}"] = {"levels_ms": sum(r["ms"] for r in rows),
+                                   "levels_queued_ms": sum(r["queued_ms"] for r in rows),
+                                   "by_level": rows}
+        del chain, fac, downs, ups, rhs
+    return out
 
 
 def main() -> int:
@@ -321,12 +440,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
         return 2
-    if "--scan-times" in sys.argv:
-        print(json.dumps(scan_times()), flush=True)
-        return 0
-    if "--scan-parent" in sys.argv:
-        scan_compare(Path(sys.argv[sys.argv.index("--scan-parent") + 1]).resolve())
-        return 0
+    for what, times in (("scan", scan_times), ("bcr", bcr_times)):
+        if f"--{what}-times" in sys.argv:
+            print(json.dumps(times()), flush=True)
+            return 0
+        if f"--{what}-parent" in sys.argv:
+            parent = sys.argv[sys.argv.index(f"--{what}-parent") + 1]
+            parent_compare(Path(parent).resolve(), what)
+            return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -343,6 +464,7 @@ def main() -> int:
     sources = {f"flash_{nm}": (OUT, text)
                for nm, text in flash_variants((CSRC / "flash_attn.cu").read_text()).items()}
     sources["inv_phases"] = (OUT, reduce_instrumented((CSRC / "bcr.cu").read_text()))
+    sources["solve_phases"] = (OUT, solve_instrumented((CSRC / "bcr.cu").read_text()))
     sources["bts_phases"] = (OUT, bts_instrumented((CSRC / "bts.cu").read_text()))
     sources["btf_phases"] = (OUT, btf_instrumented((CSRC / "btf.cu").read_text()))
     sources["fused_phases"] = (OUT, fused_instrumented((CSRC / "fused_spike.cu").read_text()))
@@ -355,7 +477,8 @@ def main() -> int:
             [build.nvcc(), *build.NVCC_FLAGS, "-o", str(where / f"{nm}.so"),
              str(where / f"{nm}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    kinds = {"flash": "flash_attn", "inv": "bcr", "btf": "btf", "fused": "fused_spike", "bts": "bts"}
+    kinds = {"flash": "flash_attn", "inv": "bcr", "btf": "btf", "fused": "fused_spike", "bts": "bts",
+             "solve": "bcr"}
     libs = {}
     for nm, proc in procs.items():
         log, _ = proc.communicate()
@@ -366,6 +489,8 @@ def main() -> int:
             getattr(libs[nm], fn).restype, getattr(libs[nm], fn).argtypes = restype, argtypes
         if nm.endswith("_phases"):
             libs[nm].read_phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        if nm == "solve_phases":
+            libs[nm].read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
 
     import numpy as np
 
@@ -539,6 +664,54 @@ def main() -> int:
             **{nm: c for nm, c in zip(REDUCE_PHASES, kern)},
             "fma_share": kern[2] / max(sum(kern[:3]), 1)}}), flush=True)
         del d, e, f, a, outs
+    # the solve kernels at the first and the last levels of the P=64 chain
+    # (2K = 400, R = 1), on the sizes their rule gives: each CTA's stamps
+    # (thread 0) at the phase boundaries, read back after one launch
+    lib = libs["solve_phases"]
+    for kind, m2 in (("rhs_reduce", 32), ("rhs_reduce", 1), ("backsub", 32), ("backsub", 8),
+                     ("backsub", 1)):
+        kb, sc = 400, 400**-0.5
+        lo, hi, a, e, f = (sc * torch.randn(m2, kb, kb, generator=g, device=dev) for _ in range(5))
+        b = torch.randn(2 * m2, kb, 1, generator=g, device=dev)
+        x = torch.randn(m2, kb, 1, generator=g, device=dev)
+        out = torch.empty(2 * m2, kb, 1, device=dev)
+        if kind == "rhs_reduce":
+            size, marks = lib.bcr_rhs_reduce_split(m2, kb, 1), RHS_MARKS
+
+            def run(lib=lib, size=size):
+                checked(lib.bcr_rhs_reduce_launch(lo.data_ptr(), hi.data_ptr(), b.data_ptr(),
+                                                  out.data_ptr(), m2, kb, 1, size, stream), kind)
+        else:
+            size, marks = lib.bcr_backsub_cluster(m2, kb, 1), BACKSUB_MARKS
+
+            def run(lib=lib, size=size):
+                checked(lib.bcr_backsub_launch(a.data_ptr(), e.data_ptr(), f.data_ptr(),
+                                               b.data_ptr(), x.data_ptr(), None, out.data_ptr(),
+                                               m2, kb, 1, size, stream), kind)
+        run()
+        torch.cuda.synchronize()
+        if lib.reset_stamps():
+            raise RuntimeError("resetting the stamps failed")
+        run()
+        torch.cuda.synchronize()
+        t, c = (ctypes.c_ulonglong * (256 * 8))(), (ctypes.c_ulonglong * (256 * 8))()
+        if lib.read_stamps(t, c):
+            raise RuntimeError("reading the stamps failed")
+        ctas = min(256, m2 * size)
+        ts = np.array(t, dtype=np.float64).reshape(256, 8)[:ctas, :len(marks)]
+        cyc = np.array(c, dtype=np.float64).reshape(256, 8)[:ctas, :len(marks)]
+        step = np.diff(cyc, axis=1)  # each CTA's cycles between consecutive marks
+        print(json.dumps({"solve_phases": {
+            "kernel": kind, "m2": m2, "k": kb, "size": size, "ctas": ctas,
+            "span_us": (ts[:, -1].max() - ts[:, 0].min()) / 1e3,
+            "entry_spread_us": (ts[:, 0].max() - ts[:, 0].min()) / 1e3,
+            "cta_us_mean": float((ts[:, -1] - ts[:, 0]).mean()) / 1e3,
+            "cycles_mean": dict(zip([f"{a}->{b}" for a, b in zip(marks, marks[1:])],
+                                    step.mean(axis=0).tolist())),
+            "cycles_max": dict(zip([f"{a}->{b}" for a, b in zip(marks, marks[1:])],
+                                   step.max(axis=0).tolist())),
+            "ms_events": cuda_ms(lambda: run(build.load("bcr")), 50)}}), flush=True)
+        del lo, hi, a, e, f, b, x, out
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0
