@@ -30,7 +30,11 @@ of the JAX package.  Phases, each printing one JSON line:
    flash-attention kernel in bfloat16 and float32 at Minitron-8B's prefill (32 query heads over 8, T=4096, D=128, causal),
    starcoder2-15b's (48 over 4, T=8192, window 4096), phi3-mini's D=96,
    stablelm's D=64, the reduced D=16, bidirectional, a ragged Tk and a
-   window smaller than one tile;
+   window smaller than one tile; the fleet's folded shapes: btf, the fused
+   pass and bts (R=1, 4) over S*P = 64 * 16 chains of K = 16 and of
+   K' = 2, 4, 8 in one launch each, and BCR over the 64 stacked reduced
+   chains of 15 interfaces (2K = 32 and 4), each kernel's cluster size,
+   tile or split printed beside one system's;
 4. the slices at full size: N=200,000, K=200 banded systems (paper Table
    4.1/4.2 setting), float32 band storage and preconditioner, float64
    iteration, tol=1e-8, through ``factor(plan_banded(...)).solve`` for the
@@ -44,6 +48,29 @@ of the JAX package.  Phases, each printing one JSON line:
    cluster size, reduce's by tile size, rhs_reduce's by CTAs a block and
    backsub's by cluster size (an R <= 8 solve on the tiled kernels
    fails);
+fleet. ``configs/sap_solver.py:fleet()`` (N=16,384, K=16, d=1.0, C, tol
+   1e-6, max_batch 64, fac_cache 256) at P=16 through ``SolverEngine
+   .run_until_drained``: 64 distinct matrices, each submitted 4 times with
+   a fresh right-hand side, round by round (one step of 64 misses, then
+   hits), with systems/s, the cache hit rate, each step's factor and solve
+   ms and launches, and 64 single-system factors timed beside the batch;
+   it fails if a batch factor launches btf or the fused pass more often
+   than one system's factor, or a batched apply launches bts more often
+   than one system's apply (a loop over the systems);
+batch_full. ``full()`` (C) and ``exact()`` (E, BCR) at P=64, four systems
+   a batch: ``batch_plan`` (exact rounding) -> ``batch_factor`` ->
+   ``solve_batch`` and ``solve_batch_many`` (R=4) against four single
+   ``factor`` / ``solve`` runs of the same systems -- x within
+   ``BATCH_XTOL``, the same sweep counts, every float64 true_resnorm <=
+   1e-6, the batch factor's launches one system's -- with the batch's ms
+   beside the four single runs';
+service. ``configs/sap_solver.py:service()`` at P=16 through
+   ``AsyncSolverService``: 4 client threads submit 512 requests (N in
+   10,000-16,384, K in 8-16, d 0.5 or 1.1, mixed priorities, a quarter of
+   the matrices repeated), with requests/s, the p50 / p99 time in queue,
+   the cache hit rate, escalations and deadline misses; it fails on a
+   future resolved without a solve (but for a missed deadline), a true
+   residual above 10 tol, or a dominance class never routed;
 lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
    random weights from a seeded generator: ``forward`` over 64 tokens
    against 64 ``decode_step`` calls in float32, a bfloat16 prefill
@@ -86,8 +113,10 @@ check exits non-zero without that line.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -143,6 +172,25 @@ FLASH_BF16_STEP, FLASH_BF16_ATOL = 2.0**-7, 1e-5
 # 1e-7), so its decode check starts from the state of a 64-token prefix;
 # the cold-start difference is printed, not checked.
 LM_RTOL = 1e-3
+# The solver's serving path (src/repro_torch/configs/sap_solver.py): fleet()
+# at FLEET_P partitions, FLEET_S distinct matrices each submitted
+# FLEET_ROUNDS times with a fresh right-hand side; full() and exact()
+# batched BATCH_S at a time at P=BATCH_P (solve_batch_many at R=BATCH_R);
+# service() at SERVICE_P partitions, SERVICE_CLIENTS client threads
+# submitting SERVICE_REQUESTS in all.
+FLEET_P, FLEET_S, FLEET_ROUNDS = 16, 64, 4
+BATCH_S, BATCH_P, BATCH_R = 4, 64, 4
+SERVICE_P, SERVICE_CLIENTS, SERVICE_REQUESTS = 16, 4, 512
+# Service traffic: N drawn from [10,000, 16,384], K from [8, 16], d from
+# SERVICE_D, a quarter of the matrices repeats.  d = 1.0 from random_banded
+# reads 0.99999993 in float32 under the d >= 1 rule that routes a request
+# to variant C, so 1.1 stands for the dominant class.
+SERVICE_N, SERVICE_K, SERVICE_D, SERVICE_REPEAT = (10_000, 16_384), (8, 16), (0.5, 1.1), 0.25
+# A batch against single-system solves of the same systems, float32
+# preconditioners and float64 iterations on both sides: x within this
+# fraction of the single x.  The fold may give a kernel another cluster
+# size, tile or split than one system's launch, so sums run in another order.
+BATCH_XTOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -432,6 +480,15 @@ def fused_library(d, e, f, bq, cq):
             torch.matmul(c_ul, cq.flip(-2)).flip(-2), torch.matmul(sinv[:, -1], c_w))
 
 
+def host_band_matvec(band, x):
+    """A band-storage matrix times a vector on the host, in float64."""
+    import numpy as np
+
+    k = (band.shape[1] - 1) // 2
+    win = np.lib.stride_tricks.sliding_window_view(np.pad(x, k), band.shape[1])
+    return (band.astype(np.float64) * win).sum(axis=1)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn`` on the card, timed by CUDA events."""
     import torch
@@ -552,7 +609,8 @@ def main() -> int:
     from repro_torch.core import cyclic_reduction as cr
     from repro_torch.core.spike import _reduced_interface_system
     from repro_torch.kernels import bcr, build, ops
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, sap_solver
+    from repro_torch.core import batched
     from repro_torch.kernels.btf import btf
     from repro_torch.kernels.bts import bts
     from repro_torch.kernels.flash_attn import flash_attention
@@ -561,7 +619,7 @@ def main() -> int:
     from repro_torch.kernels.ssd import ssd, ssd_plain
     from repro_torch.kernels.wkv import scan_route, wkv6, wkv6_plain
     from repro_torch.models import get_family
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import Cancelled, Request, ServeEngine
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -886,6 +944,97 @@ def main() -> int:
                 err = check_close(what, got, want)
             errs[f"flash_{tag}_{str(dtype)[6:]}"] = err
             del q, k, v, got, want
+    # fleets: S systems folded into each kernel's chain axis.  btf, the fused
+    # pass and bts (R = 1, 4) at S*P = 64 * 16 chains of the fleet config's
+    # K = 16 and of the K' = 2, 4, 8 that pow2 buckets give at the serving
+    # sizes, through kernels/ops.py's fold (one launch each) against the
+    # plain versions on the folded operands; BCR over the S = 64 reduced
+    # chains of 15 interfaces (2K = 32 and 4) of the d = 0.5 fleets: every
+    # level's kernels on the S padded chains laid end to end, as the
+    # stacked factor lays them, and the stacked factor / solve against each
+    # chain's plain BCR.  Each kernel's cluster size, tile or split at the
+    # folded shape beside one system's.
+    fcfg = sap_solver.fleet()
+    nchains = FLEET_S * FLEET_P
+    fleet_routes = {}
+
+    def fleet_split(kf, dd):
+        bands = np.stack([random_banded(fcfg.n, kf, dd, seed=SEED + 100 + i).astype(np.float32)
+                          for i in range(FLEET_S)])
+        return band_to_block_tridiag(torch.tensor(bands, device=dev), kf, FLEET_P)
+
+    def fold(t):
+        return t.flatten(0, 1)
+
+    for kf in (fcfg.k, 2, 4, 8):
+        tag = f"_fleet_k{kf}"
+        fbt = fleet_split(kf, fcfg.d)
+        if kf == fcfg.k:
+            fleet_bt = fbt  # kept for the timing phase
+        routes[f"btf{tag}"] = lib_btf.btf_cluster_size(nchains, kf)
+        routes[f"fused{tag}"] = lib_fused.fused_cluster_size(nchains, kf)
+        lu = ops.block_tridiag_factor(fbt.d, fbt.e, fbt.f)
+        want_lu = bl.btf_ref(fold(fbt.d), fold(fbt.e), fold(fbt.f))
+        errs[f"btf{tag}"] = max(check_close(f"btf{tag} sinv", fold(lu.sinv), want_lu.sinv),
+                                check_close(f"btf{tag} l", fold(lu.l), want_lu.l))
+        fs = ops.fused_factor_spike(fbt.d, fbt.e, fbt.f, fbt.b_cpl, fbt.c_cpl)
+        bq_f, cq_f = bl.pad_couplings(fbt.b_cpl, fbt.c_cpl, FLEET_P)
+        want = [t.reshape((FLEET_S, FLEET_P) + tuple(t.shape[1:])) for t in
+                bl.fused_factor_spike_padded_ref(fold(fbt.d), fold(fbt.e), fold(fbt.f),
+                                                 fold(bq_f), fold(cq_f))]
+        errs[f"fused{tag}"] = max(
+            check_close(f"fused{tag} {nm}", o, w) for nm, o, w in zip(
+                ("sinv", "l", "vb", "vt", "wt", "wb"),
+                (fs.lu.sinv, fs.lu.l, fs.v_bot, fs.v_top, fs.w_top, fs.w_bot),
+                (want[0], want[1], want[2][:, :-1], want[3][:, :-1], want[4][:, 1:],
+                 want[5][:, 1:])))
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        for r in (1, 4):
+            rhs = torch.randn(tuple(fbt.d.shape[:4]) + (r,), generator=g, device=dev)
+            routes[f"bts{tag}_r{r}"] = lib_bts.bts_cluster_size(nchains, kf, r)
+            errs[f"bts{tag}_r{r}"] = check_close(f"bts{tag} r={r}",
+                                                 fold(ops.block_tridiag_solve(lu, rhs)),
+                                                 bl.bts_ref(want_lu, fold(rhs)))
+        fleet_routes[f"k{kf}"] = {
+            "chains": nchains, "m": fbt.m,
+            "btf_cluster": routes[f"btf{tag}"],
+            "btf_cluster_one_system": lib_btf.btf_cluster_size(FLEET_P, kf),
+            "fused_cluster": routes[f"fused{tag}"],
+            "fused_cluster_one_system": lib_fused.fused_cluster_size(FLEET_P, kf),
+            "bts_cluster_r1": routes[f"bts{tag}_r1"],
+            "bts_cluster_r1_one_system": lib_bts.bts_cluster_size(FLEET_P, kf, 1),
+            "bts_copies": "tma" if lib_bts.bts_bulk_route(
+                lu.sinv.data_ptr(), lu.l.data_ptr(), fbt.f.data_ptr(), kf) else "cp.async"}
+        del fbt, lu, want_lu, fs, want
+        if kf not in (fcfg.k, 2):
+            continue
+        ebt = fleet_split(kf, 0.5)
+        efs = ops.fused_factor_spike(ebt.d, ebt.e, ebt.f, ebt.b_cpl, ebt.c_cpl)
+        rd_f, re_f, rf_f = _reduced_interface_system(efs.v_bot, efs.v_top, efs.w_top, efs.w_bot)
+        assert tuple(rd_f.shape) == (FLEET_S, FLEET_P - 1, 2 * kf, 2 * kf)
+        del ebt, efs
+        ends = [cr.pad_chain(*c) for c in zip(rd_f, re_f, rf_f)]
+        check_bcr(tag, *(torch.cat(t) for t in zip(*ends)), (1, 4))
+        stacked = ops.bcr_factor(rd_f, re_f, rf_f)
+        h = torch.randn(FLEET_S, FLEET_P - 1, 2 * kf, 4, generator=g, device=dev)
+        y = ops.bcr_solve(stacked, h)
+        plain = [cr.bcr_factor(*c) for c in zip(rd_f, re_f, rf_f)]
+        errs[f"bcr_stacked{tag}"] = max(
+            [check_close(f"bcr_stacked{tag} root", stacked.root_inv[i], w.root_inv)
+             for i, w in enumerate(plain)]
+            + [check_close(f"bcr_stacked{tag} solve", y[i], cr.bcr_solve(w, h[i]))
+               for i, w in enumerate(plain)])
+        m2s = [lv.lo.shape[1] for lv in stacked.levels]
+        fleet_routes[f"k{kf}"]["bcr_by_level"] = [{
+            "m2_one_system": m2, "m2": FLEET_S * m2,
+            "reduce_tile": lib_bcr.bcr_reduce_tile(FLEET_S * m2, 2 * kf),
+            "reduce_tile_one_system": lib_bcr.bcr_reduce_tile(m2, 2 * kf),
+            "rhs_reduce_split": lib_bcr.bcr_rhs_reduce_split(FLEET_S * m2, 2 * kf, 1),
+            "rhs_reduce_split_one_system": lib_bcr.bcr_rhs_reduce_split(m2, 2 * kf, 1),
+            "backsub_cluster": lib_bcr.bcr_backsub_cluster(FLEET_S * m2, 2 * kf, 1),
+            "backsub_cluster_one_system": lib_bcr.bcr_backsub_cluster(m2, 2 * kf, 1)}
+            for m2 in m2s]
+        del rd_f, re_f, rf_f, ends, stacked, plain, y, h
     torch.cuda.synchronize()
     # btf and the fused pass always on a cluster here; bts on one exactly
     # when R <= 8 (whole spikes, R = K, take the one-block kernel)
@@ -898,7 +1047,8 @@ def main() -> int:
           "ssd_prefill_head_group": ssd_head_group,
           "flash_bfloat16_step_atol": [FLASH_BF16_STEP, FLASH_BF16_ATOL],
           "flash_bfloat16_worst_share": bf16_share, "max_abs_err": errs,
-          "chain_coupling": coupling, "refused": refused, "flash_shapes": flash_shapes})
+          "chain_coupling": coupling, "refused": refused, "flash_shapes": flash_shapes,
+          "fleet_routes": fleet_routes})
 
     # ---- 4. the slices at full size ------------------------------------------
     rng = np.random.default_rng(SEED)
@@ -1048,10 +1198,419 @@ def main() -> int:
                              f"C_p500 {iterations['C_p500']}")
     del systems, band_d05, sparse_plan, a_sparse
 
+    # ---- the solver's serving path: fleet, batch_full, service ----------------
+    from torch.profiler import ProfilerActivity, profile
+
+    solver_kernels = ("btf", "bts", "fused_factor_spike") + bcr_names
+
+    def timed(fn):
+        """fn()'s result and its wall milliseconds, ended by a sync."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def device_busy(fn):
+        """Wall ms of fn() (ended by a sync) and the profiler's device ms
+        in it: the card's busy share of the wall time."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(fn)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        return {"wall_ms": wall, "device_ms": busy, "busy_share": busy / wall}
+
+    def delta(before):
+        now = counts()
+        return {nm: now[nm] - before[nm] for nm in solver_kernels if now[nm] != before[nm]}
+
+    def sweeps(iterations) -> int:
+        return math.ceil(float(iterations.max()))
+
+    def applies(n_sweeps: int) -> int:
+        """Preconditioner applies of a BiCGStab(2) solve: the initial
+        residual, the norm of M^-1 b, and four a sweep."""
+        return 2 + 4 * n_sweeps
+
+    def add_totals():
+        for nm, c in counts().items():
+            if nm in totals:
+                totals[nm] += c
+
+    def watch_batches(log):
+        """Wrap batch_factor and solve_batch (module and class attributes
+        the engine reads) so that each call logs the launches it made; the
+        previous functions are returned for unwatch()."""
+        real = batched.batch_factor, batched.BatchedSaPFactorization.solve_batch
+
+        def factor_logged(bpl):
+            before = counts()
+            out = real[0](bpl)
+            log.append({"call": "factor", "s": bpl.s, **delta(before)})
+            return out
+
+        def solve_logged(self, b, record_history=False):
+            before = counts()
+            res = real[1](self, b, record_history)
+            log.append({"call": "solve", "s": self.s, "sweeps": sweeps(res.iterations),
+                        **delta(before)})
+            return res
+
+        batched.batch_factor = factor_logged
+        batched.BatchedSaPFactorization.solve_batch = solve_logged
+        return real
+
+    def unwatch(real):
+        batched.batch_factor, batched.BatchedSaPFactorization.solve_batch = real
+
+    def must_launch(what, launched, names):
+        """Every kernel of a path launched at least once in its run."""
+        missing = [nm for nm in names if not launched.get(nm)]
+        if missing:
+            raise AssertionError(f"{what}: kernels {missing} were never launched: {launched}")
+
+    def check_folds(what, log, one_factor, one_bts_per_apply):
+        """No batch factor launches btf or the fused pass more than one
+        system's factor does, and no batched solve more bts launches an
+        apply than one system's solve: S launches would mean a loop."""
+        for entry in log:
+            if entry["call"] == "factor":
+                for nm in ("btf", "fused_factor_spike"):
+                    if entry.get(nm, 0) > one_factor.get(nm, 0):
+                        raise AssertionError(f"{what}: a batch factor of {entry['s']} systems "
+                                             f"launched {nm} {entry[nm]} times: {entry}")
+            elif entry.get("bts", 0) > one_bts_per_apply * applies(entry["sweeps"]):
+                raise AssertionError(f"{what}: a batched solve of {entry['s']} systems launched "
+                                     f"bts {entry['bts']} times in {entry['sweeps']} sweeps")
+
+    # fleet: 64 distinct matrices of configs/sap_solver.py:fleet(), each
+    # submitted FLEET_ROUNDS times with a fresh right-hand side (b = A x*,
+    # float64), round by round: one step of 64 misses, then hits
+    fleet_bands = [random_banded(fcfg.n, fcfg.k, fcfg.d, seed=SEED + 100 + i).astype(np.float32)
+                   for i in range(FLEET_S)]
+    frng = np.random.default_rng(SEED + 1)
+    fleet_x = frng.normal(size=(FLEET_S, fcfg.n, FLEET_ROUNDS))
+    stack64 = torch.tensor(np.stack(fleet_bands), device=dev, dtype=torch.float64)
+    fleet_b = band_matvec(stack64, torch.tensor(fleet_x, device=dev)).cpu().numpy()
+    del stack64
+    fopts = fcfg.to_sap_options(FLEET_P)
+    # one system through the lifecycle: its factor's launches and its bts
+    # launches an apply are what every batch is held to; first-call costs
+    # (torch's lazy loading at these shapes) are paid here too
+    reset()
+    one = factor(plan_banded(fleet_bands[0], fopts))
+    one_factor = counts()
+    before = counts()
+    one_res = one.solve(fleet_b[0, :, 0])
+    one_bts = delta(before).get("bts", 0) / applies(sweeps(one_res.iterations))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for bd in fleet_bands:
+        factor(plan_banded(bd, fopts))
+    torch.cuda.synchronize()
+    singles_factor_ms = (time.perf_counter() - t0) * 1e3
+    warm = fcfg.to_engine(FLEET_P)
+    for i in range(2):
+        warm.submit_system(fleet_bands[i], fleet_b[i, :, 0])
+    warm.run_until_drained()
+    del warm, one
+    eng = fcfg.to_engine(FLEET_P)
+    for rnd in range(FLEET_ROUNDS):
+        for i in range(FLEET_S):
+            eng.submit_system(fleet_bands[i], fleet_b[i, :, rnd])
+    log, steps = [], []
+    real_step = eng.step
+
+    def timed_step():
+        s0, before, t0 = eng.stats_snapshot(), counts(), time.perf_counter()
+        done = real_step()
+        ms = (time.perf_counter() - t0) * 1e3
+        s1 = eng.stats_snapshot()
+        steps.append({"requests": len(done), "ms": ms,
+                      "factor_ms": (s1["factor_seconds_total"] - s0["factor_seconds_total"]) * 1e3,
+                      "solve_ms": (s1["solve_seconds_total"] - s0["solve_seconds_total"]) * 1e3,
+                      "cache_hits": s1["cache_hits"] - s0["cache_hits"], "launches": delta(before)})
+        return done
+
+    eng.step = timed_step
+    real = watch_batches(log)
+    try:
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        done = eng.run_until_drained(on_leftover="raise")
+        fleet_s = time.perf_counter() - t0
+    finally:
+        unwatch(real)
+    fleet_counts = counts()
+    add_totals()
+    must_launch("fleet", fleet_counts, ("btf", "bts", "fused_factor_spike"))
+    fstats = eng.stats_snapshot()
+    # where a step's time goes: the 64 systems through each piece of a miss
+    # step, each ended by a sync -- batch_plan (padding and stacking on the
+    # host, the copy to the card), batch_factor, 64 index_factorization
+    # copies, their stack, the batched solve -- and the card's busy share of
+    # a factor, of a batched solve and of one system's factor
+    fbpl, plan_ms = timed(lambda: batched.batch_plan(fleet_bands, fopts))
+    fbfac, factor_ms = timed(lambda: batched.batch_factor(fbpl))
+    facs, index_ms = timed(lambda: [batched.index_factorization(fbfac, i) for i in range(FLEET_S)])
+    stacked, stack_ms = timed(lambda: batched.stack_factorizations(facs))
+    fb0 = torch.tensor(fleet_b[:, :, 0], device=dev)
+    _, solve_ms = timed(lambda: stacked.solve_batch(fb0))
+    breakdown = {"batch_plan_ms": plan_ms, "batch_factor_ms": factor_ms,
+                 "index_factorization_x64_ms": index_ms, "stack_factorizations_ms": stack_ms,
+                 "solve_batch_ms": solve_ms,
+                 "batch_factor_profile": device_busy(lambda: batched.batch_factor(fbpl)),
+                 "solve_batch_profile": device_busy(lambda: stacked.solve_batch(fb0)),
+                 "one_system_factor_profile": device_busy(
+                     lambda: factor(plan_banded(fleet_bands[0], fopts)))}
+    del fbpl, fbfac, facs, stacked, fb0
+    order = sorted(done, key=lambda r: r.rid)
+    x_got = np.stack([r.result.x for r in order]).reshape(FLEET_ROUNDS, FLEET_S, fcfg.n)
+    fwd = (np.linalg.norm(x_got - fleet_x.transpose(2, 0, 1), axis=-1)
+           / np.linalg.norm(fleet_x.transpose(2, 0, 1), axis=-1))
+    tres = [r.result.true_resnorm for r in order]
+    emit({"phase": "fleet", "config": fcfg.name, "n": fcfg.n, "k": fcfg.k, "d": fcfg.d,
+          "p": FLEET_P, "variant": fopts.variant, "tol": fcfg.tol, "max_batch": fcfg.max_batch,
+          "fac_cache": fcfg.fac_cache, "systems": FLEET_S, "rounds": FLEET_ROUNDS,
+          "requests": len(done), "seconds": fleet_s, "systems_per_s": len(done) / fleet_s,
+          "engine_systems_per_s": eng.systems_per_second, "cache_hit_rate": eng.cache_hit_rate,
+          "stats": fstats, "steps": steps, "batches": log,
+          "launches": {nm: fleet_counts[nm] for nm in solver_kernels if fleet_counts[nm]},
+          "one_system": {"factor_launches": {nm: one_factor[nm] for nm in solver_kernels
+                                             if one_factor[nm]},
+                         "bts_per_apply": one_bts, "iterations": float(one_res.iterations)},
+          "factor_ms_64_single_systems": singles_factor_ms, "breakdown": breakdown,
+          "iterations": sorted({r.result.iterations for r in order}),
+          "true_resnorm_max": max(tres), "forward_error_max": float(fwd.max()),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), "nvidia_smi": smi})
+    if len(done) != FLEET_S * FLEET_ROUNDS or not all(r.result.converged for r in done):
+        raise AssertionError("fleet: a request did not converge")
+    if max(tres) > 10 * fcfg.tol:
+        raise AssertionError(f"fleet: true_resnorm {max(tres)} > {10 * fcfg.tol}")
+    if (fstats["cache_misses"], fstats["cache_hits"], fstats["steps"]) != (
+            FLEET_S, FLEET_S * (FLEET_ROUNDS - 1), FLEET_ROUNDS):
+        raise AssertionError(f"fleet: not one step of misses, then hits: {fstats}")
+    check_folds("fleet", log, one_factor, one_bts)
+    del eng, done, order, fleet_bands, fleet_b, fleet_x, x_got
+
+    # batch_full: full() (C) and exact() (E, BCR) at P=64, BATCH_S systems a
+    # batch, against BATCH_S single-system factor / solve runs of the same
+    # systems.  Exact rounding: the bucket is then each system's own split
+    # (N padded to P*M*K = 204,800, K = 200); pow2 would widen K to 256.
+    batch_lines = {}
+    for cname, ccfg in (("full", sap_solver.full()), ("exact", sap_solver.exact())):
+        copts = ccfg.to_sap_options(BATCH_P)
+        bands = [torch.tensor(random_banded(ccfg.n, ccfg.k, ccfg.d, seed=SEED + 200 + i)
+                              .astype(np.float32), device=dev) for i in range(BATCH_S)]
+        xs = torch.tensor(np.random.default_rng(SEED + 2).normal(size=(BATCH_S, ccfg.n)),
+                          device=dev)
+        bs = torch.stack([band_matvec(bd.double(), x) for bd, x in zip(bands, xs)])
+        scale = torch.arange(1, BATCH_R + 1, device=dev, dtype=torch.float64)
+        bmany = bs[:, :, None] * scale
+
+        def f64_resnorm(band, x, rhs):
+            return ((rhs - band_matvec(band.double(), x)).norm(dim=0) / rhs.norm(dim=0))
+
+        log = []
+        real = watch_batches(log)
+        try:
+            reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for attempt in range(2):  # the second call of each stage is reported
+                t0 = time.perf_counter()
+                bfac = batched.batch_factor(batched.batch_plan(bands, copts, rounding="exact"))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res = bfac.solve_batch(torch.nn.functional.pad(bs, (0, bfac.n - ccfg.n)))
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                resm = bfac.solve_batch_many(
+                    torch.nn.functional.pad(bmany, (0, 0, 0, bfac.n - ccfg.n)))
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                if attempt == 0:
+                    first_log, batch_counts = list(log), counts()
+                    peak = torch.cuda.max_memory_allocated()
+                    add_totals()
+                    del bfac, res, resm
+        finally:
+            unwatch(real)
+        times = {"factor_ms": (t1 - t0) * 1e3, "solve_batch_ms": (t2 - t1) * 1e3,
+                 "solve_batch_many_ms": (t3 - t2) * 1e3}
+        variant = (bfac.variant, bfac.fac.pc.reduced_solver)
+        bucket = [bfac.n, bfac.k]
+        del bfac
+        single = {"factor_ms": 0.0, "solve_ms": 0.0, "solve_many_ms": 0.0}
+        rows = []
+        for i, bd in enumerate(bands):
+            for attempt in range(2):
+                before = counts()
+                t0 = time.perf_counter()
+                fac = factor(plan_banded(bd, copts))
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                one_factor = delta(before)
+                before = counts()
+                one = fac.solve(bs[i])
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                one_bts = delta(before).get("bts", 0) / applies(sweeps(one.iterations))
+                onem = fac.solve_many(bmany[i])
+                torch.cuda.synchronize()
+                t3 = time.perf_counter()
+                del fac
+            single["factor_ms"] += (t1 - t0) * 1e3
+            single["solve_ms"] += (t2 - t1) * 1e3
+            single["solve_many_ms"] += (t3 - t2) * 1e3
+            xb, xbm = res.x[i, : ccfg.n], resm.x[i, : ccfg.n]
+            rows.append({
+                "iterations": float(res.iterations[i]), "iterations_single": float(one.iterations),
+                "iterations_many": resm.iterations[i].tolist(),
+                "iterations_many_single": onem.iterations.tolist(),
+                "true_resnorm_f64": float(f64_resnorm(bd, xb, bs[i])),
+                "true_resnorm_f64_single": float(f64_resnorm(bd, one.x, bs[i])),
+                "true_resnorm_f64_many": f64_resnorm(bd, xbm, bmany[i]).tolist(),
+                "x_vs_single": float((xb - one.x).norm() / one.x.norm()),
+                "x_vs_single_many": float(((xbm - onem.x).norm(dim=0)
+                                           / onem.x.norm(dim=0)).max()),
+                "forward_error": float((xb - xs[i]).norm() / xs[i].norm())})
+            del one, onem
+        emit({"phase": "batch_full", "config": ccfg.name, "n": ccfg.n, "k": ccfg.k, "d": ccfg.d,
+              "p": BATCH_P, "s": BATCH_S, "r_many": BATCH_R, "tol": ccfg.tol,
+              "variant": variant, "bucket": bucket, "batch": times, "single_x4": single,
+              "batch_factor_over_single_x4": times["factor_ms"] / single["factor_ms"],
+              "batch_solve_over_single_x4": times["solve_batch_ms"] / single["solve_ms"],
+              "systems": rows, "batches_first_call": first_log,
+              "launches_batch": {nm: batch_counts[nm] for nm in solver_kernels
+                                 if batch_counts[nm]},
+              "launches_one_system_factor": one_factor, "one_system_bts_per_apply": one_bts,
+              "x_tolerance_vs_single": BATCH_XTOL, "peak_mem_bytes": peak, "nvidia_smi": smi})
+        want_variant = ("C", "none") if ccfg.variant == "C" else ("E", "bcr")
+        if variant != want_variant:
+            raise AssertionError(f"batch_full {cname}: variant {variant}, not {want_variant}")
+        for row in rows:
+            worst = max([row["true_resnorm_f64"], row["true_resnorm_f64_single"]]
+                        + row["true_resnorm_f64_many"])
+            if worst > 1e-6:
+                raise AssertionError(f"batch_full {cname}: true_resnorm {worst} > 1e-6: {row}")
+            if max(row["x_vs_single"], row["x_vs_single_many"]) > BATCH_XTOL:
+                raise AssertionError(f"batch_full {cname}: x against the single solve: {row}")
+            pairs = [(row["iterations"], row["iterations_single"])] + list(
+                zip(row["iterations_many"], row["iterations_many_single"]))
+            if any(math.ceil(a) != math.ceil(b) for a, b in pairs):
+                raise AssertionError(f"batch_full {cname}: sweep counts differ: {row}")
+        factors = [e for e in first_log if e["call"] == "factor"]
+        launched = [{nm: c for nm, c in e.items() if nm in solver_kernels} for e in factors]
+        if launched != [one_factor]:
+            raise AssertionError(f"batch_full {cname}: the batch factor's launches {factors} "
+                                 f"are not one system's {one_factor}")
+        must_launch(f"batch_full {cname}", batch_counts, ("btf", "bts", "fused_factor_spike")
+                    if ccfg.variant == "C" else ("bts", "fused_factor_spike") + bcr_names)
+        check_folds(f"batch_full {cname}", first_log, one_factor, one_bts)
+        del bands, xs, bs, bmany, res, resm, rows
+        torch.cuda.empty_cache()
+
+    # service: configs/sap_solver.py:service() through AsyncSolverService,
+    # SERVICE_CLIENTS client threads submitting SERVICE_REQUESTS requests:
+    # N, K and d drawn per request (several pow2 buckets, both dominance
+    # classes), mixed priorities, a quarter of the matrices repeated; b = A x*
+    # in float64.  The requests are made before the clock starts.
+    scfg = sap_solver.service()
+    srng = np.random.default_rng(SEED + 3)
+    pool, reqs = [], []
+    for i in range(SERVICE_REQUESTS):
+        if pool and srng.random() < SERVICE_REPEAT:
+            band = pool[int(srng.integers(len(pool)))]
+        else:
+            n_i = int(srng.integers(SERVICE_N[0], SERVICE_N[1] + 1))
+            k_i = int(srng.integers(SERVICE_K[0], SERVICE_K[1] + 1))
+            d_i = SERVICE_D[int(srng.integers(len(SERVICE_D)))]
+            band = random_banded(n_i, k_i, d_i, seed=SEED + 1000 + i).astype(np.float32)
+            pool.append(band)
+        x_i = srng.normal(size=band.shape[0])
+        reqs.append((band, host_band_matvec(band, x_i), x_i, int(srng.integers(0, 3))))
+    log = []
+    real = watch_batches(log)
+    futures = [[] for _ in range(SERVICE_CLIENTS)]
+
+    def client(c):
+        for band, b, _, prio in reqs[c::SERVICE_CLIENTS]:
+            futures[c].append(svc.submit(band, b, priority=prio))
+
+    try:
+        reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        svc = scfg.to_service(SERVICE_P)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVICE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        submit_s = time.perf_counter() - t0
+        outs = [[f.outcome(timeout=600) for f in fs] for fs in futures]
+        service_s = time.perf_counter() - t0
+        svc.close()
+    finally:
+        unwatch(real)
+    service_counts = counts()
+    add_totals()
+    snap = svc.snapshot()
+    by_req = [None] * SERVICE_REQUESTS
+    for c, os_ in enumerate(outs):
+        for j, out in enumerate(os_):
+            by_req[c + j * SERVICE_CLIENTS] = out
+    solved = [(o, reqs[i]) for i, o in enumerate(by_req) if not isinstance(o, Cancelled)]
+    shed = [o.reason for o in by_req if isinstance(o, Cancelled)]
+    wait = svc.metrics.histogram("time_in_queue_s")
+    tres = [o.true_resnorm for o, _ in solved]
+    fwd = [float(np.linalg.norm(o.x - r[2]) / np.linalg.norm(r[2])) for o, r in solved]
+    classes = {}
+    for o, _ in solved:
+        key = f"{o.variant} {o.bucket[0]}x{o.bucket[1]}"
+        classes[key] = classes.get(key, 0) + 1
+    emit({"phase": "service", "config": scfg.name, "p": SERVICE_P, "tol": scfg.tol,
+          "max_batch": scfg.max_batch, "fac_cache": scfg.fac_cache, "queue_cap": scfg.queue_cap,
+          "deadline_s": scfg.deadline_s, "clients": SERVICE_CLIENTS,
+          "requests": SERVICE_REQUESTS, "distinct_matrices": len(pool),
+          "n_range": SERVICE_N, "k_range": SERVICE_K, "d_values": SERVICE_D,
+          "seconds": service_s, "submit_seconds": submit_s,
+          "requests_per_s": SERVICE_REQUESTS / service_s,
+          "time_in_queue_s": {"p50": wait.quantile(0.5), "p99": wait.quantile(0.99),
+                              "max": wait.quantile(1.0), "count": wait.count},
+          "solved_by_variant_and_bucket": classes, "shed": shed,
+          "cache_hit_rate": snap["derived"]["cache_hit_rate"],
+          "escalations": snap["counters"]["escalations"],
+          "misconverged": snap["counters"]["misconverged_total"],
+          "deadline_misses": snap["counters"]["deadline_misses"],
+          "dispatches": snap["histograms"]["batch_occupancy"]["count"],
+          "batch_occupancy_mean": snap["histograms"]["batch_occupancy"]["mean"],
+          "engine": snap["engine"], "true_resnorm_max": max(tres),
+          "forward_error_max": max(fwd), "iterations": sorted({o.iterations for o, _ in solved}),
+          "batches": len(log), "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+          "launches": {nm: service_counts[nm] for nm in solver_kernels if service_counts[nm]},
+          "nvidia_smi": smi})
+    if any(reason != "deadline" for reason in shed):
+        raise AssertionError(f"service: futures resolved without a solve: {shed}")
+    if len(solved) + len(shed) != SERVICE_REQUESTS or not solved:
+        raise AssertionError("service: a future did not resolve")
+    if max(tres) > 10 * scfg.tol or not all(o.converged for o, _ in solved):
+        raise AssertionError(f"service: true_resnorm {max(tres)} > {10 * scfg.tol}")
+    if {key.split()[0] for key in classes} != {"C", "E"}:
+        raise AssertionError(f"service: both dominance classes must be routed: {classes}")
+    must_launch("service", service_counts, solver_kernels)
+    # one system's counts under both classes: C factors with the fused pass
+    # and one btf (the interface inverses), E with the fused pass and BCR;
+    # both apply bts twice
+    check_folds("service", log, {"btf": 1, "fused_factor_spike": 1}, 2)
+    del svc, reqs, pool, by_req, solved, outs, futures
+
     # ---- lm. RWKV6-1.6B and Zamba2-2.7B at full width and depth ----------------
     import dataclasses
-
-    from torch.profiler import ProfilerActivity, profile
 
     def device_profile(prof, top_n: int = 8) -> dict:
         """Device time by kernel from a profiler run: busy ms, launches and
@@ -1533,6 +2092,44 @@ def main() -> int:
     bts.by_cluster.update(saved[2])
     summary[[e["name"] for e in summary].index("bts")]["shapes"] = bts_rows
     del bts_shapes, bts_cases, chain_lu
+    # btf, the fused pass and bts at the fleet's folded shape (S*P = 1,024
+    # chains of M = 64 blocks of K = 16, one launch for 64 systems), beside
+    # their plain versions and the library loops, with each launch's cluster
+    # size (row "fleet" of each kernel)
+    fp, fm, fk = nchains, fleet_bt.m, fleet_bt.k
+    fd, fe, ff = (fold(t) for t in (fleet_bt.d, fleet_bt.e, fleet_bt.f))
+    fbq, fcq = (fold(t) for t in bl.pad_couplings(fleet_bt.b_cpl, fleet_bt.c_cpl, FLEET_P))
+    fref = bl.btf_ref(fd, fe, ff)
+    frhs = torch.randn((fp, fm, fk, 1), device=dev)
+    fleet_specs = {
+        "btf": (lambda: btf(fd, fe, ff), lambda: bl.btf_ref(fd, fe, ff),
+                lambda: btf_library(fd, fe, ff), btf_work(fp, fm, fk),
+                lib_btf.btf_cluster_size(fp, fk), errs[f"btf_fleet_k{fk}"]),
+        "bts": (lambda: bts(fref.sinv, fref.l, ff, frhs), lambda: bl.bts_ref(fref, frhs), None,
+                bts_work(fp, fm, fk, 1), lib_bts.bts_cluster_size(fp, fk, 1),
+                errs[f"bts_fleet_k{fk}_r1"]),
+        "fused_factor_spike": (lambda: fused_factor_spike(fd, fe, ff, fbq, fcq),
+                               lambda: bl.fused_factor_spike_padded_ref(fd, fe, ff, fbq, fcq),
+                               lambda: fused_library(fd, fe, ff, fbq, fcq), fused_work(fp, fm, fk),
+                               lib_fused.fused_cluster_size(fp, fk), errs[f"fused_fleet_k{fk}"]),
+    }
+    for name, (kern, plain, lib_fn, (flops, nbytes), cs, err) in fleet_specs.items():
+        w = wrappers[name]
+        saved = w.launches, w.block_launches, dict(bts.by_cluster)
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 1)
+        library_ms = cuda_ms(lib_fn, 5) if lib_fn else None
+        w.launches, w.block_launches = saved[:2]  # timing launches are not the path's
+        bts.by_cluster.clear()
+        bts.by_cluster.update(saved[2])
+        bound_ms, bound_by = bound(flops, nbytes)
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "cluster": cs, "max_abs_err": err,
+               "shape": [fp, fm, fk] + ([1] if name == "bts" else []), "systems": FLEET_S}
+        summary[[e["name"] for e in summary].index(name)]["fleet"] = row
+        emit({"phase": "timing", "kernel": name, "at": "fleet", **row, "bytes": nbytes,
+              "flops": flops})
+    del fleet_bt, fd, fe, ff, fbq, fcq, fref, frhs
 
     # reduce level by level over the P=64 and the P=500 chain: the kernel at
     # the tile size it takes, the library call (six batched torch.matmul
@@ -1720,7 +2317,7 @@ def main() -> int:
 
     # no measured time may read under the least time the card could take
     for entry in summary:
-        rows = ([entry] + [entry[t] for t in ("prefill", "windowed", "p500") if t in entry]
+        rows = ([entry] + [entry[t] for t in ("prefill", "windowed", "p500", "fleet") if t in entry]
                 + entry.get("shapes", [])
                 + [r for lv in entry.get("by_level", {}).values() for r in lv])
         for row in rows:

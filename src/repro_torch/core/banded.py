@@ -57,23 +57,25 @@ def band_to_dense(band: torch.Tensor) -> torch.Tensor:
 
 
 def band_matvec(band: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x with A in band storage.  x: (N,) or (N, R).
+    """y = A @ x with A in band storage.
 
-    One windowed product: ``x`` padded by K zeros on each side is viewed as
-    its (N, R, 2K+1) sliding windows (no copy), so
-    ``y[r] = sum_j band[r, j] * x[r - K + j]``.  Computes in the promoted
-    dtype of ``band`` and ``x``.
+    ``band`` is (N, 2K+1) against ``x`` of (N,) or (N, R), or a stack of
+    S bands (S, N, 2K+1) against (S, N) or (S, N, R): system s's band
+    multiplies system s's vector.  One windowed product: ``x`` padded by K
+    zeros on each side of its row axis is viewed as its (..., N, R, 2K+1)
+    sliding windows (no copy), so ``y[r] = sum_j band[r, j] * x[r - K + j]``.
+    Computes in the promoted dtype of ``band`` and ``x``.
     """
-    n, w = band.shape
+    w = band.shape[-1]
     k = (w - 1) // 2
-    squeeze = x.ndim == 1
+    squeeze = x.ndim == band.ndim - 1
     if squeeze:
-        x = x[:, None]
+        x = x[..., None]
     dt = torch.promote_types(band.dtype, x.dtype)
-    xp = torch.nn.functional.pad(x.to(dt).T, (k, k)).T  # (N + 2K, R)
-    win = xp.unfold(0, w, 1)  # (N, R, 2K+1) view
-    y = torch.einsum("nw,nrw->nr", band.to(dt), win)
-    return y[:, 0] if squeeze else y
+    xp = torch.nn.functional.pad(x.to(dt).transpose(-1, -2), (k, k)).transpose(-1, -2)
+    win = xp.unfold(-2, w, 1)  # (..., N, R, 2K+1) view
+    y = torch.einsum("...nw,...nrw->...nr", band.to(dt), win)
+    return y[..., 0] if squeeze else y
 
 
 def diag_dominance_factor(band: torch.Tensor) -> torch.Tensor:
@@ -82,13 +84,14 @@ def diag_dominance_factor(band: torch.Tensor) -> torch.Tensor:
     Paper Eq. 2.11: ``min_i |a_ii| / sum_{j!=i} |a_ij|``.  Rows with no
     off-diagonal mass are infinitely dominant and drop out of the minimum
     (a pure diagonal matrix returns ``inf``).  Drives ``variant="auto"``.
+    A stack of bands (S, N, 2K+1) gives one ``d`` a system, (S,).
     """
-    k = (band.shape[1] - 1) // 2
-    diag = band[:, k].abs()
-    off = band.abs().sum(dim=1) - diag
+    k = (band.shape[-1] - 1) // 2
+    diag = band[..., k].abs()
+    off = band.abs().sum(dim=-1) - diag
     safe = torch.where(off > 0, off, torch.ones_like(off))
     ratio = torch.where(off > 0, diag / safe, torch.full_like(off, float("inf")))
-    return ratio.min()
+    return ratio.amin(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +145,9 @@ class BlockTridiag:
     c_cpl: (P-1, K, K) sub coupling block C_{i+1} (rows: top of part i+1,
                         cols: bottom of part i)
     n: original (unpadded) system size
+
+    A fleet of S systems split alike (:mod:`repro_torch.core.batched`)
+    carries a leading system axis on every tensor: d (S, P, M, K, K), ...
     """
 
     d: torch.Tensor
@@ -153,15 +159,15 @@ class BlockTridiag:
 
     @property
     def p(self) -> int:
-        return self.d.shape[0]
+        return self.d.shape[-4]
 
     @property
     def m(self) -> int:
-        return self.d.shape[1]
+        return self.d.shape[-3]
 
     @property
     def k(self) -> int:
-        return self.d.shape[2]
+        return self.d.shape[-1]
 
     @property
     def n_pad(self) -> int:
@@ -176,30 +182,34 @@ def band_to_block_tridiag(band: torch.Tensor, k: int, p: int) -> BlockTridiag:
     ``o + j``.  For a fixed block row those targets sit at flat offsets
     ``o * (3K + 1) + j``, so the whole scatter is ONE strided copy of the
     band into the window array.  Band entries outside the matrix only ever
-    land in ``e[0, 0]`` / ``f[P-1, M-1]``, which are zeroed anyway.
+    land in ``e[0, 0]`` / ``f[P-1, M-1]``, which are zeroed anyway.  A stack
+    of bands (S, N, 2K+1) splits every system alike in the same one copy.
     """
-    n = band.shape[0]
+    lead, n = band.shape[:-2], band.shape[-2]
     ni = padded_partition_size(n, p, k)
     n_pad = ni * p
-    band_p, _ = pad_banded(band, band.new_zeros((n,)), n_pad)
     m = ni // k
     nb = n_pad // k
     w = 2 * k + 1
+    if n_pad > n:  # identity rows below the system
+        rows = band.new_zeros(lead + (n_pad - n, w))
+        rows[..., k] = 1.0
+        band = torch.cat([band, rows], dim=-2)
 
-    win = band.new_zeros((nb, k, 3 * k))
-    torch.as_strided(win, (nb, k, w), (3 * k * k, 3 * k + 1, 1)).copy_(
-        band_p.reshape(nb, k, w)
-    )
-    win = win.reshape(p, m, k, 3 * k)
-    e = win[:, :, :, 0:k].contiguous()
-    d = win[:, :, :, k : 2 * k].contiguous()
-    f = win[:, :, :, 2 * k : 3 * k].contiguous()
+    win = band.new_zeros(lead + (nb, k, 3 * k))
+    flat = win.view(-1, nb, k, 3 * k)
+    strides = (nb * k * 3 * k, 3 * k * k, 3 * k + 1, 1)
+    torch.as_strided(flat, (flat.shape[0], nb, k, w), strides).copy_(band.reshape(-1, nb, k, w))
+    win = win.reshape(lead + (p, m, k, 3 * k))
+    e = win[..., 0:k].contiguous()
+    d = win[..., k : 2 * k].contiguous()
+    f = win[..., 2 * k : 3 * k].contiguous()
     # Coupling blocks B_i = A[part i bottom K rows, part i+1 top K cols] and
     # C_{i+1}, taken before the cross-partition pieces are zeroed.
-    b_cpl = f[:-1, m - 1].clone()
-    c_cpl = e[1:, 0].clone()
-    e[:, 0] = 0.0
-    f[:, m - 1] = 0.0
+    b_cpl = f[..., :-1, m - 1, :, :].clone()
+    c_cpl = e[..., 1:, 0, :, :].clone()
+    e[..., 0, :, :] = 0.0
+    f[..., m - 1, :, :] = 0.0
     return BlockTridiag(d=d, e=e, f=f, b_cpl=b_cpl, c_cpl=c_cpl, n=n)
 
 

@@ -164,15 +164,15 @@ def flip_block_tridiag(
 
     Reversal maps block (r, c) -> (M-1-r, M-1-c) and flips each block on
     both axes.  An LU factorization of the reversed matrix is a UL
-    factorization of the original (paper Sec. 2.1).
+    factorization of the original (paper Sec. 2.1).  Leading axes (P, or
+    S and P) are kept.
     """
-    m = d.shape[1]
-    d_r = _flip2(d.flip(1))
+    d_r = _flip2(d.flip(-3))
     # sub-diag of reversed row j is the flipped super-diag of row M-1-j
-    e_r = _flip2(f.flip(1))
-    f_r = _flip2(e.flip(1))
-    e_r[:, 0] = 0.0
-    f_r[:, m - 1] = 0.0
+    e_r = _flip2(f.flip(-3))
+    f_r = _flip2(e.flip(-3))
+    e_r[..., 0, :, :] = 0.0
+    f_r[..., -1, :, :] = 0.0
     return d_r, e_r, f_r
 
 

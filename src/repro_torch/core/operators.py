@@ -37,7 +37,8 @@ class LinearOperator:
 
 @dataclasses.dataclass(eq=False)
 class BandedOperator(LinearOperator):
-    """Dense banded matrix in (N, 2K+1) band storage."""
+    """Dense banded matrix in (N, 2K+1) band storage, or a stack of S of
+    them (S, N, 2K+1) whose matvec takes (S, N) or (S, N, R)."""
 
     band: torch.Tensor
     n: int
@@ -45,7 +46,7 @@ class BandedOperator(LinearOperator):
 
     @classmethod
     def from_band(cls, band: torch.Tensor) -> "BandedOperator":
-        n, w = band.shape
+        n, w = band.shape[-2:]
         return cls(band=band, n=n, k=(w - 1) // 2)
 
     @property

@@ -55,6 +55,12 @@ class SaPOptions:
     variant: str = "C"
     tol: float = 1e-10
     maxiter: int = 500
+    # Tolerance on the *true* relative residual ||b - A x|| / ||b|| a
+    # served result must meet before its ``converged`` claim is trusted
+    # (None: 10 * tol).  Read by SolverEngine / AsyncSolverService, which
+    # escalate or demote ``converged`` when it fails; every solve path
+    # reports ``true_resnorm`` either way.
+    check_true_residual: Optional[float] = None
     boost_eps: float = DEFAULT_BOOST
     precond_dtype: str = "float32"
     iter_dtype: Optional[str] = None  # Krylov dtype; None = follow the RHS
@@ -72,6 +78,9 @@ class SaPOptions:
     use_db: bool = True  # diagonal-boosting reordering
     use_cm: bool = True  # bandwidth-reducing reordering
     drop_tol: float = 0.0  # element drop-off fraction (0 = keep all)
+    # Record the per-sweep Krylov residual in the serving engine's solves; a
+    # solve-time knob, never part of a factorization or a cache key.
+    record_history: bool = False
 
 
 @dataclasses.dataclass
@@ -223,6 +232,12 @@ class SaPFactorization:
     iteration.  ``d_factor`` is the preconditioner band's degree of
     diagonal dominance (Eq. 2.11), echoed into every
     :class:`SaPSolveResult`.
+
+    The stacked layout of a fleet (:mod:`repro_torch.core.batched`) is the
+    same class with a leading system axis on every tensor -- the operator's
+    band (S, N, 2K+1), the preconditioner's factors, ``d_factor`` (S,) and
+    the permutations (S, N) -- and shared meta fields; :func:`_solve_impl`
+    takes it with an (S, N, R) right-hand side.
     """
 
     op: LinearOperator
@@ -340,16 +355,47 @@ def _solve_impl(
     fac: SaPFactorization, bmat: torch.Tensor, record_history: bool = False
 ) -> SaPSolveResult:
     """Solve body on an (N, R) block: permute, pad, Krylov, unpad,
-    un-permute."""
-    b = bmat.to(_resolve_iter_dtype(bmat.dtype, fac.iter_dtype))
-    if fac.b_perm is not None:
-        b = b[fac.b_perm]
-    n, n_pad = fac.n, fac.n_pad
+    un-permute.
 
-    def precond(r):
+    A stacked factorization of S systems takes an (S, N, R) block and runs
+    ONE Krylov iteration over its S * R columns: the matvec applies system
+    s's band to system s's columns, the preconditioner folds the systems
+    into its kernels' chain axis, and the loop syncs with the host once a
+    sweep for the whole batch.  Every column keeps its own scalars and
+    freezes on its own exit -- the semantics of the JAX package's vmapped
+    solve -- so the per-system results (S, R) are what S separate solves
+    report."""
+    b = bmat.to(_resolve_iter_dtype(bmat.dtype, fac.iter_dtype))
+    n, n_pad = fac.n, fac.n_pad
+    if b.ndim == 2:
+        s, r = None, b.shape[1]
+        if fac.b_perm is not None:
+            b = b[fac.b_perm]
+
+        def cols(v):
+            return v
+
+        def systems(v):
+            return v
+    else:
+        s, r = b.shape[0], b.shape[2]
+        if fac.b_perm is not None:
+            b = torch.gather(b, 1, fac.b_perm[:, :, None].expand(-1, -1, r))
+
+        def cols(v):  # (S, N, R) -> (N, S * R)
+            return v.transpose(0, 1).reshape(v.shape[1], s * r)
+
+        def systems(v):  # (N, S * R) -> (S, N, R)
+            return v.reshape(v.shape[0], s, r).transpose(0, 1)
+
+    def precond(v):
+        z = systems(v)
         if n_pad != n:
-            r = torch.cat([r, r.new_zeros((n_pad - n, r.shape[1]))])
-        return fac.pc.apply(r)[:n]
+            z = torch.cat([z, z.new_zeros(z.shape[:-2] + (n_pad - n, r))], dim=-2)
+        return cols(fac.pc.apply(z)[..., :n, :])
+
+    def matvec(v):
+        return cols(fac.op.matvec(systems(v)))
 
     if fac.solver == "refine":
         block = _refine_block
@@ -357,19 +403,27 @@ def _solve_impl(
         block = _cg_block
     else:
         block = _bicgstab2_block
-    res: KrylovResult = block(fac.op.matvec, b, precond, None, fac.tol, fac.maxiter, record_history)
-    x = res.x[fac.x_perm] if fac.x_perm is not None else res.x
+    res: KrylovResult = block(matvec, cols(b), precond, None, fac.tol, fac.maxiter, record_history)
+    x = systems(res.x)
+    if fac.x_perm is not None and s is None:
+        x = x[fac.x_perm]
+    elif fac.x_perm is not None:
+        x = torch.gather(x, 1, fac.x_perm[:, :, None].expand(-1, -1, r))
+
+    def per_system(t):  # (S * R, ...) -> (S, R, ...)
+        return t if t is None or s is None else t.reshape((s, r) + tuple(t.shape[1:]))
+
     # true_resnorm is computed in the solver frame (permuted, unpadded:
     # identity-padding rows never enter the Krylov vectors); permutations
     # preserve norms, so it equals the original frame's ||b - A x|| / ||b||
     return SaPSolveResult(
         x=x,
-        iterations=res.iterations,
-        resnorm=res.resnorm,
-        converged=res.converged,
-        true_resnorm=res.true_resnorm,
+        iterations=per_system(res.iterations),
+        resnorm=per_system(res.resnorm),
+        converged=per_system(res.converged),
+        true_resnorm=per_system(res.true_resnorm),
         d_factor=fac.d_factor,
-        history=res.history,
+        history=per_system(res.history),
     )
 
 

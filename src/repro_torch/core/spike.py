@@ -31,6 +31,12 @@ Reduced system (exact; unknowns y_i = [x_i^(b); x_{i+1}^(t)], i = 0..P-2):
 Every factor and solve goes through :mod:`repro_torch.kernels.ops`, which
 launches the CUDA kernels for tensors on the card and runs the plain
 versions for tensors on the CPU.
+
+A fleet of S systems split alike (:mod:`repro_torch.core.batched`) goes
+through the same code with a leading system axis on every tensor: the
+partition axis is always the fourth from the end, and each kernel call
+folds the systems into its chain axis, so a factor or an apply launches
+each kernel as often for S systems as for one.
 """
 
 from __future__ import annotations
@@ -55,7 +61,9 @@ class SaPPreconditioner:
     """Factored SaP preconditioner ('C' coupled, 'D' decoupled, 'E' exact).
 
     All factor tensors may be stored in a lower precision than the Krylov
-    iteration (paper Sec. 3.1 "Mixed Precision Strategy").
+    iteration (paper Sec. 3.1 "Mixed Precision Strategy").  For a fleet
+    every tensor carries a leading system axis (S, ...); the shape fields
+    are shared.
     """
 
     variant: str  # "C" | "D" | "E"
@@ -77,9 +85,11 @@ class SaPPreconditioner:
     fused: bool = False
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
-        """Apply M^{-1} to a (padded) residual of shape (P*M*K,) or (P*M*K, R)."""
+        """Apply M^{-1} to a (padded) residual of shape (P*M*K,) or
+        (P*M*K, R); for a fleet, (S, P*M*K, R)."""
         dtype = self.lu.sinv.dtype
-        rb = r.to(dtype).reshape(self.p, self.m, self.k, -1)
+        lead = self.lu.sinv.shape[:-4]
+        rb = r.to(dtype).reshape(lead + (self.p, self.m, self.k, -1)).contiguous()
         if self.variant == "D":
             z = kops.block_tridiag_solve(self.lu, rb)
         elif self.variant == "E":
@@ -106,20 +116,20 @@ def resolve_fused(fused, device: torch.device) -> bool:
 def _correct(pc: SaPPreconditioner, rb, xt_bot, xt_top):
     """Final solves (eq. 2.10): subtract the coupling contributions."""
     rb2 = rb.clone()
-    rb2[1:, 0] -= pc.c_cpl @ xt_bot  # into partitions 1..P-1, top block
-    rb2[:-1, -1] -= pc.b_cpl @ xt_top  # into partitions 0..P-2, bottom block
+    rb2[..., 1:, 0, :, :] -= pc.c_cpl @ xt_bot  # into partitions 1..P-1, top block
+    rb2[..., :-1, -1, :, :] -= pc.b_cpl @ xt_top  # into partitions 0..P-2, bottom block
     return kops.block_tridiag_solve(pc.lu, rb2)
 
 
 def _apply_coupled(pc: SaPPreconditioner, rb: torch.Tensor) -> torch.Tensor:
     # 1) g = D^{-1} r
-    g = kops.block_tridiag_solve(pc.lu, rb)  # (P, M, K, R)
-    g_top = g[:, 0]
-    g_bot = g[:, -1]
+    g = kops.block_tridiag_solve(pc.lu, rb)  # ([S,] P, M, K, R)
+    g_top = g[..., 0, :, :]
+    g_bot = g[..., -1, :, :]
     # 2) reduced-system correction per interface i = 0..P-2   (eq. 2.9)
-    rhs = g_top[1:] - pc.w_top @ g_bot[:-1]
+    rhs = g_top[..., 1:, :, :] - pc.w_top @ g_bot[..., :-1, :, :]
     xt_top = pc.rbar_inv @ rhs  # xt_{i+1}^(t)
-    xt_bot = g_bot[:-1] - pc.v_bot @ xt_top  # xt_i^(b)
+    xt_bot = g_bot[..., :-1, :, :] - pc.v_bot @ xt_top  # xt_i^(b)
     return _correct(pc, rb, xt_bot, xt_top)
 
 
@@ -128,43 +138,46 @@ def _apply_exact(pc: SaPPreconditioner, rb: torch.Tensor) -> torch.Tensor:
     g = kops.block_tridiag_solve(pc.lu, rb)
     # exact reduced system on the interface unknowns; its RHS is just the
     # interface slices of g
-    h = torch.cat([g[:-1, -1], g[1:, 0]], dim=1)  # (P-1, 2K, R)
+    h = torch.cat([g[..., :-1, -1, :, :], g[..., 1:, 0, :, :]], dim=-2)  # ([S,] P-1, 2K, R)
     if pc.reduced_solver == "bcr":
         y = kops.bcr_solve(pc.red_bcr, h)
     else:
         y = kops.block_tridiag_solve_chain(pc.red_lu, h)
-    return _correct(pc, rb, y[:, : pc.k], y[:, pc.k :])
+    return _correct(pc, rb, y[..., : pc.k, :], y[..., pc.k :, :])
 
 
 def _reduced_interface_system(v_bot, v_top, w_top, w_bot):
     """Assemble the exact (P-1)-interface block-tridiag chain (2K blocks).
 
-    Inputs are the four corner blocks of the whole spikes, each (P-1, K, K):
-    v_bot/v_top index right spikes of partitions 0..P-2, w_top/w_bot left
-    spikes of partitions 1..P-1.  Returns (d, e, f) of shape
-    (P-1, 2K, 2K); e[0] / f[P-2] are zero.
+    Inputs are the four corner blocks of the whole spikes, each (P-1, K, K)
+    (or (S, P-1, K, K) for a fleet): v_bot/v_top index right spikes of
+    partitions 0..P-2, w_top/w_bot left spikes of partitions 1..P-1.
+    Returns (d, e, f) of shape ([S,] P-1, 2K, 2K); e[0] / f[P-2] are zero.
     """
-    q, k, _ = v_bot.shape  # q = P-1 interfaces
-    eye = torch.eye(k, dtype=v_bot.dtype, device=v_bot.device).expand(q, k, k)
-    rd = v_bot.new_zeros((q, 2 * k, 2 * k))
+    k = v_bot.shape[-1]
+    eye = torch.eye(k, dtype=v_bot.dtype, device=v_bot.device)
+    rd = v_bot.new_zeros(v_bot.shape[:-2] + (2 * k, 2 * k))
     re = torch.zeros_like(rd)
     rf = torch.zeros_like(rd)
-    rd[:, :k, :k] = eye
-    rd[:, :k, k:] = v_bot
-    rd[:, k:, :k] = w_top
-    rd[:, k:, k:] = eye
+    rd[..., :k, :k] = eye
+    rd[..., :k, k:] = v_bot
+    rd[..., k:, :k] = w_top
+    rd[..., k:, k:] = eye
     # y_{i-1} contributes W_i^(b) x_{i-1}^(b); y_{i+1} contributes
     # V_{i+1}^(t) x_{i+2}^(t) (see module docstring).
-    re[1:, :k, :k] = w_bot[:-1]
-    rf[:-1, k:, k:] = v_top[1:]
+    re[..., 1:, :k, :k] = w_bot[..., :-1, :, :]
+    rf[..., :-1, k:, k:] = v_top[..., 1:, :, :]
     return rd, re, rf
 
 
 def _block_inverse(a: torch.Tensor, boost_eps: float) -> torch.Tensor:
-    """Boosted Gauss-Jordan inverse of (Q, K, K) blocks: the btf pass on
-    chains of one block row, whose factor is exactly ``gj_inverse``."""
-    z = torch.zeros_like(a)[:, None]
-    return kops.block_tridiag_factor(a[:, None].contiguous(), z, z, boost_eps).sinv[:, 0]
+    """Boosted Gauss-Jordan inverse of (..., K, K) blocks: the btf pass on
+    chains of one block row, whose factor is exactly ``gj_inverse`` -- one
+    launch whatever the leading axes."""
+    k = a.shape[-1]
+    flat = a.reshape(-1, 1, k, k).contiguous()
+    z = torch.zeros_like(flat)
+    return kops.block_tridiag_factor(flat, z, z, boost_eps).sinv.reshape(a.shape)
 
 
 def build_preconditioner(
@@ -227,21 +240,21 @@ def build_preconditioner(
         if not use_fused:
             if variant == "C" and spike_mode == "ul":
                 # V_i^(b) = Sinv_i[M-1] @ B_i  for i = 0..P-2
-                v_bot = lu.sinv[:-1, -1] @ b_cpl
+                v_bot = lu.sinv[..., :-1, -1, :, :] @ b_cpl
                 # W_{i+1}^(t) from the UL factorization of partitions 1..P-1
                 ul = kops.block_tridiag_factor(*flip_block_tridiag(d, e, f), boost_eps)
-                w_top = _flip_rows(ul.sinv[1:, -1] @ _flip_rows(c_cpl))
+                w_top = _flip_rows(ul.sinv[..., 1:, -1, :, :] @ _flip_rows(c_cpl))
             else:
                 # whole right spikes: A_i V_i = [0;..;B_i], keep corners
-                rhs_b = d.new_zeros((bt.p, bt.m, bt.k, bt.k))
-                rhs_b[:-1, -1] = b_cpl
+                rhs_b = torch.zeros_like(d)
+                rhs_b[..., :-1, -1, :, :] = b_cpl
                 v_full = kops.block_tridiag_solve(lu, rhs_b)
-                v_bot, v_top = v_full[:-1, -1], v_full[:-1, 0]
+                v_bot, v_top = v_full[..., :-1, -1, :, :], v_full[..., :-1, 0, :, :]
                 # whole left spikes: A_{i+1} W_{i+1} = [C_{i+1};0;..]
-                rhs_c = d.new_zeros((bt.p, bt.m, bt.k, bt.k))
-                rhs_c[1:, 0] = c_cpl
+                rhs_c = torch.zeros_like(d)
+                rhs_c[..., 1:, 0, :, :] = c_cpl
                 w_full = kops.block_tridiag_solve(lu, rhs_c)
-                w_top, w_bot = w_full[1:, 0], w_full[1:, -1]
+                w_top, w_bot = w_full[..., 1:, 0, :, :], w_full[..., 1:, -1, :, :]
         if variant == "C":
             eye = torch.eye(bt.k, dtype=d.dtype, device=d.device)
             rbar_inv = _block_inverse(eye - w_top @ v_bot, boost_eps)

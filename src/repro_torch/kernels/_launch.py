@@ -35,6 +35,23 @@ def check_shape(what: str, name: str, t: torch.Tensor, shape: tuple[int, ...]) -
         raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+# CUDA's grid limits: 2^31 - 1 blocks on x, 65,535 on y and on z.
+GRID_LIMITS = {"x": 2**31 - 1, "y": 65_535, "z": 65_535}
+
+
+def check_grid(what: str, axis: str, blocks: int) -> None:
+    """Raise before a launch whose grid needs more blocks on ``axis`` than
+    the card takes: a fleet folded into a kernel's chain axis can outgrow
+    an axis that a single system never fills, and a wrong grid would not
+    fail, it would leave blocks unlaunched."""
+    limit = GRID_LIMITS[axis]
+    if blocks > limit:
+        raise ValueError(
+            f"{what}: {blocks:,} blocks on the grid's {axis} axis exceed its limit of "
+            f"{limit:,}; split the batch into fewer systems"
+        )
+
+
 def stream_handle(device: torch.device) -> int:
     """The current CUDA stream of ``device`` as an integer for ctypes."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -54,7 +54,7 @@ from ..core.cyclic_reduction import (
     bcr_rhs_reduce_ref,
 )
 from . import build
-from ._launch import check_operands, check_shape, stream_handle
+from ._launch import check_grid, check_operands, check_shape, stream_handle
 
 
 def _blocks(what: str, t: torch.Tensor) -> tuple[int, int]:
@@ -83,6 +83,7 @@ def inv_odd(d: torch.Tensor, boost_eps: float = DEFAULT_BOOST, first: int = 1) -
         cluster = lib.bcr_inv_cluster_size(k)
         if cluster < 0:
             build.check(lib, -cluster, "bcr inv_odd cluster size")
+        check_grid("bcr inv_odd", "x", count * max(cluster, 1))
         code = lib.bcr_inv_launch(
             d.data_ptr(), out.data_ptr(), count, first, k, boost_eps, cluster,
             stream_handle(d.device),
@@ -108,6 +109,7 @@ def reduce(
     for name, t in (("e", e), ("f", f)):
         check_shape("bcr reduce", name, t, (m, k, k))
     check_shape("bcr reduce", "a_odd", a_odd, (m // 2, k, k))
+    check_grid("bcr reduce", "z", m // 2)  # a level's block rows on z
     lib = build.load("bcr")
     tile = lib.bcr_reduce_tile(m // 2, k)
     if tile < 0:
@@ -138,6 +140,10 @@ def rhs_reduce(lo: torch.Tensor, hi: torch.Tensor, b: torch.Tensor) -> torch.Ten
     split = lib.bcr_rhs_reduce_split(m2, k, r)
     if split < 0:
         build.check(lib, -split, "bcr rhs_reduce split")
+    if split:
+        check_grid("bcr rhs_reduce", "x", m2 * split)
+    else:  # the tiled kernel puts the level's rows on y
+        check_grid("bcr rhs_reduce", "y", m2)
     out = torch.empty((m2, k, r), dtype=b.dtype, device=b.device)
     code = lib.bcr_rhs_reduce_launch(
         lo.data_ptr(), hi.data_ptr(), b.data_ptr(), out.data_ptr(), m2, k, r, split,
@@ -174,6 +180,10 @@ def backsub(
     cluster = lib.bcr_backsub_cluster(m2, k, r)
     if cluster < 0:
         build.check(lib, -cluster, "bcr backsub cluster size")
+    if cluster:
+        check_grid("bcr backsub", "x", m2 * cluster)
+    else:  # the tiled kernels put the level's rows on y
+        check_grid("bcr backsub", "y", m2)
     t = torch.empty_like(x) if cluster == 0 else None  # the tiled kernels' workspace
     out = torch.empty((2 * m2, k, r), dtype=x.dtype, device=x.device)
     code = lib.bcr_backsub_launch(

@@ -25,7 +25,7 @@ import torch
 
 from ..core.block_lu import DEFAULT_BOOST, btf_ref
 from . import build
-from ._launch import check_operands, check_shape, stream_handle
+from ._launch import check_grid, check_operands, check_shape, stream_handle
 
 
 def btf(
@@ -43,6 +43,7 @@ def btf(
     cluster = lib.btf_cluster_size(p, k)
     if cluster < 0:
         build.check(lib, -cluster, "btf cluster size")
+    check_grid("btf", "x", p * max(cluster, 1))
     sinv = torch.empty_like(d)
     l = torch.empty_like(d)
     ws = torch.empty((p * lib.btf_workspace_floats(k, cluster),), dtype=torch.float32,

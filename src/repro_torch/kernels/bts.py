@@ -27,7 +27,7 @@ import torch
 
 from ..core.block_lu import BTFactors, bts_ref
 from . import build
-from ._launch import check_operands, check_shape, stream_handle
+from ._launch import check_grid, check_operands, check_shape, stream_handle
 
 
 def bts(
@@ -47,6 +47,7 @@ def bts(
     cluster = lib.bts_cluster_size(p, k, r)
     if cluster < 0:
         build.check(lib, -cluster, "bts cluster size")
+    check_grid("bts", "x", p * max(cluster, 1))
     x = torch.empty_like(b)
     ws = torch.empty((max(1, p * lib.bts_workspace_floats(k, r, cluster)),), dtype=torch.float32,
                      device=b.device)

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -90,6 +91,7 @@ for _fns in SIGNATURES.values():
     _fns["sap_error_string"] = (ctypes.c_char_p, [_I])
 
 _libs: dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # one first build and load at a time, whatever the thread
 
 
 def nvcc() -> str:
@@ -155,17 +157,22 @@ def build_all() -> dict[str, list[str]]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded library of ``csrc/<name>.cu``, built if needed.
+    Thread-safe: a library is built and loaded once."""
     lib = _libs.get(name)
-    if lib is None:
-        started = _start_build(name)
-        if started is not None:
-            _finish_build(*started)
-        lib = ctypes.CDLL(str(_library_path(name)))
-        for fn, (restype, argtypes) in SIGNATURES[name].items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _libs[name] = lib
+    if lib is not None:
+        return lib
+    with _load_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            started = _start_build(name)
+            if started is not None:
+                _finish_build(*started)
+            lib = ctypes.CDLL(str(_library_path(name)))
+            for fn, (restype, argtypes) in SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _libs[name] = lib
     return lib
 
 

@@ -30,7 +30,7 @@ import torch
 
 from ..core.block_lu import DEFAULT_BOOST, fused_factor_spike_padded_ref
 from . import build
-from ._launch import check_operands, check_shape, stream_handle
+from ._launch import check_grid, check_operands, check_shape, stream_handle
 
 
 def fused_factor_spike(
@@ -60,6 +60,7 @@ def fused_factor_spike(
     cluster = lib.fused_cluster_size(p, k)
     if cluster < 0:
         build.check(lib, -cluster, "fused_factor_spike cluster size")
+    check_grid("fused_factor_spike", "x", p * max(cluster, 1))
     sinv = torch.empty_like(d)
     l = torch.empty_like(d)
     vb, vt, wt, wb = (torch.empty_like(bq) for _ in range(4))

@@ -27,30 +27,57 @@ from .ssd import ssd as _ssd
 from .wkv import wkv6 as _wkv6
 
 
+# A 5-D input carries a leading *system* axis (S, P, M, K, ...): a fleet of
+# independent block-tridiagonal systems (:mod:`repro_torch.core.batched`).
+# Partitions are already independent chains, so the system axis folds into
+# the partition axis: one launch over S*P chains, not S launches.
+
+
+def _fold(x: torch.Tensor) -> torch.Tensor:
+    """(S, P, ...) -> (S*P, ...): the systems' partitions become chains."""
+    return x.reshape((x.shape[0] * x.shape[1],) + tuple(x.shape[2:]))
+
+
+def _unfold(x: torch.Tensor, s: int) -> torch.Tensor:
+    return x.reshape((s, x.shape[0] // s) + tuple(x.shape[1:]))
+
+
 def block_tridiag_factor(
     d: torch.Tensor, e: torch.Tensor, f: torch.Tensor, boost_eps: float = DEFAULT_BOOST
 ) -> BTFactors:
-    """Block-tridiagonal LU factor of (P, M, K, K) chains."""
+    """Block-tridiagonal LU factor of (P, M, K, K) chains, or of a fleet's
+    (S, P, M, K, K) in one launch over S*P chains."""
+    if d.ndim == 5:
+        s = d.shape[0]
+        sinv, l = btf(_fold(d), _fold(e), _fold(f), boost_eps)
+        return BTFactors(sinv=_unfold(sinv, s), l=_unfold(l, s), f=f)
     sinv, l = btf(d, e, f, boost_eps)
     return BTFactors(sinv=sinv, l=l, f=f)
 
 
 def block_tridiag_solve(factors: BTFactors, b: torch.Tensor) -> torch.Tensor:
-    """Solve the factored chains for (P, M, K, R) right-hand sides."""
+    """Solve the factored chains for (P, M, K, R) right-hand sides, or a
+    fleet's (S, P, M, K, R) in one launch over S*P chains."""
+    if b.ndim == 5:
+        x = bts(_fold(factors.sinv), _fold(factors.l), _fold(factors.f), _fold(b))
+        return _unfold(x, b.shape[0])
     return bts(factors.sinv, factors.l, factors.f, b)
 
 
 def block_tridiag_factor_chain(
     d: torch.Tensor, e: torch.Tensor, f: torch.Tensor, boost_eps: float = DEFAULT_BOOST
 ) -> BTFactors:
-    """Factor a single block-tridiagonal chain (M, K, K): one partition.
-    The factors keep the leading singleton partition axis."""
-    return block_tridiag_factor(d[None], e[None], f[None], boost_eps)
+    """Factor a single block-tridiagonal chain (M, K, K), or S chains
+    (S, M, K, K) as S partitions of one launch.  The factors keep a
+    singleton partition axis before M."""
+    return block_tridiag_factor(d[..., None, :, :, :], e[..., None, :, :, :],
+                                f[..., None, :, :, :], boost_eps)
 
 
 def block_tridiag_solve_chain(factors: BTFactors, b: torch.Tensor) -> torch.Tensor:
-    """Solve one factored chain: b (M, K, R) -> x (M, K, R)."""
-    return block_tridiag_solve(factors, b[None])[0]
+    """Solve one factored chain: b (M, K, R) -> x (M, K, R); or S chains,
+    (S, M, K, R)."""
+    return block_tridiag_solve(factors, b[..., None, :, :, :])[..., 0, :, :, :]
 
 
 def fused_factor_spike(
@@ -67,16 +94,25 @@ def fused_factor_spike(
     interface couplings.  ``lu`` and ``v_bot`` / ``w_top`` equal the
     btf -> UL-btf sequence; ``v_top`` / ``w_bot`` are algebraically equal to
     the whole-spike solves (forward carries instead of back-substitution).
+
+    A fleet's (S, P, M, K, K) and (S, P-1, K, K) go through one launch over
+    S*P chains: each system's couplings are padded to P first, so the last
+    partition of every system has zero coupling and the fold is exact.
     """
-    p = d.shape[0]
+    p = d.shape[-4]
     bq, cq = pad_couplings(b_cpl.to(d.dtype), c_cpl.to(d.dtype), p)
-    sinv, l, vb, vt, wt, wb = _fused(d, e, f, bq, cq, boost_eps)
+    if d.ndim == 5:
+        s = d.shape[0]
+        out = _fused(_fold(d), _fold(e), _fold(f), _fold(bq), _fold(cq), boost_eps)
+        sinv, l, vb, vt, wt, wb = (_unfold(t, s) for t in out)
+    else:
+        sinv, l, vb, vt, wt, wb = _fused(d, e, f, bq, cq, boost_eps)
     return FusedSpikeFactors(
         lu=BTFactors(sinv=sinv, l=l, f=f),
-        v_bot=vb[:-1],
-        v_top=vt[:-1],
-        w_top=wt[1:],
-        w_bot=wb[1:],
+        v_bot=vb[..., :-1, :, :],
+        v_top=vt[..., :-1, :, :],
+        w_top=wt[..., 1:, :, :],
+        w_bot=wb[..., 1:, :, :],
     )
 
 
@@ -87,31 +123,60 @@ def bcr_factor(
     levels (pair with :func:`bcr_solve`); ``e[0]`` / ``f[M-1]`` are ignored.
     Per level, ``inv_odd`` inverts the odd diagonal blocks and ``reduce``
     builds ``lo``/``hi`` and the half-length chain; the root block goes
-    through ``inv_odd``'s kernel as well."""
-    m = d.shape[0]
-    d, e, f = (t.contiguous() for t in pad_chain(d, e, f))
+    through ``inv_odd``'s kernel as well.
+
+    S chains (S, M, K, K) go through the same launches: each is padded to
+    2^L with its end couplings zeroed (:func:`pad_chain`), and the S padded
+    chains, laid end to end, are one block-diagonal chain whose levels
+    reduce each system's blocks within the system.  After L levels every
+    system has its root block; the S roots are inverted in one ``inv_odd``
+    launch, at the odd places of a chain that interleaves them with
+    identity blocks.  Every level of the factors carries the system axis,
+    (S, m_l / 2, K, K), and the roots are (S, K, K).
+    """
+    if d.ndim == 3:
+        fac = bcr_factor(d[None], e[None], f[None], boost_eps)
+        return BCRFactors(levels=tuple(BCRLevel(*(t[0] for t in lv)) for lv in fac.levels),
+                          root_inv=fac.root_inv[0], m=fac.m)
+    s, m, k = d.shape[0], d.shape[1], d.shape[2]
+    padded = [pad_chain(*c) for c in zip(d, e, f)]
+    d, e, f = (torch.cat(t).contiguous() for t in zip(*padded))  # (S * 2^L, K, K)
     levels = []
-    while d.shape[0] > 1:
+    while d.shape[0] > s:
         a_odd = bcr.inv_odd(d, boost_eps)
         lo, hi, d_next, e_next, f_next = bcr.reduce(d, e, f, a_odd)
-        levels.append(BCRLevel(lo=lo, hi=hi, a_odd=a_odd,
-                               e_odd=e[1::2].contiguous(), f_odd=f[1::2].contiguous()))
+        lv = (lo, hi, a_odd, e[1::2].contiguous(), f[1::2].contiguous())
+        levels.append(BCRLevel(*(t.reshape(s, -1, k, k) for t in lv)))
         d, e, f = d_next, e_next, f_next
-    root_inv = bcr.inv_odd(d, boost_eps, first=0)[0]
+    eye = torch.eye(k, dtype=d.dtype, device=d.device).expand(s, k, k)
+    root_inv = bcr.inv_odd(torch.stack([eye, d], dim=1).reshape(2 * s, k, k), boost_eps)
     return BCRFactors(levels=tuple(levels), root_inv=root_inv, m=m)
 
 
 def bcr_solve(factors: BCRFactors, b: torch.Tensor) -> torch.Tensor:
-    """Solve one BCR-factored chain: b (M, K, R) -> x (M, K, R).  The root
-    apply ``root_inv @ b_0`` is one plain product, as in the JAX package."""
-    b = pad_rhs(b.contiguous(), factors.n_levels)
+    """Solve one BCR-factored chain: b (M, K, R) -> x (M, K, R); or S
+    chains factored together, b (S, M, K, R), through the same launches as
+    one.  The root apply ``root_inv @ b_0`` is one plain product, as in the
+    JAX package."""
+    batched = factors.root_inv.ndim == 3
+    k, r = b.shape[-2], b.shape[-1]
+    if batched:
+        b = torch.stack([pad_rhs(bs, factors.n_levels) for bs in b]).reshape(-1, k, r)
+    else:
+        b = pad_rhs(b.contiguous(), factors.n_levels)
+
+    def flat(t):
+        return t.reshape(-1, k, k)
+
     rhs = []
     for lv in factors.levels:
         rhs.append(b)
-        b = bcr.rhs_reduce(lv.lo, lv.hi, b)
-    x = (factors.root_inv @ b[0])[None]
+        b = bcr.rhs_reduce(flat(lv.lo), flat(lv.hi), b)
+    x = factors.root_inv @ b if batched else (factors.root_inv @ b[0])[None]
     for lv, bl in zip(reversed(factors.levels), reversed(rhs)):
-        x = bcr.backsub(lv.a_odd, lv.e_odd, lv.f_odd, bl, x)
+        x = bcr.backsub(flat(lv.a_odd), flat(lv.e_odd), flat(lv.f_odd), bl, x)
+    if batched:
+        return x.reshape(factors.root_inv.shape[0], -1, k, r)[:, : factors.m]
     return x[: factors.m]
 
 

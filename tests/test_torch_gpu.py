@@ -1089,3 +1089,277 @@ def test_reduced_transformer_at_a_ragged_length_on_the_card(cuda):
     assert flash_attention.launches == before + cfg.n_layers
     want, _ = fam.forward(cfg, cpu_params, toks)
     _close(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# fleets: S systems folded into each kernel's chain axis
+# ---------------------------------------------------------------------------
+
+# the K' of pow2 buckets at the serving sizes: bts copies by cp.async at
+# K' = 2 (K % 4 != 0) and by TMA from 4 on; BCR's blocks are 2K' = 4 .. 32
+FLEET_K = [2, 4, 8, 16]
+
+
+def _fleet(cuda, s, n, k, p, d=1.0):
+    bands = np.stack([random_banded(n, k, d, seed=i).astype(np.float32) for i in range(s)])
+    return band_to_block_tridiag(torch.tensor(bands, device=cuda), k, p)
+
+
+def _launches():
+    from repro_torch.kernels import bcr
+
+    return {"btf": btf.launches, "bts": bts.launches, "fused": fused_factor_spike.launches,
+            "inv_odd": bcr.inv_odd.launches, "reduce": bcr.reduce.launches,
+            "rhs_reduce": bcr.rhs_reduce.launches, "backsub": bcr.backsub.launches}
+
+
+def _launched(before):
+    return {nm: c - before[nm] for nm, c in _launches().items() if c != before[nm]}
+
+
+@pytest.mark.parametrize("k", FLEET_K)
+@pytest.mark.parametrize("r", [1, 4])
+def test_fleet_fold_matches_per_system_launches(cuda, k, r):
+    """btf, bts and the fused pass over S*P chains in one launch each agree
+    with one launch per system and with the plain versions."""
+    s, p = 8, 16
+    bt = _fleet(cuda, s, 4096, k, p)
+    rhs = torch.randn(bt.d.shape[:4] + (r,), device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(k))
+    before = _launches()
+    lu = ops.block_tridiag_factor(bt.d, bt.e, bt.f)
+    x = ops.block_tridiag_solve(lu, rhs)
+    fs = ops.fused_factor_spike(bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl)
+    assert _launched(before) == {"btf": 1, "bts": 1, "fused": 1}
+    ref = bl.btf_ref(bt.d.flatten(0, 1), bt.e.flatten(0, 1), bt.f.flatten(0, 1))
+    _close(lu.sinv.flatten(0, 1), ref.sinv)
+    _close(x.flatten(0, 1), bl.bts_ref(ref, rhs.flatten(0, 1)))
+    for i in range(s):
+        one = ops.block_tridiag_factor(bt.d[i], bt.e[i], bt.f[i])
+        _close(lu.sinv[i], one.sinv)
+        _close(lu.l[i], one.l)
+        _close(x[i], ops.block_tridiag_solve(one, rhs[i]))
+        ones = ops.fused_factor_spike(bt.d[i], bt.e[i], bt.f[i], bt.b_cpl[i], bt.c_cpl[i])
+        for got, want in ((fs.lu.sinv[i], ones.lu.sinv), (fs.lu.l[i], ones.lu.l),
+                          (fs.v_bot[i], ones.v_bot), (fs.v_top[i], ones.v_top),
+                          (fs.w_top[i], ones.w_top), (fs.w_bot[i], ones.w_bot)):
+            _close(got, want)
+
+
+def _chain_residual(d, e, f, y, h):
+    """||h - A y|| / ||h|| in float64 for the chain A of blocks (d, e, f),
+    e[0] and f[m-1] left out as BCR leaves them."""
+    d, e, f, y, h = (t.double() for t in (d, e, f, y, h))
+    ay = d @ y
+    ay[1:] += e[1:] @ y[:-1]
+    ay[:-1] += f[:-1] @ y[1:]
+    return float((h - ay).norm() / h.norm())
+
+
+@pytest.mark.parametrize("k", FLEET_K)
+def test_stacked_bcr_matches_per_chain_bcr(cuda, k):
+    """S reduced chains of 15 interfaces (P = 16) through one launch of each
+    BCR kernel a level agree with BCR of each chain alone on the kernels
+    (roots, odd-block inverses, solves within 1e-4), and each solve leaves
+    a float64 residual at most 10x the plain version's on its chain.
+    Partitions of two block rows keep the chains' couplings E, F active;
+    such chains are ill-conditioned enough (float32 residuals 1e-5 to
+    3e-5) that the kernels' and the plain version's whole factors, each
+    rounded level by level, part by ~2e-4 of the root at K = 2, so the
+    plain version is held per level (test_bcr_kernels_match_plain) and
+    here through the residual."""
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.core.spike import _reduced_interface_system
+
+    s = 16
+    bt = _fleet(cuda, s, 16 * 2 * k, k, 16, d=0.5)
+    fs = ops.fused_factor_spike(bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl)
+    rd, re, rf = _reduced_interface_system(fs.v_bot, fs.v_top, fs.w_top, fs.w_bot)
+    assert tuple(rd.shape) == (s, 15, 2 * k, 2 * k)
+    h = torch.randn(s, 15, 2 * k, 2, device=cuda)
+    before = _launches()
+    fac = ops.bcr_factor(rd, re, rf)
+    y = ops.bcr_solve(fac, h)
+    assert _launched(before) == {"inv_odd": 5, "reduce": 4, "rhs_reduce": 4, "backsub": 4}
+    for i in range(s):
+        one = ops.bcr_factor(rd[i], re[i], rf[i])
+        _close(fac.root_inv[i], one.root_inv)
+        for lb, lo in zip(fac.levels, one.levels):
+            _close(lb.a_odd[i], lo.a_odd)
+        _close(y[i], ops.bcr_solve(one, h[i]))
+        plain = cr.bcr_solve(cr.bcr_factor(rd[i], re[i], rf[i]), h[i])
+        assert _chain_residual(rd[i], re[i], rf[i], y[i], h[i]) <= 10 * _chain_residual(
+            rd[i], re[i], rf[i], plain, h[i])
+
+
+def test_folded_grid_beyond_its_axis_limit_is_refused(cuda):
+    """A level of 65,536 block rows would put 65,536 blocks on reduce's z
+    axis and on the tiled solve kernels' y axis: refused, not launched."""
+    from repro_torch.kernels import bcr
+
+    m, k = 2 * 65_536, 2
+    eye = torch.eye(k, device=cuda).expand(m, k, k).contiguous()
+    zero = torch.zeros_like(eye)
+    before = _launches()
+    with pytest.raises(ValueError, match="z axis exceed its limit of 65,535"):
+        bcr.reduce(eye, zero, zero, eye[: m // 2].contiguous())
+    b = torch.zeros(m, k, 9, device=cuda)  # R > 8: the tiled kernels
+    with pytest.raises(ValueError, match="y axis"):
+        bcr.rhs_reduce(zero[: m // 2].contiguous(), zero[: m // 2].contiguous(), b)
+    with pytest.raises(ValueError, match="y axis"):
+        bcr.backsub(eye[: m // 2].contiguous(), zero[: m // 2].contiguous(),
+                    zero[: m // 2].contiguous(), b, b[: m // 2].contiguous())
+    assert _launched(before) == {}
+
+
+FLEET_CASES = [("C", "auto", 1.0), ("D", "auto", 1.0), ("E", "chain", 0.5), ("E", "bcr", 0.5)]
+
+
+@pytest.mark.parametrize("variant,reduced,d", FLEET_CASES)
+def test_batch_launches_each_kernel_as_one_system_does(cuda, variant, reduced, d):
+    """A batch factor launches every kernel as often as one system's factor,
+    an apply as often as one system's apply; each system's solution and
+    sweep count are its single solve's (x within 1e-5)."""
+    import math
+
+    from repro_torch.core import batch_factor, batch_plan
+
+    s, n = 6, 2048
+    bands = [random_banded(n, 8, d, seed=i).astype(np.float32) for i in range(s)]
+    rng = np.random.default_rng(0)
+    bs = np.stack([rng.normal(size=n) for _ in range(s)])
+    opts = SaPOptions(p=16, variant=variant, reduced_solver=reduced, tol=1e-8, maxiter=100)
+    before = _launches()
+    bfac = batch_factor(batch_plan(bands, opts))
+    batch_factor_launches = _launched(before)
+    before = _launches()
+    res = bfac.solve_batch(torch.tensor(bs, device=cuda))
+    batch_solve = _launched(before)
+    for i in range(s):
+        before = _launches()
+        fac = factor(plan_banded(bands[i], opts))
+        assert _launched(before) == batch_factor_launches
+        before = _launches()
+        one = fac.solve(bs[i])
+        single_solve = _launched(before)
+        assert math.ceil(float(one.iterations)) == math.ceil(float(res.iterations[i]))
+        assert float(res.true_resnorm[i]) <= 1e-6
+        x = one.x.double()
+        assert float((res.x[i].double() - x).norm() / x.norm()) <= 1e-5
+    # launches per preconditioner apply: 2 + 4 a sweep of BiCGStab(2)
+    applies_one = 2 + 4 * math.ceil(float(one.iterations))
+    applies_batch = 2 + 4 * math.ceil(float(res.iterations.max()))
+    assert {nm: c / applies_batch for nm, c in batch_solve.items()} == {
+        nm: c / applies_one for nm, c in single_solve.items()}
+
+
+@pytest.mark.parametrize("variant", ["C", "D", "E"])
+def test_k_rounding_bucket_on_the_card(cuda, variant):
+    """The misconvergence guard cases through the card kernels: a K=3 fleet
+    bucketed to K'=4 (interleaved) solves as each unpadded system does,
+    and the oscillatory d = 0.5 band converges truly under E."""
+    from repro_torch.core import batch_factor, batch_plan, oscillatory_banded, pad_rhs_to
+    from repro_torch.core import unpad_solution
+
+    opts = SaPOptions(p=4, variant=variant, tol=1e-6, maxiter=400)
+    bands = [random_banded(96, 3, 1.2, seed=s).astype(np.float32) for s in range(3)]
+    rng = np.random.default_rng(11)
+    bs = [np.float32(rng.normal(size=96)) for _ in bands]
+    bpl = batch_plan(bands, opts)
+    assert bpl.k == 4
+    res = batch_factor(bpl).solve_batch(torch.stack([pad_rhs_to(b, bpl.n) for b in bs]))
+    assert bool(res.converged.all()) and float(res.true_resnorm.max()) <= 1e-4
+    for band, b, x in zip(bands, bs, unpad_solution(res.x, bpl.orig_ns)):
+        solo = factor(plan_banded(band, opts, device="cpu")).solve(b)
+        np.testing.assert_allclose(x, solo.x.numpy(), rtol=1e-3, atol=1e-4)
+    if variant == "E":
+        osc = oscillatory_banded(128, 3, d=0.5, seed=0).astype(np.float32)
+        b = np.float32(np.random.default_rng(1).normal(size=128))
+        epl = batch_plan([osc], SaPOptions(p=4, variant="E", tol=1e-5, maxiter=400))
+        out = batch_factor(epl).solve_batch(pad_rhs_to(b, epl.n)[None])
+        assert bool(out.converged[0]) and float(out.true_resnorm[0]) <= 1e-5
+
+
+def test_engine_stream_on_the_card_matches_the_cpu(cuda):
+    """The same request stream through a SolverEngine on the card and one
+    on the CPU: the same buckets, cache hits, evictions, escalations and
+    counters; x within 1e-5; every true_resnorm at most 1e-6."""
+    from repro_torch.serve import SolverEngine
+
+    opts = SaPOptions(p=4, variant="auto", tol=1e-8, maxiter=200)
+    engines = {dev: SolverEngine(opts, max_batch=4, cache_size=3, device=dev)
+               for dev in ("cuda", "cpu")}
+    mats = [random_banded(300 + 150 * (i % 2), 3 + i % 3, 1.1, seed=i).astype(np.float32)
+            for i in range(5)]
+    rng = np.random.default_rng(3)
+    stream = [(mats[i % 5], rng.normal(size=mats[i % 5].shape[0])) for i in range(14)]
+    done = {}
+    for dev, eng in engines.items():
+        for band, b in stream:
+            eng.submit_system(band, b)
+        done[dev] = sorted(eng.run_until_drained(), key=lambda r: r.rid)
+    for g, c in zip(done["cuda"], done["cpu"]):
+        gr, cr_ = g.result, c.result
+        assert (gr.bucket, gr.variant, gr.cache_hit, gr.escalated) == (
+            cr_.bucket, cr_.variant, cr_.cache_hit, cr_.escalated)
+        assert gr.converged and gr.true_resnorm <= 1e-6
+        assert np.linalg.norm(gr.x - cr_.x) <= 1e-5 * np.linalg.norm(cr_.x)
+    gs, cs = engines["cuda"].stats_snapshot(), engines["cpu"].stats_snapshot()
+    for key in ("solved", "steps", "cache_hits", "cache_misses", "factored_systems", "evictions",
+                "misconverged", "escalations"):
+        assert gs[key] == cs[key], key
+    assert gs["evictions"] > 0 and gs["peak_device_bytes"] > 0 and cs["peak_device_bytes"] == 0
+
+
+def test_engine_guard_escalates_on_the_card(cuda):
+    """A K=3 oscillatory matrix stored in K=4 band storage misconverges on
+    its first pass; the engine escalates it to an exact bucket on the card."""
+    from repro_torch.core import band_to_dense, oscillatory_banded
+    from repro_torch.serve import SolverEngine
+
+    n = 128
+    band3 = oscillatory_banded(n, 3, d=0.5, seed=1).astype(np.float32)
+    wide = np.zeros((n, 9), np.float32)
+    wide[:, 1:8] = band3
+    dense = band_to_dense(torch.tensor(band3, dtype=torch.float64)).numpy()
+    b = np.float32(dense @ np.random.default_rng(11).normal(size=n))
+    eng = SolverEngine(SaPOptions(p=4, variant="E", tol=1e-5, maxiter=400))
+    eng.submit_system(wide, b)
+    (out,) = eng.step()
+    assert out.result.escalated and out.result.converged
+    assert np.linalg.norm(b - dense @ out.result.x) / np.linalg.norm(b) <= 1e-4
+    assert eng.stats["escalations"] == 1
+
+
+def test_service_drain_thread_on_the_card(cuda):
+    """Client threads submit to a service whose drain thread launches the
+    kernels on the card; every future resolves with a host array."""
+    import threading
+
+    from repro_torch.core import band_to_dense
+    from repro_torch.serve import AsyncSolverService
+
+    svc = AsyncSolverService(SaPOptions(p=4, variant="auto", tol=1e-6, maxiter=200), max_batch=4)
+    futs = []
+    lock = threading.Lock()
+
+    def client(tid):
+        for j in range(4):
+            band = random_banded(200 + 50 * j, 3 + j % 2, 0.5 + tid % 2, seed=tid * 4 + j)
+            band = band.astype(np.float32)
+            x = np.random.default_rng(j).normal(size=band.shape[0])
+            b = band_to_dense(torch.tensor(band, dtype=torch.float64)).numpy() @ x
+            with lock:
+                futs.append(svc.submit(band, b, priority=j))
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    for fut in futs:
+        out = fut.result(timeout=120)
+        assert isinstance(out.x, np.ndarray) and out.converged
+        assert out.true_resnorm <= 1e-5  # 10 tol, the engine's guard
+    svc.close()
+    assert svc.snapshot()["counters"]["solved"] == 12

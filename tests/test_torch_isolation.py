@@ -46,10 +46,13 @@ def test_port_files_are_found():
             "operators.py", "convert.py", "api.py", "layers.py", "rwkv.py", "mamba.py",
             "engine.py", "ref.py", "wkv.py", "ssd.py", "rwkv6_1_6b.py", "zamba2_2_7b.py",
             "device.py", "transformer.py", "flash_attn.py", "stablelm_1_6b.py",
-            "phi3_mini_3_8b.py", "minitron_8b.py", "starcoder2_15b.py"} <= names
+            "phi3_mini_3_8b.py", "minitron_8b.py", "starcoder2_15b.py", "batched.py",
+            "solver_engine.py", "service.py", "metrics.py", "sap_solver.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/models/convert.py", "src/repro_torch/serve/engine.py",
-            "src/repro_torch/configs/__init__.py"} <= rel
+            "src/repro_torch/configs/__init__.py", "src/repro_torch/core/batched.py",
+            "src/repro_torch/serve/solver_engine.py", "src/repro_torch/serve/service.py",
+            "src/repro_torch/serve/metrics.py", "src/repro_torch/configs/sap_solver.py"} <= rel
 
 
 def test_plan_banded_needs_a_card_unless_cpu_is_asked(monkeypatch):
@@ -138,3 +141,37 @@ def test_kernel_sources_and_build_plan():
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     # the build directory is ignored by git
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_grid_limits_are_refused_before_a_launch():
+    """A fleet folded into a kernel's chain axis can outgrow a grid axis:
+    the wrappers refuse it with the axis and its limit named."""
+    from repro_torch.kernels import _launch
+
+    _launch.check_grid("bcr reduce", "z", 65_535)
+    _launch.check_grid("btf", "x", 2**31 - 1)
+    with pytest.raises(ValueError, match="65,536 blocks on the grid's z axis exceed .* 65,535"):
+        _launch.check_grid("bcr reduce", "z", 65_536)
+    with pytest.raises(ValueError, match="y axis"):
+        _launch.check_grid("bcr backsub", "y", 70_000)
+    with pytest.raises(ValueError, match="x axis"):
+        _launch.check_grid("bts", "x", 2**31)
+
+
+def test_solver_configs_build_the_ports_objects():
+    from repro_torch.configs import sap_solver
+    from repro_torch.serve import AsyncSolverService, SolverEngine
+
+    cfg = sap_solver.fleet()
+    assert (cfg.n, cfg.k, cfg.tol, cfg.max_batch, cfg.fac_cache) == (16_384, 16, 1e-6, 64, 256)
+    opts = cfg.to_sap_options(16)
+    assert isinstance(opts, T.SaPOptions) and (opts.p, opts.variant) == (16, "C")
+    eng = cfg.to_engine(16, device="cpu")
+    assert isinstance(eng, SolverEngine) and (eng.max_batch, eng.cache_size) == (64, 256)
+    svc = sap_solver.service().to_service(16, start=False, device="cpu")
+    assert isinstance(svc, AsyncSolverService)
+    assert (svc.queue_cap, svc.default_deadline_s, svc.max_batch) == (512, 30.0, 32)
+    svc.close()
+    assert set(sap_solver.SOLVER_SHAPES) == {"dense_200k", "dense_1m", "dense_4m"}
+    assert (sap_solver.full().n, sap_solver.exact().variant, sap_solver.reduced().k) == (
+        200_000, "E", 8)
