@@ -9,6 +9,12 @@ of the JAX package.  Phases, each printing one JSON line:
 1. device and toolchain;
 2. build: compiles the CUDA kernels of ``src/repro_torch/kernels/csrc``,
    one nvcc per source, all started together;
+calibrate. ``repro_torch.launch.calibrate``: the card's float32 GEMM rate
+   (TF32 off), bfloat16 GEMM rate and STREAM-scale copy bandwidth, each
+   beside the data sheet's figure; it fails on a measurement above 1.05x
+   its figure (a timing fault).  Every later bound is printed both ways:
+   ``bound_ms`` against the data sheet, ``bound_ms_calibrated`` against
+   these ceilings (the exponential rate stays the data sheet's);
 3. kernels against their plain PyTorch versions on the card, at the main
    path's shapes (P=64, M=16, K=200), at the SaP-E reduced chain's
    (P=1, M=7 and M=63, K=400), at the sparse run's (P=64, M=33, K=95), at
@@ -48,6 +54,14 @@ of the JAX package.  Phases, each printing one JSON line:
    cluster size, reduce's by tile size, rhs_reduce's by CTAs a block and
    backsub's by cluster size (an R <= 8 solve on the tiled kernels
    fails);
+trace. ``full()`` C (fused), ``exact()`` E (BCR) at P=64 and the sparse
+   ``plan -> factor -> solve`` at P=64 again (the host plan traced once),
+   ``TRACE_REPS`` warm ``factor`` / ``solve`` calls, each untraced and
+   then under a ``repro_torch.obs.Tracer``: the stage tree (``summary()``)
+   and each span's ms, the span tree against ``TRACE_TREES``, the median
+   factor and krylov span within 0.9x-1.5x (+2 ms) of the median untraced
+   host time, the traced/untraced ratio, the Chrome export's B/E pairs
+   balanced;
 fleet. ``configs/sap_solver.py:fleet()`` (N=16,384, K=16, d=1.0, C, tol
    1e-6, max_batch 64, fac_cache 256) at P=16 through ``SolverEngine
    .run_until_drained``: 64 distinct matrices, each submitted 4 times with
@@ -57,6 +71,11 @@ fleet. ``configs/sap_solver.py:fleet()`` (N=16,384, K=16, d=1.0, C, tol
    it fails if a batch factor launches btf or the fused pass more often
    than one system's factor, or a batched apply launches bts more often
    than one system's apply (a loop over the systems);
+cost. A ``SolverEngine(cost_accounting=True)`` at fleet()'s shape, 16
+   systems, a miss step then a hit step: ``cost_snapshot()`` and each
+   stage's roofline seconds (the calibrated ceilings of
+   ``repro_torch.launch.roofline``) against its measured seconds; it fails
+   on an achieved fraction above 1.05;
 batch_full. ``full()`` (C) and ``exact()`` (E, BCR) at P=64, four systems
    a batch: ``batch_plan`` (exact rounding) -> ``batch_factor`` ->
    ``solve_batch`` and ``solve_batch_many`` (R=4) against four single
@@ -103,7 +122,8 @@ dense. Minitron-8B at its published width and depth (32 layers, d=4096,
    spin kernel, timed by CUDA events; inputs rotated through 3x the L2),
    with each level's share of bound, CTAs a block or cluster size, rows
    and warps a CTA and row copy width; no kernel or library time may read
-   under the kernel's bound.
+   under the kernel's (data sheet) bound.  Then each row's share of both
+   bounds, a share above 1 of the calibrated bound printed as it is.
 
 Then the kernel summary line, the card's ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
@@ -114,8 +134,10 @@ from __future__ import annotations
 
 import json
 import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -125,16 +147,16 @@ SRC = ROOT / "src"
 SEED = 0
 N, K = 200_000, 200
 TOL, MAXITER = 1e-8, 200
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, float32 FMA rate
-# outside the tensor cores, and the tensor cores' dense bfloat16 rate.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOP_S = 67e12
-PEAK_BF16_FLOP_S = 989e12
-# The H100 SXM5's special-function (exponential) rate, 3.9 T/s, as the
-# FlashAttention-3 paper gives it beside the 989 TFLOP/s (Shah et al.,
-# 2024, "FlashAttention-3: Fast and Accurate Attention with Asynchrony and
-# Low-precision", Sec. 3.1).
-PEAK_SFU_S = 3.9e12
+# Bounds: the least time the card could take, the larger of the bytes over
+# the memory rate and the operations over the peak rate of their type.
+# Each is printed twice: against the data sheet's H100 peaks
+# (repro_torch.launch.roofline.H100_DATASHEET: ``bound_ms``, under which no
+# measured time may read) and against the ceilings phase "calibrate"
+# measures in this run (``bound_ms_calibrated``).  The exponential rate has
+# no calibration: its data sheet figure (H100_DATASHEET_SFU_S) serves both.
+# A ceiling measured above CALIBRATE_LIMIT times its data sheet figure is a
+# timing fault.
+CALIBRATE_LIMIT = 1.05
 # The H100's L2 cache: a timed loop whose operands fit in it rotates among
 # enough copies of its inputs to exceed it three times, as the LM path's
 # layers do (each layer's state is its own).
@@ -191,6 +213,28 @@ SERVICE_N, SERVICE_K, SERVICE_D, SERVICE_REPEAT = (10_000, 16_384), (8, 16), (0.
 # fraction of the single x.  The fold may give a kernel another cluster
 # size, tile or split than one system's launch, so sums run in another order.
 BATCH_XTOL = 1e-5
+# Phase "trace": the span trees (names and nesting) of the traced warm calls,
+# as the JAX package opens them for the same calls (tests/test_torch_obs.py
+# holds them against it on the CPU).  The median traced factor or krylov
+# span of TRACE_REPS warm calls must lie within TRACE_SPAN_RANGE of the
+# median untraced host time of as many calls, interleaved with them, plus
+# TRACE_SPAN_SLACK_S: a span far under it would be one that did not wait
+# for the card.  One call of each is too few: the host's clock on a shared
+# machine once read an untraced E krylov call at 15.0 ms where the same call
+# reads 12.2-12.6 ms.
+_FACTOR_FUSED = ("factor", (("factor.split", ()), ("factor.fused", ()), ("factor.reduced", ())))
+TRACE_TREES = {
+    "C": (_FACTOR_FUSED, ("krylov", ())),
+    "E_bcr": (_FACTOR_FUSED, ("krylov", ())),
+    "sparse": (("plan", (("reorder", (("reorder.db", ()), ("reorder.cm", ()),
+                                      ("reorder.assemble", ()))),)),
+               _FACTOR_FUSED, ("krylov", ())),
+}
+TRACE_SPAN_RANGE, TRACE_SPAN_SLACK_S, TRACE_REPS = (0.9, 1.5), 0.002, 5
+# Phase "cost": an engine with cost_accounting at fleet()'s shape, COST_S
+# systems, a miss step then a hit step; an achieved fraction (roofline
+# seconds over measured seconds) above COST_LIMIT fails.
+COST_S, COST_LIMIT = 16, 1.05
 
 
 def emit(obj) -> None:
@@ -240,64 +284,6 @@ def check_close_bf16(what: str, kernel, plain) -> tuple[float, float]:
     return float(diff.max()), share
 
 
-def btf_work(p: int, m: int, k: int) -> tuple[float, float]:
-    """(flops, bytes) a block-tridiagonal LU of P chains of M K x K blocks
-    must do.  Row 0 only inverts (2K^3); rows 1..M-1 each form L_j (2K^3),
-    S_j = D_j - L_j F_{j-1} (2K^3 + K^2) and invert S_j (2K^3).  Reads every
-    D, E_1..E_{M-1} and F_0..F_{M-2}; writes sinv and l."""
-    flops = p * ((6 * m - 4) * k**3 + (m - 1) * k**2)
-    return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m)
-
-
-def bts_work(p: int, m: int, k: int, r: int) -> tuple[float, float]:
-    """(flops, bytes) of both sweeps for R right-hand sides: M-1 forward
-    products, sinv_{M-1} y, then F_j x_{j+1} and sinv_j (...) for j < M-1,
-    each 2K^2 R flops.  Reads sinv, l_1..l_{M-1}, f_0..f_{M-2} and b;
-    writes x."""
-    flops = p * ((6 * m - 4) * k * k * r + 2 * (m - 1) * k * r)
-    return float(flops), 4.0 * p * ((3 * m - 2) * k * k + 2 * m * k * r)
-
-
-def fused_work(p: int, m: int, k: int) -> tuple[float, float]:
-    """(flops, bytes) of the fused pass: the LU and the UL recurrence (btf's
-    work each), the two spike carries (M-1 products each) and the four
-    corner products.  Reads the chain blocks btf reads plus bq and cq;
-    writes sinv, l and the four K x K corners."""
-    flops = p * ((16 * m - 4) * k**3 + 2 * (m - 1) * k**2)
-    return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m + 2 + 4)
-
-
-def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
-    """(flops, bytes) of each BCR kernel over all levels of one factor
-    (inv_odd, reduce) or one solve with R right-hand sides (rhs_reduce,
-    backsub), for a chain of m blocks of K x K padded to 2^L blocks.  Each
-    level of length m_l eliminates m_l/2 odd rows, so the levels eliminate
-    2^L - 1 rows in all; the identity padding rows are counted, since the
-    kernels eliminate them like any other (at m = 63: 1 of 64 rows).
-    inv_odd inverts every odd block and the root (2K^3 each; reads and
-    writes one block each); reduce does six K x K products per even row
-    plus two block subtractions, reading D_2i, E, F, a (3 blocks per row
-    pair) and writing lo, hi, D', E', F'; rhs_reduce reads lo, hi and the
-    level's RHS, writes the half-length RHS (4K^2 R + 2KR flops a row);
-    backsub reads a, e, f, the odd RHS and x, writes the level's solution
-    (6K^2 R + 2KR flops a row)."""
-    rows = (1 << max(m - 1, 0).bit_length()) - 1
-    blk, vec = 4.0 * k * k, 4.0 * k * r
-    return {
-        "inv_odd": (2.0 * k**3 * (rows + 1), 2 * blk * (rows + 1)),
-        "reduce": (rows * (12.0 * k**3 + 2 * k * k), rows * 11 * blk),
-        "rhs_reduce": (rows * (4.0 * k * k * r + 2 * k * r), rows * (2 * blk + 3 * vec)),
-        "backsub": (rows * (6.0 * k * k * r + 2 * k * r), rows * (3 * blk + 4 * vec)),
-    }
-
-
-def reduce_level_work(m2: int, k: int) -> tuple[float, float]:
-    """(flops, bytes) of one reduce level of m2 even rows, as bcr_work
-    counts a row: six K x K products and two block subtractions, reading
-    D_2i, E, F, a and writing lo, hi, D', E', F' (11 blocks)."""
-    return m2 * (12.0 * k**3 + 2 * k * k), m2 * 11 * 4.0 * k * k
-
-
 def reduce_library(d, e, f, a):
     """bcr_reduce's function from PyTorch calls: its six K x K products a
     level as batched ``torch.matmul`` (float32, TF32 off), on the clamped
@@ -311,14 +297,6 @@ def reduce_library(d, e, f, a):
     hi = torch.matmul(f[0::2], a)
     dn = d[0::2] - torch.matmul(lo, f.index_select(0, prv)) - torch.matmul(hi, e[1::2])
     return lo, hi, dn, -torch.matmul(lo, e.index_select(0, prv)), -torch.matmul(hi, f[1::2])
-
-
-def solve_level_work(m2: int, k: int, r: int) -> dict[str, tuple[float, float]]:
-    """(flops, bytes) of one rhs_reduce and one backsub level of m2 even
-    rows, as bcr_work counts a row."""
-    blk, vec = 4.0 * k * k, 4.0 * k * r
-    return {"rhs_reduce": (m2 * (4.0 * k * k * r + 2 * k * r), m2 * (2 * blk + 3 * vec)),
-            "backsub": (m2 * (6.0 * k * k * r + 2 * k * r), m2 * (3 * blk + 4 * vec))}
 
 
 def rhs_reduce_library(lo, hi, b):
@@ -384,12 +362,40 @@ def flash_work(b: int, hq: int, hk: int, tq: int, tk: int, d: int, causal: bool,
             float(elt_bytes * (2 * b * hq * tq * d + 2 * b * hk * tk * d)))
 
 
-def flash_bound(tc_ops: float, exps: float, nbytes: float) -> tuple[float, str]:
+def roofline_bound(flops: float, nbytes: float, bytes_s: float, flop_s: float) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes' time and the
+    operations' time at the given rates."""
+    t_bytes, t_ops = nbytes / bytes_s * 1e3, flops / flop_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_bound(tc_ops: float, exps: float, nbytes: float, bytes_s: float, bf16_s: float,
+                sfu_s: float) -> tuple[float, str]:
     """(ms, what bounds it): the largest of the bytes' time, the tensor
     cores' time and the exponentials' time."""
-    t_bytes, t_tc, t_exp = (nbytes / PEAK_BYTES_S * 1e3, tc_ops / PEAK_BF16_FLOP_S * 1e3,
-                            exps / PEAK_SFU_S * 1e3)
+    t_bytes, t_tc, t_exp = nbytes / bytes_s * 1e3, tc_ops / bf16_s * 1e3, exps / sfu_s * 1e3
     return max(t_bytes, t_tc, t_exp), "bytes" if t_bytes >= max(t_tc, t_exp) else "operations"
+
+
+def balanced_chrome_trace(path) -> dict:
+    """{span name: completed B/E pairs} of a Chrome trace file; an E that
+    closes no open B of its name on its thread, or a B left open, raises."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    stacks, pairs = {}, {}
+    for ev in sorted((e for e in events if e["ph"] in ("B", "E")), key=lambda e: e["ts"]):
+        stack = stacks.setdefault(ev["tid"], [])
+        if ev["ph"] == "B":
+            stack.append(ev["name"])
+        elif ev["name"] in stack:
+            stack.reverse()
+            stack.remove(ev["name"])
+            stack.reverse()
+            pairs[ev["name"]] = pairs.get(ev["name"], 0) + 1
+        else:
+            raise AssertionError(f"trace: E {ev['name']!r} closes no open B")
+    if any(stacks.values()):
+        raise AssertionError(f"trace: spans left open: {stacks}")
+    return pairs
 
 
 def flash_inputs(dev, b: int, hq: int, hk: int, tq: int, tk: int, d: int, dtype, seed: int):
@@ -609,6 +615,14 @@ def main() -> int:
     from repro_torch.core import cyclic_reduction as cr
     from repro_torch.core.spike import _reduced_interface_system
     from repro_torch.kernels import bcr, build, ops
+    from repro_torch.kernels.ops import (
+        bcr_work,
+        btf_work,
+        bts_work,
+        fused_work,
+        reduce_level_work,
+        solve_level_work,
+    )
     from repro_torch.configs import get_config, sap_solver
     from repro_torch.core import batched
     from repro_torch.kernels.btf import btf
@@ -618,6 +632,10 @@ def main() -> int:
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.kernels.ssd import ssd, ssd_plain
     from repro_torch.kernels.wkv import scan_route, wkv6, wkv6_plain
+    from repro_torch.launch import calibrate
+    from repro_torch.obs import Tracer, use_tracer
+    from repro_torch.launch.roofline import H100_DATASHEET as SHEET
+    from repro_torch.launch.roofline import H100_DATASHEET_SFU_S, backend_spec
     from repro_torch.models import get_family
     from repro_torch.serve import Cancelled, Request, ServeEngine
 
@@ -651,6 +669,44 @@ def main() -> int:
         build.load(name)
     emit({"phase": "build", "sources": list(build.SOURCES), "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+
+    # ---- calibrate: the card's ceilings, measured in this run ------------------
+    t0 = time.perf_counter()
+    cal = calibrate.calibrate()
+    rates = {"float32_flop_s": (cal.peak_flops, SHEET.peak_flops),
+             "bfloat16_flop_s": (cal.peak_bf16_flops, SHEET.peak_bf16_flops),
+             "copy_bytes_s": (cal.hbm_bw, SHEET.hbm_bw)}
+    committed = backend_spec("cuda")
+    emit({"phase": "calibrate", "seconds": time.perf_counter() - t0,
+          **{nm: {"measured": got, "datasheet": sheet, "measured_over_datasheet": got / sheet}
+             for nm, (got, sheet) in rates.items()},
+          "exponentials_s": {"datasheet": H100_DATASHEET_SFU_S, "calibrated": None},
+          "committed_spec": {"name": committed.name, "float32_flop_s": committed.peak_flops,
+                             "bfloat16_flop_s": committed.peak_bf16_flops,
+                             "copy_bytes_s": committed.hbm_bw},
+          "limit_over_datasheet": CALIBRATE_LIMIT, "nvidia_smi": smi})
+    for nm, (got, sheet) in rates.items():
+        if not 0.0 < got <= CALIBRATE_LIMIT * sheet:
+            raise AssertionError(f"calibrate: {nm} {got:.4g} is not within (0, "
+                                 f"{CALIBRATE_LIMIT} x the data sheet's {sheet:.4g}]")
+
+    def bound(flops, nbytes) -> dict:
+        """The bound against the data sheet's peaks and against this run's
+        calibrated ceilings (float32 operations)."""
+        ms, by = roofline_bound(flops, nbytes, SHEET.hbm_bw, SHEET.peak_flops)
+        ms_cal, by_cal = roofline_bound(flops, nbytes, cal.hbm_bw, cal.peak_flops)
+        return {"bound_ms": ms, "bound_by": by, "bound_ms_calibrated": ms_cal,
+                "bound_by_calibrated": by_cal}
+
+    def attention_bound(tc_ops, exps, nbytes) -> dict:
+        """flash's bound both ways: bfloat16 tensor-core operations, the
+        exponentials at the data sheet's rate either way."""
+        ms, by = flash_bound(tc_ops, exps, nbytes, SHEET.hbm_bw, SHEET.peak_bf16_flops,
+                             H100_DATASHEET_SFU_S)
+        ms_cal, by_cal = flash_bound(tc_ops, exps, nbytes, cal.hbm_bw, cal.peak_bf16_flops,
+                                     H100_DATASHEET_SFU_S)
+        return {"bound_ms": ms, "bound_by": by, "bound_ms_calibrated": ms_cal,
+                "bound_by_calibrated": by_cal}
 
     # ---- 3. kernels against plain versions on the card ----------------------
     band_d1 = torch.tensor(random_banded(N, K, 1.0, seed=SEED).astype(np.float32), device=dev)
@@ -820,7 +876,6 @@ def main() -> int:
     emit({"phase": "sparse_plan", "n": csr.n, "nnz": csr.nnz, "generate_s": sparse_gen_s,
           "plan_s": time.perf_counter() - t0, "k_after_reorder": sparse_plan.k,
           "info": sparse_plan.info})
-    del csr
     # the sparse run's kernels at its shapes: the reordered band split as
     # factor splits it (K=95), and its interface chain (2K=190: inv_odd
     # eliminates in shared memory)
@@ -1196,7 +1251,106 @@ def main() -> int:
     if iterations["E_bcr_p500"] > iterations["C_p500"]:
         raise AssertionError(f"E_bcr_p500 took {iterations['E_bcr_p500']} sweeps, "
                              f"C_p500 {iterations['C_p500']}")
-    del systems, band_d05, sparse_plan, a_sparse
+
+    # ---- trace: full() C, exact() E (BCR) and the sparse run under a Tracer --
+    # Each case's warm calls, untraced and traced in turn (the first call
+    # of all warms the plan): the span tree of the first traced call against
+    # TRACE_TREES, the median factor / krylov span against the median
+    # untraced host time, the Chrome export's B/E pairs.
+    def span_tree(tracer):
+        def rec(sp):
+            return (sp.name, tuple(rec(c) for c in sorted(sp.children, key=lambda c: c.t0)))
+
+        return tuple(rec(r) for r in tracer.roots())
+
+    def span_ms(tracer):
+        """Milliseconds of every span by its path (parent/child)."""
+        out = {}
+
+        def rec(sp, prefix):
+            path = f"{prefix}{sp.name}"
+            out[path] = out.get(path, 0.0) + sp.duration_s * 1e3
+            for c in sp.children:
+                rec(c, path + "/")
+
+        for r in tracer.roots():
+            rec(r, "")
+        return out
+
+    reset()
+    trace_cases = (("C", sap_solver.full(), "d1.0"), ("E_bcr", sap_solver.exact(), "d0.5"),
+                   ("sparse", None, "sparse"))
+    for name, ccfg, sysname in trace_cases:
+        tracer = Tracer()
+        if sysname == "sparse":
+            with use_tracer(tracer):  # the host plan, traced once
+                pl = plan(csr, sparse_plan.opts)
+            rhs = a_sparse.matvec(xstar)
+            band = None
+        else:
+            if (ccfg.n, ccfg.k, ccfg.d) != (N, K, float(sysname[1:])):
+                raise AssertionError(f"trace {name}: {ccfg} is not the slice's system")
+            band, rhs = systems[sysname]
+            pl = plan_banded(band, ccfg.to_sap_options(64))
+
+        def untraced_call():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fac = factor(pl)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fac.solve(rhs)
+            torch.cuda.synchronize()
+            return {"factor": t1 - t0, "krylov": time.perf_counter() - t1}
+
+        untraced_call()  # warms the plan's first factor and solve
+        untraced_s = {"factor": [], "krylov": []}
+        traced_s = {"factor": [], "krylov": []}
+        for rep in range(TRACE_REPS):
+            for st, t in untraced_call().items():
+                untraced_s[st].append(t)
+            rep_tracer = tracer if rep == 0 else Tracer()  # the first holds the sparse plan
+            with use_tracer(rep_tracer):
+                fac = factor(pl)
+                res = fac.solve(rhs)
+            for st in traced_s:
+                traced_s[st].append(rep_tracer.find(st)[0].duration_s)
+        untraced = {st: statistics.median(ts) for st, ts in untraced_s.items()}
+        traced = {st: statistics.median(ts) for st, ts in traced_s.items()}
+        x = res.x
+        ax = a_sparse.matvec(x) if band is None else band_matvec(band.double(), x)
+        resid = float((rhs - ax).norm() / rhs.norm())
+        with tempfile.TemporaryDirectory() as tmp:
+            pairs = balanced_chrome_trace(tracer.export_chrome(str(Path(tmp) / "trace.json")))
+        tree = span_tree(tracer)
+        emit({"phase": "trace", "run": name, "variant": fac.variant, "p": fac.p,
+              "fused": fac.pc.fused, "reduced_solver": fac.pc.reduced_solver,
+              "summary": tracer.summary().splitlines(), "span_ms": span_ms(tracer),
+              "untraced_ms": {st: t * 1e3 for st, t in untraced.items()},
+              "traced_ms": {st: t * 1e3 for st, t in traced.items()},
+              "untraced_ms_each": {st: [t * 1e3 for t in ts] for st, ts in untraced_s.items()},
+              "traced_ms_each": {st: [t * 1e3 for t in ts] for st, ts in traced_s.items()},
+              "traced_over_untraced": {st: traced[st] / untraced[st] for st in traced},
+              "traced_over_untraced_total": sum(traced.values()) / sum(untraced.values()),
+              "chrome_pairs": pairs, "true_resnorm_f64": resid,
+              "iterations": float(res.iterations)})
+        if tree != TRACE_TREES[name]:
+            raise AssertionError(f"trace {name}: span tree {tree} is not {TRACE_TREES[name]}")
+        lo, hi = TRACE_SPAN_RANGE
+        for st, t in traced.items():
+            if not lo * untraced[st] <= t <= hi * untraced[st] + TRACE_SPAN_SLACK_S:
+                raise AssertionError(f"trace {name}: the median {st} span took {t * 1e3:.3f} ms "
+                                     f"against {untraced[st] * 1e3:.3f} ms untraced")
+        if resid > 1e-6 or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"trace {name}: true_resnorm {resid}")
+        del fac, res, x, pl
+    traced_counts = counts()
+    for nm in totals:
+        totals[nm] += traced_counts[nm]
+    for nm in ("fused_factor_spike", "btf", "bts") + bcr_names:
+        if not traced_counts[nm]:
+            raise AssertionError(f"trace: kernel {nm} was never launched: {traced_counts}")
+    del systems, band_d05, sparse_plan, a_sparse, csr
 
     # ---- the solver's serving path: fleet, batch_full, service ----------------
     from torch.profiler import ProfilerActivity, profile
@@ -1394,6 +1548,57 @@ def main() -> int:
         raise AssertionError(f"fleet: not one step of misses, then hits: {fstats}")
     check_folds("fleet", log, one_factor, one_bts)
     del eng, done, order, fleet_bands, fleet_b, fleet_x, x_got
+
+    # cost: an engine with cost_accounting at fleet()'s shape, COST_S systems,
+    # one miss step then one hit step: each stage's roofline seconds (the
+    # calibrated ceilings) against the engine's measured seconds
+    from repro_torch.serve import SolverEngine
+
+    cost_bands = [random_banded(fcfg.n, fcfg.k, fcfg.d, seed=SEED + 300 + i).astype(np.float32)
+                  for i in range(COST_S)]
+    crng = np.random.default_rng(SEED + 4)
+    ceng = SolverEngine(fopts, max_batch=fcfg.max_batch, cache_size=fcfg.fac_cache,
+                        rounding=fcfg.bucket_rounding, cost_accounting=True)
+    cost_steps, fractions = [], []
+    reset()
+    for step_name in ("miss", "hit"):
+        for bd in cost_bands:
+            ceng.submit_system(bd, host_band_matvec(bd, crng.normal(size=fcfg.n)))
+        s0, c0 = ceng.stats_snapshot(), ceng.cost_snapshot()
+        done = ceng.step()
+        s1, c1 = ceng.stats_snapshot(), ceng.cost_snapshot()
+        if len(done) != COST_S or not all(r.result.converged for r in done):
+            raise AssertionError(f"cost {step_name}: a request did not converge")
+        if max(r.result.true_resnorm for r in done) > 10 * fcfg.tol:
+            raise AssertionError(f"cost {step_name}: a true_resnorm above {10 * fcfg.tol}")
+        row = {"step": step_name, "requests": len(done),
+               "cache_hits": s1["cache_hits"] - s0["cache_hits"],
+               "sweeps": max(r.result.iterations for r in done)}
+        for stage, key in (("factor", "factor_seconds_total"), ("krylov", "solve_seconds_total")):
+            roof = (c1.get(stage, {}).get("roofline_s", 0.0)
+                    - c0.get(stage, {}).get("roofline_s", 0.0))
+            measured = s1[key] - s0[key]
+            frac = roof / measured if roof > 0 else None
+            row[stage] = {"roofline_s": roof, "measured_s": measured, "achieved_fraction": frac}
+            if frac is not None:
+                fractions.append(frac)
+        cost_steps.append(row)
+    cost_counts = counts()
+    add_totals()
+    bucket = done[0].result.bucket
+    emit({"phase": "cost", "config": fcfg.name, "n": fcfg.n, "k": fcfg.k, "p": FLEET_P,
+          "systems": COST_S, "bucket": bucket, "hw": backend_spec("cuda").name,
+          "steps": cost_steps, "cost_snapshot": ceng.cost_snapshot(),
+          "stage_costs_s1": {nm: c.to_dict() for nm, c in ceng.stage_costs(
+              bucket, variant=fopts.variant, dtype=torch.float64).items()},
+          "launches": {nm: cost_counts[nm] for nm in solver_kernels if cost_counts[nm]},
+          "limit": COST_LIMIT, "nvidia_smi": smi})
+    if not fractions or max(fractions) > COST_LIMIT:
+        raise AssertionError(f"cost: achieved fractions {fractions} (limit {COST_LIMIT})")
+    if cost_steps[1]["cache_hits"] != COST_S:
+        raise AssertionError(f"cost: the second step was not all hits: {cost_steps}")
+    must_launch("cost", cost_counts, ("btf", "bts", "fused_factor_spike"))
+    del ceng, cost_bands, done
 
     # batch_full: full() (C) and exact() (E, BCR) at P=64, BATCH_S systems a
     # batch, against BATCH_S single-system factor / solve runs of the same
@@ -2011,12 +2216,10 @@ def main() -> int:
                        if "library_vs_plain" in s else None)
         wrappers[name].launches = saved  # timing launches are not the path's
         flops, nbytes = s["work"]
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
         summary.append({
             "name": name, "route": "cuda", "source": s["source"], "replaces": s["replaces"],
             "launches": totals[name], "max_abs_err": s["err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            **bound(flops, nbytes), "library_ms": library_ms,
         })
         if wall_ms is not None:
             summary[-1].update(ms_is="device", host_ms=wall_ms)
@@ -2041,10 +2244,6 @@ def main() -> int:
     bcr.inv_odd.launches, bcr.inv_odd.block_launches = saved
     emit({"phase": "timing", "kernel": "bcr_inv_odd", "by_level": by_level,
           "levels_ms": sum(lv["ms"] for lv in by_level)})
-
-    def bound(flops, nbytes):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
-        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
     # bts at every shape the main path gives it, on its cluster route, beside
     # the one-block kernel (the route of R > 8) forced through the C entry
@@ -2084,7 +2283,7 @@ def main() -> int:
             "ms": cuda_ms(lambda: bts(facs.sinv, facs.l, facs.f, rhs), 20),
             "one_block_ms": cuda_ms(lambda: bts_block(facs, rhs), 10),
             "plain_ms": cuda_ms(lambda: bl.bts_ref(facs, rhs), 3),
-            **dict(zip(("bound_ms", "bound_by"), bound(*bts_work(pp, mm, kk_, rr)))),
+            **bound(*bts_work(pp, mm, kk_, rr)),
             "library_ms": None, "max_abs_err": err})
         emit({"phase": "timing", "kernel": "bts", **bts_rows[-1]})
     bts.launches, bts.block_launches = saved[:2]
@@ -2122,9 +2321,8 @@ def main() -> int:
         w.launches, w.block_launches = saved[:2]  # timing launches are not the path's
         bts.by_cluster.clear()
         bts.by_cluster.update(saved[2])
-        bound_ms, bound_by = bound(flops, nbytes)
-        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "cluster": cs, "max_abs_err": err,
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(flops, nbytes),
+               "cluster": cs, "max_abs_err": err,
                "shape": [fp, fm, fk] + ([1] if name == "bts" else []), "systems": FLEET_S}
         summary[[e["name"] for e in summary].index(name)]["fleet"] = row
         emit({"phase": "timing", "kernel": name, "at": "fleet", **row, "bytes": nbytes,
@@ -2150,7 +2348,7 @@ def main() -> int:
                 "plain_ms": cuda_ms(lambda: cr.bcr_reduce_ref(*fa), reps),
                 "library_max_abs_err_vs_plain": max(
                     float((o - w).abs().max()) for o, w in zip(lib_out, plain_out)),
-                **dict(zip(("bound_ms", "bound_by"), bound(*reduce_level_work(m2, kb))))})
+                **bound(*reduce_level_work(m2, kb))})
             del lib_out, plain_out
         reduce_levels[tag] = rows
         emit({"phase": "timing", "kernel": "bcr_reduce", "at": tag, "by_level": rows,
@@ -2183,7 +2381,7 @@ def main() -> int:
             "ms": ms, "host_ms": host_ms(each(kern, args500), 20), "device_ms_by_kernel": by_kernel,
             "plain_ms": cuda_ms(each(plain_fn, args500), 2),
             "library_ms": device_ms(each(lib_fn, args500), 20)[0],
-            **dict(zip(("bound_ms", "bound_by"), bound(*work500[name[4:]]))),
+            **bound(*work500[name[4:]]),
             "shape": list(chain500[0].shape)}
         emit({"phase": "timing", "kernel": name, "at": "p500", **entry["p500"]})
         levels = {}
@@ -2197,7 +2395,7 @@ def main() -> int:
                 k_ms = queued_ms(lambda: kern(*nxt()), reps)
                 size = (lib_bcr.bcr_rhs_reduce_split(m2, kb, rr) if which == 0
                         else lib_bcr.bcr_backsub_cluster(m2, kb, rr))
-                bound_ms, bound_by = bound(flops, nbytes)
+                bnd = bound(flops, nbytes)
                 rows.append({
                     "m2": m2, "k": kb, "r": rr, "split" if which == 0 else "cluster": size,
                     "rows_per_cta": -(-kb // size), "warps": lib_bcr.bcr_solve_warps(kb, size),
@@ -2207,7 +2405,8 @@ def main() -> int:
                         args[0].data_ptr(), args[1].data_ptr(), args[2 * which].data_ptr(), kb),
                     "ms": k_ms, "ms_is": "queued",
                     "library_ms": queued_ms(lambda: lib_fn(*nxt()), reps),
-                    "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / k_ms})
+                    **bnd, "share_of_bound": bnd["bound_ms"] / k_ms,
+                    "share_of_calibrated_bound": bnd["bound_ms_calibrated"] / k_ms})
                 del nxt
             levels[tag] = rows
             emit({"phase": "timing", "kernel": name, "at": f"{tag}_by_level", "by_level": rows,
@@ -2258,12 +2457,9 @@ def main() -> int:
             plain_ms = cuda_ms(plain, 5 if tag == "decode" else 2)
             wrappers[name].launches = saved[0]  # timing launches are not the path's
             wrappers[name].by_route.update(saved[1])
-            t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOP_S * 1e3
             row = {"ms": ms, "host_ms": wall_ms, "device_ms_by_kernel": by_kernel,
                    "scan_route": scan_routes[f"{name}_{tag}"], "plain_ms": plain_ms,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "max_abs_err": errs[f"{name}_{tag}"], "shape": shape}
+                   **bound(flops, nbytes), "max_abs_err": errs[f"{name}_{tag}"], "shape": shape}
             emit({"phase": "timing", "kernel": name, "at": tag, **row, "library_ms": None,
                   "bytes": nbytes, "flops": flops})
             if tag == "decode":
@@ -2295,8 +2491,7 @@ def main() -> int:
             del mask
         tc_ops, exps, nbytes = flash_work(b, hq, hk, tq, tk, d, causal, window,
                                           q.element_size())
-        bound_ms, bound_by = flash_bound(tc_ops, exps, nbytes)
-        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        row = {"ms": ms, "plain_ms": plain_ms, **attention_bound(tc_ops, exps, nbytes),
                "library_ms": library_ms, "max_abs_err": errs[f"flash_{tag}_bfloat16"],
                "shape": [b, hq, hk, tq, tk, d, causal, window]}
         emit({"phase": "timing", "kernel": "flash", "at": tag, **row, "bytes": nbytes,
@@ -2315,16 +2510,28 @@ def main() -> int:
         "band_to_block_tridiag_p64_ms": cuda_ms(lambda: band_to_block_tridiag(band_d1, K, 64), 5),
     })
 
-    # no measured time may read under the least time the card could take
+    # no measured time may read under the least time the card could take (the
+    # data sheet's bound); each row's share of both bounds, a share of the
+    # calibrated bound above 1 printed as it is
+    shares, above = [], []
     for entry in summary:
-        rows = ([entry] + [entry[t] for t in ("prefill", "windowed", "p500", "fleet") if t in entry]
-                + entry.get("shapes", [])
-                + [r for lv in entry.get("by_level", {}).values() for r in lv])
-        for row in rows:
+        rows = ([("", entry)] + [(t, entry[t]) for t in ("prefill", "windowed", "p500", "fleet")
+                                 if t in entry]
+                + [(r.get("at", ""), r) for r in entry.get("shapes", [])]
+                + [(f"{tag} m2={r['m2']}", r) for tag, lv in entry.get("by_level", {}).items()
+                   for r in lv])
+        for at, row in rows:
             for what in ("ms", "library_ms"):
                 if row.get(what) is not None and row[what] < row["bound_ms"]:
                     raise AssertionError(f"{entry['name']}: {what} {row[what]:.4g} reads under "
                                          f"its bound {row['bound_ms']:.4g} ms")
+            share = {"kernel": entry["name"], "at": at, "ms": row["ms"],
+                     "of_datasheet_bound": row["bound_ms"] / row["ms"],
+                     "of_calibrated_bound": row["bound_ms_calibrated"] / row["ms"]}
+            shares.append(share)
+            if share["of_calibrated_bound"] > 1.0:
+                above.append(share)
+    emit({"phase": "shares", "rows": shares, "above_calibrated_bound": above})
     emit({"kernels": summary})
     print(smi, flush=True)
     emit({

@@ -59,8 +59,10 @@ class SolverConfig:
     # a tight latency envelope narrows these to get p99 resolution where
     # its traffic actually lands.
     hist_bounds: tuple[float, ...] | None = None
-    # roofline cost accounting: not ported yet (the engine raises when it
-    # is on); it comes with the observability port.
+    # roofline cost accounting (repro_torch.obs.cost): flops / bytes /
+    # roofline-seconds attribution on the engine, counted once per bucket
+    # the first time it is seen.  Off by default -- serving deployments
+    # that dashboard achieved-vs-roofline turn it on.
     cost_accounting: bool = False
 
     def to_sap_options(self, p: int):

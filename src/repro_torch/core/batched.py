@@ -48,7 +48,11 @@ factored systems inside one batched solve.
 Nothing is traced or compiled per shape here: the JAX package's jitted,
 vmapped, ahead-of-time compiled factor stages (``_factor_stages_fn``,
 ``factor_stages_compiled``) have no counterpart beyond the plain function
-:func:`_factor_stages`.
+:func:`_factor_stages`.  The single-system stage spans (``factor.lu``,
+``factor.spike``, ...) stay quiet inside a batch factor, as they do under
+the JAX package's ``vmap``: ``factor.batch`` has no lifecycle children.
+The JAX package's first ``factor.batch`` of a bucket also holds a
+``compile`` span (its ahead-of-time compile); the port's never does.
 """
 
 from __future__ import annotations
@@ -60,12 +64,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.trace import quiet, span
 from .banded import band_to_block_tridiag, diag_dominance_factor
 from .operators import BandedOperator
 from .sap import (
     SaPFactorization,
     SaPOptions,
     SaPSolveResult,
+    _convergence_summary,
     _dtype,
     _solve_impl,
     _tensor,
@@ -407,16 +413,20 @@ class BatchedSaPFactorization:
                 f"solve_batch expects one RHS per system, shape ({self.s}, {self.n}); "
                 f"got {tuple(b.shape)}"
             )
-        res = _solve_impl(self.fac, b[..., None], record_history)
-        return SaPSolveResult(
-            x=res.x[..., 0],
-            iterations=res.iterations[:, 0],
-            resnorm=res.resnorm[:, 0],
-            converged=res.converged[:, 0],
-            true_resnorm=res.true_resnorm[:, 0],
-            d_factor=res.d_factor,
-            history=None if res.history is None else res.history[:, 0],
-        )
+        with span("krylov", s=self.s, n=self.n, k=self.k, variant=self.variant) as sp:
+            res = _solve_impl(self.fac, b[..., None], record_history)
+            res = sp.sync(SaPSolveResult(
+                x=res.x[..., 0],
+                iterations=res.iterations[:, 0],
+                resnorm=res.resnorm[:, 0],
+                converged=res.converged[:, 0],
+                true_resnorm=res.true_resnorm[:, 0],
+                d_factor=res.d_factor,
+                history=None if res.history is None else res.history[:, 0],
+            ))
+        if sp:
+            sp.annotate(convergence=_convergence_summary(res))
+        return res
 
     def solve_batch_many(self, b, record_history: bool = False) -> SaPSolveResult:
         """Solve R RHS per system: b (S, N', R) -> x (S, N', R); the
@@ -426,7 +436,12 @@ class BatchedSaPFactorization:
             raise ValueError(
                 f"solve_batch_many expects shape ({self.s}, {self.n}, R); got {tuple(b.shape)}"
             )
-        return _solve_impl(self.fac, b, record_history)
+        with span("krylov", s=self.s, n=self.n, k=self.k, variant=self.variant,
+                  nrhs=int(b.shape[2])) as sp:
+            res = sp.sync(_solve_impl(self.fac, b, record_history))
+        if sp:
+            sp.annotate(convergence=_convergence_summary(res))
+        return res
 
 
 def _factor_stages(
@@ -438,14 +453,15 @@ def _factor_stages(
     preconditioner and the per-system dominance ``d`` (S,)."""
     d_factor = diag_dominance_factor(bands)
     bt = band_to_block_tridiag(bands, max(k, 1), p)
-    pc = build_preconditioner(
-        bt,
-        variant=variant,
-        boost_eps=opts.boost_eps,
-        precond_dtype=_dtype(opts.precond_dtype),
-        reduced_solver=opts.reduced_solver,
-        fused=opts.fused_factor,
-    )
+    with quiet():  # the single-system stage spans, as under the JAX package's vmap
+        pc = build_preconditioner(
+            bt,
+            variant=variant,
+            boost_eps=opts.boost_eps,
+            precond_dtype=_dtype(opts.precond_dtype),
+            reduced_solver=opts.reduced_solver,
+            fused=opts.fused_factor,
+        )
     return pc, d_factor
 
 
@@ -487,7 +503,9 @@ def batch_factor(bpl: BatchedSaPPlan) -> BatchedSaPFactorization:
     variant = opts.variant
     if variant == "auto":
         variant = resolve_variant("auto", float(diag_dominance_factor(bpl.bands).min()))
-    pc, d_factors = _factor_stages(bpl.bands, bpl.k, opts.p, variant, opts)
+    with span("factor.batch", s=bpl.s, n=bpl.n, k=bpl.k, p=opts.p, variant=variant) as sp:
+        pc, d_factors = _factor_stages(bpl.bands, bpl.k, opts.p, variant, opts)
+        sp.sync(pc)
     x_perm, b_perm = _stacked_permutations(bpl)
     fac = SaPFactorization(
         op=BandedOperator(band=bpl.bands, n=bpl.n, k=bpl.k),

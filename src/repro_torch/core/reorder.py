@@ -20,7 +20,7 @@
 These run on the host (numpy), exactly as SaP::GPU runs its reordering
 stages partially on the CPU (hybrid strategy, Sec. 3.2-3.3).  This module
 is the JAX package's ``repro.core.reorder`` copied for the port (numpy and
-heapq only), without its trace spans.
+heapq only), with its trace spans.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from typing import Tuple
 
 import numpy as np
 
+from ..obs.trace import span
 from .sparse import CSR, csr_from_coo, csr_from_dense
 
 INF = np.inf
@@ -76,32 +77,39 @@ def analyze(
     n = csr.n
     info: dict = {}
 
-    if use_db:
-        row_perm = diagonal_boosting(csr)
-        csr = permute_rows(csr, row_perm)
-        info["db"] = True
-    else:
-        row_perm = np.arange(n)
-        info["db"] = False
+    with span("reorder", n=n, nnz=int(csr.data.size), drop_tol=drop_tol) as rsp:
+        if use_db:
+            with span("reorder.db"):
+                row_perm = diagonal_boosting(csr)
+                csr = permute_rows(csr, row_perm)
+            info["db"] = True
+        else:
+            row_perm = np.arange(n)
+            info["db"] = False
 
-    if use_cm:
-        sym_perm = cuthill_mckee(symmetrize(csr))
-        csr = permute_symmetric(csr, sym_perm)
-        info["cm"] = True
-    else:
-        sym_perm = np.arange(n)
-        info["cm"] = False
+        if use_cm:
+            with span("reorder.cm"):
+                sym_perm = cuthill_mckee(symmetrize(csr))
+                csr = permute_symmetric(csr, sym_perm)
+            info["cm"] = True
+        else:
+            sym_perm = np.arange(n)
+            info["cm"] = False
 
-    k_full = half_bandwidth(csr)
-    info["k_after_reorder"] = k_full
+        k_full = half_bandwidth(csr)
+        info["k_after_reorder"] = k_full
 
-    csr_pc = csr
-    k = k_full
-    if drop_tol > 0.0:
-        csr_pc, k = drop_off(csr, drop_tol)
-        info["k_after_drop"] = k
-    k = max(k, 1)
-    band_pc = csr_to_band(csr_pc, k)
+        csr_pc = csr
+        k = k_full
+        if drop_tol > 0.0:
+            with span("reorder.drop"):
+                csr_pc, k = drop_off(csr, drop_tol)
+            info["k_after_drop"] = k
+        k = max(k, 1)
+        rsp.annotate(k=k)
+
+        with span("reorder.assemble"):
+            band_pc = csr_to_band(csr_pc, k)
 
     return ReorderPlan(
         csr=csr,

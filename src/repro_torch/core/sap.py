@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.trace import span
 from . import reorder as reorder_mod
 from .banded import band_to_block_tridiag, diag_dominance_factor
 from .block_lu import DEFAULT_BOOST
@@ -205,7 +206,9 @@ def plan(a, opts: Optional[SaPOptions] = None, device=None) -> SaPPlan:
         a = a.cpu().numpy()
     if isinstance(a, np.ndarray):
         require_square_dense(a)
-    rp = reorder_mod.analyze(a, use_db=opts.use_db, use_cm=opts.use_cm, drop_tol=opts.drop_tol)
+    with span("plan", use_db=opts.use_db, use_cm=opts.use_cm) as sp:
+        rp = reorder_mod.analyze(a, use_db=opts.use_db, use_cm=opts.use_cm, drop_tol=opts.drop_tol)
+        sp.annotate(n=rp.csr.n, k=rp.k)
     return SaPPlan(
         op=CsrOperator.from_csr(rp.csr, device=dev),
         band_pc=torch.tensor(rp.band_pc, dtype=torch.get_default_dtype(), device=dev),
@@ -278,20 +281,31 @@ class SaPFactorization:
 
     def solve(self, b, record_history: bool = False) -> SaPSolveResult:
         """Solve A x = b for a single RHS of shape (N,)."""
-        res = _solve_impl(self, self._rhs(b, 1)[:, None], record_history)
-        return SaPSolveResult(
-            x=res.x[:, 0],
-            iterations=res.iterations[0],
-            resnorm=res.resnorm[0],
-            converged=res.converged[0],
-            true_resnorm=res.true_resnorm[0],
-            d_factor=res.d_factor,
-            history=None if res.history is None else res.history[0],
-        )
+        b = self._rhs(b, 1)
+        with span("krylov", n=self.n, k=self.k, p=self.p, variant=self.variant, nrhs=1) as sp:
+            res = _solve_impl(self, b[:, None], record_history)
+            res = sp.sync(SaPSolveResult(
+                x=res.x[:, 0],
+                iterations=res.iterations[0],
+                resnorm=res.resnorm[0],
+                converged=res.converged[0],
+                true_resnorm=res.true_resnorm[0],
+                d_factor=res.d_factor,
+                history=None if res.history is None else res.history[0],
+            ))
+        if sp:
+            sp.annotate(convergence=_convergence_summary(res))
+        return res
 
     def solve_many(self, b, record_history: bool = False) -> SaPSolveResult:
         """Solve A X = B for B of shape (N, R): one Krylov run per column."""
-        return _solve_impl(self, self._rhs(b, 2), record_history)
+        b = self._rhs(b, 2)
+        with span("krylov", n=self.n, k=self.k, p=self.p, variant=self.variant,
+                  nrhs=int(b.shape[1])) as sp:
+            res = sp.sync(_solve_impl(self, b, record_history))
+        if sp:
+            sp.annotate(convergence=_convergence_summary(res))
+        return res
 
 
 def resolve_solver(solver: str, use_cg: bool) -> str:
@@ -315,17 +329,21 @@ def resolve_variant(variant: str, d_factor: float) -> str:
 def factor(pl: SaPPlan) -> SaPFactorization:
     """Factor the SaP preconditioner from a plan (T_LU .. T_SPIKE)."""
     opts = pl.opts
-    d_factor = diag_dominance_factor(pl.band_pc)
-    variant = resolve_variant(opts.variant, float(d_factor))
-    bt = band_to_block_tridiag(pl.band_pc, max(pl.k, 1), opts.p)
-    pc = build_preconditioner(
-        bt,
-        variant=variant,
-        boost_eps=opts.boost_eps,
-        precond_dtype=_dtype(opts.precond_dtype),
-        reduced_solver=opts.reduced_solver,
-        fused=opts.fused_factor,
-    )
+    with span("factor", n=pl.n, k=pl.k, p=opts.p) as sp:
+        d_factor = diag_dominance_factor(pl.band_pc)
+        variant = resolve_variant(opts.variant, float(d_factor))
+        sp.annotate(variant=variant, d_factor=float(d_factor))
+        with span("factor.split") as ssp:
+            bt = ssp.sync(band_to_block_tridiag(pl.band_pc, max(pl.k, 1), opts.p))
+        pc = build_preconditioner(
+            bt,
+            variant=variant,
+            boost_eps=opts.boost_eps,
+            precond_dtype=_dtype(opts.precond_dtype),
+            reduced_solver=opts.reduced_solver,
+            fused=opts.fused_factor,
+        )
+        sp.sync(pc)
     dev = pl.band_pc.device
 
     def to_idx(perm):
@@ -425,6 +443,35 @@ def _solve_impl(
         d_factor=fac.d_factor,
         history=per_system(res.history),
     )
+
+
+def _convergence_summary(res: SaPSolveResult) -> dict:
+    """Host-side convergence digest for the ``krylov`` span attribute."""
+    out = {
+        "iterations": float(res.iterations.max()),
+        "converged": bool(res.converged.all()),
+        "resnorm": float(res.resnorm.max()),
+    }
+    if res.history is not None:
+        hist = res.history.cpu().numpy()
+        hist = hist.reshape(-1, hist.shape[-1])
+        firsts, lasts, recorded, stalled = [], [], 0, False
+        for row in hist:
+            rec = row[~np.isnan(row)]
+            recorded = max(recorded, rec.size)
+            if rec.size == 0:
+                continue
+            firsts.append(float(rec[0]))
+            lasts.append(float(rec[-1]))
+            # Stall heuristic: <10% progress over the last 5 recorded sweeps.
+            if rec.size >= 5 and rec[-1] > 0.9 * rec[-5]:
+                stalled = True
+        out["recorded"] = recorded
+        if firsts:
+            out["first_resnorm"] = max(firsts)
+            out["last_resnorm"] = max(lasts)
+        out["stalled"] = bool(stalled and not out["converged"])
+    return out
 
 
 # ---------------------------------------------------------------------------

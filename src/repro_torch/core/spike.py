@@ -47,6 +47,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops as kops
+from ..obs.trace import span
 from .banded import BlockTridiag
 from .block_lu import DEFAULT_BOOST, BTFactors, flip_block_tridiag
 from .cyclic_reduction import BCRFactors, resolve_reduced_solver
@@ -229,41 +230,53 @@ def build_preconditioner(
 
     v_bot = w_top = rbar_inv = red_lu = red_bcr = None
     v_top = w_bot = None
+    # the route the kernels take: the CUDA kernels for tensors on the card,
+    # the plain versions otherwise (the JAX package's ``impl``)
+    impl = "cuda" if d.is_cuda else "torch"
     if use_fused:
-        fs = kops.fused_factor_spike(d, e, f, b_cpl, c_cpl, boost_eps)
-        lu = fs.lu
-        v_bot, w_top, v_top, w_bot = fs.v_bot, fs.w_top, fs.v_top, fs.w_bot
+        with span("factor.fused", p=bt.p, m=bt.m, k=bt.k, variant=variant, impl=impl) as sp:
+            fs = kops.fused_factor_spike(d, e, f, b_cpl, c_cpl, boost_eps)
+            lu = fs.lu
+            v_bot, w_top, v_top, w_bot = fs.v_bot, fs.w_top, fs.v_top, fs.w_bot
+            sp.sync((lu, v_bot, w_top, v_top, w_bot))
     else:
-        lu = kops.block_tridiag_factor(d, e, f, boost_eps)
+        with span("factor.lu", p=bt.p, m=bt.m, k=bt.k, impl=impl) as sp:
+            lu = sp.sync(kops.block_tridiag_factor(d, e, f, boost_eps))
 
     if variant in ("C", "E") and bt.p > 1:
         if not use_fused:
-            if variant == "C" and spike_mode == "ul":
-                # V_i^(b) = Sinv_i[M-1] @ B_i  for i = 0..P-2
-                v_bot = lu.sinv[..., :-1, -1, :, :] @ b_cpl
-                # W_{i+1}^(t) from the UL factorization of partitions 1..P-1
-                ul = kops.block_tridiag_factor(*flip_block_tridiag(d, e, f), boost_eps)
-                w_top = _flip_rows(ul.sinv[..., 1:, -1, :, :] @ _flip_rows(c_cpl))
-            else:
-                # whole right spikes: A_i V_i = [0;..;B_i], keep corners
-                rhs_b = torch.zeros_like(d)
-                rhs_b[..., :-1, -1, :, :] = b_cpl
-                v_full = kops.block_tridiag_solve(lu, rhs_b)
-                v_bot, v_top = v_full[..., :-1, -1, :, :], v_full[..., :-1, 0, :, :]
-                # whole left spikes: A_{i+1} W_{i+1} = [C_{i+1};0;..]
-                rhs_c = torch.zeros_like(d)
-                rhs_c[..., 1:, 0, :, :] = c_cpl
-                w_full = kops.block_tridiag_solve(lu, rhs_c)
-                w_top, w_bot = w_full[..., 1:, 0, :, :], w_full[..., 1:, -1, :, :]
+            with span("factor.spike", variant=variant, mode=spike_mode) as sp:
+                if variant == "C" and spike_mode == "ul":
+                    # V_i^(b) = Sinv_i[M-1] @ B_i  for i = 0..P-2
+                    v_bot = lu.sinv[..., :-1, -1, :, :] @ b_cpl
+                    # W_{i+1}^(t) from the UL factorization of partitions 1..P-1
+                    ul = kops.block_tridiag_factor(*flip_block_tridiag(d, e, f), boost_eps)
+                    w_top = _flip_rows(ul.sinv[..., 1:, -1, :, :] @ _flip_rows(c_cpl))
+                else:
+                    # whole right spikes: A_i V_i = [0;..;B_i], keep corners
+                    rhs_b = torch.zeros_like(d)
+                    rhs_b[..., :-1, -1, :, :] = b_cpl
+                    v_full = kops.block_tridiag_solve(lu, rhs_b)
+                    v_bot, v_top = v_full[..., :-1, -1, :, :], v_full[..., :-1, 0, :, :]
+                    # whole left spikes: A_{i+1} W_{i+1} = [C_{i+1};0;..]
+                    rhs_c = torch.zeros_like(d)
+                    rhs_c[..., 1:, 0, :, :] = c_cpl
+                    w_full = kops.block_tridiag_solve(lu, rhs_c)
+                    w_top, w_bot = w_full[..., 1:, 0, :, :], w_full[..., 1:, -1, :, :]
+                sp.sync((v_bot, w_top, v_top, w_bot))
         if variant == "C":
-            eye = torch.eye(bt.k, dtype=d.dtype, device=d.device)
-            rbar_inv = _block_inverse(eye - w_top @ v_bot, boost_eps)
+            with span("factor.reduced", solver="truncated") as sp:
+                eye = torch.eye(bt.k, dtype=d.dtype, device=d.device)
+                rbar_inv = sp.sync(_block_inverse(eye - w_top @ v_bot, boost_eps))
         else:
-            rd, re, rf = _reduced_interface_system(v_bot, v_top, w_top, w_bot)
-            if reduced_solver == "bcr":
-                red_bcr = kops.bcr_factor(rd, re, rf, boost_eps)
-            else:
-                red_lu = kops.block_tridiag_factor_chain(rd, re, rf, boost_eps)
+            # exact reduced system: a (P-1)-long chain of 2K x 2K blocks,
+            # factored by the sequential sweep or by block cyclic reduction
+            with span("factor.reduced", solver=reduced_solver) as sp:
+                rd, re, rf = _reduced_interface_system(v_bot, v_top, w_top, w_bot)
+                if reduced_solver == "bcr":
+                    red_bcr = sp.sync(kops.bcr_factor(rd, re, rf, boost_eps))
+                else:
+                    red_lu = sp.sync(kops.block_tridiag_factor_chain(rd, re, rf, boost_eps))
     elif variant in ("C", "E"):
         variant = "D"  # single partition: coupled/exact == decoupled
 

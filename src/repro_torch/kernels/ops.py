@@ -181,6 +181,124 @@ def bcr_solve(factors: BCRFactors, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Analytic work counts (the cost model's and the smoke's bounds)
+# ---------------------------------------------------------------------------
+#
+# Two kinds of count.  The ``*_flops`` are the JAX package's leading-order
+# algebraic flop counts (``repro/kernels/ops.py``), copied unchanged: its
+# cost tests hold its HLO-derived counters to them.  The ``*_work`` return
+# (flops, bytes) that a function must do -- each input read once, each
+# output written once, float32 -- counted row by row as the kernels here
+# run it; ``chip_smoke.py`` divides them by the card's peaks for each
+# kernel's bound, and :mod:`repro_torch.obs.cost` sums them into stage costs.
+
+
+def gj_inverse_flops(k: int) -> float:
+    """Gauss-Jordan inverse of one KxK block: ~2 K^3 multiply-adds."""
+    return 2.0 * k**3
+
+
+def btf_flops(p: int, m: int, k: int) -> float:
+    """Block-tridiag factor of P chains of M KxK blocks.
+
+    Per interior block: one Schur-pivot inverse (2 K^3), the elimination
+    product ``l = e @ sinv`` (2 K^3), and the Schur update ``d - l @ f``
+    (2 K^3 + K^2).
+    """
+    return float(p) * m * (gj_inverse_flops(k) + 4.0 * k**3 + k * k)
+
+
+def bts_flops(p: int, m: int, k: int, r: int = 1) -> float:
+    """Block-tridiag solve: forward + backward sweeps, three K x K block
+    mat-vecs (2 K^2 R each) per block per sweep pair."""
+    return float(p) * m * 6.0 * k * k * r
+
+
+def fused_factor_spike_flops(p: int, m: int, k: int) -> float:
+    """Fused factor+spike megakernel: the LU recurrence twice (forward and
+    reversed chains, ~6 K^3 + K^2 per block each), two K x K RHS carries
+    (2 K^3 per block each), plus four corner products (2 K^3 each) per
+    partition.  Compare ~2x the flops of :func:`btf_flops` alone -- but
+    the kernel *sequence* it replaces pays the UL factor writeback and two
+    whole-spike bts solves in HBM traffic, which is what the fused pass
+    eliminates (see ``solver_stage_costs``)."""
+    return 2.0 * btf_flops(p, m, k) + float(p) * m * 4.0 * k**3 + float(p) * 8.0 * k**3
+
+
+def bcr_flops(m: int, k: int) -> float:
+    """Cyclic reduction over a chain of M KxK blocks: ~M eliminated nodes
+    across the log2(M) levels, each paying one inverse (2 K^3) and four
+    update products (2 K^3 each)."""
+    return float(m) * 10.0 * k**3
+
+
+def btf_work(p: int, m: int, k: int) -> tuple[float, float]:
+    """(flops, bytes) a block-tridiagonal LU of P chains of M K x K blocks
+    must do.  Row 0 only inverts (2K^3); rows 1..M-1 each form L_j (2K^3),
+    S_j = D_j - L_j F_{j-1} (2K^3 + K^2) and invert S_j (2K^3).  Reads every
+    D, E_1..E_{M-1} and F_0..F_{M-2}; writes sinv and l."""
+    flops = p * ((6 * m - 4) * k**3 + (m - 1) * k**2)
+    return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m)
+
+
+def bts_work(p: int, m: int, k: int, r: int) -> tuple[float, float]:
+    """(flops, bytes) of both sweeps for R right-hand sides: M-1 forward
+    products, sinv_{M-1} y, then F_j x_{j+1} and sinv_j (...) for j < M-1,
+    each 2K^2 R flops.  Reads sinv, l_1..l_{M-1}, f_0..f_{M-2} and b;
+    writes x."""
+    flops = p * ((6 * m - 4) * k * k * r + 2 * (m - 1) * k * r)
+    return float(flops), 4.0 * p * ((3 * m - 2) * k * k + 2 * m * k * r)
+
+
+def fused_work(p: int, m: int, k: int) -> tuple[float, float]:
+    """(flops, bytes) of the fused pass: the LU and the UL recurrence (btf's
+    work each), the two spike carries (M-1 products each) and the four
+    corner products.  Reads the chain blocks btf reads plus bq and cq;
+    writes sinv, l and the four K x K corners."""
+    flops = p * ((16 * m - 4) * k**3 + 2 * (m - 1) * k**2)
+    return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m + 2 + 4)
+
+
+def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
+    """(flops, bytes) of each BCR kernel over all levels of one factor
+    (inv_odd, reduce) or one solve with R right-hand sides (rhs_reduce,
+    backsub), for a chain of m blocks of K x K padded to 2^L blocks.  Each
+    level of length m_l eliminates m_l/2 odd rows, so the levels eliminate
+    2^L - 1 rows in all; the identity padding rows are counted, since the
+    kernels eliminate them like any other (at m = 63: 1 of 64 rows).
+    inv_odd inverts every odd block and the root (2K^3 each; reads and
+    writes one block each); reduce does six K x K products per even row
+    plus two block subtractions, reading D_2i, E, F, a (3 blocks per row
+    pair) and writing lo, hi, D', E', F'; rhs_reduce reads lo, hi and the
+    level's RHS, writes the half-length RHS (4K^2 R + 2KR flops a row);
+    backsub reads a, e, f, the odd RHS and x, writes the level's solution
+    (6K^2 R + 2KR flops a row)."""
+    rows = (1 << max(m - 1, 0).bit_length()) - 1
+    blk, vec = 4.0 * k * k, 4.0 * k * r
+    return {
+        "inv_odd": (2.0 * k**3 * (rows + 1), 2 * blk * (rows + 1)),
+        "reduce": (rows * (12.0 * k**3 + 2 * k * k), rows * 11 * blk),
+        "rhs_reduce": (rows * (4.0 * k * k * r + 2 * k * r), rows * (2 * blk + 3 * vec)),
+        "backsub": (rows * (6.0 * k * k * r + 2 * k * r), rows * (3 * blk + 4 * vec)),
+    }
+
+
+def reduce_level_work(m2: int, k: int) -> tuple[float, float]:
+    """(flops, bytes) of one reduce level of m2 even rows, as bcr_work
+    counts a row: six K x K products and two block subtractions, reading
+    D_2i, E, F, a and writing lo, hi, D', E', F' (11 blocks)."""
+    return m2 * (12.0 * k**3 + 2 * k * k), m2 * 11 * 4.0 * k * k
+
+
+def solve_level_work(m2: int, k: int, r: int) -> dict[str, tuple[float, float]]:
+    """(flops, bytes) of one rhs_reduce and one backsub level of m2 even
+    rows, as bcr_work counts a row."""
+    blk, vec = 4.0 * k * k, 4.0 * k * r
+    return {"rhs_reduce": (m2 * (4.0 * k * k * r + 2 * k * r), m2 * (2 * blk + 3 * vec)),
+            "backsub": (m2 * (6.0 * k * k * r + 2 * k * r), m2 * (3 * blk + 4 * vec))}
+
+
+# ---------------------------------------------------------------------------
 # Sequence-mixing recurrences (flattened over batch x heads)
 # ---------------------------------------------------------------------------
 

@@ -53,8 +53,12 @@ never runs twice when threads meet it).  The pieces:
   guard, ``escalations`` counts the exact-bucket re-solves the engine
   ran in response (see :class:`repro_torch.serve.solver_engine.SolveOutcome`).
   The JAX service's compile counters (``recompiles``,
-  ``compile_seconds``) and its trace spans have no counterpart here yet:
-  they come with the observability port.
+  ``compile_seconds``) count XLA compiles, which have no counterpart here.
+
+* **Tracing** -- under an active :class:`repro_torch.obs.Tracer` each
+  dispatch is a ``serve.dispatch`` span around the engine's
+  ``engine.solve_prepared``, and each request a retroactive
+  ``serve.request`` root span from submit to resolve.
 """
 
 from __future__ import annotations
@@ -71,6 +75,7 @@ import torch
 
 from ..core import batched
 from ..core.sap import SaPOptions
+from ..obs.trace import get_tracer, span
 from .metrics import MetricsRegistry
 from .solver_engine import (
     SolveOutcome,
@@ -176,6 +181,7 @@ class _Ticket:
     deadline: Optional[float]  # absolute time.monotonic(), None = none
     t_submit: float
     future: SolveFuture
+    t_trace: float = 0.0  # tracer-clock submit time (0.0 = no tracer)
 
     def sort_key(self):
         # higher priority first, then earliest deadline (EDF), then FIFO
@@ -220,7 +226,8 @@ class AsyncSolverService:
                       Settable from
                       :class:`repro_torch.configs.sap_solver.SolverConfig`
                       (``hist_bounds``).
-    cost_accounting : not ported yet (the engine raises)
+    cost_accounting : attribute roofline-predicted costs to every engine
+                      step (:class:`SolverEngine`'s ``cost_accounting``)
     start           : spawn the drain thread immediately (tests pass
                       False and call ``drain_once()`` deterministically)
     device          : the engine's device (default: the card)
@@ -370,6 +377,8 @@ class AsyncSolverService:
         dclass = DOMINANT if d >= 1.0 else NON_DOMINANT
         n, k = band.shape[0], (band.shape[1] - 1) // 2
         now = time.monotonic()
+        tr = get_tracer()
+        t_trace = tr.now() if tr else 0.0
         fut = SolveFuture(next(self._rid))
         with self._cv:
             while self._n_pending >= self.queue_cap and not self._closing:
@@ -394,7 +403,7 @@ class AsyncSolverService:
                 bucket=bucket, priority=priority,
                 deadline=(now + deadline_s) if deadline_s is not None
                 else None,
-                t_submit=now, future=fut,
+                t_submit=now, future=fut, t_trace=t_trace,
             )
             self._pending.setdefault((bucket, dclass), []).append(ticket)
             self._n_pending += 1
@@ -489,12 +498,19 @@ class AsyncSolverService:
             # the device batch: runs outside the condition variable, so
             # submitters keep hashing/enqueueing while this is in flight;
             # its outcomes are host arrays, so the device work has ended
-            self.engine.solve_prepared(reqs, bucket, opts=opts)
+            with span(
+                "serve.dispatch",
+                bucket=f"{bucket[0]}x{bucket[1]}",
+                dclass=dclass,
+                batch=len(tickets),
+            ):
+                self.engine.solve_prepared(reqs, bucket, opts=opts)
         except Exception as e:  # resolve, never hang the futures
             for t in tickets:
                 t.future._resolve(Cancelled(f"error: {e!r}"))
             return len(tickets)
         now = time.monotonic()
+        tr = get_tracer()
         hits = 0
         mis = esc = 0
         for t, r in zip(tickets, reqs):
@@ -505,6 +521,18 @@ class AsyncSolverService:
             mis += bool(r.result.escalated or r.result.misconverged)
             self._m_wait.observe(now - t.t_submit)
             t.future._resolve(r.result)
+            if tr is not None and t.t_trace > 0.0:
+                # retroactive per-request span: queue -> dispatch -> resolve
+                tr.record(
+                    "serve.request",
+                    t.t_trace,
+                    tr.now(),
+                    rid=t.rid,
+                    dclass=t.dclass,
+                    bucket=f"{t.bucket[0]}x{t.bucket[1]}",
+                    queue_s=round(now - t.t_submit, 6),
+                    cache_hit=bool(r.result.cache_hit),
+                )
         self._m_solved.inc(len(tickets))
         self._m_hits.inc(hits)
         self._m_misses.inc(len(tickets) - hits)

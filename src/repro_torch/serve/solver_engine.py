@@ -31,10 +31,11 @@ solves run *outside* the locks -- host-side bookkeeping of incoming
 requests overlaps in-flight device work.  Every outcome's ``x`` is a host
 numpy array, so the device work of a step has finished when it returns.
 
-Cache-hit and throughput counters live on :attr:`SolverEngine.stats`.
-The JAX engine's compile counters (``recompiles_total``,
-``compile_seconds_total``) count XLA compiles, which have no counterpart
-here, and its roofline cost accounting waits for the observability port.
+Cache-hit and throughput counters live on :attr:`SolverEngine.stats`;
+``cost_accounting=True`` adds roofline-predicted flops / bytes / seconds
+per stage (:mod:`repro_torch.obs.cost`).  The JAX engine's compile
+counters (``recompiles_total``, ``compile_seconds_total``) count XLA
+compiles, which have no counterpart here.
 """
 
 from __future__ import annotations
@@ -55,6 +56,8 @@ from ..core import batched
 from ..core.batched import _host
 from ..core.sap import SaPOptions, _tensor, resolve_variant
 from ..device import resolve_device
+from ..obs import cost as obs_cost
+from ..obs.trace import span
 
 
 def matrix_fingerprint(band) -> str:
@@ -156,7 +159,13 @@ class SolverEngine:
     max_batch  : per-step batch-size cap (one bucket per step)
     cache_size : LRU capacity in cached factorizations
     rounding   : bucket rounding policy ("pow2" | "exact")
-    cost_accounting : roofline cost attribution; not ported yet (raises)
+    cost_accounting : also attribute roofline-predicted flops/bytes/
+                 seconds to every step (:mod:`repro_torch.obs.cost`).  The
+                 S=1 stage costs of a bucket are counted the first time it
+                 is seen; per-batch accounting then scales them linearly by
+                 batch size (and the Krylov cost by the sweeps the batch
+                 actually ran), so the accumulated ``roofline_*`` totals
+                 are a model, not a measurement.
     device     : where the factorizations live and the solves run
                  (default: the card)
     """
@@ -170,16 +179,14 @@ class SolverEngine:
         cost_accounting: bool = False,
         device=None,
     ):
-        if cost_accounting:
-            raise NotImplementedError(
-                "cost_accounting (the roofline attribution of repro.obs.cost) is not "
-                "ported yet: it comes with the observability slice of the port"
-            )
         self.opts = opts or SaPOptions()
         self.max_batch = max_batch
         self.cache_size = cache_size
         self.rounding = rounding
+        self.cost_accounting = cost_accounting
         self.device = resolve_device(device)
+        # accumulated roofline predictions per stage (cost_accounting on)
+        self._cost_totals: dict = {}
         self.queue: Deque[SolveRequest] = deque()
         self._next_rid = 0
         # (fingerprint, bucket, opts-sig) -> single-system factorization
@@ -262,11 +269,6 @@ class SolverEngine:
         with self._lock:
             return len(self._cache)
 
-    def _device_bytes(self) -> int:
-        if self.device.type != "cuda":
-            return 0
-        return int(torch.cuda.memory_allocated(self.device))
-
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -323,6 +325,37 @@ class SolverEngine:
         batch = list(batch)
         if not batch:
             return []
+        nb, kb, _ = bucket
+        with span(
+            "engine.solve_prepared",
+            bucket=f"{nb}x{kb}",
+            batch=len(batch),
+            escalated=_escalated,
+        ) as sp:
+            out = self._solve_prepared_impl(batch, bucket, opts, _escalated)
+            if sp:
+                sp.annotate(
+                    variant=out[0].result.variant,
+                    cache_hits=sum(1 for r in out if r.result.cache_hit),
+                    cache_misses=sum(1 for r in out if not r.result.cache_hit),
+                    escalations=sum(1 for r in out if r.result.escalated),
+                    fingerprints=[r.fingerprint[:8] for r in out[:8]],
+                )
+                if self.cost_accounting:
+                    try:
+                        costs = self.stage_costs(bucket, variant=out[0].result.variant)
+                        sp.annotate(cost={n: c.to_dict() for n, c in costs.items()})
+                    except Exception:  # cost model must never fail a solve
+                        pass
+        return out
+
+    def _solve_prepared_impl(
+        self,
+        batch: List[SolveRequest],
+        bucket: Tuple[int, int, int],
+        opts: Optional[SaPOptions],
+        _escalated: bool,
+    ) -> List[SolveRequest]:
         t0 = time.perf_counter()
         t_factor = 0.0
         nb, kb, _ = bucket
@@ -417,7 +450,7 @@ class SolverEngine:
                 history=hists[i] if hists is not None else None,
             )
         dt_s = time.perf_counter() - t0
-        mem = self._device_bytes()
+        mem = obs_cost.device_memory_bytes(self.device)
         with self._lock:
             self.stats["solved"] += len(batch)
             self.stats["steps"] += 1
@@ -426,6 +459,9 @@ class SolverEngine:
             self.stats["solve_seconds"] += dt_s
             if mem > self.stats["peak_device_bytes"]:
                 self.stats["peak_device_bytes"] = mem
+
+        if self.cost_accounting:
+            self._account_cost(bucket, eff, len(batch), len(miss_reqs), iters, dt)
 
         mis = [r for r in batch if r.result.misconverged]
         if mis:
@@ -492,6 +528,61 @@ class SolverEngine:
                 raise RuntimeError(msg)
             warnings.warn(msg, RuntimeWarning, stacklevel=2)
         return done
+
+    # -- cost accounting ----------------------------------------------------
+
+    def stage_costs(
+        self,
+        bucket: Tuple[int, int, int],
+        s: int = 1,
+        variant: Optional[str] = None,
+        opts: Optional[SaPOptions] = None,
+        dtype=None,
+    ) -> dict:
+        """Per-stage roofline costs for one bucket (cached after first use).
+
+        Thin wrapper over :func:`repro_torch.obs.cost.solver_stage_costs`
+        that defaults to the engine's own options, resolved variant and
+        device; the returned dict maps stage name ->
+        :class:`repro_torch.obs.cost.StageCost`.
+        """
+        with self._lock:
+            eff = opts or self.opts
+        if variant is None:
+            variant = eff.variant if eff.variant != "auto" else "C"
+        return obs_cost.solver_stage_costs(
+            bucket, s=s, opts=eff, variant=variant, dtype=dtype, device=self.device
+        )
+
+    def _account_cost(self, bucket, eff, batch_len, n_factored, iters, dtype) -> None:
+        """Fold one step's roofline predictions into the running totals.
+
+        The S=1 stage costs scale linearly by batch size; the Krylov cost
+        is per-sweep x the sweeps the (lockstep) batch actually ran --
+        i.e. the max iteration count in the batch.
+        """
+        try:
+            costs = self.stage_costs(bucket, variant=eff.variant, opts=eff, dtype=dtype)
+        except Exception:  # cost model must never fail a solve
+            return
+        sweeps = float(np.max(iters)) if np.size(iters) else 0.0
+        preds = {
+            "factor": costs["factor"].scale(float(n_factored)),
+            "krylov": costs["krylov"].per_iteration().scale(sweeps * batch_len),
+        }
+        with self._lock:
+            for name, c in preds.items():
+                ent = self._cost_totals.setdefault(
+                    name, {"flops": 0.0, "hbm_bytes": 0.0, "roofline_s": 0.0}
+                )
+                ent["flops"] += c.flops
+                ent["hbm_bytes"] += c.hbm_bytes
+                ent["roofline_s"] += c.roofline_s
+
+    def cost_snapshot(self) -> dict:
+        """Accumulated per-stage roofline predictions (cost_accounting)."""
+        with self._lock:
+            return {k: dict(v) for k, v in self._cost_totals.items()}
 
     # -- derived stats ------------------------------------------------------
 

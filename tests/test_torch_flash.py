@@ -175,6 +175,12 @@ def test_flash_work_counts_the_pairs_the_masks_leave(b, hq, hk, tq, tk, d, causa
     assert exps == b * hq * int(mask.sum())
     assert tc_ops == 4 * d * exps
     assert nbytes == 2 * (2 * b * hq * tq * d + 2 * b * hk * tk * d)
-    ms, by = smoke.flash_bound(tc_ops, exps, nbytes)
-    assert ms == max(nbytes / smoke.PEAK_BYTES_S, tc_ops / smoke.PEAK_BF16_FLOP_S,
-                     exps / smoke.PEAK_SFU_S) * 1e3 and by in ("bytes", "operations")
+    # the data sheet's rates, as the smoke's bound_ms takes them (its
+    # bound_ms_calibrated passes the measured ones the same way)
+    from repro_torch.launch.roofline import H100_DATASHEET as sheet
+    from repro_torch.launch.roofline import H100_DATASHEET_SFU_S as sfu
+
+    ms, by = smoke.flash_bound(tc_ops, exps, nbytes, sheet.hbm_bw, sheet.peak_bf16_flops, sfu)
+    assert (sheet.hbm_bw, sheet.peak_bf16_flops, sfu) == (3.35e12, 989e12, 3.9e12)
+    assert ms == max(nbytes / sheet.hbm_bw, tc_ops / sheet.peak_bf16_flops,
+                     exps / sfu) * 1e3 and by in ("bytes", "operations")

@@ -1363,3 +1363,113 @@ def test_service_drain_thread_on_the_card(cuda):
         assert out.true_resnorm <= 1e-5  # 10 tol, the engine's guard
     svc.close()
     assert svc.snapshot()["counters"]["solved"] == 12
+
+
+# -- observability: spans, calibration and cost accounting on the card --------
+
+
+def test_span_waits_for_the_card(cuda):
+    """A span around a bts launch whose result it syncs lasts at least the
+    launch's CUDA-event time: the span's exit waited for the card."""
+    from repro_torch.obs import Tracer
+
+    bt = _split(cuda, 12800, 200, 4)
+    ref = bl.btf_ref(bt.d, bt.e, bt.f)
+    rhs = torch.randn(bt.d.shape[:3] + (4,), device=cuda)
+    bts(ref.sinv, ref.l, bt.f, rhs)  # warm
+    torch.cuda.synchronize()
+    tr = Tracer()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # the launch queues behind ~10 ms of spinning
+    with tr.span("bts") as sp:
+        start.record()
+        x = bts(ref.sinv, ref.l, bt.f, rhs)
+        stop.record()
+        sp.sync({"x": [x]})
+    assert stop.query()  # the span's exit waited for the launch
+    assert tr.roots()[0].duration_s >= start.elapsed_time(stop) / 1e3
+
+
+def test_calibrated_ceilings_on_the_card(cuda):
+    """The measured ceilings are positive and at most 1.05x the data sheet's
+    (67 TFLOP/s float32, 989 TFLOP/s bfloat16, 3.35 TB/s): more would be a
+    timing fault."""
+    from repro_torch.launch import calibrate
+
+    spec = calibrate.calibrate(gemm_n=4096, stream_bytes=1 << 29, repeats=5)
+    assert spec.name == "cuda-calibrated"
+    for rate, sheet in ((spec.peak_flops, 67e12), (spec.peak_bf16_flops, 989e12),
+                        (spec.hbm_bw, 3.35e12)):
+        assert 0.0 < rate <= 1.05 * sheet
+    assert torch.backends.cuda.matmul.allow_tf32 is False  # restored as the fixture set it
+
+
+def test_engine_cost_accounting_on_the_card(cuda):
+    """Every achieved fraction -- the engine's accumulated roofline seconds
+    of a stage over its measured seconds -- is at most 1.05."""
+    from repro_torch.serve import SolverEngine
+
+    opts = SaPOptions(p=8, variant="C", tol=1e-6, maxiter=200)
+    eng = SolverEngine(opts, max_batch=16, cost_accounting=True)
+    bands = [random_banded(4096, 16, 1.1, seed=s).astype(np.float32) for s in range(16)]
+    for rnd in range(2):  # a miss step, then a hit step
+        for s, band in enumerate(bands):
+            eng.submit_system(band, np.random.default_rng(rnd * 16 + s).normal(size=4096))
+        eng.step()
+    assert eng.stats["cache_hits"] == 16 and eng.stats["factored_systems"] == 16
+    totals, stats = eng.cost_snapshot(), eng.stats_snapshot()
+    fractions = {"factor": totals["factor"]["roofline_s"] / stats["factor_seconds_total"],
+                 "krylov": totals["krylov"]["roofline_s"] / stats["solve_seconds_total"]}
+    assert all(0.0 < f <= 1.05 for f in fractions.values()), fractions
+    assert stats["peak_device_bytes"] > 0
+
+
+def test_float32_stall_at_tol_1e8_on_the_card(cuda):
+    """The CPU parity case of ``test_torch_solver_engine.py`` on the card:
+    the request escalates, and its true residual lies within 10x of the
+    CPU port's (both at the float32 preconditioner's stall)."""
+    from repro_torch.core import band_to_dense
+    from repro_torch.serve import SolverEngine
+
+    band = random_banded(200, 3, 0.5, seed=8).astype(np.float32)
+    x = np.random.default_rng(0).normal(size=200)
+    b = band_to_dense(torch.tensor(band, dtype=torch.float64)).numpy() @ x
+    opts = SaPOptions(p=4, variant="auto", tol=1e-8, maxiter=200)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = SolverEngine(opts, max_batch=1, device=dev)
+        eng.submit_system(band, b)
+        (done,) = eng.run_until_drained()
+        out[dev] = done.result
+    g, c = out["cuda"], out["cpu"]
+    assert g.escalated and (g.bucket, g.variant) == (c.bucket, c.variant) == ((204, 3, 4), "E")
+    assert max(g.true_resnorm, c.true_resnorm) <= 10 * min(g.true_resnorm, c.true_resnorm)
+
+
+def test_service_request_spans_from_a_drain_thread_on_the_card(cuda):
+    """A service whose drain thread launches on the card: one serve.request
+    span per request, and every dispatch wraps the engine's span."""
+    import threading
+
+    from repro_torch.obs import Tracer, use_tracer
+    from repro_torch.serve import AsyncSolverService
+
+    tr = Tracer()
+    with use_tracer(tr):
+        svc = AsyncSolverService(SaPOptions(p=4, variant="auto", tol=1e-6, maxiter=200),
+                                 max_batch=4)
+        futs = []
+        for j in range(6):
+            band = random_banded(300 + 20 * j, 4, 1.1 if j % 2 else 0.5, seed=j)
+            band = band.astype(np.float32)
+            futs.append(svc.submit(band, np.random.default_rng(j).normal(size=band.shape[0])))
+        outs = [f.result(timeout=120) for f in futs]
+        svc.close()
+    assert all(o.converged for o in outs)
+    reqs = tr.find("serve.request")
+    assert sorted(sp.attrs["rid"] for sp in reqs) == [f.rid for f in futs]
+    dispatches = tr.find("serve.dispatch")
+    assert dispatches and sum(d.attrs["batch"] for d in dispatches) == 6
+    main = threading.get_ident()
+    for d in dispatches:  # on the drain thread
+        assert [c.name for c in d.children] == ["engine.solve_prepared"] and d.tid != main

@@ -3,6 +3,9 @@ default, and kernel wrappers that take the plain path only for CPU
 tensors."""
 
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -47,12 +50,31 @@ def test_port_files_are_found():
             "engine.py", "ref.py", "wkv.py", "ssd.py", "rwkv6_1_6b.py", "zamba2_2_7b.py",
             "device.py", "transformer.py", "flash_attn.py", "stablelm_1_6b.py",
             "phi3_mini_3_8b.py", "minitron_8b.py", "starcoder2_15b.py", "batched.py",
-            "solver_engine.py", "service.py", "metrics.py", "sap_solver.py"} <= names
+            "solver_engine.py", "service.py", "metrics.py", "sap_solver.py", "trace.py",
+            "cost.py", "roofline.py", "calibrate.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/models/convert.py", "src/repro_torch/serve/engine.py",
             "src/repro_torch/configs/__init__.py", "src/repro_torch/core/batched.py",
             "src/repro_torch/serve/solver_engine.py", "src/repro_torch/serve/service.py",
-            "src/repro_torch/serve/metrics.py", "src/repro_torch/configs/sap_solver.py"} <= rel
+            "src/repro_torch/serve/metrics.py", "src/repro_torch/configs/sap_solver.py",
+            "src/repro_torch/obs/__init__.py", "src/repro_torch/obs/trace.py",
+            "src/repro_torch/obs/cost.py", "src/repro_torch/launch/__init__.py",
+            "src/repro_torch/launch/roofline.py", "src/repro_torch/launch/calibrate.py"} <= rel
+
+
+def test_obs_and_launch_load_neither_jax_nor_the_reference_package():
+    """Importing the observability slice in a fresh interpreter loads no
+    module of jax or of ``repro``."""
+    code = (
+        "import sys, repro_torch.obs, repro_torch.obs.cost, repro_torch.launch, "
+        "repro_torch.launch.calibrate\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_plan_banded_needs_a_card_unless_cpu_is_asked(monkeypatch):

@@ -325,11 +325,14 @@ def test_backpressure_unblocks_when_drained():
 
 
 def test_class_override_must_keep_p_and_cost_accounting_is_refused():
+    """A class override that changes p is refused; ``cost_accounting`` no
+    longer is (it reaches the engine; ``test_torch_cost.py`` holds it)."""
     with pytest.raises(ValueError, match="changes p"):
         TS.AsyncSolverService(_opts(T, p=4), class_overrides={"dom": _opts(T, p=8)},
                               start=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="observability"):
-        TS.AsyncSolverService(_opts(T), cost_accounting=True, start=False, device="cpu")
+    costed = TS.AsyncSolverService(_opts(T), cost_accounting=True, start=False, device="cpu")
+    assert costed.engine.cost_accounting
+    costed.close()
     over = TS.default_class_overrides(_opts(T, variant="auto"))
     assert (over["dom"].variant, over["nondom"].variant, over["nondom"].reduced_solver) == (
         "C", "E", "bcr")

@@ -14,8 +14,7 @@ goes through ``repro.serve.SolverEngine`` (jnp path) and through
 
 The port's stats leave out the JAX engine's compile counters
 (``recompiles_total``, ``compile_seconds_total``: XLA compiles have no
-counterpart here) and ``cost_accounting`` raises until observability is
-ported.
+counterpart here); ``cost_accounting`` is held in ``test_torch_cost.py``.
 """
 
 import threading
@@ -274,8 +273,8 @@ def test_precomputed_fingerprint_respected_and_stats_keys():
     assert "recompiles_total" not in snap and "compile_seconds_total" not in snap
     assert snap["peak_device_bytes"] == 0  # nothing lives on a card here
     assert eng.systems_per_second > 0
-    with pytest.raises(NotImplementedError, match="observability"):
-        TS.SolverEngine(T.SaPOptions(p=4), cost_accounting=True, device="cpu")
+    costed = TS.SolverEngine(T.SaPOptions(p=4), cost_accounting=True, device="cpu")
+    assert costed.cost_accounting and costed.cost_snapshot() == {}
 
 
 # -- the misconvergence guard ---------------------------------------------------
@@ -330,3 +329,29 @@ def test_true_resnorm_on_the_served_path():
     want = np.linalg.norm(b - dense @ done.result.x) / np.linalg.norm(b)
     assert np.isfinite(done.result.true_resnorm) and done.result.true_resnorm < 1e-3
     assert abs(done.result.true_resnorm - want) < 1e-4
+
+
+def test_float32_stall_at_tol_1e8_demotes_in_both_engines():
+    """A small non-dominant request at tol = 1e-8 (N=200, K=3, d=0.5, P=4,
+    "auto" -> E): the float32 preconditioner's stall (ROADMAP P2) leaves the
+    true residual above the 10 * tol guard, so the first pass misconverges,
+    the escalated pass too, and both engines demote ``converged``.  The
+    same request on the card gave 4.5e-6 (``tests/test_torch_gpu.py``)."""
+    band = np.float32(random_banded(200, 3, d=0.5, seed=8))
+    x = np.random.default_rng(0).normal(size=200)
+    b = T.band_to_dense(torch.tensor(band, dtype=torch.float64)).numpy() @ x
+    opts = dict(p=4, variant="auto", tol=1e-8, maxiter=200)
+    jeng = JS.SolverEngine(J.SaPOptions(**opts), max_batch=1)
+    teng = TS.SolverEngine(T.SaPOptions(**opts), max_batch=1, device="cpu")
+    out = {}
+    for name, eng in (("jax", jeng), ("port", teng)):
+        eng.submit_system(band, b)
+        (done,) = eng.run_until_drained()
+        out[name] = done.result
+    j, t = out["jax"], out["port"]
+    assert (t.bucket, t.variant, t.escalated) == (j.bucket, j.variant, j.escalated)
+    assert (t.bucket, t.variant, t.escalated) == ((204, 3, 4), "E", True)
+    assert not j.converged and not t.converged
+    guard = 10 * 1e-8
+    assert j.true_resnorm > guard and t.true_resnorm > guard
+    assert max(j.true_resnorm, t.true_resnorm) <= 10 * min(j.true_resnorm, t.true_resnorm)

@@ -390,6 +390,7 @@ def bcr_times() -> dict:
     from repro_torch.core import cyclic_reduction as cr
     from repro_torch.core.spike import _reduced_interface_system
     from repro_torch.kernels import bcr, ops
+    from repro_torch.launch.roofline import H100_DATASHEET
 
     dev = torch.device("cuda")
     band = torch.tensor(random_banded(cs.N, cs.K, 0.5, seed=cs.SEED).astype(np.float32),
@@ -419,13 +420,13 @@ def bcr_times() -> dict:
             rows = []
             for args in levels:
                 m2, k = args[0].shape[:2]
-                nbytes = cs.solve_level_work(m2, k, 1)[name][1]
+                nbytes = ops.solve_level_work(m2, k, 1)[name][1]
                 nxt = cs.rotating(lambda seed, args=args: tuple(t.clone() for t in args), nbytes)
                 reps = 20 if nbytes > cs.L2_BYTES else 100
                 ms, by_kernel = cs.device_ms(lambda: kern(*nxt()), reps)
                 rows.append({"m2": m2, "ms": ms, "queued_ms": cs.queued_ms(lambda: kern(*nxt()), reps),
                              "grids_per_call": sum(n for _, n, _ in by_kernel.values()),
-                             "bound_ms": nbytes / cs.PEAK_BYTES_S * 1e3})
+                             "bound_ms": nbytes / H100_DATASHEET.hbm_bw * 1e3})
                 del nxt
             out[f"{name}_p{p}"] = {"levels_ms": sum(r["ms"] for r in rows),
                                    "levels_queued_ms": sum(r["queued_ms"] for r in rows),
