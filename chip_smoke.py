@@ -36,7 +36,11 @@ calibrate. ``repro_torch.launch.calibrate``: the card's float32 GEMM rate
    flash-attention kernel in bfloat16 and float32 at Minitron-8B's prefill (32 query heads over 8, T=4096, D=128, causal),
    starcoder2-15b's (48 over 4, T=8192, window 4096), phi3-mini's D=96,
    stablelm's D=64, the reduced D=16, bidirectional, a ragged Tk and a
-   window smaller than one tile; the fleet's folded shapes: btf, the fused
+   window smaller than one tile, deepseek-moe-16b's prefill (16 over 16),
+   mixtral-8x22b's (48 over 8, T=8192, window 4096), phi-3-vision's (D=96,
+   576 patches + 512 tokens) and whisper-medium's encoder (bidirectional,
+   T=1,500, D=64), decoder (T=448, causal) and cross-attention (Tq=448,
+   Tk=1,500); the fleet's folded shapes: btf, the fused
    pass and bts (R=1, 4) over S*P = 64 * 16 chains of K = 16 and of
    K' = 2, 4, 8 in one launch each, and BCR over the 64 stacked reduced
    chains of 15 interfaces (2K = 32 and 4), each kernel's cluster size,
@@ -104,6 +108,28 @@ dense. Minitron-8B at its published width and depth (32 layers, d=4096,
    from an empty cache in float32, bfloat16 prefills at B=4, T=512 and
    B=1, T=4096 (each a forward with one flash launch a layer, profiled
    once), and the same serving run and decode window as above;
+moe. deepseek-moe-16b at full size (28 layers, 64 routed experts of which
+   6 a token, 2 shared; 67.5 GB of float32 weights) and mixtral-8x22b at
+   full width with its depth cut from 56 to MIXTRAL_LAYERS layers
+   (``reduced`` in its line), random weights from seed 0, each after the
+   previous model is freed: forward (through the flash kernel) against
+   decode steps in float32 at capacity_factor = n_experts (no slot
+   dropped by either pass; the share the forward drops at the published
+   1.25 printed), bfloat16 prefills at B=4, T=512 (mixtral also B=1,
+   T=8192 through the window), one flash launch a layer, the first
+   prefill once more under the profiler, then the serving run and the
+   decode window as above;
+vlm. phi-3-vision-4.2b at full size: a bfloat16 prefill of 576 random
+   patches prepended to B=4 x 512 tokens, patches of zeros and of ones
+   changing the last text logit, a text-only float32 forward against 64
+   decode steps, the serving run and the decode window;
+encdec. whisper-medium at full size: forward (encode 1,500 random frames,
+   decode_train over 64 tokens) against encode -> precompute_cross_kv ->
+   64 decode steps in float32 at B=2 (flash launches n_enc_layers + 2
+   n_layers); bfloat16 encode at B=4 (n_enc_layers launches; profiled once),
+   decode_train at T=448 (2 n_layers launches), 32 greedy decode steps at
+   B=4 with the cross cache filled, and the decode window; each of these
+   phases prints its peak memory above what earlier phases hold;
 5. timing of each kernel beside its plain version (and a library call
    where one computes the same function: for btf and the fused pass a loop
    over the block rows of batched ``torch.linalg.inv`` and ``torch.matmul``,
@@ -176,6 +202,21 @@ PREFILL_B, PREFILL_T, CONSISTENCY_T = 4, 512, 64
 # kernel's long shape.
 DENSE_ARCH = "minitron-8b"
 DENSE_CONSISTENCY_T, DENSE_LONG_T = 128, 4096
+# The MoE, VLM and encoder-decoder runs (phases "moe", "vlm", "encdec"),
+# each model freed before the next: deepseek-moe-16b at full size (67.5 GB
+# of float32 weights; forward against MOE_CONSISTENCY_T decode steps at
+# B=2), mixtral-8x22b at full width with its depth cut to MIXTRAL_LAYERS
+# (its 56 layers need 562.5 GB; forward against MIXTRAL_CONSISTENCY_T steps
+# at B=1, a prefill at MIXTRAL_LONG_T through the window), phi-3-vision-4.2b
+# and whisper-medium at full size (forward over WHISPER_T decoder tokens
+# against as many steps; decode_train at WHISPER_TRAIN_T, WHISPER_STEPS
+# greedy steps).  The consistency checks run at capacity_factor =
+# n_experts, where every group's capacity is G k and neither pass drops a
+# slot; the forward's drops at the published 1.25 are printed.
+MOE_ARCH, MIXTRAL_ARCH, VLM_ARCH, ENCDEC_ARCH = (
+    "deepseek-moe-16b", "mixtral-8x22b", "phi-3-vision-4.2b", "whisper-medium")
+MOE_CONSISTENCY_T, MIXTRAL_LAYERS, MIXTRAL_CONSISTENCY_T, MIXTRAL_LONG_T = 128, 4, 64, 8192
+WHISPER_T, WHISPER_TRAIN_T, WHISPER_STEPS = 64, 448, 32
 # flash kernel against its plain version in bfloat16, element by element:
 # both compute in float32 and round the output to bfloat16 once, so where
 # the float32 values straddle a rounding boundary they differ by one
@@ -585,6 +626,283 @@ def rotating(make, nbytes: float):
     return itertools.cycle(sets).__next__
 
 
+def zoo_phases(dev, get_config, get_family, reset, counts, serve, decode_window,
+               prompts) -> int:
+    """Phases "moe" (deepseek-moe-16b; mixtral-8x22b at MIXTRAL_LAYERS
+    layers), "vlm" (phi-3-vision-4.2b) and "encdec" (whisper-medium), each
+    model loaded after the previous one is freed, one line each.  ``reset``
+    / ``counts`` zero and read the kernel wrappers' launch counts;
+    ``serve`` and ``decode_window`` are phase "lm"'s serving run and
+    profiled decode window; ``prompts`` give the serving runs' lengths.
+    Returns the flash kernel's launches in the prefill, ``encode`` and
+    ``decode_train`` passes (each shape's first call)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    flash_launches = 0
+
+    def load(cfg):
+        """(family, parameters from seed SEED, the line's start, the bytes
+        the earlier phases hold); the peak statistic starts here."""
+        fam = get_family(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = fam.init(cfg, torch.Generator(dev).manual_seed(SEED), device=dev)
+        torch.cuda.synchronize()
+        line = {"arch": cfg.name, "params": sum(q.numel() for q in params.parameters()),
+                "params_count_formula": cfg.params_count(),
+                "weight_bytes": sum(q.numel() * q.element_size() for q in params.parameters()),
+                "init_s": time.perf_counter() - t0, "compute_dtype": cfg.compute_dtype}
+        return fam, params, line, held
+
+    def against_steps(c32, fam, params, toks, full, cache) -> dict:
+        """forward's logits ``full`` against one decode step a token of
+        ``toks`` from ``cache``, float32: within LM_RTOL of the largest logit."""
+        full = full[..., : c32.vocab]
+        diffs = []
+        for i in range(toks.shape[1]):
+            logits, cache = fam.decode_step(c32, params, cache, toks[:, i:i + 1])
+            diffs.append(float((logits - full[:, i]).abs().max()))
+        max_logit = float(full.abs().max())
+        if not max(diffs) <= LM_RTOL * max_logit:
+            raise AssertionError(f"{c32.name}: forward and decode steps differ by "
+                                 f"{max(diffs):.3e}, max |logit| {max_logit:.3e}")
+        return {"t": toks.shape[1], "batch": toks.shape[0], "rtol": LM_RTOL,
+                "max_abs_diff": max(diffs), "first_token_abs_diff": diffs[0],
+                "max_abs_logit": max_logit}
+
+    def first_call(what, fn, want_launches, shape):
+        """``fn``'s first call with the counts at 0: (output, flash
+        launches); the output finite and of ``shape``, the launches as many
+        as ``want_launches``."""
+        nonlocal flash_launches
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        n = counts()["flash"]
+        out = out[0] if isinstance(out, tuple) else out
+        if not (bool(torch.isfinite(out).all()) and tuple(out.shape) == shape):
+            raise AssertionError(f"{what}: output bad: {tuple(out.shape)}, want {shape}")
+        if n != want_launches:
+            raise AssertionError(f"{what} launched the flash kernel {n} times, "
+                                 f"not {want_launches}")
+        flash_launches += n
+        return out, n
+
+    def timed(fn, reps: int = 3) -> list:
+        """Wall ms of ``reps`` calls of ``fn``, each ended by a synchronize."""
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    def profiled(fn) -> dict:
+        """One call of ``fn`` under the profiler: device busy ms, kernel
+        launches, the largest kernels and the flash kernel's share."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        flash_ms = sum(e.self_device_time_total for e in events if "flash_kernel" in e.key) / 1e3
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+        return {"device_busy_ms": busy, "device_kernel_launches": sum(e.count for e in events),
+                "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
+                                for e in top],
+                "flash_device_ms": flash_ms, "flash_share": flash_ms / busy if busy else None}
+
+    def drop_share(c, fam, params, toks) -> dict:
+        """The routed slots a forward at ``c``'s capacity drops, counted by
+        ``moe.slot_counts`` on every layer's input."""
+        plain, tally = moe.moe_mlp, []
+
+        def spy(cfg_, p, h):
+            tally.append(moe.slot_counts(cfg_, p["router"], h))
+            return plain(cfg_, p, h)
+
+        moe.moe_mlp = spy
+        try:
+            fam.forward(c, params, toks)
+        finally:
+            moe.moe_mlp = plain
+        dropped, routed = sum(int(d) for d, _ in tally), sum(r for _, r in tally)
+        return {"capacity_factor": c.capacity_factor, "group": min(c.moe_group, toks.numel()),
+                "layers": len(tally), "dropped": dropped, "routed": routed,
+                "share": dropped / routed}
+
+    def decoder_run(phase, cfg, cons_b, cons_t, prefills, extra=None, reduced=None):
+        """A decoder-only model: forward (float32, through the flash kernel;
+        at a capacity that drops nothing) against decode steps, bfloat16
+        prefills (patches prepended where the config has them), ``extra``,
+        the serving run and the decode window; one line."""
+        fam, params, line, held = load(cfg)
+        rng = np.random.default_rng(SEED)
+        launches, prefill = {}, {}
+        with torch.inference_mode():
+            no_drop = {"capacity_factor": float(cfg.n_experts)} if cfg.n_experts else {}
+            c32 = dataclasses.replace(cfg, compute_dtype="float32", **no_drop)
+            toks = torch.tensor(rng.integers(0, cfg.vocab, size=(cons_b, cons_t)), device=dev)
+            reset()
+            full, aux = fam.forward(c32, params, toks)
+            launches["consistency_f32"] = counts()["flash"]
+            consistency = against_steps(c32, fam, params, toks, full,
+                                        fam.init_cache(c32, cons_b, cons_t))
+            consistency.update(no_drop, aux=float(aux))
+            del full
+            if cfg.n_experts:
+                consistency["published_capacity_drops"] = drop_share(
+                    dataclasses.replace(c32, capacity_factor=cfg.capacity_factor), fam,
+                    params, toks)
+            for b, t in prefills:
+                patches = None
+                if cfg.n_patches:
+                    patches = torch.randn(b, cfg.n_patches, cfg.d_model, device=dev,
+                                          generator=torch.Generator(dev).manual_seed(SEED)
+                                          ).to(cfg.cdtype)
+                ptoks = torch.tensor(rng.integers(0, cfg.vocab, size=(b, t)), device=dev)
+                rows = t + (cfg.n_patches if patches is not None else 0)
+
+                def fwd():
+                    return fam.forward(cfg, params, ptoks, patches)
+
+                _, launches[f"prefill_b{b}_t{t}"] = first_call(
+                    f"{cfg.name} prefill", fwd, cfg.n_layers, (b, rows, cfg.vocab_padded))
+                prefill[f"b{b}_t{t}"] = {"shape": [b, t], "rows": rows, "ms": timed(fwd)}
+                if (b, t) == prefills[0]:
+                    prefill[f"b{b}_t{t}"]["profile"] = profiled(fwd)
+                del ptoks, patches
+            if extra is not None:
+                line.update(extra(cfg, fam, params, rng))
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+            serve_line, serve_counts = serve(cfg.name, cfg, params,
+                                             [rng.integers(0, cfg.vocab, size=len(pr)).tolist()
+                                              for pr in prompts], held)
+            launches["serve"] = serve_counts["flash"]  # decode runs no flash kernel
+            window_line = decode_window(cfg, fam, params, rng)
+        if launches["consistency_f32"] != cfg.n_layers:
+            raise AssertionError(f"{cfg.name}: the float32 forward launched the flash kernel "
+                                 f"{launches['consistency_f32']} times, not {cfg.n_layers}")
+        emit({"phase": phase, **line, **({"reduced": reduced} if reduced else {}),
+              "consistency": consistency, "prefill": prefill, "serve": serve_line,
+              "decode_window": window_line,
+              "peak_mem_bytes": max(peak, serve_line["peak_mem_bytes"]),
+              "other_phases_bytes": held, "launches": {"flash": launches}})
+        del params
+
+    def patches_change_logits(cfg, fam, params, rng) -> dict:
+        """The VLM stub: patches of zeros and of ones must change the last
+        text logit (bfloat16, B=1, 16 tokens)."""
+        t16 = torch.tensor(rng.integers(0, cfg.vocab, size=(1, 16)), device=dev)
+        zeros = torch.zeros(1, cfg.n_patches, cfg.d_model, dtype=cfg.cdtype, device=dev)
+        last = [fam.forward(cfg, params, t16, p)[0][:, -1].float()
+                for p in (zeros, torch.ones_like(zeros))]
+        diff = float((last[0] - last[1]).abs().max())
+        if not diff > 0:
+            raise AssertionError(f"{cfg.name}: patches of zeros and of ones give the same "
+                                 "last text logits")
+        return {"patches_zeros_vs_ones_last_logit_max_abs_diff": diff}
+
+    # ---- moe. deepseek-moe-16b at full size; mixtral-8x22b at full width ------
+    decoder_run("moe", get_config(MOE_ARCH), 2, MOE_CONSISTENCY_T, [(PREFILL_B, PREFILL_T)])
+    torch.cuda.empty_cache()
+    mixtral = get_config(MIXTRAL_ARCH)
+    decoder_run("moe", dataclasses.replace(mixtral, n_layers=MIXTRAL_LAYERS), 1,
+                MIXTRAL_CONSISTENCY_T, [(PREFILL_B, PREFILL_T), (1, MIXTRAL_LONG_T)],
+                reduced={"n_layers": [mixtral.n_layers, MIXTRAL_LAYERS]})
+    torch.cuda.empty_cache()
+
+    # ---- vlm. phi-3-vision-4.2b at full size ------------------------------------
+    decoder_run("vlm", get_config(VLM_ARCH), 2, CONSISTENCY_T, [(PREFILL_B, PREFILL_T)],
+                extra=patches_change_logits)
+    torch.cuda.empty_cache()
+
+    # ---- encdec. whisper-medium at full size -------------------------------------
+    cfg = get_config(ENCDEC_ARCH)
+    fam, params, line, held = load(cfg)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    launches = {}
+    with torch.inference_mode():
+        # forward (encode 1,500 frames, decode_train over WHISPER_T tokens)
+        # against encode -> precompute_cross_kv -> WHISPER_T decode steps
+        c32 = dataclasses.replace(cfg, compute_dtype="float32")
+        frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=gen, device=dev)
+        toks = torch.tensor(rng.integers(0, cfg.vocab, size=(2, WHISPER_T)), device=dev)
+        reset()
+        full, _ = fam.forward(c32, params, {"frames": frames, "tokens": toks})
+        launches["consistency_f32"] = counts()["flash"]
+        cache = fam.init_cache(c32, 2, WHISPER_T)
+        cache["cross_k"], cache["cross_v"] = fam.precompute_cross_kv(
+            c32, params, fam.encode(c32, params, frames))
+        consistency = against_steps(c32, fam, params, toks, full, cache)
+        del full, cache, frames
+        # bfloat16: encode at B=4, decode_train at WHISPER_TRAIN_T, greedy steps
+        frames = torch.randn(PREFILL_B, cfg.enc_seq, cfg.d_model, generator=gen,
+                             device=dev).to(cfg.cdtype)
+        enc, launches["encode"] = first_call(
+            f"{cfg.name} encode", lambda: fam.encode(cfg, params, frames), cfg.n_enc_layers,
+            (PREFILL_B, cfg.enc_seq, cfg.d_model))
+        encode_ms = timed(lambda: fam.encode(cfg, params, frames))
+        encode_profile = profiled(lambda: fam.encode(cfg, params, frames))
+        dtoks = torch.tensor(rng.integers(0, cfg.vocab, size=(PREFILL_B, WHISPER_TRAIN_T)),
+                             device=dev)
+        _, launches["decode_train"] = first_call(
+            f"{cfg.name} decode_train", lambda: fam.decode_train(cfg, params, dtoks, enc),
+            2 * cfg.n_layers, (PREFILL_B, WHISPER_TRAIN_T, cfg.vocab_padded))
+        train_ms = timed(lambda: fam.decode_train(cfg, params, dtoks, enc))
+        cache = fam.init_cache(cfg, PREFILL_B, WHISPER_STEPS + 1)
+        cache["cross_k"], cache["cross_v"] = fam.precompute_cross_kv(cfg, params, enc)
+        tok = dtoks[:, :1]
+        _, cache = fam.decode_step(cfg, params, cache, tok)  # first-call costs
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(WHISPER_STEPS):
+            logits, cache = fam.decode_step(cfg, params, cache, tok)
+            tok = torch.argmax(logits, dim=-1, keepdim=True)
+            out.append(tok)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+        launches["greedy_decode"] = counts()["flash"]  # plain decode attention: 0
+        out = torch.cat(out, dim=1)
+        if not bool(((out >= 0) & (out < cfg.vocab)).all()):
+            raise AssertionError(f"{cfg.name}: a greedy token is outside the vocabulary")
+        greedy = {"batch": PREFILL_B, "steps": WHISPER_STEPS, "seconds": greedy_s,
+                  "ms_per_step": greedy_s * 1e3 / WHISPER_STEPS,
+                  "generated_tokens_per_s": PREFILL_B * WHISPER_STEPS / greedy_s}
+        del cache, enc, frames, dtoks, out
+        window_line = decode_window(cfg, fam, params, rng)
+    if launches["consistency_f32"] != cfg.n_enc_layers + 2 * cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: the float32 forward launched the flash kernel "
+                             f"{launches['consistency_f32']} times, not "
+                             f"{cfg.n_enc_layers + 2 * cfg.n_layers}")
+    emit({"phase": "encdec", **line, "consistency": consistency,
+          "encode_ms": encode_ms, "encode_shape": [PREFILL_B, cfg.enc_seq],
+          "encode_profile": encode_profile,
+          "decode_train_ms": train_ms, "decode_train_shape": [PREFILL_B, WHISPER_TRAIN_T],
+          "greedy_decode": greedy, "decode_window": window_line,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated() - held,
+          "other_phases_bytes": held, "launches": {"flash": launches}})
+    del params
+    torch.cuda.empty_cache()
+    return flash_launches
+
+
 def main() -> int:
     import torch
 
@@ -968,6 +1286,10 @@ def main() -> int:
 
     mt_hq, mt_hk, mt_d, _ = attn_shape(DENSE_ARCH)
     sc_hq, sc_hk, sc_d, sc_w = attn_shape("starcoder2-15b")
+    mx_hq, mx_hk, mx_d, mx_w = attn_shape(MIXTRAL_ARCH)
+    wh_hq, wh_hk, wh_d, _ = attn_shape(ENCDEC_ARCH)
+    wh_enc = get_config(ENCDEC_ARCH).enc_seq
+    vlm_rows = get_config(VLM_ARCH).n_patches + PREFILL_T
     flash_shapes = {
         # tag: (b, hq, hk, tq, tk, d, causal, window)
         "minitron": (1, mt_hq, mt_hk, DENSE_LONG_T, DENSE_LONG_T, mt_d, True, None),
@@ -982,8 +1304,24 @@ def main() -> int:
         "ragged_tk": (1, mt_hq, mt_hk, 1000, 1000, mt_d, True, None),
         "ragged_tq_tk": (1, 8, 2, 256, 333, mt_d, False, None),
         "window16": (1, mt_hq, mt_hk, 512, 512, mt_d, True, 16),
+        # the MoE, VLM and encoder-decoder prompt passes: deepseek-moe-16b's
+        # prefill (16 over 16, D=128), mixtral-8x22b's long one (48 over 8,
+        # window 4096), phi-3-vision's (D=96 over 576 patches + the text),
+        # and whisper-medium's encoder (bidirectional, a ragged 1,500),
+        # decoder self-attention and cross-attention (Tq=448, Tk=1,500)
+        "deepseek": (PREFILL_B, *attn_shape(MOE_ARCH)[:2], PREFILL_T, PREFILL_T,
+                     attn_shape(MOE_ARCH)[2], True, None),
+        "mixtral": (1, mx_hq, mx_hk, MIXTRAL_LONG_T, MIXTRAL_LONG_T, mx_d, True, mx_w),
+        "phi3v": (PREFILL_B, *attn_shape(VLM_ARCH)[:2], vlm_rows, vlm_rows,
+                  attn_shape(VLM_ARCH)[2], True, None),
+        "whisper_enc": (PREFILL_B, wh_hq, wh_hk, wh_enc, wh_enc, wh_d, False, None),
+        "whisper_self": (PREFILL_B, wh_hq, wh_hk, WHISPER_TRAIN_T, WHISPER_TRAIN_T, wh_d,
+                         True, None),
+        "whisper_cross": (PREFILL_B, wh_hq, wh_hk, WHISPER_TRAIN_T, wh_enc, wh_d, False, None),
     }
     assert flash_shapes["starcoder2"][1:] == (48, 4, 8192, 8192, 128, True, 4096)
+    assert flash_shapes["mixtral"][1:] == (48, 8, 8192, 8192, 128, True, 4096)
+    assert flash_shapes["whisper_cross"][1:] == (16, 16, 448, 1500, 64, False, None)
     bf16_share = {}  # each bfloat16 check's worst element over its limit
     for tag, (b, hq, hk, tq, tk, d, causal, window) in flash_shapes.items():
         for dtype in (torch.bfloat16, torch.float32):
@@ -2118,6 +2456,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # ---- moe, vlm, encdec: the rest of the LM zoo ---------------------------------
+    lm_launches["flash"] += zoo_phases(dev, get_config, get_family, reset, counts, serve,
+                                       decode_window, prompts)
+
     # ---- 5. timing at the main path's shapes ---------------------------------
     p, m, k = bt.p, bt.m, bt.k
     ref = bl.btf_ref(bt.d, bt.e, bt.f)
@@ -2469,11 +2811,14 @@ def main() -> int:
         summary.append(entry)
     # the flash kernel in bfloat16, as the prefill runs it: at Minitron-8B's
     # prefill (the summary row; the library call is PyTorch's fused causal
-    # attention at that shape) and at starcoder2-15b's windowed shape (row
-    # "windowed"; the library call takes the window as an explicit mask)
+    # attention at that shape), at starcoder2-15b's windowed shape (row
+    # "windowed"; the library call takes the window as an explicit mask),
+    # and at deepseek-moe-16b's prefill and whisper-medium's bidirectional
+    # encoder (rows in "shapes")
     entry = {"name": "flash", "route": "cuda", "source": "src/repro_torch/kernels/csrc/flash_attn.cu",
-             "replaces": "src/repro/kernels/flash_attn.py:31", "launches": lm_launches["flash"]}
-    for tag in ("minitron", "starcoder2"):
+             "replaces": "src/repro/kernels/flash_attn.py:31", "launches": lm_launches["flash"],
+             "shapes": []}
+    for tag in ("minitron", "starcoder2", "deepseek", "whisper_enc"):
         b, hq, hk, tq, tk, d, causal, window = flash_shapes[tag]
         q, k, v = flash_inputs(dev, b, hq, hk, tq, tk, d, torch.bfloat16, SEED)
         saved = flash_attention.launches
@@ -2498,8 +2843,10 @@ def main() -> int:
               "flops_tensor_core": tc_ops, "exponentials": exps})
         if tag == "minitron":
             entry.update(row)
-        else:
+        elif tag == "starcoder2":
             entry["windowed"] = row
+        else:
+            entry["shapes"].append({"at": tag, **row})
         del q, k, v
     summary.append(entry)
     # host-orchestrated torch code of the path, timed for the record

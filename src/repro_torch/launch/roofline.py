@@ -5,9 +5,9 @@ the least time the device could take for that work.  This module is the
 part of the JAX package's ``repro.launch.roofline`` that the cost model
 (:mod:`repro_torch.obs.cost`) needs -- :class:`HardwareSpec`,
 :data:`BACKEND_SPECS` and :func:`backend_spec` -- keyed by torch device
-type.  The HLO parsing, ``analyze``, ``Roofline``, ``model_flops`` and
-``active_params`` are not here: they serve the model zoo's MoE and
-distributed paths.
+type, and the model zoo's analytic useful FLOPs (:func:`active_params`,
+:func:`model_flops`).  The HLO parsing, ``analyze`` and ``Roofline`` are
+not here: they serve the distributed path.
 """
 
 from __future__ import annotations
@@ -71,3 +71,38 @@ H100_DATASHEET_SFU_S = 3.9e12
 def backend_spec(device_type: str) -> HardwareSpec:
     """Peak rates by torch device type ("cuda" | "cpu"; others: the cpu entry)."""
     return BACKEND_SPECS.get(device_type, BACKEND_SPECS["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# MODEL_FLOPS (analytic "useful flops") per shape kind
+# ---------------------------------------------------------------------------
+
+
+def active_params(cfg) -> float:
+    """Parameters touched per token (MoE: routed top-k + shared experts
+    only; hybrid: the shared attention block is touched once per
+    application, i.e. n_layers/attn_every times)."""
+    total = cfg.params_count()
+    if cfg.n_experts:
+        mlp_one = cfg.d_model * cfg.d_ff * (3 if cfg.gated_mlp else 2)
+        n_blocks = cfg.n_layers
+        routed_all = cfg.n_experts * mlp_one * n_blocks
+        routed_active = cfg.top_k * mlp_one * n_blocks
+        return total - routed_all + routed_active
+    if cfg.family == "hybrid" and cfg.attn_every:
+        d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+        attn = d * hd * (cfg.n_heads + 2 * cfg.n_kv_heads) + hd * cfg.n_heads * d
+        shared = attn + 3 * d * f
+        n_apps = cfg.n_layers // cfg.attn_every
+        return total + (n_apps - 1) * shared
+    return total
+
+
+def model_flops(cfg, shape) -> float:
+    """6 N D for training, 2 N D for inference forward passes, N the
+    active parameters and D the tokens of ``shape`` (a
+    :class:`repro_torch.models.api.ShapeSpec`)."""
+    n_act = active_params(cfg)
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
+    mult = 6.0 if shape.kind == "train" else 2.0
+    return mult * n_act * tokens

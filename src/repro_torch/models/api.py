@@ -1,20 +1,23 @@
-"""Model configuration and the family dispatch of the port's LM zoo.
+"""Model configuration, the workload shapes and the family dispatch of the
+port's LM zoo.
 
-A copy of :mod:`repro.models.api` for the families ported so far
-(``"rwkv"``, ``"hybrid"`` and ``"dense"``).
+A copy of :mod:`repro.models.api` for every family: ``"rwkv"``,
+``"hybrid"``, ``"dense"`` and ``"moe"`` (both served by
+:mod:`.transformer`) and ``"encdec"`` (:mod:`.whisper`).
 ``get_family(cfg)`` returns the module implementing the family protocol:
 
     init(cfg, generator, device)            -> parameters (an nn.Module)
-    forward(cfg, params, tokens, ...)       -> (logits, state or aux)
+    forward(cfg, params, tokens or batch)   -> (logits, state or aux)
     init_cache(cfg, batch, max_len, device) -> decode cache (dict of tensors)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
 
-Only the fields the ported families read are copied; the MoE routing,
-encoder-decoder and VLM fields and the JAX execution knobs (``remat``,
-``scan_layers``, ``kernel_impl``) come with the code that reads them.
-``n_experts`` is copied so that a mixture-of-experts configuration is
-refused rather than run as a dense one.  ``ShapeSpec`` and the sharding
-helpers wait for the distributed path.
+Every configuration field is copied but the JAX execution knobs
+(``remat``, ``scan_layers``, ``kernel_impl``), which have no counterpart
+here; ``expert_sharding`` is kept so that the configurations compare
+equal, and is read by no code of the port.  ``ShapeSpec`` and ``SHAPES``
+feed :func:`repro_torch.launch.roofline.model_flops`; the sharding helpers
+(``dp_axes``, ``dp_axes_for``, ``supports_shape``) wait for the
+distributed path.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ class ModelConfig:
     """One architecture: widths, family knobs and execution knobs."""
 
     name: str
-    family: str  # rwkv | hybrid | dense ported; moe | encdec not yet
+    family: str  # dense | moe | rwkv | hybrid | encdec
     n_layers: int
     d_model: int
     n_heads: int
@@ -40,11 +43,18 @@ class ModelConfig:
     d_head: Optional[int] = None  # default d_model // n_heads
     act: str = "silu"
     gated_mlp: bool = True
+    norm: str = "rms"
     rope_theta: float = 10_000.0
     window: Optional[int] = None  # sliding-window attention
     tie_embeddings: bool = False
-    # --- MoE (not ported: a configuration with experts is refused) -------------
+    # --- MoE ---------------------------------------------------------------
     n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    expert_sharding: str = "ep"  # "ep" | "tp": the JAX package's sharding, unread here
+    router_aux_coef: float = 0.01
+    moe_group: int = 512  # token group size of the GShard-style dispatch
     # --- RWKV6 ---------------------------------------------------------------
     rwkv_head_dim: int = 64
     rwkv_lora: int = 32
@@ -54,6 +64,11 @@ class ModelConfig:
     ssm_expand: int = 2
     conv_width: int = 4
     attn_every: int = 0  # hybrid: shared attention block every N layers
+    # --- encoder-decoder -------------------------------------------------------
+    n_enc_layers: int = 0
+    enc_seq: int = 1500
+    # --- VLM stub ---------------------------------------------------------------
+    n_patches: int = 0  # precomputed patch embeddings prepended to text
     # --- execution knobs ---------------------------------------------------------
     compute_dtype: str = "bfloat16"
     ssm_chunk: int = 64
@@ -87,9 +102,18 @@ class ModelConfig:
         d, f, v = self.d_model, self.d_ff, self.vocab
         hd = self.head_dim
         attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads + hd * self.n_heads * d
-        if self.family == "dense" and not self.n_experts:
-            blk = attn + d * f * (3 if self.gated_mlp else 2)
-            return v * d * (1 if self.tie_embeddings else 2) + self.n_layers * blk
+        if self.family in ("dense", "moe", "encdec"):
+            mlp = d * f * (3 if self.gated_mlp else 2)
+            if self.n_experts:
+                routed = self.n_experts * mlp
+                shared = self.n_shared_experts * mlp
+                router = d * self.n_experts
+                blk = attn + routed + shared + router
+            else:
+                blk = attn + mlp
+            n_blocks = self.n_layers + self.n_enc_layers
+            extra = self.n_enc_layers * attn  # cross-attention (rough)
+            return v * d * (1 if self.tie_embeddings else 2) + n_blocks * blk + extra
         if self.family == "rwkv":
             att = 4 * d * d + 2 * d * self.rwkv_lora * 6
             ffn = 2 * d * f + d * d
@@ -100,11 +124,33 @@ class ModelConfig:
             mix = d * (2 * din + 2 * self.ssm_state + h) + din * d
             shared = attn + d * f * 3
             return v * d * 2 + self.n_layers * mix + shared
-        raise NotImplementedError(f"family {self.family!r} is not ported yet")
+        raise ValueError(self.family)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """A workload shape: sequence length, global batch and kind."""
+
+    name: str  # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 def get_family(cfg: ModelConfig):
     """The module implementing ``cfg``'s family."""
+    if cfg.family in ("dense", "moe"):
+        from . import transformer
+
+        return transformer
     if cfg.family == "rwkv":
         from . import rwkv
 
@@ -113,11 +159,8 @@ def get_family(cfg: ModelConfig):
         from . import mamba
 
         return mamba
-    if cfg.family == "dense" and not cfg.n_experts:
-        from . import transformer
+    if cfg.family == "encdec":
+        from . import whisper
 
-        return transformer
-    if cfg.family in ("dense", "moe", "encdec"):
-        what = "mixture of experts" if cfg.n_experts else f"family {cfg.family!r}"
-        raise NotImplementedError(f"{what} is not ported yet")
+        return whisper
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,13 +1,15 @@
 """Carry the JAX package's model parameters across to the port.
 
 ``params_from_jax(cfg, tree)`` maps a parameter pytree of
-:mod:`repro.models.rwkv`, :mod:`repro.models.mamba` or the dense
-:mod:`repro.models.transformer` -- nested dicts with numpy leaves,
-per-layer leaves stacked along a leading ``n_layers`` axis -- onto the
-port's modules, so that both packages compute the same model.  Every leaf
-is copied as float32.  A dense model with tied embeddings has no
-``lm_head``; its forward uses the transposed embedding, as the JAX
-package's does.
+:mod:`repro.models.rwkv`, :mod:`repro.models.mamba`,
+:mod:`repro.models.transformer` (dense and MoE: a layer's ``moe`` subtree
+of router, experts and shared experts comes across whole) or
+:mod:`repro.models.whisper` -- nested dicts with numpy leaves, per-layer
+leaves stacked along a leading layer axis (``n_layers``; whisper's
+encoder along ``n_enc_layers``) -- onto the port's modules, so that both
+packages compute the same model.  Every leaf is copied as float32.  A
+model with tied embeddings has no ``lm_head``; its forward uses the
+transposed embedding, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -34,6 +36,12 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device=None):
     """The port's model (an ``nn.Module``) holding the parameters of
     ``tree``; on the card unless ``device`` names another."""
     t = _tensors(tree, resolve_device(device))
+    if cfg.family == "encdec":
+        from .whisper import Whisper
+
+        enc = [_layer(t["enc_blocks"], i) for i in range(cfg.n_enc_layers)]
+        dec = [_layer(t["dec_blocks"], i) for i in range(cfg.n_layers)]
+        return Whisper(cfg, t["embed"], t["pos_dec"], enc, dec, t["enc_ln"], t["dec_ln"])
     blocks = [_layer(t["blocks"], i) for i in range(cfg.n_layers)]
     if cfg.family == "rwkv":
         from .rwkv import RWKV6
@@ -43,8 +51,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device=None):
         from .mamba import Zamba2
 
         return Zamba2(cfg, t["embed"], blocks, t["shared_attn"], t["final_norm"], t["lm_head"])
-    if cfg.family == "dense" and not cfg.n_experts:
+    if cfg.family in ("dense", "moe"):
         from .transformer import TransformerLM
 
         return TransformerLM(cfg, t["embed"], blocks, t["final_norm"], t.get("lm_head"))
-    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    raise ValueError(f"unknown family {cfg.family!r}")

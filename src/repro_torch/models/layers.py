@@ -1,5 +1,5 @@
-"""Shared layers of the port's LM zoo: norms, RoPE, MLP, attention, and
-the parameter container.
+"""Shared layers of the port's LM zoo: norms (RMS, layer, group), RoPE,
+MLP, attention, and the parameter container.
 
 A copy of :mod:`repro.models.layers` in PyTorch, with every float32 cast
 point the JAX code has.  Prompt attention is the flash kernel's plain
@@ -59,6 +59,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     x = x.float()
     var = (x * x).mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * w.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis (whisper's pre-LN blocks), in float32."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dtype)
 
 
 def group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int,

@@ -1,16 +1,18 @@
-"""Decoder-only transformer LM (the dense family) on PyTorch.
+"""Decoder-only transformer LM (the dense and MoE families) on PyTorch.
 
-A port of :mod:`repro.models.transformer` for the dense configurations
-(stablelm-1.6b, phi3-mini-3.8b, minitron-8b, starcoder2-15b): pre-norm
-blocks of grouped-query attention with RoPE (and a sliding window where
-the configuration has one) and a gated or plain MLP.  A prompt pass's
-attention runs on the hand-written CUDA flash kernel
+A port of :mod:`repro.models.transformer` (stablelm-1.6b, phi3-mini-3.8b,
+minitron-8b, starcoder2-15b, phi-3-vision-4.2b, deepseek-moe-16b,
+mixtral-8x22b): pre-norm blocks of grouped-query attention with RoPE (and
+a sliding window where the configuration has one) and a gated or plain
+MLP, or a mixture of experts (:mod:`.moe`) where ``n_experts > 0``; the
+VLM stub prepends precomputed patch embeddings to the token embeddings.
+A prompt pass's attention runs on the hand-written CUDA flash kernel
 (:func:`repro_torch.kernels.ops.flash_attention`; its plain version on the
 CPU) at every length: the kernel masks ragged tiles itself, so the JAX
 package's T % 128 condition for its Pallas kernel has no counterpart here.
 Decoding attends to a KV cache with the plain ``decode_attention``, as the
-JAX package does.
-Mixture-of-experts configurations (``n_experts > 0``) are not ported.
+JAX package does, and routes the (B, 1) tokens of a step as one group of
+B, as the JAX package's decode step does.
 
 Parameters are float32 in the JAX package's layout (one
 :class:`~repro_torch.models.layers.ParamTree` per layer), cast to the
@@ -31,6 +33,7 @@ from torch import nn
 
 from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
+from . import moe as moe_mod
 from .api import ModelConfig
 from .layers import (
     ParamTree,
@@ -52,7 +55,7 @@ def block_tree(cfg: ModelConfig, gen: torch.Generator) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     dev = gen.device
     wi_cols = 2 * cfg.d_ff if cfg.gated_mlp else cfg.d_ff
-    return {
+    blk = {
         "ln1": torch.ones(d, device=dev),
         "ln2": torch.ones(d, device=dev),
         "attn": {
@@ -61,15 +64,19 @@ def block_tree(cfg: ModelConfig, gen: torch.Generator) -> dict:
             "wv": normal(gen, (d, cfg.n_kv_heads * hd), d**-0.5),
             "wo": normal(gen, (cfg.n_heads * hd, d), (cfg.n_heads * hd) ** -0.5),
         },
-        "mlp": {
+    }
+    if cfg.n_experts > 0:
+        blk["moe"] = moe_mod.init_moe(cfg, gen)
+    else:
+        blk["mlp"] = {
             "wi": normal(gen, (d, wi_cols), d**-0.5),
             "wo": normal(gen, (cfg.d_ff, d), cfg.d_ff**-0.5),
-        },
-    }
+        }
+    return blk
 
 
 class TransformerLM(ParamTree):
-    """A dense transformer: ``embed``, ``blocks`` (one tree per layer),
+    """A dense or MoE transformer: ``embed``, ``blocks`` (one tree per layer),
     ``final_norm`` and, unless the embeddings are tied, ``lm_head``."""
 
     def __init__(self, cfg: ModelConfig, embed, blocks: list[dict], final_norm,
@@ -88,7 +95,8 @@ class TransformerLM(ParamTree):
         self.cfg = cfg
 
     def forward(self, tokens: torch.Tensor, patches: Optional[torch.Tensor] = None):
-        """Logits (B, T, vocab_padded) and the auxiliary loss (0)."""
+        """Logits (B, T, vocab_padded) and the auxiliary loss (the routers'
+        summed over layers; 0 for a dense model)."""
         return forward(self.cfg, self, tokens, patches)
 
 
@@ -97,8 +105,6 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None,
     """Random float32 parameters drawn from ``generator`` (seed 0 when none
     is given), with the JAX init's shapes and scales; on the card unless
     ``device`` names another.  The generator must draw on that device."""
-    if cfg.n_experts:
-        raise NotImplementedError("mixture of experts is not ported yet")
     gen = generator_on(device, generator)
     embed = normal(gen, (cfg.vocab_padded, cfg.d_model), 0.02)
     blocks = [block_tree(cfg, gen) for _ in range(cfg.n_layers)]
@@ -131,26 +137,38 @@ def _attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor) ->
     return o @ p["wo"].to(x.dtype)
 
 
-def _block_fwd(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, p, h: torch.Tensor):
+    """The block's feed-forward: (y, aux) -- the experts' and their router's
+    aux loss, or the MLP's and 0."""
+    if cfg.n_experts > 0:
+        return moe_mod.moe_mlp(cfg, p["moe"], h)
+    return mlp(p["mlp"], h, cfg.act, cfg.gated_mlp), 0.0
+
+
+def _block_fwd(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
     x = x + _attention(cfg, p["attn"], rms_norm(x, p["ln1"]), positions)
-    return x + mlp(p["mlp"], rms_norm(x, p["ln2"]), cfg.act, cfg.gated_mlp)
+    y, aux = _ffn(cfg, p, rms_norm(x, p["ln2"]))
+    return x + y, aux
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
             patches: Optional[torch.Tensor] = None):
     """Prompt pass: tokens (B, T), and ``patches`` (B, Pn, D) prepended to
     their embeddings (the VLM stub) -> (logits (B, Pn + T, vocab_padded),
-    aux loss 0 as a float32 scalar)."""
+    aux loss as a float32 scalar: the routers' summed over layers, 0 for a
+    dense model)."""
     cdt = cfg.cdtype
     x = params["embed"][tokens].to(cdt)
     if patches is not None:
         x = torch.cat([patches.to(cdt), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params["blocks"]:
-        x = _block_fwd(cfg, blk, x, positions)
+        x, aux_l = _block_fwd(cfg, blk, x, positions)
+        aux = aux + aux_l
     x = rms_norm(x, params["final_norm"])
     logits = x @ _head(cfg, params).to(cdt)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +218,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor):
         v_c.index_copy_(2, slot, v.transpose(1, 2).to(v_c.dtype))
         o = decode_attention(q, k_c, v_c, n_valid)
         x = x + o.transpose(1, 2).reshape(b, 1, cfg.n_heads * hd) @ pa["wo"].to(cdt)
-        x = x + mlp(p["mlp"], rms_norm(x, p["ln2"]), cfg.act, cfg.gated_mlp)
+        x = x + _ffn(cfg, p, rms_norm(x, p["ln2"]))[0]
     x = rms_norm(x, params["final_norm"])
     logits = (x @ _head(cfg, params).to(cdt))[:, 0, : cfg.vocab]
     return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}

@@ -5,12 +5,16 @@ one decode step; a finished request frees its slot, which the next queued
 request takes.  Prompts are teacher-forced through ``decode_step`` token
 by token, and the next token is the greedy argmax.  As in the JAX package,
 a refilled slot's cache is not reset: the new request continues from the
-state its slot's previous request left (the RWKV / SSM state; for Zamba2
-and the dense transformers the key/value entries, ``k`` and ``v``, and
-the length ``len`` that every slot shares, so a dense slot's request sees
-its predecessor's keys and the ring buffer of a windowed model wraps at
-the shared length).  Runs on the card unless ``device`` names another;
-the step runs eagerly (no graph capture).
+state its slot's previous request left (the RWKV / SSM state; for Zamba2,
+the transformers and whisper the key/value entries and the length ``len``
+that every slot shares, so a slot's request sees its predecessor's keys
+and the ring buffer of a windowed model wraps at the shared length).
+Every family is served unchanged, with the JAX engine's two other
+behaviours: whisper's cross-attention cache is never filled (the requests
+attend to zeros there), and a MoE decode step routes the slots as one
+token group, so a request's tokens depend on its neighbours once an
+expert's capacity is full.  Runs on the card unless ``device`` names
+another; the step runs eagerly (no graph capture).
 """
 
 from __future__ import annotations

@@ -1091,6 +1091,99 @@ def test_reduced_transformer_at_a_ragged_length_on_the_card(cuda):
     _close(got.cpu(), want)
 
 
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mixtral-8x22b", "phi-3-vision-4.2b"])
+def test_reduced_moe_and_vlm_on_the_card_match_the_cpu(cuda, arch):
+    """forward at T=64 (phi-3-vision with its patches prepended; through
+    the flash kernel on the card, its plain version on the CPU) with the
+    routers' aux loss, and 40 decode steps (past mixtral-reduced's window),
+    the same parameters on both: within 1e-4 of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.models import get_family
+
+    cfg = get_config(arch, reduced=True)
+    fam = get_family(cfg)
+    cpu_params = fam.init(cfg, device="cpu")
+    gpu_params = fam.init(cfg, device="cpu").to(cuda)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 64)))
+    patches = (torch.randn(2, cfg.n_patches, cfg.d_model, generator=torch.Generator()
+                           .manual_seed(1)) if cfg.n_patches else None)
+    before = flash_attention.launches
+    got, aux_g = fam.forward(cfg, gpu_params, toks.to(cuda),
+                             None if patches is None else patches.to(cuda))
+    assert flash_attention.launches == before + cfg.n_layers
+    want, aux_c = fam.forward(cfg, cpu_params, toks, patches)
+    _close(got.cpu(), want)
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-4 * max(abs(float(aux_c)), 1e-30)
+    cache_g = fam.init_cache(cfg, 2, 64)
+    cache_c = fam.init_cache(cfg, 2, 64, device="cpu")
+    for i in range(40):
+        lg, cache_g = fam.decode_step(cfg, gpu_params, cache_g, toks[:, i:i + 1].to(cuda))
+        lc, cache_c = fam.decode_step(cfg, cpu_params, cache_c, toks[:, i:i + 1])
+        _close(lg.cpu(), lc)
+
+
+def test_moe_dispatch_with_drops_on_the_card_matches_the_cpu(cuda):
+    """moe_mlp at a capacity that drops slots (groups of 16, capacity
+    factor 0.5): the same routing and the same dropped slots on the card
+    as on the CPU, outputs within 1e-4 of the largest, the aux loss too."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b", reduced=True), moe_group=16,
+                              capacity_factor=0.5)
+    params = moe.init_moe(cfg, torch.Generator().manual_seed(0))
+    on_card = {"router": params["router"].to(cuda),
+               **{nm: {k: v.to(cuda) for k, v in params[nm].items()}
+                  for nm in ("experts", "shared")}}
+    x = torch.randn(2, 32, cfg.d_model, generator=torch.Generator().manual_seed(2))
+    xg = x.reshape(-1, 16, cfg.d_model)
+    idx_c = moe.route(cfg, params["router"], xg)[3]
+    idx_g = moe.route(cfg, on_card["router"], xg.to(cuda))[3]
+    assert torch.equal(idx_g.cpu(), idx_c)
+    dropped = moe.slot_counts(cfg, on_card["router"], x.to(cuda))[0]
+    assert int(dropped) == int(moe.slot_counts(cfg, params["router"], x)[0]) > 0
+    y_g, aux_g = moe.moe_mlp(cfg, on_card, x.to(cuda))
+    y_c, aux_c = moe.moe_mlp(cfg, params, x)
+    _close(y_g.cpu(), y_c)
+    assert abs(float(aux_g) - float(aux_c)) <= 1e-4 * abs(float(aux_c))
+
+
+def test_reduced_whisper_on_the_card_matches_the_cpu(cuda):
+    """encode (the bidirectional flash kernel, once a layer), decode_train
+    (causal self- and cross-attention, twice a layer) and 24 decode steps
+    with the cross cache filled by precompute_cross_kv, the same parameters
+    on both: within 1e-4 of the largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.models import whisper
+
+    cfg = get_config("whisper-medium", reduced=True)
+    cpu_params = whisper.init(cfg, device="cpu")
+    gpu_params = whisper.init(cfg, device="cpu").to(cuda)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    toks = torch.tensor(np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 24)))
+    before = flash_attention.launches
+    enc_g = whisper.encode(cfg, gpu_params, frames.to(cuda))
+    assert flash_attention.launches == before + cfg.n_enc_layers
+    enc_c = whisper.encode(cfg, cpu_params, frames)
+    _close(enc_g.cpu(), enc_c)
+    before = flash_attention.launches
+    got = whisper.decode_train(cfg, gpu_params, toks.to(cuda), enc_g)
+    assert flash_attention.launches == before + 2 * cfg.n_layers
+    _close(got.cpu(), whisper.decode_train(cfg, cpu_params, toks, enc_c))
+    cache_g = whisper.init_cache(cfg, 2, 24)
+    cache_c = whisper.init_cache(cfg, 2, 24, device="cpu")
+    for cache, params, enc in ((cache_g, gpu_params, enc_g), (cache_c, cpu_params, enc_c)):
+        cache["cross_k"], cache["cross_v"] = whisper.precompute_cross_kv(cfg, params, enc)
+    for i in range(24):
+        lg, cache_g = whisper.decode_step(cfg, gpu_params, cache_g, toks[:, i:i + 1].to(cuda))
+        lc, cache_c = whisper.decode_step(cfg, cpu_params, cache_c, toks[:, i:i + 1])
+        _close(lg.cpu(), lc)
+
+
 # ---------------------------------------------------------------------------
 # fleets: S systems folded into each kernel's chain axis
 # ---------------------------------------------------------------------------

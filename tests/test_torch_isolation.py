@@ -51,7 +51,9 @@ def test_port_files_are_found():
             "device.py", "transformer.py", "flash_attn.py", "stablelm_1_6b.py",
             "phi3_mini_3_8b.py", "minitron_8b.py", "starcoder2_15b.py", "batched.py",
             "solver_engine.py", "service.py", "metrics.py", "sap_solver.py", "trace.py",
-            "cost.py", "roofline.py", "calibrate.py"} <= names
+            "cost.py", "roofline.py", "calibrate.py", "moe.py", "whisper.py",
+            "deepseek_moe_16b.py", "mixtral_8x22b.py", "phi3_vision_4_2b.py",
+            "whisper_medium.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/models/convert.py", "src/repro_torch/serve/engine.py",
             "src/repro_torch/configs/__init__.py", "src/repro_torch/core/batched.py",
@@ -59,7 +61,12 @@ def test_port_files_are_found():
             "src/repro_torch/serve/metrics.py", "src/repro_torch/configs/sap_solver.py",
             "src/repro_torch/obs/__init__.py", "src/repro_torch/obs/trace.py",
             "src/repro_torch/obs/cost.py", "src/repro_torch/launch/__init__.py",
-            "src/repro_torch/launch/roofline.py", "src/repro_torch/launch/calibrate.py"} <= rel
+            "src/repro_torch/launch/roofline.py", "src/repro_torch/launch/calibrate.py",
+            "src/repro_torch/models/moe.py", "src/repro_torch/models/whisper.py",
+            "src/repro_torch/configs/deepseek_moe_16b.py",
+            "src/repro_torch/configs/mixtral_8x22b.py",
+            "src/repro_torch/configs/phi3_vision_4_2b.py",
+            "src/repro_torch/configs/whisper_medium.py"} <= rel
 
 
 def test_obs_and_launch_load_neither_jax_nor_the_reference_package():

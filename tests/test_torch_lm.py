@@ -6,9 +6,9 @@ continued by a second ``forward`` from the carried state, ``decode_step``
 token by token with the state carried, and the port's own ``init`` (the
 JAX init's tree, shapes and scales; other random values).  The shared
 layers (norms, RoPE, MLP, decode attention) and the chunked attention
-(``flash_attention_ref``) against ``repro.models.layers``, and the configurations of every ported
-architecture (these two and the four dense ones) against
-``repro.configs``.
+(``flash_attention_ref``) against ``repro.models.layers``, and the configurations of every
+architecture of ``repro.configs`` (and the family module each resolves
+to) against the JAX package's.
 
 Tolerance: rtol = atol = 2e-4 on logits and states -- the same float32
 model with the matrix products' and the scans' sums taken in another
@@ -59,8 +59,9 @@ def _close_state(ts, js):
 
 
 def test_configs_match_the_jax_registry():
-    registry = ["rwkv6-1.6b", "phi3-mini-3.8b", "stablelm-1.6b", "minitron-8b",
-                "starcoder2-15b", "zamba2-2.7b"]
+    registry = ["rwkv6-1.6b", "mixtral-8x22b", "deepseek-moe-16b", "phi3-mini-3.8b",
+                "stablelm-1.6b", "minitron-8b", "starcoder2-15b", "zamba2-2.7b",
+                "phi-3-vision-4.2b", "whisper-medium"]
     assert arch_names() == registry
     for name in registry:
         for reduced in (False, True):
@@ -69,12 +70,8 @@ def test_configs_match_the_jax_registry():
             assert mine == {f: getattr(theirs, f) for f in mine}
             want_count = jax_config(name, reduced).params_count()
             assert get_config(name, reduced).params_count() == want_count
-    for name in ("mixtral-8x22b", "deepseek-moe-16b", "phi-3-vision-4.2b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(name)
-    for family in ("moe", "encdec"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_family(dataclasses.replace(get_config("rwkv6-1.6b"), family=family))
+            mod = get_family(get_config(name, reduced))
+            assert mod.__name__.split(".")[-1] == jax_family(theirs).__name__.split(".")[-1]
 
 
 def test_forward_and_carried_state_match(pair):

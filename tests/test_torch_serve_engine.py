@@ -1,12 +1,16 @@
 """The port's ServeEngine against the JAX package's, token for token.
 
-Reduced RWKV6, Zamba2 and starcoder2 (a dense transformer with a sliding
-window of 32, so a long queue wraps its ring-buffer KV cache; float32),
-the JAX parameters carried across by ``params_from_jax``, the same
-submissions to both engines: every tick's logits must agree, and so must
-every generated token, through queues that refill slots.  A refilled slot
-keeps the state its previous request left (ROADMAP fault R5 of the
-reference), and the port must reproduce that too.
+Reduced RWKV6, Zamba2, starcoder2 (a dense transformer with a sliding
+window of 32, so a long queue wraps its ring-buffer KV cache),
+deepseek-moe, phi-3-vision and whisper (float32), the JAX parameters
+carried across by ``params_from_jax``, the same submissions to both
+engines: every tick's logits must agree, and so must every generated
+token, through queues that refill slots.  The port must reproduce three
+behaviours of the reference: a refilled slot keeps the state its previous
+request left (ROADMAP R5); whisper's cross-attention cache stays at zero,
+since the engine never fills it (R8); and a MoE decode step routes the
+slots as one group, so at three slots deepseek-moe-reduced's capacity is
+one slot an expert and a request's tokens depend on its neighbours (R9).
 
 Tolerance: rtol = atol = 2e-4 on each tick's logits (the same float32
 model, sums in another order).  Where the two engines' greedy tokens
@@ -29,7 +33,9 @@ from repro_torch.serve import Request, ServeEngine
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
-@pytest.fixture(scope="module", params=["rwkv6-1.6b", "zamba2-2.7b", "starcoder2-15b"])
+@pytest.fixture(scope="module", params=["rwkv6-1.6b", "zamba2-2.7b", "starcoder2-15b",
+                                        "deepseek-moe-16b", "phi-3-vision-4.2b",
+                                        "whisper-medium"])
 def models(request):
     jc = jax_config(request.param, reduced=True)
     tc = get_config(request.param, reduced=True)
@@ -130,3 +136,21 @@ def test_long_queue_matches_jax(models):
     jr, tr, ticks, jl, tl = _serve(models, 1, prompts, [6, 6, 6])
     assert ticks[1] == 45  # a request takes len(prompt) + max_new - 1 ticks
     _compare(jr, tr, ticks, jl, tl)
+
+
+def test_whisper_cross_cache_stays_zero_like_jax():
+    """R8: neither engine fills whisper's cross-attention cache, so every
+    request attends to zeros there; both caches end with it at zero."""
+    jc = jax_config("whisper-medium", reduced=True)
+    tc = get_config("whisper-medium", reduced=True)
+    jp = jax_family(jc).init(jc, jax.random.PRNGKey(0))
+    models = (jc, jp), (tc, params_from_jax(tc, jax.tree.map(np.asarray, jp), device="cpu"))
+    je, te, jl, tl = _engines(models, 2)
+    for i, p in enumerate([[1, 2, 3], [4, 5]]):
+        je.submit(JaxRequest(rid=i, prompt=p, max_new_tokens=3))
+        te.submit(Request(rid=i, prompt=p, max_new_tokens=3))
+    je.run_until_drained()
+    te.run_until_drained()
+    for name in ("cross_k", "cross_v"):
+        assert not np.asarray(je.cache[name]).any() and not te.cache[name].any()
+    np.testing.assert_allclose(tl[-1], jl[-1], **TOL)

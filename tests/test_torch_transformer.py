@@ -10,8 +10,9 @@ kernel takes only multiples of 128), ``forward`` with prepended patch
 embeddings, ``decode_step``
 token by token for 48 tokens -- past starcoder2-reduced's window of 32, so
 its ring buffer wraps -- and tied embeddings.  The port's own ``init``
-against the JAX init's tree and scales, the configurations against
-``repro.configs``, and the refusal of mixture-of-experts configurations.
+against the JAX init's tree and scales, and the configurations against
+``repro.configs``.  The MoE and VLM configurations are in
+``test_torch_moe.py``.
 
 Tolerance: rtol = atol = 2e-4 on logits and caches, as in
 ``test_torch_lm.py`` -- the same float32 model with the sums taken in
@@ -167,18 +168,6 @@ def test_tied_embeddings_match_jax():
     j_logits, _ = jf.decode_step(jc, jp, j_cache, toks[:, :1])
     t_logits, _ = tf.decode_step(tc, tp, t_cache, torch.tensor(toks[:, :1], dtype=torch.long))
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), **TOL)
-
-
-def test_mixture_of_experts_is_refused():
-    moe = dataclasses.replace(get_config("minitron-8b", reduced=True), n_experts=4)
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        get_family(moe)
-    with pytest.raises(NotImplementedError, match="mixture of experts"):
-        transformer.init(moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        moe.params_count()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_family(dataclasses.replace(moe, family="moe"))
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
