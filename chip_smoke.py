@@ -130,6 +130,32 @@ encdec. whisper-medium at full size: forward (encode 1,500 random frames,
    decode_train at T=448 (2 n_layers launches), 32 greedy decode steps at
    B=4 with the cross cache filled, and the decode window; each of these
    phases prints its peak memory above what earlier phases hold;
+train. Training, after every serving phase has freed its model:
+   stablelm-1.6b at its published width and depth (24 layers, d=2048, 32
+   heads of 64, d_ff 5,632, vocab 100,352; random float32 weights from
+   seed 0, bfloat16 compute) through ``TrainLoop`` on the card for 30
+   steps of B=8 x T=256 tokens of the affine-bigram stream over 512 tokens
+   (lr 5e-4, 5 warmup steps, no checkpoint): every loss finite, step 30's
+   at least 1.0 below step 1's, 24 flash launches a step (the forward's;
+   the backward differentiates the plain version); the median step ms,
+   tokens/s, peak memory, one step under the profiler split by part (the
+   flash forward, the attention backward's recompute, the dtype casts and
+   their backward, the cross-entropy, AdamW) and the device's busy share;
+   then 5 steps with int8 compression (the error state's norm) and two
+   microbatches against one on one batch (loss, gradient and update within
+   the stated tolerances, which the first microbatch's gradient alone must
+   exceed); rwkv6-1.6b and
+   zamba2-2.7b at full size, 5 steps on one fixed batch (the loss falls,
+   the gradient norm finite and above 0, the scans' launches by route,
+   none on the one-block kernel); each autograd Function against autograd
+   of its plain version in the same layout on the card (flash at B=8, 32
+   heads, T=256, D=64 in bfloat16 and float32, GQA, windowed and
+   bidirectional cases; wkv at RWKV6-1.6B's heads; ssd at Zamba2-2.7B's
+   with B and C shared): the forward within phase 3's limits of the plain
+   version's output, the gradients exactly equal, each backward's ms beside its
+   kernel's forward ms; the restart path at stablelm-reduced (a fault at
+   step 30 of 50, one restart from the step-20 checkpoint, the restored
+   parameters equal to the saved ones bit for bit);
 5. timing of each kernel beside its plain version (and a library call
    where one computes the same function: for btf and the fused pass a loop
    over the block rows of batched ``torch.linalg.inv`` and ``torch.matmul``,
@@ -160,6 +186,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -217,6 +244,31 @@ MOE_ARCH, MIXTRAL_ARCH, VLM_ARCH, ENCDEC_ARCH = (
     "deepseek-moe-16b", "mixtral-8x22b", "phi-3-vision-4.2b", "whisper-medium")
 MOE_CONSISTENCY_T, MIXTRAL_LAYERS, MIXTRAL_CONSISTENCY_T, MIXTRAL_LONG_T = 128, 4, 64, 8192
 WHISPER_T, WHISPER_TRAIN_T, WHISPER_STEPS = 64, 448, 32
+# Phase "train": stablelm-1.6b at full width and depth through TrainLoop
+# (TRAIN_STEPS steps of TRAIN_B x TRAIN_T tokens from the affine-bigram
+# stream over TRAIN_VOCAB tokens, inside the model's vocabulary; lr
+# TRAIN_LR after TRAIN_WARMUP warmup steps), the last step's loss at least
+# TRAIN_DROP below the first; then TRAIN_COMPRESS_STEPS steps with int8
+# compression, two microbatches against one on one batch from a fresh
+# optimizer state (losses within TRAIN_MICRO_LOSS_RTOL, the gradients' and
+# the updates' global norms of difference within TRAIN_MICRO_GRAD_RTOL and
+# TRAIN_MICRO_UPDATE_RTOL of theirs: bfloat16 compute, where the batch's
+# split changes the products' shapes and sums; measured on the H100 7.6e-8,
+# 2.2e-3 and 1.3e-2 -- a fresh state's first update is ~lr sign(g), so it
+# moves most where a gradient near 0 changes sign), each limit below what
+# the planted fault reads (the first microbatch's gradient alone, a step on
+# the batch's first half; measured on the H100 3.97e-3, 0.820 and 0.920;
+# the run fails if a limit would pass it),
+# rwkv6-1.6b and zamba2-2.7b
+# for TRAIN_FIXED_STEPS steps on one fixed batch, and the restart path at
+# stablelm-reduced (TRAIN_RESTART: a fault at the first step of 50 that
+# follows the step-20 checkpoint).
+TRAIN_ARCH, TRAIN_OTHERS = "stablelm-1.6b", ("rwkv6-1.6b", "zamba2-2.7b")
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR, TRAIN_DROP = 30, 5, 5e-4, 1.0
+TRAIN_VOCAB, TRAIN_B, TRAIN_T = 512, 8, 256
+TRAIN_COMPRESS_STEPS, TRAIN_FIXED_STEPS = 5, 5
+TRAIN_MICRO_LOSS_RTOL, TRAIN_MICRO_GRAD_RTOL, TRAIN_MICRO_UPDATE_RTOL = 1e-5, 5e-2, 1e-1
+TRAIN_RESTART = {"steps": 50, "fault_at": 30, "checkpoint_every": 20}
 # flash kernel against its plain version in bfloat16, element by element:
 # both compute in float32 and round the output to bfloat16 once, so where
 # the float32 values straddle a rounding boundary they differ by one
@@ -901,6 +953,483 @@ def zoo_phases(dev, get_config, get_family, reset, counts, serve, decode_window,
     del params
     torch.cuda.empty_cache()
     return flash_launches
+
+
+def train_phase(dev, get_config, get_family, reset, counts) -> dict:
+    """Phase "train", after every serving phase has freed its model; five
+    lines ("train" for stablelm-1.6b through TrainLoop, its compression and
+    microbatch checks, rwkv6-1.6b / zamba2-2.7b, the autograd Functions
+    against autograd of their plain versions, and the restart path).
+    ``reset`` / ``counts`` zero and read the kernel wrappers' launch counts.
+    Returns the launches of the flash, wkv and ssd kernels in the runs of
+    the train path (the Function checks excluded)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import optim
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import autograd as kgrad
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    from repro_torch.kernels.wkv import wkv6, wkv6_plain
+    from repro_torch.models import layers, transformer
+    from repro_torch.train import (CheckpointManager, TrainConfig, TrainLoop, make_train_step,
+                                   run_with_restarts)
+
+    launches = {"flash": 0, "wkv": 0, "ssd": 0}
+
+    def add_launches():
+        c = counts()
+        for nm in launches:
+            launches[nm] += c[nm]
+
+    def start_line():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return held
+
+    # ---- 1. stablelm-1.6b at full width and depth through TrainLoop -------------
+    cfg = get_config(TRAIN_ARCH)
+    held = start_line()
+    n_params = cfg.params_count()
+    # float32 parameters, gradients, m and v, reckoned before the run (the
+    # activations kept for the backward are reckoned in PERF.md)
+    reckoned = {"params_grads_m_v_bytes": 4 * 4 * n_params}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    tc = TrainConfig(steps=TRAIN_STEPS, log_every=1, checkpoint_every=TRAIN_STEPS + 1,
+                     checkpoint_dir=tmp, seed=SEED)
+    oc = optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    dc = DataConfig(vocab=TRAIN_VOCAB, seq_len=TRAIN_T, global_batch=TRAIN_B, noise=0.05,
+                    seed=SEED)
+    at_step = []
+
+    def note(step):  # the fault hook: the flash launches before each step
+        at_step.append(flash_attention.launches)
+
+    t0 = time.perf_counter()
+    loop = TrainLoop(cfg, oc, tc, dc, fault_hook=note)  # on the card: no device given
+    reset()
+    out = loop.run(resume=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    add_launches()
+    per_step = [b - a for a, b in zip(at_step, at_step[1:] + [flash_attention.launches])]
+    log = out["log"]
+    losses = [r["loss"] for r in log]
+    if len(log) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: {len(log)} logged steps, losses {losses}")
+    if not losses[-1] <= losses[0] - TRAIN_DROP:
+        raise AssertionError(f"train: step {TRAIN_STEPS}'s loss {losses[-1]:.4f} is not "
+                             f"{TRAIN_DROP} below step 1's {losses[0]:.4f}")
+    if per_step != [cfg.n_layers] * TRAIN_STEPS:
+        raise AssertionError(f"train: flash launches a step {per_step}, not {cfg.n_layers} each")
+    step_ms = [r["step_time_s"] * 1e3 for r in log]
+    median_ms = statistics.median(step_ms[1:])
+    peak = torch.cuda.max_memory_allocated() - held
+    model, opt_state = out["params"], out["opt"]
+    params = dict(model.named_parameters())
+
+    # one more step under the profiler, its parts under named ranges
+    batch = loop.batch(TRAIN_STEPS)
+    fam = get_family(cfg)
+    nll_plain, flash_bwd = layers.next_token_nll, kgrad.FlashAttention.backward
+    flash_bwd_attr = kgrad.FlashAttention.__dict__["backward"]  # the staticmethod itself
+
+    def nll_ranged(*a):
+        with record_function("train.cross_entropy"):
+            return nll_plain(*a)
+
+    def flash_bwd_ranged(ctx, grad_o):
+        with record_function("train.attention_backward_recompute"):
+            return flash_bwd(ctx, grad_o)
+
+    def one_step(marks=None):
+        def mark():
+            if marks is not None:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+
+        for p in params.values():
+            p.grad = None
+        mark()
+        with record_function("train.forward"):
+            total, _ = fam.loss(cfg, model, batch)
+        mark()
+        with record_function("train.backward"):
+            total.backward()
+        mark()
+        with record_function("train.adamw"):
+            optim.apply_updates(oc, params, {n: p.grad for n, p in params.items()}, opt_state)
+        mark()
+        for p in params.values():
+            p.grad = None
+
+    transformer.next_token_nll = nll_ranged
+    kgrad.FlashAttention.backward = staticmethod(flash_bwd_ranged)
+    try:
+        one_step()  # warm, and the ranges' first call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one_step()
+            torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        marks = []
+        t0 = time.perf_counter()
+        one_step(marks)  # unprofiled: its parts' spans on the card's clock
+        torch.cuda.synchronize()
+        timed_wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = {nm: marks[i].elapsed_time(marks[i + 1])
+                 for i, nm in enumerate(("forward", "backward", "adamw"))}
+    finally:
+        transformer.next_token_nll = nll_plain
+        kgrad.FlashAttention.backward = flash_bwd_attr
+    events = prof.key_averages()
+    # the card's kernels: CUDA events but the ranges' own device-side spans
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("train.")]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def inclusive(key):  # device ms of the kernels under a CPU op or range
+        return sum(e.device_time_total for e in events
+                   if e.key == key and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+
+    split = {
+        "flash_forward": sum(e.self_device_time_total for e in kernels
+                             if "flash_kernel" in e.key) / 1e3,
+        "attention_backward_recompute": inclusive("train.attention_backward_recompute"),
+        "casts_forward_aten_to_copy": inclusive("aten::_to_copy"),
+        "casts_backward_ToCopyBackward0": inclusive(
+            "autograd::engine::evaluate_function: ToCopyBackward0"),
+        "cross_entropy_forward": inclusive("train.cross_entropy"),
+        "cross_entropy_backward_logsumexp_gather_mean": sum(inclusive(
+            f"autograd::engine::evaluate_function: {n}") for n in (
+                "LogsumexpBackward0", "GatherBackward0", "MeanBackward0")),
+        "adamw": inclusive("train.adamw"),
+        "forward": inclusive("train.forward"),
+    }
+    if not busy > 0:
+        raise AssertionError("train: the profiler saw no kernel on the card")
+    for part in ("flash_forward", "attention_backward_recompute", "cross_entropy_forward"):
+        if not split[part] > 0:  # a range that no longer wraps its code reads 0
+            raise AssertionError(f"train: the profiled step shows no device time in {part}")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab, "params": sum(p.numel() for p in params.values()),
+          "compute_dtype": cfg.compute_dtype, "batch": [TRAIN_B, TRAIN_T],
+          "data": dataclasses.asdict(dc), "lr": TRAIN_LR, "warmup_steps": TRAIN_WARMUP,
+          "steps": TRAIN_STEPS, "losses": losses, "grad_norms": [r["grad_norm"] for r in log],
+          "loss_drop": losses[0] - losses[-1], "step_ms": step_ms,
+          "median_step_ms_2_on": median_ms,
+          "tokens_per_s": TRAIN_B * TRAIN_T / (median_ms / 1e3), "run_s": run_s,
+          "stragglers": sum(r["straggler"] for r in log),
+          "flash_launches_per_step": per_step, "reckoned": reckoned,
+          "peak_mem_bytes": peak, "other_phases_bytes": held,
+          "timed_step": {"wall_ms": timed_wall_ms, "event_spans_ms": spans},
+          "profiled_step": {"wall_ms": prof_wall_ms, "device_busy_ms": busy,
+                            "device_busy_share": busy / prof_wall_ms,
+                            # two steps: this step's device time over the
+                            # unprofiled step's wall, which lacks the
+                            # profiler's host overhead
+                            "device_busy_over_timed_step_wall": busy / timed_wall_ms,
+                            "device_ms_by_part": split,
+                            "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3,
+                                             e.count] for e in top]},
+          "nvidia_smi": nvidia_smi()})
+
+    # ---- 2. the same model: int8 compression, then two microbatches -------------
+    step_c = make_train_step(cfg, oc, dataclasses.replace(tc, grad_compress=True))
+    err = optim.compress.init_error_state(params)
+    reset()
+    closs = []
+    for i in range(TRAIN_COMPRESS_STEPS):
+        m = step_c(model, opt_state, err, loop.batch(TRAIN_STEPS + 1 + i))
+        closs.append(float(m["loss"]))
+    add_launches()
+    if not all(math.isfinite(x) for x in closs):
+        raise AssertionError(f"train: compressed steps' losses {closs}")
+    err_norm = float(optim.global_norm(err))
+    del err, opt_state
+    torch.cuda.empty_cache()
+    # one batch, one fresh optimizer state each way, from the same parameters:
+    # one microbatch, two, and the planted fault -- the gradient of the first
+    # microbatch alone (a step on the batch's first half), what a step that
+    # dropped the second would give.  The later runs' gradients and updates
+    # are compared with the first's as they come, tensor by tensor, so that
+    # only one of each is kept.
+    mb_batch = loop.batch(0)
+    runs = (("two", 2, mb_batch),
+            ("fault_first_half_only", 1, {n: x[:TRAIN_B // 2] for n, x in mb_batch.items()}))
+    p0 = {n: p.detach().clone() for n, p in params.items()}
+    first = {}
+    diff2 = {nm: {"grad": 0.0, "grad_ref": 0.0, "update": 0.0, "update_ref": 0.0}
+             for nm, _, _ in runs}
+    apply_plain = optim.apply_updates
+    current = []
+
+    def spy(cfg_, params_, grads, state):
+        if "grads" not in first:
+            first["grads"] = {n: g.detach().clone() for n, g in grads.items()}
+        else:
+            d = diff2[current[-1]]
+            for n, g in grads.items():
+                d["grad"] += float(torch.sum((g - first["grads"][n]) ** 2))
+                d["grad_ref"] += float(torch.sum(first["grads"][n] ** 2))
+        return apply_plain(cfg_, params_, grads, state)
+
+    losses_mb = {}
+    for name, nmicro, bt in (("one", 1, mb_batch),) + runs:
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(p0[n])
+        step_m = make_train_step(cfg, oc, dataclasses.replace(tc, microbatches=nmicro))
+        current.append(name)
+        optim.apply_updates = spy
+        try:
+            reset()
+            losses_mb[name] = float(step_m(model, optim.init(params), {}, bt)["loss"])
+            add_launches()
+        finally:
+            optim.apply_updates = apply_plain
+        if name == "one":
+            first["update"] = {n: p.detach() - p0[n] for n, p in params.items()}
+        else:
+            d = diff2[name]
+            for n, p in params.items():
+                u2 = p.detach() - p0[n]
+                d["update"] += float(torch.sum((u2 - first["update"][n]) ** 2))
+                d["update_ref"] += float(torch.sum(first["update"][n] ** 2))
+    readings = {nm: {"loss": abs(losses_mb[nm] - losses_mb["one"]) / abs(losses_mb["one"]),
+                     "grad": math.sqrt(diff2[nm]["grad"] / diff2[nm]["grad_ref"]),
+                     "update": math.sqrt(diff2[nm]["update"] / diff2[nm]["update_ref"])}
+                 for nm, _, _ in runs}
+    limits = {"loss": TRAIN_MICRO_LOSS_RTOL, "grad": TRAIN_MICRO_GRAD_RTOL,
+              "update": TRAIN_MICRO_UPDATE_RTOL}
+    del first, p0
+    sound, fault = readings["two"], readings["fault_first_half_only"]
+    if not all(sound[q] <= limits[q] for q in limits):
+        raise AssertionError(f"train: two microbatches against one: {sound}, limits {limits}")
+    if not all(fault[q] > limits[q] for q in limits):  # a limit that would pass the fault
+        raise AssertionError(f"train: the planted fault (the first microbatch alone) reads "
+                             f"{fault}, within limits {limits}")
+    emit({"phase": "train", "arch": cfg.name, "check": "compress_and_microbatches",
+          "compress": {"steps": TRAIN_COMPRESS_STEPS, "losses": closs,
+                       "error_state_norm": err_norm},
+          "losses_one_two_fault": losses_mb, "rel_diff_from_one_microbatch": readings,
+          "limits": limits,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated() - held})
+    del model, params, out, loop, batch, mb_batch
+    torch.cuda.empty_cache()
+
+    # ---- 3. rwkv6-1.6b and zamba2-2.7b: five steps on one fixed batch ------------
+    for arch in TRAIN_OTHERS:
+        cfg = get_config(arch)
+        fam = get_family(cfg)
+        kernel = "wkv" if cfg.family == "rwkv" else "ssd"
+        wrapper = wkv6 if kernel == "wkv" else ssd
+        recompute_key = "wkv6" if kernel == "wkv" else "ssd"
+        held = start_line()
+        model = fam.init(cfg, torch.Generator(dev).manual_seed(SEED), device=dev)
+        model.requires_grad_(True)
+        params = dict(model.named_parameters())
+        state = optim.init(params)
+        step = make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                                      total_steps=TRAIN_FIXED_STEPS),
+                               TrainConfig(checkpoint_dir=tmp))
+        fixed = {"tokens": torch.tensor(np.random.default_rng(SEED + 1).integers(
+            0, cfg.vocab, size=(TRAIN_B, TRAIN_T)), device=dev)}
+        reset()
+        recomputes = kgrad.backward_calls[recompute_key]
+        rows = []
+        for _ in range(TRAIN_FIXED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(model, state, {}, fixed)
+            torch.cuda.synchronize()
+            rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                         "ms": (time.perf_counter() - t0) * 1e3})
+        by_route = dict(wrapper.by_route)
+        c = counts()
+        add_launches()
+        recomputes = kgrad.backward_calls[recompute_key] - recomputes
+        gl = [r["loss"] for r in rows]
+        if not (all(math.isfinite(x) for x in gl) and gl[-1] < gl[0]):
+            raise AssertionError(f"train {arch}: losses {gl} do not fall")
+        if not all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0 for r in rows):
+            raise AssertionError(f"train {arch}: gradient norms {rows}")
+        if by_route["block"] or c[kernel] != TRAIN_FIXED_STEPS * cfg.n_layers:
+            raise AssertionError(f"train {arch}: {c[kernel]} {kernel} launches {by_route}, want "
+                                 f"{cfg.n_layers} a step, none on the one-block kernel")
+        emit({"phase": "train", "arch": arch, "check": "fixed_batch", "batch": [TRAIN_B, TRAIN_T],
+              "steps": rows, "median_step_ms": statistics.median(r["ms"] for r in rows[1:]),
+              "launches": {kernel: c[kernel], "flash": c["flash"]},
+              "launches_by_route": {kernel: by_route}, "backward_recomputes": recomputes,
+              "params": sum(p.numel() for p in params.values()),
+              "peak_mem_bytes": torch.cuda.max_memory_allocated() - held,
+              "other_phases_bytes": held})
+        del model, params, state, fixed, step
+        torch.cuda.empty_cache()
+
+    # ---- 4. each Function against autograd of its plain version, on the card -----
+    def grads_of(fn, inputs, weight):
+        """(output, gradients of its sum weighted by ``weight``)."""
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = fn(*xs)
+        out = out[0] if isinstance(out, tuple) else out
+        (out.float() * weight).sum().backward()
+        return out.detach(), [x.grad for x in xs]
+
+    def timed_pair(fn, inputs, weight):
+        """(forward ms with no graph, backward ms of the graph), CUDA events."""
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: fn(*inputs), 5)
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = fn(*xs)
+        out = out[0] if isinstance(out, tuple) else out
+        g_out = weight.to(out.dtype).expand_as(out)
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, g_out, retain_graph=True), 5)
+        return fwd_ms, bwd_ms
+
+    def check_function(name, via, plain, inputs, weight, must):
+        """The Function's forward (the kernel) against the plain version's
+        output on the same card tensors, within the kernel's limits (phase
+        3's: one bfloat16 step, else KERNEL_RTOL of the largest value); its
+        gradients equal to autograd of the plain version's."""
+        out, got = grads_of(via, inputs, weight)
+        out_plain, want = grads_of(plain, inputs, weight)
+        if out.dtype == torch.bfloat16:
+            fwd_err, fwd_share = check_close_bf16(f"{name} forward", out, out_plain)
+        else:
+            fwd_err, fwd_share = check_close(f"{name} forward", out, out_plain), None
+        diffs = [float((a.double() - b.double()).abs().max()) for a, b in zip(got, want)]
+        if not (all(bool(torch.isfinite(a).all()) for a in got) and max(diffs) == 0.0):
+            raise AssertionError(f"{name}: the Function's gradients differ from the plain "
+                                 f"version's by {diffs}")
+        if must is not None:
+            must(got)
+        fwd_ms, bwd_ms = timed_pair(via, inputs, weight)
+        return {"name": name, "forward_max_abs_err": fwd_err, "forward_bf16_share": fwd_share,
+                "grad_max_abs_diff": max(diffs), "dtypes": [str(a.dtype) for a in got],
+                "kernel_forward_ms": fwd_ms, "backward_ms": bwd_ms}
+
+    rows = []
+    g = torch.Generator(dev).manual_seed(SEED)
+    # flash at stablelm-1.6b's training shape in both dtypes, then GQA,
+    # windowed and bidirectional cases at small shapes
+    for b, hq, hk, t, d, causal, window, dtype in (
+            (TRAIN_B, 32, 32, TRAIN_T, 64, True, None, torch.bfloat16),
+            (TRAIN_B, 32, 32, TRAIN_T, 64, True, None, torch.float32),
+            (2, 8, 2, 200, 32, True, None, torch.bfloat16),
+            (2, 4, 4, 192, 16, True, 48, torch.float32),
+            (2, 4, 2, 150, 64, False, None, torch.bfloat16)):
+        qkv = [torch.randn(b, h, t, d, generator=g, device=dev).to(dtype) for h in (hq, hk, hk)]
+        w = torch.randn(b, hq, t, d, generator=g, device=dev)
+
+        def in_dtype(got, dtype=dtype):
+            if any(x.dtype != dtype for x in got):
+                raise AssertionError(f"flash: gradients in {[x.dtype for x in got]}, not {dtype}")
+
+        rows.append({"shape": [b, hq, hk, t, d, causal, window], **check_function(
+            f"flash_{str(dtype)[6:]}",
+            lambda q, k, v, c=causal, wd=window: ops.flash_attention(q, k, v, causal=c, window=wd),
+            lambda q, k, v, c=causal, wd=window: flash_attention_ref(q, k, v, c, wd), qkv, w,
+            in_dtype)})
+    # wkv at RWKV6-1.6B's heads (32 x 64, chunk 64): u summed over the batch
+    bw, hw, dw = TRAIN_B, 32, 64
+    r, k, v = (torch.randn(bw, hw, TRAIN_T, dw, generator=g, device=dev) * 0.5 for _ in range(3))
+    logw = -torch.exp(torch.randn(bw, hw, TRAIN_T, dw, generator=g, device=dev) * 0.5 - 2.0)
+    u = torch.randn(hw, dw, generator=g, device=dev) * 0.1
+    s0 = torch.zeros(bw, hw, dw, dw, device=dev)
+    w = torch.randn(bw, hw, TRAIN_T, dw, generator=g, device=dev)
+
+    def u_summed(got):
+        if tuple(got[4].shape) != (hw, dw):
+            raise AssertionError(f"wkv: u's gradient has shape {tuple(got[4].shape)}")
+
+    def wkv_plain_flat(r, k, v, logw, u):  # ops.wkv6's layout around the plain version
+        flat = lambda x: x.reshape(bw * hw, *x.shape[2:]).contiguous()  # noqa: E731
+        u_full = u.expand(bw, hw, dw).reshape(bw * hw, dw).contiguous()
+        o, _ = wkv6_plain(flat(r), flat(k), flat(v), flat(logw), u_full, flat(s0), 64)
+        return o.reshape(bw, hw, TRAIN_T, dw)
+
+    rows.append({"shape": [bw, hw, TRAIN_T, dw, 64], **check_function(
+        "wkv6", lambda *a: ops.wkv6(*a, s0, chunk=64), wkv_plain_flat, (r, k, v, logw, u), w,
+        u_summed)})
+    # ssd at Zamba2-2.7B's (80 heads of 64, N = 64), B and C shared by the heads
+    zc = get_config("zamba2-2.7b")
+    hs, ns, ps = zc.ssm_expand * zc.d_model // zc.ssm_head_dim, zc.ssm_state, zc.ssm_head_dim
+    x = torch.randn(bw, hs, TRAIN_T, ps, generator=g, device=dev) * 0.1
+    bm, cm = (torch.randn(bw, TRAIN_T, ns, generator=g, device=dev) * 0.2 for _ in range(2))
+    loga = -torch.rand(bw, hs, TRAIN_T, generator=g, device=dev) * 0.2
+    s1 = torch.zeros(bw, hs, ns, ps, device=dev)
+    w = torch.randn(bw, hs, TRAIN_T, ps, generator=g, device=dev)
+
+    def heads(a):
+        return a[:, None].expand(bw, hs, TRAIN_T, ns)
+
+    def bc_summed(got):
+        if tuple(got[1].shape) != (bw, TRAIN_T, ns):
+            raise AssertionError(f"ssd: B's gradient has shape {tuple(got[1].shape)}")
+
+    def ssd_plain_flat(x, b, c, la):  # ops.ssd's layout (B, C once a row) around the plain version
+        flat = lambda a: a.reshape(bw * hs, *a.shape[2:]).contiguous()  # noqa: E731
+        y, _ = ssd_plain(flat(x), heads(b)[:, 0].contiguous(), heads(c)[:, 0].contiguous(),
+                         flat(la), flat(s1), 64, hs)
+        return y.reshape(bw, hs, TRAIN_T, ps)
+
+    rows.append({"shape": [bw, hs, TRAIN_T, ns, ps, 64], **check_function(
+        "ssd_shared_bc", lambda x, b, c, la: ops.ssd(x, heads(b), heads(c), la, s1, chunk=64),
+        ssd_plain_flat, (x, bm, cm, loga), w, bc_summed)})
+    emit({"phase": "train", "check": "functions_vs_plain_autograd", "rows": rows})
+    del r, k, v, logw, u, s0, x, bm, cm, loga, s1, w
+    torch.cuda.empty_cache()
+
+    # ---- 5. the restart path at stablelm-reduced ---------------------------------
+    rcfg = get_config(TRAIN_ARCH, reduced=True)
+    rdir = tempfile.mkdtemp(prefix="chip_smoke_restart_")
+    rtc = TrainConfig(steps=TRAIN_RESTART["steps"],
+                      checkpoint_every=TRAIN_RESTART["checkpoint_every"], checkpoint_dir=rdir,
+                      log_every=10)
+    roc = optim.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=TRAIN_RESTART["steps"])
+    rdc = DataConfig(vocab=rcfg.vocab, seq_len=64, global_batch=8, noise=0.05)
+    faults = []
+
+    def fault(step):
+        if step == TRAIN_RESTART["fault_at"] and not faults:
+            faults.append(step)
+            raise RuntimeError("simulated preemption")
+
+    reset()
+    rout, restarts = run_with_restarts(lambda: TrainLoop(rcfg, roc, rtc, rdc, fault_hook=fault))
+    add_launches()
+    resumed_at = rout["log"][0]["step"] - rtc.log_every
+    if restarts != 1 or rout["last_step"] != TRAIN_RESTART["steps"] or resumed_at != 20:
+        raise AssertionError(f"restart: {restarts} restarts, last step {rout['last_step']}, "
+                             f"resumed at {resumed_at}")
+    # a loop that ends where the last checkpoint is restores it and takes no step
+    latest = CheckpointManager(rdir).latest_step()
+    again = TrainLoop(rcfg, roc, dataclasses.replace(rtc, steps=latest), rdc).run()
+    with np.load(Path(rdir) / f"step_{latest:08d}.npz") as saved:
+        mism = [n for n, p in again["params"].named_parameters()
+                if not np.array_equal(p.detach().cpu().numpy(), saved[f"params/{n}"])]
+    if again["log"] or mism:
+        raise AssertionError(f"restart: restoring step {latest} took steps or changed {mism}")
+    emit({"phase": "train", "arch": rcfg.name, "check": "restart",
+          "restarts": restarts, "resumed_at": resumed_at, "last_step": rout["last_step"],
+          "losses": [r["loss"] for r in rout["log"]], "restored_step": latest,
+          "restored_bitwise": True,
+          "params_restored": sum(1 for _ in again["params"].parameters())})
+    shutil.rmtree(tmp)
+    shutil.rmtree(rdir)
+    return launches
 
 
 def main() -> int:
@@ -2459,6 +2988,10 @@ def main() -> int:
     # ---- moe, vlm, encdec: the rest of the LM zoo ---------------------------------
     lm_launches["flash"] += zoo_phases(dev, get_config, get_family, reset, counts, serve,
                                        decode_window, prompts)
+
+    # ---- train: every loss's gradients through the kernels' Functions -------------
+    for kernel, n in train_phase(dev, get_config, get_family, reset, counts).items():
+        lm_launches[kernel] += n
 
     # ---- 5. timing at the main path's shapes ---------------------------------
     p, m, k = bt.p, bt.m, bt.k

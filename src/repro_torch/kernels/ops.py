@@ -7,7 +7,10 @@ launch the CUDA kernel for a CUDA tensor.  This module adds the factor
 containers, the single-chain forms (the SaP-E reduced interface system),
 the per-partition coupling layout of the fused pass, the level loops of
 block cyclic reduction, the (batch, head) layout of the two SaP-scan
-recurrences, and the contiguous operands of flash attention.
+recurrences, and the contiguous operands of flash attention.  The three
+model kernels' entry points (``wkv6``, ``ssd``, ``flash_attention``) are
+differentiable: on the card a call whose operands require grad goes
+through its :mod:`.autograd` Function.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from ..core.block_lu import DEFAULT_BOOST, BTFactors, FusedSpikeFactors, pad_couplings
 from ..core.cyclic_reduction import BCRFactors, BCRLevel, pad_chain, pad_rhs
+from . import autograd as kgrad
 from . import bcr
 from .btf import btf
 from .bts import bts
@@ -321,12 +325,17 @@ def wkv6(
     state: torch.Tensor,  # (B, H, D, D)
     chunk: int = 64,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked WKV6 recurrence; returns (output (B, H, T, D), final state)."""
+    """Chunked WKV6 recurrence; returns (output (B, H, T, D), final state).
+    Differentiable: on the card through :class:`.autograd.WKV6`."""
     _scan_dtype_on_card("wkv6", r, k, v, logw)
     bsz, h, t, d = r.shape
     flat = lambda x: x.reshape(bsz * h, *x.shape[2:]).contiguous()  # noqa: E731
     u_full = u.expand(bsz, h, d).reshape(bsz * h, d).contiguous()
-    o, s_out = _wkv6(flat(r), flat(k), flat(v), flat(logw), u_full, flat(state), chunk)
+    args = (flat(r), flat(k), flat(v), flat(logw), u_full, flat(state))
+    if kgrad.on_card_with_grad(*args):
+        o, s_out = kgrad.WKV6.apply(_wkv6, *args, chunk)
+    else:
+        o, s_out = _wkv6(*args, chunk)
     return o.reshape(bsz, h, t, d), s_out.reshape(bsz, h, d, d)
 
 
@@ -342,6 +351,8 @@ def ssd(
 
     ``b`` and ``c`` broadcast over the heads (stride 0 on the head axis, as
     ``expand`` makes them) are handed to the kernel once per batch row.
+    Differentiable: on the card through :class:`.autograd.SSD`, whose
+    gradient for that row is summed over the heads.
     """
     _scan_dtype_on_card("ssd", x, b, c)
     bsz, h, t, p = x.shape
@@ -351,7 +362,11 @@ def ssd(
         bq, cq, hshare = b[:, 0].contiguous(), c[:, 0].contiguous(), h
     else:
         bq, cq, hshare = flat(b), flat(c), 1
-    y, s_out = _ssd(flat(x), bq, cq, flat(loga), flat(state), chunk, hshare)
+    args = (flat(x), bq, cq, flat(loga), flat(state))
+    if kgrad.on_card_with_grad(*args):
+        y, s_out = kgrad.SSD.apply(_ssd, *args, chunk, hshare)
+    else:
+        y, s_out = _ssd(*args, chunk, hshare)
     return y.reshape(bsz, h, t, p), s_out.reshape(bsz, h, n, p)
 
 
@@ -370,4 +385,7 @@ def flash_attention(
     """Causal / sliding-window GQA attention in the JAX layout; the
     operands are made contiguous first (RoPE and the head transpose leave
     them strided)."""
-    return _flash(q.contiguous(), k.contiguous(), v.contiguous(), causal, window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if kgrad.on_card_with_grad(q, k, v):
+        return kgrad.FlashAttention.apply(_flash, q, k, v, causal, window)
+    return _flash(q, k, v, causal, window)

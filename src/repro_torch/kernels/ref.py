@@ -28,6 +28,12 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30  # finite: -inf - -inf = NaN breaks the online softmax
 
+
+def accumulation_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a plain version computes in: float32, or float64 for
+    float64 inputs (gradient checks in float64)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
 # ---------------------------------------------------------------------------
 # RWKV6 WKV recurrence (matrix-valued state, per-channel data-dependent decay)
 # ---------------------------------------------------------------------------
@@ -173,24 +179,28 @@ def flash_attention_ref(
     Hk)``.  A query tile of ``block_q`` rows skips the key tiles the masks
     leave empty for the whole tile; masked scores are the finite
     ``NEG_INF``, so a row's fully masked tiles before its first visible key
-    are wiped by ``exp(NEG_INF - m) = 0``.  Computes in float32 and returns
-    ``acc / max(l, 1e-30)`` in q's dtype.
+    are wiped by ``exp(NEG_INF - m) = 0``.  Computes in float32 (float64
+    for float64 inputs: :func:`accumulation_dtype`) and returns ``acc /
+    max(l, 1e-30)`` in q's dtype.  Differentiable: autograd of this
+    function is the flash kernel's backward
+    (:mod:`repro_torch.kernels.autograd`).
     """
     b, hq, tq, d = q.shape
     hk, tk = k.shape[1], k.shape[2]
     g = hq // hk
     scale = 1.0 / math.sqrt(d)
-    qg = q.reshape(b, hk, g, tq, d).float()
-    m_run = torch.full((b, hk, g, tq), NEG_INF, dtype=torch.float32, device=q.device)
-    l_run = torch.zeros((b, hk, g, tq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, hk, g, tq, d), dtype=torch.float32, device=q.device)
+    acc_dtype = accumulation_dtype(q)
+    qg = q.reshape(b, hk, g, tq, d).to(acc_dtype)
+    m_run = torch.full((b, hk, g, tq), NEG_INF, dtype=acc_dtype, device=q.device)
+    l_run = torch.zeros((b, hk, g, tq), dtype=acc_dtype, device=q.device)
+    acc = torch.zeros((b, hk, g, tq, d), dtype=acc_dtype, device=q.device)
     for k_start in range(0, tk, block_k):
         r0, r1 = _tile_rows(tq, k_start, block_q, block_k, causal, window, q_offset)
         if r0 >= r1:
             continue
         pad = max(0, k_start + block_k - tk)  # ragged last tile: zero keys and values
-        kj = F.pad(k[:, :, k_start:k_start + block_k].float(), (0, 0, 0, pad))
-        vj = F.pad(v[:, :, k_start:k_start + block_k].float(), (0, 0, 0, pad))
+        kj = F.pad(k[:, :, k_start:k_start + block_k].to(acc_dtype), (0, 0, 0, pad))
+        vj = F.pad(v[:, :, k_start:k_start + block_k].to(acc_dtype), (0, 0, 0, pad))
         q_pos = q_offset + torch.arange(r0, r1, device=q.device)[:, None]
         k_pos = k_start + torch.arange(block_k, device=q.device)[None, :]
         mask = k_pos < tk
@@ -200,12 +210,15 @@ def flash_attention_ref(
             mask = mask & (q_pos - k_pos < window)
         s = torch.einsum("bhgtd,bhcd->bhgtc", qg[:, :, :, r0:r1], kj) * scale
         s = torch.where(mask, s, NEG_INF)
-        m_prev = m_run[..., r0:r1]
+        # the running rows are read as copies before they are overwritten in
+        # place, so that autograd keeps the values it saved (the backward of
+        # the flash kernel differentiates this function)
+        m_prev = m_run[..., r0:r1].clone()
         m_new = torch.maximum(m_prev, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m_prev - m_new)
-        l_run[..., r0:r1] = l_run[..., r0:r1] * corr + p.sum(dim=-1)
-        acc[..., r0:r1, :] = (acc[..., r0:r1, :] * corr[..., None]
+        l_run[..., r0:r1] = l_run[..., r0:r1].clone() * corr + p.sum(dim=-1)
+        acc[..., r0:r1, :] = (acc[..., r0:r1, :].clone() * corr[..., None]
                               + torch.einsum("bhgtc,bhcd->bhgtd", p, vj))
         m_run[..., r0:r1] = m_new
     out = acc / torch.clamp(l_run[..., None], min=1e-30)

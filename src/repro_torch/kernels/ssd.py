@@ -24,17 +24,19 @@ import torch
 
 from . import build
 from ._launch import check_operands, check_shape, stream_handle
-from .ref import ssd_chunked_ref
+from .ref import accumulation_dtype, ssd_chunked_ref
 from .wkv import ROUTES, aligned, check_chunk, scan_route
 
 
 def ssd_plain(x, b, c, loga, state, chunk: int = 64, hshare: int = 1):
     """The plain version on flattened rows, on any device (B and C repeated
-    for the rows that share them): (y, state_out).  Computes in float32 and
-    returns y in x's dtype and the state in its own, as the TPU kernel does."""
-    rep = lambda a: a.float().repeat_interleave(hshare, dim=0)[None]  # noqa: E731
-    y, s = ssd_chunked_ref(x.float()[None], rep(b), rep(c), loga.float()[None],
-                           state.float()[None], chunk)
+    for the rows that share them): (y, state_out).  Computes in float32
+    (float64 for float64 inputs) and returns y in x's dtype and the state
+    in its own, as the TPU kernel does."""
+    acc = accumulation_dtype(x)
+    rep = lambda a: a.to(acc).repeat_interleave(hshare, dim=0)[None]  # noqa: E731
+    y, s = ssd_chunked_ref(x.to(acc)[None], rep(b), rep(c), loga.to(acc)[None],
+                           state.to(acc)[None], chunk)
     return y[0].to(x.dtype), s[0].to(state.dtype)
 
 

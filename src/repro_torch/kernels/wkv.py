@@ -28,7 +28,7 @@ import torch
 
 from . import build
 from ._launch import check_operands, check_shape, stream_handle
-from .ref import wkv6_chunked_ref
+from .ref import accumulation_dtype, wkv6_chunked_ref
 
 
 MAX_DIM = 64  # N, P, D of the step and split routes (csrc/scan.cuh: kMaxDim)
@@ -60,10 +60,11 @@ def check_chunk(what: str, t: int, chunk: int) -> None:
 
 def wkv6_plain(r, k, v, logw, u, state, chunk: int = 64):
     """The plain version on flattened rows, on any device: (o, state_out).
-    Computes in float32 and returns o in r's dtype and the state in its
-    own, as the TPU kernel does."""
-    f = lambda a: a.float()[None]  # noqa: E731
-    o, s = wkv6_chunked_ref(f(r), f(k), f(v), f(logw), u.float(), f(state), chunk)
+    Computes in float32 (float64 for float64 inputs) and returns o in r's
+    dtype and the state in its own, as the TPU kernel does."""
+    acc = accumulation_dtype(r)
+    f = lambda a: a.to(acc)[None]  # noqa: E731
+    o, s = wkv6_chunked_ref(f(r), f(k), f(v), f(logw), u.to(acc), f(state), chunk)
     return o[0].to(r.dtype), s[0].to(state.dtype)
 
 

@@ -8,6 +8,7 @@ A copy of :mod:`repro.models.api` for every family: ``"rwkv"``,
 
     init(cfg, generator, device)            -> parameters (an nn.Module)
     forward(cfg, params, tokens or batch)   -> (logits, state or aux)
+    loss(cfg, params, batch)                -> (scalar loss, {"nll", "aux"})
     init_cache(cfg, batch, max_len, device) -> decode cache (dict of tensors)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
 

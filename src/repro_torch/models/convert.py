@@ -10,12 +10,20 @@ encoder along ``n_enc_layers``) -- onto the port's modules, so that both
 packages compute the same model.  Every leaf is copied as float32.  A
 model with tied embeddings has no ``lm_head``; its forward uses the
 transposed embedding, as the JAX package's does.
+
+``params_to_jax(model)`` is the inverse map: the model's parameters --
+or any tensors keyed by the parameters' names, such as their ``.grad``s
+or AdamW's moments -- as the JAX package's nested numpy tree, each
+``nn.ModuleList`` of layers stacked along a leading layer axis.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
+from torch import nn
 
 from ..device import resolve_device
 from .api import ModelConfig
@@ -56,3 +64,31 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device=None):
 
         return TransformerLM(cfg, t["embed"], blocks, t["final_norm"], t.get("lm_head"))
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _stack(trees: list[dict]) -> dict:
+    return {name: _stack([t[name] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[name] for t in trees]) for name, v in trees[0].items()}
+
+
+def _tree(module: nn.Module, prefix: str, leaf) -> dict:
+    out = {name: leaf(prefix + name, p) for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if isinstance(child, nn.ModuleList):
+            out[name] = _stack([_tree(m, f"{prefix}{name}.{i}.", leaf)
+                                for i, m in enumerate(child)])
+        else:
+            out[name] = _tree(child, f"{prefix}{name}.", leaf)
+    return out
+
+
+def params_to_jax(model: nn.Module, values: Optional[dict] = None) -> dict:
+    """The JAX package's nested float32 numpy tree (per-layer leaves
+    stacked on a leading layer axis) of ``model``'s parameters, or of
+    ``values[name]`` for each parameter's name in ``named_parameters()``
+    (``{n: p.grad for n, p in model.named_parameters()}``, AdamW's ``m``)."""
+    return _tree(model, "", lambda name, p: _numpy(p if values is None else values[name]))

@@ -1,5 +1,5 @@
 """Shared layers of the port's LM zoo: norms (RMS, layer, group), RoPE,
-MLP, attention, and the parameter container.
+MLP, attention, the next-token loss, and the parameter container.
 
 A copy of :mod:`repro.models.layers` in PyTorch, with every float32 cast
 point the JAX code has.  Prompt attention is the flash kernel's plain
@@ -26,8 +26,12 @@ from ..kernels.ref import NEG_INF
 class ParamTree(nn.Module):
     """Nested parameters addressed like the JAX package's dict pytree:
     ``tree["att"]["wr"]``.  Dict entries become child trees, modules stay
-    modules (an ``nn.ModuleList`` of layers), tensors become parameters
-    (inference only: no gradients)."""
+    modules (an ``nn.ModuleList`` of layers), tensors become parameters.
+
+    Parameters are made with ``requires_grad=False``, so that serving runs
+    no autograd bookkeeping.  To train a model, call
+    ``model.requires_grad_(True)`` (as :class:`repro_torch.train.TrainLoop`
+    does): every family's ``loss`` then back-propagates into all of them."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -163,3 +167,17 @@ def decode_attention(
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
     return out.reshape(b, hq, 1, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Mean next-token negative log-likelihood, in float32: ``logsumexp -
+    picked`` over ``logits[:, :-1, :vocab]`` against ``tokens[:, 1:]``, as
+    every family's loss in the JAX package computes it."""
+    lg = logits[:, :-1, :vocab].float()
+    picked = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return (torch.logsumexp(lg, dim=-1) - picked).mean()

@@ -33,6 +33,7 @@ from .layers import (
     apply_rope,
     decode_attention,
     mlp,
+    next_token_nll,
     normal,
     rms_norm,
 )
@@ -262,6 +263,13 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, state: dict | None =
     x = rms_norm(x, params["final_norm"])
     logits = x @ params["lm_head"].to(cdt)
     return logits, state_out
+
+
+def loss(cfg: ModelConfig, params, batch: dict):
+    """(nll, {"nll", "aux": 0}): the next-token loss of ``batch["tokens"]``
+    from a zero state."""
+    nll = next_token_nll(forward(cfg, params, batch["tokens"])[0], batch["tokens"], cfg.vocab)
+    return nll, {"nll": nll, "aux": torch.zeros((), device=nll.device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, prefilled: int = 0, device=None):

@@ -25,7 +25,7 @@ from torch import nn
 from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
 from .api import ModelConfig
-from .layers import ParamTree, group_norm, normal, rms_norm
+from .layers import ParamTree, group_norm, next_token_nll, normal, rms_norm
 
 
 def _heads(cfg: ModelConfig) -> int:
@@ -211,6 +211,13 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor, state: dict | None =
     x = rms_norm(x, params["final_norm"])
     logits = x @ params["lm_head"].to(cdt)
     return logits, state_out
+
+
+def loss(cfg: ModelConfig, params, batch: dict):
+    """(nll, {"nll", "aux": 0}): the next-token loss of ``batch["tokens"]``
+    from a zero state."""
+    nll = next_token_nll(forward(cfg, params, batch["tokens"])[0], batch["tokens"], cfg.vocab)
+    return nll, {"nll": nll, "aux": torch.zeros((), device=nll.device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, prefilled: int = 0, device=None):

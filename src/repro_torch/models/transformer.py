@@ -40,6 +40,7 @@ from .layers import (
     apply_rope,
     decode_attention,
     mlp,
+    next_token_nll,
     normal,
     rms_norm,
 )
@@ -169,6 +170,21 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     x = rms_norm(x, params["final_norm"])
     logits = x @ _head(cfg, params).to(cdt)
     return logits, aux
+
+
+def loss(cfg: ModelConfig, params, batch: dict):
+    """(total, {"nll", "aux"}): the next-token loss of ``batch["tokens"]``
+    (B, T) plus the routers' aux loss (0 for a dense model, a scalar that
+    carries gradient into every router for a MoE one).  With
+    ``batch["patches"]`` (B, Pn, D) prepended, only the text region's
+    logits count."""
+    tokens = batch["tokens"]
+    patches = batch.get("patches")
+    logits, aux = forward(cfg, params, tokens, patches)
+    if patches is not None:
+        logits = logits[:, patches.shape[1]:]  # text region only
+    nll = next_token_nll(logits, tokens, cfg.vocab)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,7 @@ from torch import nn
 from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
 from .api import ModelConfig
-from .layers import ParamTree, decode_attention, layer_norm, mlp, normal
+from .layers import ParamTree, decode_attention, layer_norm, mlp, next_token_nll, normal
 
 POS_DEC_ROWS = 32_768
 
@@ -177,6 +177,14 @@ def forward(cfg: ModelConfig, params, batch: dict):
     enc = encode(cfg, params, batch["frames"])
     logits = decode_train(cfg, params, batch["tokens"], enc)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss(cfg: ModelConfig, params, batch: dict):
+    """(nll, {"nll", "aux": 0}): the next-token loss of the decoder over
+    ``batch["tokens"]`` attending to the encoded ``batch["frames"]``."""
+    logits, aux = forward(cfg, params, batch)
+    nll = next_token_nll(logits, batch["tokens"], cfg.vocab)
+    return nll, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,12 @@
+"""The port's optimizer: AdamW (:mod:`.adamw`) and int8 error-feedback
+gradient compression (:mod:`.compress`)."""
+
+from . import compress  # noqa: F401
+from .adamw import (  # noqa: F401
+    AdamWConfig,
+    AdamWState,
+    apply_updates,
+    global_norm,
+    init,
+    schedule,
+)

@@ -1566,3 +1566,181 @@ def test_service_request_spans_from_a_drain_thread_on_the_card(cuda):
     main = threading.get_ident()
     for d in dispatches:  # on the drain thread
         assert [c.name for c in d.children] == ["engine.solve_prepared"] and d.tid != main
+
+
+# ---------------------------------------------------------------------------
+# Training: gradients through the kernels' autograd Functions
+# ---------------------------------------------------------------------------
+
+
+def _card_and_plain_grads(out_of, inputs, w):
+    """The output of ``out_of(*inputs)`` and the gradients of its sum
+    weighted by ``w``, twice: through ``ops`` (the Functions, whose forward
+    is the kernel) and through the plain versions (``out_of(...,
+    plain=True)``).  Returns ((output, gradients), (output, gradients))."""
+    res = []
+    for plain in (False, True):
+        xs = [x.detach().clone().requires_grad_(True) for x in inputs]
+        out = out_of(*xs, plain=plain)
+        (out.float() * w.float()).sum().backward()
+        res.append((out.detach(), [x.grad for x in xs]))
+    return res
+
+
+# (B, Hq, Hk, T, D, causal, window, dtype): stablelm-1.6b's training shape
+# in both dtypes, then GQA, windowed and bidirectional cases
+FLASH_GRAD_CASES = [
+    (8, 32, 32, 256, 64, True, None, torch.bfloat16),
+    (8, 32, 32, 256, 64, True, None, torch.float32),
+    (2, 8, 2, 200, 32, True, None, torch.bfloat16),
+    (2, 4, 4, 192, 16, True, 48, torch.float32),
+    (2, 4, 2, 150, 64, False, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,hq,hk,t,d,causal,window,dtype", FLASH_GRAD_CASES)
+def test_flash_function_on_the_card_gives_the_plain_gradient(cuda, b, hq, hk, t, d, causal,
+                                                            window, dtype):
+    """ops.flash_attention on operands that require grad: the forward is
+    the kernel (one launch), its output within the kernel's limits of the
+    plain version's (one bfloat16 step, or 1e-4 of the largest value in
+    float32), the backward autograd of the plain version (one recompute),
+    the gradients equal to autograd of the plain version on the same card
+    and in the inputs' dtype; GQA's K, V gradients summed over each query
+    group."""
+    from repro_torch.kernels import autograd as kgrad
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    g = torch.Generator(cuda).manual_seed(t)
+    q = torch.randn(b, hq, t, d, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, hk, t, d, generator=g, device=cuda).to(dtype) for _ in range(2))
+    w = torch.randn(b, hq, t, d, generator=g, device=cuda).to(dtype)
+
+    def out_of(q, k, v, plain):
+        fn = flash_attention_ref if plain else ops.flash_attention
+        return fn(q, k, v, causal=causal, window=window)
+
+    launches, recomputes = flash_attention.launches, kgrad.backward_calls["flash"]
+    (o, (gq, gk, gv)), (o_plain, plain) = _card_and_plain_grads(out_of, (q, k, v), w)
+    assert flash_attention.launches == launches + 1
+    assert kgrad.backward_calls["flash"] == recomputes + 1
+    (_close_bf16 if dtype == torch.bfloat16 else _close)(o, o_plain)
+    for got, want in zip((gq, gk, gv), plain):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_wkv6_function_on_the_card_gives_the_plain_gradient(cuda):
+    """RWKV6-1.6B's heads (32 x 64) at chunk 64 on the split route: the
+    Function's output (the kernel's) within 1e-4 of the largest plain
+    value, u's gradient summed over the batch, the final state's gradient
+    absent."""
+    from repro_torch.kernels.ref import wkv6_chunked_ref
+    from repro_torch.kernels.wkv import wkv6
+
+    b, h, t, d = 2, 32, 256, 64
+    g = torch.Generator(cuda).manual_seed(0)
+    r, k, v = (torch.randn(b, h, t, d, generator=g, device=cuda) * 0.5 for _ in range(3))
+    logw = -torch.exp(torch.randn(b, h, t, d, generator=g, device=cuda) * 0.5 - 2.0)
+    u = torch.randn(h, d, generator=g, device=cuda) * 0.1
+    s0 = torch.zeros(b, h, d, d, device=cuda)
+    w = torch.randn(b, h, t, d, generator=g, device=cuda)
+
+    def out_of(r, k, v, logw, u, plain):
+        if plain:
+            return wkv6_chunked_ref(r, k, v, logw, u, s0, 64)[0]
+        return ops.wkv6(r, k, v, logw, u, s0, chunk=64)[0]
+
+    before = dict(wkv6.by_route)
+    (o, got), (o_plain, want) = _card_and_plain_grads(out_of, (r, k, v, logw, u), w)
+    assert wkv6.by_route["split"] == before["split"] + 1
+    _close(o, o_plain)
+    assert got[4].shape == (h, d)
+    for x, y in zip(got, want):
+        _close(x, y)
+
+
+def test_ssd_function_on_the_card_sums_shared_b_and_c_over_the_heads(cuda):
+    """Zamba2-2.7B's scan (80 heads of 64, N = 64) at chunk 64 with B and C
+    shared by the heads (handed to the kernel once a row): the Function's
+    output (the kernel's) within 1e-4 of the largest plain value, B's and
+    C's gradients summed over the heads."""
+    from repro_torch.kernels.ref import ssd_chunked_ref
+    from repro_torch.kernels.ssd import ssd
+
+    b, h, t, n, p = 2, 80, 256, 64, 64
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(b, h, t, p, generator=g, device=cuda) * 0.1
+    bm, cm = (torch.randn(b, t, n, generator=g, device=cuda) * 0.2 for _ in range(2))
+    loga = -torch.rand(b, h, t, generator=g, device=cuda) * 0.2
+    s0 = torch.zeros(b, h, n, p, device=cuda)
+    w = torch.randn(b, h, t, p, generator=g, device=cuda)
+
+    def out_of(x, bm, cm, loga, plain):
+        bh, ch = (a[:, None].expand(b, h, t, n) for a in (bm, cm))
+        if plain:
+            return ssd_chunked_ref(x, bh, ch, loga, s0, 64)[0]
+        return ops.ssd(x, bh, ch, loga, s0, chunk=64)[0]
+
+    before = ssd.launches
+    (y, got), (y_plain, want) = _card_and_plain_grads(out_of, (x, bm, cm, loga), w)
+    assert ssd.launches == before + 1
+    _close(y, y_plain)
+    assert got[1].shape == (b, t, n)
+    for u, v in zip(got, want):
+        _close(u, v)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "rwkv6-1.6b", "zamba2-2.7b"])
+def test_reduced_loss_and_gradients_on_the_card_match_the_cpu(cuda, arch):
+    """Each family's loss and every parameter's gradient on the card
+    (through the kernels' Functions) against the CPU port's: the loss
+    within 1e-5 relative, each gradient within 1e-4 of its largest value."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_family
+
+    cfg = get_config(arch, reduced=True)
+    fam = get_family(cfg)
+    cpu = fam.init(cfg, device="cpu").requires_grad_(True)
+    gpu = fam.init(cfg, device="cpu").to(cuda).requires_grad_(True)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 128)))
+    lc, _ = fam.loss(cfg, cpu, {"tokens": toks})
+    lg, _ = fam.loss(cfg, gpu, {"tokens": toks.to(cuda)})
+    lc.backward()
+    lg.backward()
+    assert abs(float(lg.detach()) - float(lc.detach())) <= 1e-5 * abs(float(lc.detach()))
+    mine = dict(gpu.named_parameters())
+    for name, p in cpu.named_parameters():
+        _close(mine[name].grad.cpu(), p.grad)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Two make_train_step calls (two microbatches) on the card against
+    the CPU port's: the losses within 1e-5 relative, the
+    parameters within 1e-5 (lr 1e-4: Adam turns the gradients' ~1e-6
+    relative difference into at most lr on an element whose gradient is
+    near 0)."""
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_family
+    from repro_torch.train import TrainConfig, make_train_step
+
+    cfg = get_config("stablelm-1.6b", reduced=True)
+    fam = get_family(cfg)
+    step = make_train_step(cfg, optim.AdamWConfig(lr=1e-4, warmup_steps=0),
+                           TrainConfig(microbatches=2, checkpoint_dir=str(tmp_path)))
+    toks = torch.tensor(np.random.default_rng(3).integers(0, cfg.vocab, size=(4, 64)))
+    runs = []
+    for dev in ("cpu", cuda):
+        model = fam.init(cfg, device="cpu").to(dev).requires_grad_(True)
+        params = dict(model.named_parameters())
+        state = optim.init(params)
+        losses = [float(step(model, state, {}, {"tokens": toks.to(dev)})["loss"])
+                  for _ in range(2)]
+        runs.append((losses, params))
+    (lc, pc), (lg, pg) = runs
+    for a, b in zip(lg, lc):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for name, p in pc.items():
+        assert float((pg[name].detach().cpu() - p.detach()).abs().max()) <= 1e-5, name
