@@ -58,6 +58,23 @@ calibrate. ``repro_torch.launch.calibrate``: the card's float32 GEMM rate
    cluster size, reduce's by tile size, rhs_reduce's by CTAs a block and
    backsub's by cluster size (an R <= 8 solve on the tiled kernels
    fails);
+distributed. ``repro_torch.core.distributed`` on 4 ranks of one gloo group
+   on the card (``spawn_ranks``; four processes time-sharing cuda:0, so no
+   time is a scaling result): ``full()`` through D, C and "auto", and
+   ``exact()`` through E at P=64 and P=500 (E's interface chain reduced
+   across ranks by parallel cyclic reduction) and "auto", P_total=64 unless
+   stated, tol 1e-6; each against the single-process solve of the variant
+   that ``factor`` picks, at the same P (x, float64 true residual, sweeps,
+   the resolved variant and d), with each rank's setup / factor / solve ms,
+   permutations, all-reduces and bytes per factor, solve, preconditioner
+   apply and matvec, the solve's share in messages, peak memory and
+   launches; btf, the fused pass, bts and the PCR inverse against their
+   plain versions at a rank's shapes; C through an NCCL group of one rank
+   (x within 1e-6 of the single-process C, no permutation); and
+   ``sp_ssd`` / ``sp_wkv6`` at Zamba2-2.7B's (80 heads, N=P=64) and
+   RWKV6-1.6B's (32 heads, D=64) head shapes, B=1, T=32,768 split over the
+   4 ranks, each shard one split-route launch, against the single-rank
+   kernel call at the full T;
 trace. ``full()`` C (fused), ``exact()`` E (BCR) at P=64 and the sparse
    ``plan -> factor -> solve`` at P=64 again (the host plan traced once),
    ``TRACE_REPS`` warm ``factor`` / ``solve`` calls, each untraced and
@@ -328,6 +345,30 @@ TRACE_SPAN_RANGE, TRACE_SPAN_SLACK_S, TRACE_REPS = (0.9, 1.5), 0.002, 5
 # systems, a miss step then a hit step; an achieved fraction (roofline
 # seconds over measured seconds) above COST_LIMIT fails.
 COST_S, COST_LIMIT = 16, 1.05
+# Phase "distributed": full() (d=1.0) and exact() (d=0.5) split over
+# DIST_RANKS gloo ranks on the one card, DIST_P partitions in all (DIST_P500
+# for the coupled E run), tol DIST_TOL, float32 preconditioners and float64
+# iterations on both sides; each against the single-process solve of the
+# same variant at the same P: x within DIST_XTOL of it (the dots are summed
+# across ranks in another order, and E's chain is reduced by PCR where the
+# single process runs BCR), within DIST_NCCL_XTOL for the NCCL group of one
+# rank (the same kernel calls); every float64 true residual <= 1e-6; the
+# sweeps within DIST_SWEEPS (one quarter-exit) of the single process's.
+# One preconditioner apply to b alone, gathered from the ranks, against the
+# single-process apply: within DIST_ZTOL of its largest value (a converged
+# x cannot show a broken cross-rank exchange; the apply does; the largest
+# read 1.5e-7, E at P=500, on an H100).  "auto" also
+# runs on full()'s band with its diagonal scaled by DIST_DOMINANT, where d is
+# above 1 in float32 too (full() reads d = 0.99999964 there and picks E).
+# The scans at Zamba2-2.7B's and RWKV6-1.6B's head shapes over
+# SHAPES["prefill_32k"] tokens at the scans' default chunk, 64, with decays
+# -exp(0.5 normal), then once more with the decays scaled by SCAN_WEAK_DECAY,
+# so that a shard of T/DIST_RANKS steps keeps ~0.4 of its state and every
+# step of the ranks' carry chain reaches the result.  Every spawn of ranks
+# is given DIST_TIMEOUT_S.
+DIST_RANKS, DIST_P, DIST_P500, DIST_TOL = 4, 64, 500, 1e-6
+DIST_XTOL, DIST_NCCL_XTOL, DIST_TIMEOUT_S = 1e-5, 1e-6, 300
+DIST_SWEEPS, DIST_ZTOL, DIST_DOMINANT, SCAN_WEAK_DECAY = 0.25, 1e-6, 1.25, 1e-4
 
 
 def emit(obj) -> None:
@@ -1432,6 +1473,520 @@ def train_phase(dev, get_config, get_family, reset, counts) -> dict:
     return launches
 
 
+def _kernel_wrappers() -> dict:
+    """The kernel wrappers of the distributed path, by summary name; each
+    counts its launches in ``.launches``."""
+    from repro_torch.kernels import bcr
+    from repro_torch.kernels.btf import btf
+    from repro_torch.kernels.bts import bts
+    from repro_torch.kernels.fused_spike import fused_factor_spike
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+
+    return {"btf": btf, "bts": bts, "fused_factor_spike": fused_factor_spike,
+            "bcr_inv_odd": bcr.inv_odd, "bcr_reduce": bcr.reduce,
+            "bcr_rhs_reduce": bcr.rhs_reduce, "bcr_backsub": bcr.backsub, "wkv": wkv6, "ssd": ssd}
+
+
+def _reset_launches(wrappers: dict) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+    for nm in ("wkv", "ssd"):
+        wrappers[nm].by_route.update(dict.fromkeys(wrappers[nm].by_route, 0))
+
+
+def _launch_counts(wrappers: dict) -> dict:
+    return {nm: w.launches for nm, w in wrappers.items()}
+
+
+def _dist_rank_checks(parts: dict, tag: str) -> dict:
+    """btf, the fused pass, bts (R=1) and the PCR level inverse (inv_odd on
+    the blocks interleaved with identity blocks) at one rank's shapes,
+    against their plain versions (``check_close``): the rank's partitions
+    and 2K x 2K blocks [[I, V^(b)], [W^(t), I]] from its own spike
+    corners."""
+    import torch
+
+    from repro_torch.core import block_lu as bl
+    from repro_torch.core.cyclic_reduction import _vinv
+    from repro_torch.kernels.btf import btf
+    from repro_torch.kernels.bts import bts
+    from repro_torch.kernels.fused_spike import fused_factor_spike
+
+    d, e, f, bn, cp = (parts[nm] for nm in ("d", "e", "f", "b_next", "c_prev"))
+    errs = {}
+    sinv, l = btf(d, e, f)
+    ref = bl.btf_ref(d, e, f)
+    errs["btf"] = max(check_close(f"{tag} btf sinv", sinv, ref.sinv),
+                      check_close(f"{tag} btf l", l, ref.l))
+    out = fused_factor_spike(d, e, f, bn, cp)
+    want = bl.fused_factor_spike_padded_ref(d, e, f, bn, cp)
+    errs["fused_factor_spike"] = max(check_close(f"{tag} fused {nm}", o, w) for nm, o, w in
+                                     zip(("sinv", "l", "vb", "vt", "wt", "wb"), out, want))
+    g = torch.Generator(device=d.device).manual_seed(SEED)
+    rhs = torch.randn(d.shape[:3] + (1,), generator=g, device=d.device)
+    errs["bts"] = check_close(f"{tag} bts", bts(ref.sinv, ref.l, f, rhs), bl.bts_ref(ref, rhs))
+    p, k = d.shape[0], d.shape[-1]
+    blocks = torch.eye(2 * k, device=d.device).repeat(p, 1, 1)
+    blocks[:, :k, k:], blocks[:, k:, :k] = out[2], out[4]
+    errs["bcr_inv_odd"] = check_close(f"{tag} inv_odd", _vinv(blocks, 1e-10),
+                                      bl.gj_inverse(blocks, 1e-10))
+    return {"shape": list(d.shape), "max_abs_err": errs}
+
+
+def _message_costs(mesh, reps: int = 50) -> dict:
+    """Mean microseconds of one neighbour permutation of K float32 values
+    (``_shift_from_prev``) and of one 8-byte all-reduce, the ranks in step
+    and nothing else running: of host tensors (gloo alone) and of card
+    tensors (a host copy each way, the card shared with the other ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+
+    out = {}
+    for where in ("cpu", mesh.device):
+        x = torch.zeros(K, device=where)
+        s = torch.zeros(1, dtype=torch.float64, device=where)
+        for _ in range(5):  # warm-up
+            D._shift_from_prev(x, mesh)
+            D.all_reduce(s, mesh)
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            D._shift_from_prev(x, mesh)
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            D.all_reduce(s, mesh)
+        t2 = time.perf_counter()
+        out[str(torch.device(where).type)] = {"permutation_us": (t1 - t0) * 1e6 / reps,
+                                               "allreduce_us": (t2 - t1) * 1e6 / reps}
+    return out
+
+
+def dist_solver_rank(paths: dict, runs: list, tol: float, maxiter: int) -> dict:
+    """One rank of phase "distributed"'s solves, in a gloo group of ranks
+    on one card: for each run (name, system, variant, P_total), this
+    rank's rows and partitions of the saved band, ``build_dist_sap`` ->
+    ``factor`` -> ``solve_factored``, twice (the second is timed: the
+    first also loads torch's CUDA code), then one preconditioner apply to b
+    and one matvec alone for their messages.  Returns each run's
+    diagnostics, this rank's times, traffic, peak memory and kernel
+    launches (of the timed factor and solve), the whole x and the whole
+    apply on rank 0, rank 0's kernel
+    checks at each split's shapes, and the bare cost of a message."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_test_mesh((dist.get_world_size(),), ("data",))
+    wrappers = _kernel_wrappers()
+    out = {"runs": {}, "checks": {}}
+    for name, system, variant, p_total in runs:
+        band = np.load(paths[system]["band"], mmap_mode="r")
+        b = np.load(paths[system]["b"], mmap_mode="r")
+        n, k = band.shape[0], (band.shape[1] - 1) // 2
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches(wrappers)
+            D.reset_comm_stats()
+            t0 = time.perf_counter()
+            dsap = D.build_dist_sap(mesh, n, k, variant=variant,
+                                    p_per_device=p_total // mesh.size, band=band)
+            band_l, b_l, parts = dsap.shard_band(band, b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            setup_comm = D.comm_stats()
+            D.reset_comm_stats()
+            state = dsap.factor(**parts)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            fac_counts, fac_comm = _launch_counts(wrappers), D.comm_stats()
+            D.reset_comm_stats()
+            res = D.solve_factored(dsap, state, band_l, b_l, parts["b_next"], parts["c_prev"],
+                                   tol, maxiter)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            solve_comm = D.comm_stats()
+            solve_counts = {nm: c - fac_counts[nm] for nm, c in _launch_counts(wrappers).items()}
+            peak = torch.cuda.max_memory_allocated()
+            D.reset_comm_stats()
+            rb = b_l.reshape(dsap.p_local, dsap.m, k, 1).float().contiguous()
+            z = dsap.precond(state, parts["b_next"], parts["c_prev"], rb)
+            apply_comm = D.comm_stats()
+            D.reset_comm_stats()
+            dsap.matvec(band_l, b_l[:, None])
+            matvec_comm = D.comm_stats()
+        x = D.gather_x(res.x, mesh, n)
+        z = D.gather_x(z.reshape(-1), mesh, n)
+        line = {
+            "variant": dsap.variant, "d_factor": dsap.d_factor, "p_local": dsap.p_local,
+            "m": dsap.m, "iterations": float(res.iterations), "resnorm": float(res.resnorm),
+            "converged": bool(res.converged), "true_resnorm": float(res.true_resnorm),
+            "setup_ms": (t1 - t0) * 1e3, "factor_ms": (t2 - t1) * 1e3, "solve_ms": (t3 - t2) * 1e3,
+            "comm": {"setup": setup_comm, "factor": fac_comm, "solve": solve_comm,
+                     "apply": apply_comm, "matvec": matvec_comm},
+            "peak_mem_bytes": peak, "launches_factor": fac_counts, "launches_solve": solve_counts,
+        }
+        if mesh.rank == 0:
+            line["x"], line["z"] = x.cpu(), z.cpu()
+            tag = f"p{p_total}"
+            if tag not in out["checks"]:
+                out["checks"][tag] = _dist_rank_checks(parts, f"distributed {tag} rank 0")
+        out["runs"][name] = line
+        del dsap, band_l, b_l, parts, state, res, x, z
+        torch.cuda.empty_cache()
+    out["message_costs"] = _message_costs(mesh)
+    return out
+
+
+def dist_nccl_rank(paths: dict, p_total: int, tol: float, maxiter: int) -> dict:
+    """The C solve of ``paths`` (full()) at ``p_total`` partitions in an
+    NCCL group of one rank, with the dominance estimate reduced over the
+    group: x, sweeps, true residual, d, ms and the traffic."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_test_mesh((1,), ("data",))
+    band = torch.from_numpy(np.load(paths["band"])).to(mesh.device)
+    b = torch.from_numpy(np.load(paths["b"])).to(mesh.device)
+    n, k = band.shape[0], (band.shape[1] - 1) // 2
+    d = float(D.dist_diag_dominance_factor(mesh, band))
+    dsap = D.build_dist_sap(mesh, n, k, "C", p_total)
+    band_l, b_l, parts = dsap.shard_band(band, b)
+    D.reset_comm_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = D.solve_step_fn(dsap, tol, maxiter)(band_l, b_l, *parts.values())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    comm = D.comm_stats()
+    return {"x": D.gather_x(res.x, mesh, n).cpu(), "iterations": float(res.iterations),
+            "true_resnorm": float(res.true_resnorm), "d_factor": d, "ms": ms, "comm": comm}
+
+
+def dist_scan_rank(shapes: dict, seed: int, weak: float) -> dict:
+    """One rank of phase "distributed"'s sequence-parallel scans: the
+    whole inputs made on the card from ``seed`` (normal; decays
+    -exp(0.5 normal)), this rank's slice of T through ``sp_ssd`` /
+    ``sp_wkv6`` (twice, the second timed), then the single-rank kernel
+    call at the full T on this process as the reference for this rank's
+    slice of the output and, on the last rank, the final state; rank 0
+    also holds the kernel against its plain version at the rank's shape.
+    Then the same inputs with the decays scaled by ``weak`` (a shard's
+    total decay O(1), so the whole carry chain reaches the result), once,
+    against the single-rank call."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd import ssd_plain
+    from repro_torch.kernels.wkv import wkv6_plain
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sequence_parallel import sp_ssd, sp_wkv6
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_test_mesh((dist.get_world_size(),), ("data",))
+    dev = mesh.device
+    wrappers = _kernel_wrappers()
+    out = {}
+    for scan, dims in shapes.items():
+        g = torch.Generator(device=dev).manual_seed(seed)
+        bsz, h, t = dims[:3]
+
+        def rn(*s):
+            return torch.randn(*s, generator=g, device=dev)
+
+        if scan == "ssd":
+            n, p = dims[3:]
+            x, bm, cm = rn(bsz, h, t, p), rn(bsz, h, t, n), rn(bsz, h, t, n)
+            la = -torch.exp(0.5 * rn(bsz, h, t))
+            seq, extra, fn = (x, bm, cm, la), (), sp_ssd(mesh)
+        else:
+            d = dims[3]
+            r, k, v = rn(bsz, h, t, d), rn(bsz, h, t, d), rn(bsz, h, t, d)
+            lw = -torch.exp(0.5 * rn(bsz, h, t, d))
+            seq, extra, fn = (r, k, v, lw), (rn(h, d),), sp_wkv6(mesh)
+        t_loc = t // mesh.size
+        sl = slice(mesh.rank * t_loc, (mesh.rank + 1) * t_loc)
+        loc = tuple(a[:, :, sl].contiguous() for a in seq) + extra
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches(wrappers)
+            D.reset_comm_stats()
+            t0 = time.perf_counter()
+            y, s = fn(*loc)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        line = {"ms": ms, "comm": D.comm_stats(), "launches": _launch_counts(wrappers)[scan],
+                "by_route": dict(wrappers[scan].by_route), "t_local": t_loc,
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        state0 = torch.zeros((bsz, h) + ((dims[3], dims[4]) if scan == "ssd" else (d, d)),
+                             device=dev)
+        kern = ops.ssd if scan == "ssd" else ops.wkv6
+        y_ref, s_ref = kern(*seq, *extra, state0)
+        line["max_abs_err_output"] = check_close(f"distributed {scan} rank {mesh.rank} output",
+                                                 y, y_ref[:, :, sl])
+        if mesh.rank == mesh.size - 1:
+            line["max_abs_err_state"] = check_close(f"distributed {scan} final state", s[0], s_ref)
+        if mesh.rank == 0:  # the kernel against its plain version at this rank's shape
+            flat = [a.reshape(bsz * h, t_loc, -1) for a in loc[:4]]
+            zeros = state0.reshape(bsz * h, *state0.shape[2:])
+            if scan == "ssd":
+                args = (flat[0], flat[1], flat[2], flat[3][..., 0], zeros)
+                got, want = wrappers["ssd"](*args), ssd_plain(*args)
+            else:
+                u_rows = extra[0].expand(bsz, h, -1).reshape(bsz * h, -1).contiguous()
+                args = (*flat, u_rows, zeros)
+                got, want = wrappers["wkv"](*args), wkv6_plain(*args)
+            line["kernel_vs_plain"] = {
+                "shape": [bsz * h, t_loc] + list(loc[0].shape[3:]),
+                "max_abs_err": max(check_close(f"distributed {scan} kernel {nm}", o, w)
+                                   for nm, o, w in zip(("output", "state"), got, want))}
+            del got, want, args
+        del y, s, y_ref, s_ref
+        seq = seq[:3] + (seq[3] * weak,)
+        loc = loc[:3] + (loc[3] * weak,) + extra
+        line["weak_shard_decay"] = [float(v) for v in torch.aminmax(torch.exp(loc[3].sum(dim=2)))]
+        y, s = fn(*loc)
+        y_ref, s_ref = kern(*seq, *extra, state0)
+        line["weak_max_abs_err_output"] = check_close(
+            f"distributed {scan} weak decay rank {mesh.rank} output", y, y_ref[:, :, sl])
+        line["weak_err_of_max_output"] = rel_err(y, y_ref[:, :, sl])[1]
+        if mesh.rank == mesh.size - 1:
+            line["weak_max_abs_err_state"] = check_close(
+                f"distributed {scan} weak decay final state", s[0], s_ref)
+            line["weak_err_of_max_state"] = rel_err(s[0], s_ref)[1]
+        out[scan] = line
+        del seq, loc, y, s, y_ref, s_ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def distributed_phase(dev, smi, systems, xstar, coupling) -> dict:
+    """Phase "distributed": the solver and the SaP-scans split over
+    DIST_RANKS ranks of one gloo group on the card (four processes
+    time-sharing cuda:0; no time here is a scaling result), and the solver
+    in an NCCL group of one rank.  ``systems`` maps "d1.0" / "d0.5" to
+    phase 4's (float32 band, float64 b) on the card (full() and exact()),
+    ``xstar`` is their solution, ``coupling`` phase 3's largest |D|, |E|,
+    |F| of the P=64 and P=500 interface chains of the d=0.5 band.  Returns
+    the kernel launches of the ranks' timed runs, by summary name."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, sap_solver
+    from repro_torch.core import SaPOptions, band_matvec, factor, plan_banded
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.api import SHAPES
+
+    t_phase = time.perf_counter()
+    full, exact = sap_solver.full(), sap_solver.exact()
+    assert (full.n, full.k, full.d, exact.n, exact.k, exact.d) == (N, K, 1.0, N, K, 0.5)
+    band_dom = systems["d1.0"][0].clone()
+    band_dom[:, K] *= DIST_DOMINANT
+    sysmap = {"full": systems["d1.0"], "exact": systems["d0.5"],
+              "dominant": (band_dom, band_matvec(band_dom.double(), xstar))}
+    runs = [("D", "full", "D", DIST_P), ("C", "full", "C", DIST_P),
+            ("auto_full", "full", "auto", DIST_P), ("E_p64", "exact", "E", DIST_P),
+            ("E_p500", "exact", "E", DIST_P500), ("auto_exact", "exact", "auto", DIST_P),
+            ("auto_dominant", "dominant", "auto", DIST_P)]
+    note = f"{DIST_RANKS} ranks time-share one card: no time here is a scaling result"
+
+    # single-process solves of the same variants and partition counts
+    single = {}
+    for name, sysname, variant, p in runs:
+        band, b64 = sysmap[sysname]
+        opts = SaPOptions(p=p, variant=variant, tol=DIST_TOL, maxiter=MAXITER,
+                          precond_dtype="float32")
+        fac = factor(plan_banded(band, opts))
+        res = fac.solve(b64)
+        b_pad = torch.zeros(fac.n_pad, 1, dtype=b64.dtype, device=dev)
+        b_pad[:N, 0] = b64
+        single[name] = {"variant": fac.variant, "reduced_solver": fac.pc.reduced_solver,
+                        "d_factor": float(fac.d_factor), "iterations": float(res.iterations),
+                        "true_resnorm": float(res.true_resnorm), "x": res.x,
+                        "z": fac.pc.apply(b_pad)[:N, 0]}
+        del fac, res, b_pad
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_distributed_")
+    launches = dict.fromkeys(_kernel_wrappers(), 0)
+    try:
+        paths = {}
+        for sysname, (band, b64) in sysmap.items():
+            paths[sysname] = {"band": os.path.join(tmp, f"{sysname}_band.npy"),
+                              "b": os.path.join(tmp, f"{sysname}_b.npy")}
+            np.save(paths[sysname]["band"], band.cpu().numpy())
+            np.save(paths[sysname]["b"], b64.cpu().numpy())
+        build.build_all()  # every library in place: the ranks load, none compiles
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(dist_solver_rank, DIST_RANKS,
+                            args=(paths, runs, DIST_TOL, MAXITER), timeout=DIST_TIMEOUT_S)
+        solver_s = time.perf_counter() - t0
+        its = {}
+        for name, sysname, variant, p in runs:
+            band, b64 = sysmap[sysname]
+            per = [r["runs"][name] for r in ranks]
+            got, ref = per[0], single[name]
+            x = got["x"].to(dev)
+            resid = float((b64 - band_matvec(band.double(), x)).norm() / b64.norm())
+            xdiff = float((x - ref["x"]).norm() / ref["x"].norm())
+            zdiff = rel_err(got["z"].to(dev), ref["z"])[1]
+            for r in per:
+                for nm in launches:
+                    launches[nm] += r["launches_factor"][nm] + r["launches_solve"][nm]
+            comm = {stage: {key: [r["comm"][stage][key] for r in per]
+                            for key in ("permutations", "messages", "bytes", "allreduces",
+                                        "allreduce_bytes", "seconds")}
+                    for stage in ("setup", "factor", "solve", "apply", "matvec")}
+            line = {
+                "phase": "distributed", "run": name, "system": sysname, "ranks": DIST_RANKS,
+                "backend": "gloo", "device": "cuda:0", "n": N, "k": K,
+                "variant_requested": variant, "variant": got["variant"], "p_total": p,
+                "p_local": got["p_local"], "m": got["m"], "tol": DIST_TOL,
+                "iterations": got["iterations"], "iterations_single": ref["iterations"],
+                "converged": got["converged"], "resnorm": got["resnorm"],
+                "true_resnorm_f64": resid, "true_resnorm_solver": got["true_resnorm"],
+                "true_resnorm_single": ref["true_resnorm"], "x_rel_diff_vs_single": xdiff,
+                "apply_diff_of_max_vs_single": zdiff, "forward_error": float((x - xstar).norm() / xstar.norm()),
+                "single": {"variant": ref["variant"], "reduced_solver": ref["reduced_solver"]},
+                "d_factor": got["d_factor"], "d_factor_single": ref["d_factor"],
+                "setup_ms": [r["setup_ms"] for r in per],
+                "factor_ms": [r["factor_ms"] for r in per],
+                "solve_ms": [r["solve_ms"] for r in per],
+                "message_share_of_solve": [r["comm"]["solve"]["seconds"] * 1e3 / r["solve_ms"]
+                                           for r in per],
+                "comm": comm, "peak_mem_bytes": [r["peak_mem_bytes"] for r in per],
+                "launches_factor": [r["launches_factor"] for r in per],
+                "launches_solve": [r["launches_solve"] for r in per],
+                "note": note, "nvidia_smi": smi,
+            }
+            if got["variant"] == "E":
+                line["chain_coupling"] = coupling["p500" if p == DIST_P500 else "p64"]
+            emit(line)
+            its[name] = got["iterations"]
+            if not bool(torch.isfinite(x).all()) or x.shape != xstar.shape:
+                raise AssertionError(f"distributed {name}: bad solution")
+            if got["variant"] != ref["variant"]:
+                raise AssertionError(f"distributed {name}: variant {got['variant']!r}, the "
+                                     f"single-process factor's {ref['variant']!r}")
+            if variant == "auto" and abs(got["d_factor"] - ref["d_factor"]) > 1e-6:
+                raise AssertionError(f"distributed {name}: d {got['d_factor']} against the "
+                                     f"single-process {ref['d_factor']}")
+            if resid > 1e-6 or xdiff > DIST_XTOL:
+                raise AssertionError(f"distributed {name}: true_resnorm {resid:.3e}, x "
+                                     f"{xdiff:.3e} from the single-process solve")
+            if abs(got["iterations"] - ref["iterations"]) > DIST_SWEEPS:
+                raise AssertionError(f"distributed {name}: {got['iterations']} sweeps, the "
+                                     f"single-process solve {ref['iterations']}")
+            if zdiff > DIST_ZTOL:
+                raise AssertionError(f"distributed {name}: a preconditioner apply {zdiff:.3e} "
+                                     f"of its largest value from the single process's")
+            must = {"D": ("btf", "bts"), "C": ("fused_factor_spike", "bts", "btf"),
+                    "E": ("fused_factor_spike", "bts", "bcr_inv_odd")}[got["variant"]]
+            for r in per:
+                for nm in must:
+                    if r["launches_factor"][nm] + r["launches_solve"][nm] == 0:
+                        raise AssertionError(f"distributed {name}: a rank never launched {nm}")
+        if its["C"] > its["D"]:
+            raise AssertionError(f"distributed: C took {its['C']} sweeps, D {its['D']}")
+        if its["E_p500"] > single["E_p500"]["iterations"] + 1:
+            raise AssertionError(f"distributed: E at P={DIST_P500} took {its['E_p500']} sweeps")
+        if ranks[0]["runs"]["auto_exact"]["variant"] != "E":
+            raise AssertionError("distributed: auto on exact() did not pick E")
+        if ranks[0]["runs"]["auto_dominant"]["variant"] != "C":
+            raise AssertionError(f"distributed: auto at d = {DIST_DOMINANT} did not pick C")
+        emit({"phase": "distributed", "check": "kernels_at_rank_shapes",
+              "rtol_normwise": KERNEL_RTOL, "rank0": ranks[0]["checks"], "seconds": solver_s,
+              # what the couplings change in an apply: the scale of what a
+              # broken exchange would leave out, against DIST_ZTOL
+              "apply_C_vs_D_of_max": rel_err(single["C"]["z"], single["D"]["z"])[1]})
+        emit({"phase": "distributed", "check": "message_costs", "ranks": DIST_RANKS,
+              "backend": "gloo", "by_rank": [r["message_costs"] for r in ranks], "note": note,
+              "nvidia_smi": smi})
+
+        # the same C solve in an NCCL group of one rank (a child process:
+        # this one never joins a group): the dominance all-reduce runs on
+        # the card's buffers, and every shift is empty
+        nccl = spawn_ranks(dist_nccl_rank, 1, backend="nccl",
+                           args=(paths["full"], DIST_P, DIST_TOL, MAXITER),
+                           timeout=DIST_TIMEOUT_S)[0]
+        x, comm, d_rank = nccl["x"].to(dev), nccl["comm"], nccl["d_factor"]
+        xdiff = float((x - single["C"]["x"]).norm() / single["C"]["x"].norm())
+        emit({"phase": "distributed", "run": "C_nccl_one_rank", "backend": "nccl", "ranks": 1,
+              "p_total": DIST_P, "iterations": nccl["iterations"],
+              "iterations_single": single["C"]["iterations"],
+              "true_resnorm_solver": nccl["true_resnorm"], "x_rel_diff_vs_single": xdiff,
+              "d_factor": d_rank, "d_factor_single": single["C"]["d_factor"],
+              "factor_and_solve_ms": nccl["ms"], "comm": comm, "nvidia_smi": smi})
+        if xdiff > DIST_NCCL_XTOL or comm["permutations"] or not comm["allreduces"]:
+            raise AssertionError(f"distributed NCCL: x {xdiff:.3e} from the single-process C, "
+                                 f"traffic {comm}")
+        if abs(d_rank - single["C"]["d_factor"]) > 1e-6:
+            raise AssertionError(f"distributed NCCL: d {d_rank} against {single['C']['d_factor']}")
+        del nccl, x
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del single, band_dom, sysmap
+    torch.cuda.empty_cache()
+
+    # the SaP-scans at the published head shapes, T split over the ranks
+    zcfg, rcfg = get_config("zamba2-2.7b"), get_config("rwkv6-1.6b")
+    t_seq = SHAPES["prefill_32k"].seq_len
+    shapes = {"ssd": (1, zcfg.ssm_expand * zcfg.d_model // zcfg.ssm_head_dim, t_seq,
+                      zcfg.ssm_state, zcfg.ssm_head_dim),
+              "wkv": (1, rcfg.d_model // rcfg.rwkv_head_dim, t_seq, rcfg.rwkv_head_dim)}
+    t0 = time.perf_counter()
+    scans = spawn_ranks(dist_scan_rank, DIST_RANKS, args=(shapes, SEED, SCAN_WEAK_DECAY),
+                        timeout=DIST_TIMEOUT_S)
+    for scan, dims in shapes.items():
+        per = [r[scan] for r in scans]
+        emit({"phase": "distributed", "scan": scan,
+              "arch": zcfg.name if scan == "ssd" else rcfg.name, "shape": list(dims),
+              "ranks": DIST_RANKS, "backend": "gloo", "chunk": 64,
+              "t_local": per[0]["t_local"], "ms": [r["ms"] for r in per],
+              "routes": [r["by_route"] for r in per],
+              "max_abs_err_output": [r["max_abs_err_output"] for r in per],
+              "max_abs_err_state": per[-1]["max_abs_err_state"],
+              "weak_decay_scale": SCAN_WEAK_DECAY,
+              "weak_shard_decay_min_max": [r["weak_shard_decay"] for r in per],
+              "weak_max_abs_err_output": [r["weak_max_abs_err_output"] for r in per],
+              "weak_max_abs_err_state": per[-1]["weak_max_abs_err_state"],
+              "weak_err_of_max_output": [r["weak_err_of_max_output"] for r in per],
+              "weak_err_of_max_state": per[-1]["weak_err_of_max_state"],
+              "rtol_normwise": KERNEL_RTOL, "kernel_vs_plain": per[0]["kernel_vs_plain"],
+              "messages": [r["comm"]["messages"] for r in per],
+              "bytes": [r["comm"]["bytes"] for r in per],
+              "message_seconds": [r["comm"]["seconds"] for r in per],
+              "peak_mem_bytes": [r["peak_mem_bytes"] for r in per], "note": note,
+              "nvidia_smi": smi, "seconds": time.perf_counter() - t0})
+        for r in per:
+            launches[scan] += r["launches"]
+            if r["launches"] != 1 or r["by_route"]["split"] != 1:
+                raise AssertionError(f"distributed {scan}: a shard took {r['by_route']}, "
+                                     f"not one launch on the split route")
+    emit({"phase": "distributed", "seconds": time.perf_counter() - t_phase,
+          "launches": launches})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2217,6 +2772,14 @@ def main() -> int:
     for nm in ("fused_factor_spike", "btf", "bts") + bcr_names:
         if not traced_counts[nm]:
             raise AssertionError(f"trace: kernel {nm} was never launched: {traced_counts}")
+
+    # ---- distributed: the solver and the scans split over ranks ---------------
+    # After phase trace: for seconds after the ranks' processes end, this
+    # process's host times spread (calls read up to 1.6x their steady
+    # time), and phase trace holds host times against each other.
+    dist_launches = distributed_phase(dev, smi, systems, xstar, coupling)
+    for nm in ("btf", "bts", "fused_factor_spike", "bcr_inv_odd"):
+        totals[nm] += dist_launches[nm]
     del systems, band_d05, sparse_plan, a_sparse, csr
 
     # ---- the solver's serving path: fleet, batch_full, service ----------------
@@ -2885,7 +3448,7 @@ def main() -> int:
             if taken["block"]:
                 raise AssertionError(f"{arch}: the {nm} path took the one-block {kernel} kernel: "
                                      f"{taken}")
-        lm_launches[kernel] = launches["serve"] + launches["prefill"]
+        lm_launches[kernel] = launches["serve"] + launches["prefill"] + dist_launches[kernel]
         emit({
             "phase": "lm", "arch": arch, "params": n_params, "weight_bytes": weight_bytes,
             "init_s": init_s, "compute_dtype": cfg.compute_dtype,

@@ -174,33 +174,44 @@ class BlockTridiag:
         return self.p * self.m * self.k
 
 
+def block_row_windows(band: torch.Tensor, k: int) -> torch.Tensor:
+    """(..., N, 2K+1) band storage, K | N -> (..., N/K, K, 3K) windows.
+
+    Window i holds block row i's columns from K before its first row to K
+    past its last: the sub-diagonal, diagonal and super-diagonal blocks
+    side by side.  Row r (global) belongs to block row ``r // K`` with
+    offset ``o = r % K``; its band entry j lands at column ``o + j``.  For a
+    fixed block row those targets sit at flat offsets ``o * (3K + 1) + j``,
+    so the whole scatter is ONE strided copy of the band into the windows.
+    """
+    lead, n = band.shape[:-2], band.shape[-2]
+    nb, w = n // k, 2 * k + 1
+    win = band.new_zeros(lead + (nb, k, 3 * k))
+    flat = win.view(-1, nb, k, 3 * k)
+    strides = (nb * k * 3 * k, 3 * k * k, 3 * k + 1, 1)
+    torch.as_strided(flat, (flat.shape[0], nb, k, w), strides).copy_(band.reshape(-1, nb, k, w))
+    return win
+
+
 def band_to_block_tridiag(band: torch.Tensor, k: int, p: int) -> BlockTridiag:
     """Split a banded system into P partitions of block-tridiagonal (K x K).
 
-    Row r (global) belongs to block row ``r // K`` with offset ``o = r % K``;
-    its band entry j lands in the block row's (K, 3K) window at column
-    ``o + j``.  For a fixed block row those targets sit at flat offsets
-    ``o * (3K + 1) + j``, so the whole scatter is ONE strided copy of the
-    band into the window array.  Band entries outside the matrix only ever
-    land in ``e[0, 0]`` / ``f[P-1, M-1]``, which are zeroed anyway.  A stack
-    of bands (S, N, 2K+1) splits every system alike in the same one copy.
+    The block rows are :func:`block_row_windows` of the band, padded with
+    identity rows to P equal partitions.  Band entries outside the matrix
+    only ever land in ``e[0, 0]`` / ``f[P-1, M-1]``, which are zeroed
+    anyway.  A stack of bands (S, N, 2K+1) splits every system alike in the
+    same one copy.
     """
     lead, n = band.shape[:-2], band.shape[-2]
     ni = padded_partition_size(n, p, k)
     n_pad = ni * p
     m = ni // k
-    nb = n_pad // k
-    w = 2 * k + 1
     if n_pad > n:  # identity rows below the system
-        rows = band.new_zeros(lead + (n_pad - n, w))
+        rows = band.new_zeros(lead + (n_pad - n, 2 * k + 1))
         rows[..., k] = 1.0
         band = torch.cat([band, rows], dim=-2)
 
-    win = band.new_zeros(lead + (nb, k, 3 * k))
-    flat = win.view(-1, nb, k, 3 * k)
-    strides = (nb * k * 3 * k, 3 * k * k, 3 * k + 1, 1)
-    torch.as_strided(flat, (flat.shape[0], nb, k, w), strides).copy_(band.reshape(-1, nb, k, w))
-    win = win.reshape(lead + (p, m, k, 3 * k))
+    win = block_row_windows(band, k).reshape(lead + (p, m, k, 3 * k))
     e = win[..., 0:k].contiguous()
     d = win[..., k : 2 * k].contiguous()
     f = win[..., 2 * k : 3 * k].contiguous()

@@ -34,8 +34,21 @@ CUDA kernels of :mod:`repro_torch.kernels.bcr` split the work
 (:func:`bcr_inv_odd_ref`, :func:`bcr_reduce_ref`,
 :func:`bcr_rhs_reduce_ref`, :func:`bcr_backsub_ref`), and the whole
 :func:`bcr_factor` / :func:`bcr_solve` built from them.  The kernel path
-is :func:`repro_torch.kernels.ops.bcr_factor` / ``bcr_solve``.  The
-all-active PCR form of the JAX package waits for the distributed path.
+is :func:`repro_torch.kernels.ops.bcr_factor` / ``bcr_solve``.
+
+:func:`pcr_factor` / :func:`pcr_solve` are the all-active *parallel*
+cyclic reduction (PCR) form, in which every equation eliminates both
+neighbours at distance s = 2^l each level and no unknown goes idle.  PCR
+does O(M log M) work, but each level touches only neighbours at a fixed
+stride, which maps onto neighbour-exchange rounds between ranks:
+:mod:`repro_torch.core.distributed` uses it for the SaP-E reduced sweep
+across ranks (the chain never gathers onto one rank).  The shift
+primitive is injected, so the same code runs on one device (tensor
+shifts) and across ranks (permutations over a process group).  Each
+level's block inverses go through the port's boosted Gauss-Jordan
+inverse kernel (``kernels/bcr.py:inv_odd``) for tensors on the card; the
+products stay ``torch.matmul``, as the JAX package computes them outside
+any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -232,6 +245,113 @@ def bcr_solve(factors: BCRFactors, b: torch.Tensor) -> torch.Tensor:
     for lv, bl in zip(reversed(factors.levels), reversed(rhs)):
         x = bcr_backsub_ref(lv.a_odd, lv.e_odd, lv.f_odd, bl, x)
     return x[: factors.m]
+
+
+# ---------------------------------------------------------------------------
+# All-active parallel cyclic reduction (the sweep across ranks)
+# ---------------------------------------------------------------------------
+
+
+def _vinv(a: torch.Tensor, boost_eps: float) -> torch.Tensor:
+    """Boosted Gauss-Jordan inverses of (rows, K, K) blocks in one
+    ``inv_odd`` call: the blocks sit at the odd places of a chain that
+    interleaves them with identity blocks (the kernel inverts every other
+    block), as ``kernels/ops.py:bcr_factor`` inverts its roots.  The
+    wrapper launches the kernel for a tensor on the card and runs
+    :func:`gj_inverse` otherwise."""
+    from ..kernels import bcr
+
+    rows, k = a.shape[0], a.shape[-1]
+    eye = torch.eye(k, dtype=a.dtype, device=a.device).expand(rows, k, k)
+    return bcr.inv_odd(torch.stack([eye, a], dim=1).reshape(2 * rows, k, k), boost_eps)
+
+
+def pcr_n_levels(m: int) -> int:
+    """Levels needed to decouple a chain of length m: smallest L with
+    2^L >= m (after which every coupling block has been driven to zero)."""
+    return max(m - 1, 0).bit_length()
+
+
+@dataclasses.dataclass
+class PCRFactors:
+    """All-active PCR factorization of a chain, or of this rank's rows of it.
+
+    alphas/betas: (rows, L, K, K) per-level neighbour-elimination blocks
+    (row-major, so the leading axis splits over ranks like every other
+    partition tensor); dinv: (rows, K, K) inverses of the fully decoupled
+    diagonal.
+    """
+
+    alphas: torch.Tensor
+    betas: torch.Tensor
+    dinv: torch.Tensor
+
+    @property
+    def n_levels(self) -> int:
+        return self.alphas.shape[1]
+
+
+def pcr_factor(
+    d: torch.Tensor,
+    e: torch.Tensor,
+    f: torch.Tensor,
+    n_levels: int,
+    shift_dn=None,
+    shift_up=None,
+    boost_eps: float = DEFAULT_BOOST,
+) -> PCRFactors:
+    """PCR matrix reduction: every equation eliminates both neighbours at
+    stride s = 2^l per level; after ``n_levels`` levels the chain is block
+    diagonal.
+
+    ``shift_dn(x, s)`` / ``shift_up(x, s)`` fetch the row s positions away
+    (zero fill past the ends).  The defaults shift a local tensor;
+    :mod:`repro_torch.core.distributed` injects shifts across ranks, making
+    each level one neighbour-exchange round -- O(log2 P) rounds in all.
+    The three blocks a level takes from below (the inverse, F and E) travel
+    as one stacked shift, and the three from above as another.
+
+    Rows past the chain end must be decoupled identity padding (see
+    :func:`pad_chain`).  Each level inverts the diagonal once and shifts
+    the *inverse* both ways; couplings to out-of-range rows are exactly
+    zero by induction, so the zero-filled shifted inverse is benign.
+    """
+    if shift_dn is None:
+        shift_dn = _shift_dn
+    if shift_up is None:
+        shift_up = _shift_up
+    rows, k, _ = d.shape
+    alphas = d.new_empty((rows, n_levels, k, k))
+    betas = torch.empty_like(alphas)
+    for lev in range(n_levels):
+        s = 1 << lev
+        dinv = _vinv(d, boost_eps)
+        dinv_dn, f_dn, e_dn = shift_dn(torch.stack([dinv, f, e], dim=1), s).unbind(1)
+        dinv_up, e_up, f_up = shift_up(torch.stack([dinv, e, f], dim=1), s).unbind(1)
+        alpha = torch.matmul(e, dinv_dn, out=alphas[:, lev])
+        beta = torch.matmul(f, dinv_up, out=betas[:, lev])
+        d = d - alpha @ f_dn - beta @ e_up
+        e, f = -(alpha @ e_dn), -(beta @ f_up)
+    return PCRFactors(alphas=alphas, betas=betas, dinv=_vinv(d, boost_eps))
+
+
+def pcr_solve(
+    factors: PCRFactors, b: torch.Tensor, shift_dn=None, shift_up=None
+) -> torch.Tensor:
+    """Apply a PCR factorization to a right-hand side b (rows, K, R).
+
+    One shift pair and two batched products per level, then the decoupled
+    diagonal apply -- the log-depth replacement for the forward / backward
+    chain sweeps.
+    """
+    if shift_dn is None:
+        shift_dn = _shift_dn
+    if shift_up is None:
+        shift_up = _shift_up
+    for lev in range(factors.n_levels):
+        s = 1 << lev
+        b = b - factors.alphas[:, lev] @ shift_dn(b, s) - factors.betas[:, lev] @ shift_up(b, s)
+    return factors.dinv @ b
 
 
 def resolve_reduced_solver(reduced_solver: str, m: int) -> str:

@@ -16,6 +16,11 @@ converged (or run out of sweeps) keeps its state while the others iterate
 single-RHS forms are the R = 1 case with ``matvec`` / ``precond`` called on
 (N,) vectors.  The loop checks once per sweep, on the host, whether any
 column is still active.
+
+BiCGStab(2)'s block solver takes an optional ``allreduce``: with it, each process
+holds its own rows of the vectors (:mod:`repro_torch.core.distributed`),
+and every dot product and norm is summed over the processes before use.
+Without it the arithmetic is exactly the single-process one.
 """
 
 from __future__ import annotations
@@ -61,19 +66,40 @@ def _norm(a: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(a, dim=0)
 
 
+def _reducers(allreduce):
+    """(dot, norm) over the rows this process holds, or, with
+    ``allreduce``, over every process's rows: the partial sums are summed
+    across processes, so each process gets the same scalars."""
+    if allreduce is None:
+        return _dot, _norm
+
+    def dot(a, b):
+        return allreduce(_dot(a, b))
+
+    def norm(a):
+        return allreduce(_dot(a, a)).sqrt()
+
+    return dot, norm
+
+
 def _nonzero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x, torch.ones_like(x))
 
 
-def _true_resnorm(matvec, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def _true_resnorm(matvec, b: torch.Tensor, x: torch.Tensor, norm=_norm) -> torch.Tensor:
     """Unpreconditioned relative residual, recomputed (not the recurrence)."""
-    return _norm(b - matvec(x).to(b.dtype)) / _nonzero(_norm(b))
+    return norm(b - matvec(x).to(b.dtype)) / _nonzero(norm(b))
 
 
-def _iterate(state: dict, step, maxiter: int, record_history: bool, bnorm: torch.Tensor):
+def _iterate(state: dict, step, maxiter: int, record_history: bool, bnorm: torch.Tensor,
+             norm=_norm):
     """Run ``step`` until every column is done or has used ``maxiter``
     sweeps.  ``state`` maps names to (N, R) blocks or (R,) per-column
     scalars and holds ``it`` and ``done``; inactive columns keep their state.
+
+    Across processes (an ``allreduce`` in the solver) every process takes
+    the same branch at the host check: ``done`` and ``it`` come from
+    reduced scalars, which the collective gives every process alike.
     """
     hist = None
     if record_history:
@@ -91,7 +117,7 @@ def _iterate(state: dict, step, maxiter: int, record_history: bool, bnorm: torch
             for name, old in state.items()
         }
         if hist is not None:
-            hist[:, sweep] = torch.where(active, _norm(state["r"]) / bnorm, hist[:, sweep])
+            hist[:, sweep] = torch.where(active, norm(state["r"]) / bnorm, hist[:, sweep])
         sweep += 1
 
 
@@ -106,19 +132,20 @@ def _select(c: torch.Tensor, a: dict, b: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResult:
+def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history, allreduce=None) -> KrylovResult:
     """BiCGStab(2) on an (N, R) block; one outer "iteration" = two
     matvec+precond in the BiCG part plus two in the MR part, counted as 4
     quarter-exits to mirror the paper's tables."""
     dtype = b.dtype
     nr = b.shape[1]
+    dot, norm = _reducers(allreduce)
 
     def op(v):
         return pc(mv(v)).to(dtype)
 
     x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
     r0 = pc(b - mv(x)).to(dtype)
-    bnorm = _nonzero(_norm(pc(b).to(dtype)))
+    bnorm = _nonzero(norm(pc(b).to(dtype)))
     rtilde = r0
     eps = 1e-300 if dtype == torch.float64 else 1e-30
     ratio_eps = (50 * torch.finfo(dtype).eps) ** 2
@@ -136,34 +163,34 @@ def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResul
         alpha = s["alpha"]
 
         # ---- BiCG part, j = 0 -------------------------------------------
-        rho1 = _dot(r0, rtilde)
+        rho1 = dot(r0, rtilde)
         beta = torch.where(rho0.abs() > eps, alpha * rho1 / rho0, zero)
         rho0 = rho1
         u0 = r0 - beta * u0
         u1 = op(u0)
-        gamma = _dot(u1, rtilde)
+        gamma = dot(u1, rtilde)
         alpha = torch.where(gamma.abs() > eps, rho0 / gamma, zero)
         r0 = r0 - alpha * u1
         r1 = op(r0)
         x = x + alpha * u0
-        q1 = _norm(r0) <= tol * bnorm  # quarter-exit 1
+        q1 = norm(r0) <= tol * bnorm  # quarter-exit 1
         snap1 = dict(x=x, r=r0, u=u0, rho=rho0, omega=s["omega"], alpha=alpha,
                      it=it + 0.25, done=q1)
 
         # ---- BiCG part, j = 1 -------------------------------------------
-        rho1 = _dot(r1, rtilde)
+        rho1 = dot(r1, rtilde)
         beta = torch.where(rho0.abs() > eps, alpha * rho1 / rho0, zero)
         rho0 = rho1
         u0 = r0 - beta * u0
         u1 = r1 - beta * u1
         u2 = op(u1)
-        gamma = _dot(u2, rtilde)
+        gamma = dot(u2, rtilde)
         alpha = torch.where(gamma.abs() > eps, rho0 / gamma, zero)
         r0 = r0 - alpha * u1
         r1 = r1 - alpha * u2
         r2 = op(r1)
         x = x + alpha * u0
-        q2 = _norm(r0) <= tol * bnorm  # quarter-exit 2
+        q2 = norm(r0) <= tol * bnorm  # quarter-exit 2
         snap2 = dict(x=x, r=r0, u=u0, rho=rho0, omega=s["omega"], alpha=alpha,
                      it=it + 0.5, done=q2)
 
@@ -172,13 +199,13 @@ def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResul
         # r2 - tau12 r1 is rounding noise; using it poisons x while the
         # recurrence residual stays small.  Detect via the relative norm of
         # the orthogonalized direction and fall back to the l=1 step.
-        sigma1 = _dot(r1, r1).clamp_min(eps)
-        gp1 = _dot(r0, r1) / sigma1
-        tau12 = _dot(r2, r1) / sigma1
+        sigma1 = dot(r1, r1).clamp_min(eps)
+        gp1 = dot(r0, r1) / sigma1
+        tau12 = dot(r2, r1) / sigma1
         r2o = r2 - tau12 * r1
-        sigma2 = _dot(r2o, r2o)
+        sigma2 = dot(r2o, r2o)
         degenerate = sigma2 <= ratio_eps * sigma1
-        gp2 = torch.where(degenerate, zero, _dot(r0, r2o) / sigma2.clamp_min(eps))
+        gp2 = torch.where(degenerate, zero, dot(r0, r2o) / sigma2.clamp_min(eps))
         g2 = gp2
         omega_new = torch.where(degenerate, gp1, g2)
         g1 = gp1 - tau12 * g2
@@ -187,7 +214,7 @@ def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResul
         x = x + g1 * r0 + gpp1 * r1
         r0 = r0 - gp1 * r1 - gp2 * r2o
         u0 = u0 - g1 * u1 - g2 * u2
-        q4 = _norm(r0) <= tol * bnorm
+        q4 = norm(r0) <= tol * bnorm
         full = dict(x=x, r=r0, u=u0, rho=rho0, omega=omega_new, alpha=alpha,
                     it=it + 1.0, done=q4)
         return _select(q1, snap1, _select(q2, snap2, full))
@@ -196,15 +223,15 @@ def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResul
     state = dict(
         x=x, r=r0, u=torch.zeros_like(b), rho=ones, omega=ones.clone(),
         alpha=torch.zeros_like(ones), it=torch.zeros_like(ones),
-        done=_norm(r0) <= tol * bnorm,
+        done=norm(r0) <= tol * bnorm,
     )
-    state, hist = _iterate(state, step, maxiter, record_history, bnorm)
+    state, hist = _iterate(state, step, maxiter, record_history, bnorm, norm)
     return KrylovResult(
         x=state["x"],
         iterations=state["it"],
-        resnorm=_norm(state["r"]) / bnorm,
+        resnorm=norm(state["r"]) / bnorm,
         converged=state["done"],
-        true_resnorm=_true_resnorm(mv, b, state["x"]),
+        true_resnorm=_true_resnorm(mv, b, state["x"], norm),
         history=hist,
     )
 

@@ -1,6 +1,7 @@
-"""The device's roofline ceilings: the analytic spec table and its
-calibration on the card."""
+"""The device's roofline ceilings (the analytic spec table and its
+calibration on the card) and the rank mesh of the distributed path."""
 
+from .mesh import Mesh, make_production_mesh, make_test_mesh, spawn_ranks
 from .roofline import (
     BACKEND_SPECS,
     H100_DATASHEET,
@@ -9,5 +10,5 @@ from .roofline import (
     backend_spec,
 )
 
-__all__ = ["BACKEND_SPECS", "H100_DATASHEET", "H100_DATASHEET_SFU_S", "HardwareSpec",
-           "backend_spec"]
+__all__ = ["BACKEND_SPECS", "H100_DATASHEET", "H100_DATASHEET_SFU_S", "HardwareSpec", "Mesh",
+           "backend_spec", "make_production_mesh", "make_test_mesh", "spawn_ranks"]

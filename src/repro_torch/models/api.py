@@ -16,9 +16,9 @@ Every configuration field is copied but the JAX execution knobs
 (``remat``, ``scan_layers``, ``kernel_impl``), which have no counterpart
 here; ``expert_sharding`` is kept so that the configurations compare
 equal, and is read by no code of the port.  ``ShapeSpec`` and ``SHAPES``
-feed :func:`repro_torch.launch.roofline.model_flops`; the sharding helpers
-(``dp_axes``, ``dp_axes_for``, ``supports_shape``) wait for the
-distributed path.
+feed :func:`repro_torch.launch.roofline.model_flops`; ``dp_axes`` /
+``dp_axes_for`` read a rank mesh (:mod:`repro_torch.launch.mesh`) and
+``supports_shape`` says which shapes a family can run.
 """
 
 from __future__ import annotations
@@ -144,6 +144,39 @@ SHAPES = {
     "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
+
+
+def dp_axes(mesh):
+    """Data-parallel mesh axes present on this mesh (a
+    :class:`repro_torch.launch.mesh.Mesh`, or anything with a ``shape``
+    mapping of axis names): ("pod", "data") on the multi-pod production
+    mesh, "data" on one pod, None on a mesh with neither."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def dp_axes_for(mesh, batch: int):
+    """dp_axes, but only if ``batch`` divides across them (long_500k has
+    global_batch=1: the batch dimension is replicated)."""
+    dp = dp_axes(mesh)
+    if dp is None:
+        return None
+    axes = dp if isinstance(dp, tuple) else (dp,)
+    size = 1
+    for a in axes:
+        size *= mesh.shape[a]
+    return dp if batch % size == 0 else None
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeSpec) -> bool:
+    """long_500k decode needs a sub-quadratic sequence mixer: an SSM or
+    linear-attention state, or a sliding window.  Pure full-attention
+    architectures skip it."""
+    if shape.name != "long_500k":
+        return True
+    return cfg.family in ("rwkv", "hybrid") or cfg.window is not None
 
 
 def get_family(cfg: ModelConfig):

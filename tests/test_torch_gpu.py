@@ -1744,3 +1744,123 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert abs(a - b) <= 1e-5 * abs(b)
     for name, p in pc.items():
         assert float((pg[name].detach().cpu() - p.detach()).abs().max()) <= 1e-5, name
+
+
+# ---------------------------------------------------------------------------
+# the distributed path on two ranks of the card (one gloo group on cuda:0)
+# ---------------------------------------------------------------------------
+
+DIST_N, DIST_K, DIST_P = 4000, 16, 16
+
+
+def _dist_system():
+    from repro_torch.core import band_matvec
+
+    band = random_banded(DIST_N, DIST_K, 0.5, seed=1).astype(np.float32)
+    xstar = np.random.default_rng(0).normal(size=DIST_N)
+    b = band_matvec(torch.tensor(band, dtype=torch.float64), torch.tensor(xstar)).numpy()
+    return band, xstar, b
+
+
+def _dist_solver_body():
+    """D, C and E on this rank (two ranks, P = 16 in all): the whole x, the
+    sweeps and this rank's kernel launches of each."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import bcr
+    from repro_torch.launch.mesh import make_test_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_test_mesh((2,), ("data",))
+    band, _, b = _dist_system()
+    wrappers = {"btf": btf, "bts": bts, "fused": fused_factor_spike, "inv_odd": bcr.inv_odd}
+    out = {}
+    for variant in ("D", "C", "E"):
+        before = {nm: w.launches for nm, w in wrappers.items()}
+        dsap = D.build_dist_sap(mesh, DIST_N, DIST_K, variant, p_per_device=DIST_P // 2)
+        band_l, b_l, parts = dsap.shard_band(band, b)
+        res = D.solve_step_fn(dsap, 1e-6, 200)(band_l, b_l, *parts.values())
+        out[variant] = {"x": D.gather_x(res.x, mesh, DIST_N).cpu(),
+                        "iterations": float(res.iterations),
+                        "launches": {nm: w.launches - before[nm] for nm, w in wrappers.items()}}
+    return out if dist.get_rank() == 0 else None
+
+
+def test_distributed_solver_on_two_ranks_of_the_card(cuda):
+    """The solver split over two ranks of the card against the
+    single-process solve at the same P: x within 1e-5 relative (float32
+    preconditioners, float64 iterations; dots summed in another order and,
+    for E, the chain reduced by PCR instead of BCR), sweeps within 1; each
+    rank launches the kernels of its variant."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_ranks
+
+    build.build_all()
+    got = spawn_ranks(_dist_solver_body, 2, timeout=300)[0]
+    band, _, b = _dist_system()
+    must = {"D": ("btf", "bts"), "C": ("fused", "bts"), "E": ("fused", "bts", "inv_odd")}
+    for variant, run in got.items():
+        opts = SaPOptions(p=DIST_P, variant=variant, tol=1e-6, maxiter=200)
+        ref = factor(plan_banded(band, opts)).solve(torch.tensor(b, device=cuda))
+        x, want = run["x"].to(cuda), ref.x
+        assert float((x - want).norm() / want.norm()) <= 1e-5, variant
+        assert abs(run["iterations"] - float(ref.iterations)) <= 1.0, variant
+        for nm in must[variant]:
+            assert run["launches"][nm] > 0, (variant, nm, run["launches"])
+
+
+def _scan_inputs(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    ssd_in = (rn(1, 4, 512, 64), rn(1, 4, 512, 64), rn(1, 4, 512, 64),
+              -torch.exp(0.5 * rn(1, 4, 512)))
+    wkv_in = (rn(1, 4, 512, 64), rn(1, 4, 512, 64), rn(1, 4, 512, 64),
+              -torch.exp(0.5 * rn(1, 4, 512, 64)), rn(4, 64))
+    return ssd_in, wkv_in
+
+
+def _dist_scan_body():
+    """This rank's half of T through sp_ssd / sp_wkv6 (chunk 64), with the
+    routes its launches took."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.sequence_parallel import sp_ssd, sp_wkv6
+
+    mesh = make_test_mesh((2,), ("data",))
+    ssd_in, wkv_in = _scan_inputs(mesh.device)
+    sl = slice(256 * mesh.rank, 256 * (mesh.rank + 1))
+    out = {}
+    for name, fn, args, w in (("ssd", sp_ssd(mesh), ssd_in, ssd),
+                              ("wkv", sp_wkv6(mesh), wkv_in[:4], wkv6)):
+        w.by_route.update(dict.fromkeys(w.by_route, 0))
+        extra = (wkv_in[4],) if name == "wkv" else ()
+        y, s = fn(*(a[:, :, sl] for a in args), *extra)
+        out[name] = {"y": y.cpu(), "s": s[0].cpu(), "routes": dict(w.by_route)}
+    gathered = [None, None]
+    dist.all_gather_object(gathered, out)
+    return gathered if dist.get_rank() == 0 else None
+
+
+def test_sequence_parallel_scans_on_two_ranks_of_the_card(cuda):
+    """sp_ssd / sp_wkv6 over two ranks of the card against the single-rank
+    kernel call at the full T: within 1e-4 of the largest value (the carry
+    is exact; the fold-in sums in float32 in another order); every shard
+    takes the split route."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_ranks
+
+    build.build_all()
+    shards = spawn_ranks(_dist_scan_body, 2, timeout=300)[0]
+    ssd_in, wkv_in = _scan_inputs(cuda)
+    want = {"ssd": ops.ssd(*ssd_in, torch.zeros(1, 4, 64, 64, device=cuda)),
+            "wkv": ops.wkv6(*wkv_in, torch.zeros(1, 4, 64, 64, device=cuda))}
+    for name, (y_ref, s_ref) in want.items():
+        y = torch.cat([sh[name]["y"] for sh in shards], dim=2).to(cuda)
+        _close(y, y_ref)
+        _close(shards[1][name]["s"].to(cuda), s_ref)
+        for sh in shards:
+            assert sh[name]["routes"] == {"block": 0, "step": 0, "split": 1}, sh[name]["routes"]

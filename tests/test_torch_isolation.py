@@ -54,7 +54,8 @@ def test_port_files_are_found():
             "cost.py", "roofline.py", "calibrate.py", "moe.py", "whisper.py",
             "deepseek_moe_16b.py", "mixtral_8x22b.py", "phi3_vision_4_2b.py",
             "whisper_medium.py", "autograd.py", "adamw.py", "compress.py", "pipeline.py",
-            "checkpoint.py", "loop.py"} <= names
+            "checkpoint.py", "loop.py", "mesh.py", "distributed.py",
+            "sequence_parallel.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/models/convert.py", "src/repro_torch/serve/engine.py",
             "src/repro_torch/configs/__init__.py", "src/repro_torch/core/batched.py",
@@ -70,7 +71,9 @@ def test_port_files_are_found():
             "src/repro_torch/configs/whisper_medium.py",
             "src/repro_torch/kernels/autograd.py", "src/repro_torch/optim/adamw.py",
             "src/repro_torch/optim/compress.py", "src/repro_torch/data/pipeline.py",
-            "src/repro_torch/train/checkpoint.py", "src/repro_torch/train/loop.py"} <= rel
+            "src/repro_torch/train/checkpoint.py", "src/repro_torch/train/loop.py",
+            "src/repro_torch/launch/mesh.py", "src/repro_torch/core/distributed.py",
+            "src/repro_torch/models/sequence_parallel.py"} <= rel
 
 
 def test_obs_and_launch_load_neither_jax_nor_the_reference_package():
