@@ -173,6 +173,30 @@ train. Training, after every serving phase has freed its model:
    kernel's forward ms; the restart path at stablelm-reduced (a fault at
    step 30 of 50, one restart from the step-20 checkpoint, the restored
    parameters equal to the saved ones bit for bit);
+sharded. The LM loss on a (2, 2) ("data", "model") mesh of 4 gloo ranks,
+   all on the one card, after phase train: first the single-process
+   references on the card (stablelm-1.6b at its published width and depth
+   in bfloat16 with two AdamW steps; rwkv6-1.6b at 2 layers and
+   zamba2-2.7b at 6, full width, in float32 and in their published
+   bfloat16), each freed before the next: the loss, every leaf's gradient
+   norm and an evenly strided sample of rank 0's block of it, the
+   updates' norms and samples after each step, and for bfloat16 a witness
+   (the same single process with its weights moved by 1e-6 relative: how
+   far its own rounding carries each reading); the gloo all-reduce rate
+   of two ranks on the card (the link's calibrated figure); then the
+   ranks, each with its blocks of the parameters (``shard_model``) and of
+   B=8 x T=256 tokens: the loss, every leaf's gradient norm and sample,
+   the flash / WKV6 / SSD kernel launched once a layer on the rank's
+   local heads; for stablelm two ``make_train_step(mesh=...)`` steps with
+   ZeRO-1 (the step losses, the gradient norms, every leaf's update norm
+   and sample), then three planted faults (a data rank's gradient left
+   out of the average, a step on half the batch, ZeRO-1's gather left
+   out), each of which must fail at least one of the limits the sound run
+   passes (SHARD_* below); per rank the times (host clock after a sync),
+   peak memory, messages and bytes by kind and axis, and ``analyze``'s
+   roofline row against the data sheet's NVLink and the calibrated gloo
+   link; rank 0 holds the three kernels at its local-head shapes against
+   their plain versions (one token batch an architecture);
 5. timing of each kernel beside its plain version (and a library call
    where one computes the same function: for btf and the fused pass a loop
    over the block rows of batched ``torch.linalg.inv`` and ``torch.matmul``,
@@ -367,6 +391,35 @@ COST_S, COST_LIMIT = 16, 1.05
 # step of the ranks' carry chain reaches the result.  Every spawn of ranks
 # is given DIST_TIMEOUT_S.
 DIST_RANKS, DIST_P, DIST_P500, DIST_TOL = 4, 64, 500, 1e-6
+# Phase "sharded": the LM loss split over a (data, model) mesh of gloo
+# ranks on the card, at B=8, T=256 (phase train's shape); (arch, layers
+# or None for the published depth, train steps, compute dtype).
+# zamba2-2.7b keeps one whole segment of its published pattern (6 Mamba
+# layers, then the shared block).  Limits against the single process: the
+# loss (absolute, the JAX package's tests/test_distributed.py:153); each
+# leaf's gradient norm (relative) and the relative L2 distance of a
+# SHARD_SAMPLE-element strided sample of rank 0's block of it; after each
+# step its loss (absolute) and gradient norm, and each leaf's update norm
+# and update sample.  A bfloat16 run's per-leaf limit is the larger of the
+# fixed one and SHARD_WITNESS_FACTOR times the witness's largest reading
+# on the leaves of its kind in any layer (the single process with its
+# weights moved by SHARD_WITNESS_SCALE relative),
+# because RWKV6's random-init gradients in bfloat16 carry its rounding
+# by tens of percent (ROADMAP L1).  The planted faults must each fail one
+# limit at least.  Each limit lies between the sound and the faulty
+# readings of stablelm in bfloat16 (H100 80GB HBM3, 700 W; sound / nearest fault):
+# gradient norm 1.5e-3 / 0.38, gradient sample 5.1e-2 / 0.89, step loss
+# 1.3e-3 / 8.9e-2, step gradient norm 1.9e-3 / 0.42, update norm
+# 3.1e-3 / 0.29, update sample 0.20 / 0.75; the loss limit is the JAX
+# package's (a left-out gradient leaves the averaged loss as it was).
+SHARD_MESH, SHARD_B, SHARD_T, SHARD_LR = (2, 2), 8, 256, 5e-4
+SHARD_RUNS = (("stablelm-1.6b", None, 2, "bfloat16"),
+              ("rwkv6-1.6b", 2, 0, "float32"), ("zamba2-2.7b", 6, 0, "float32"),
+              ("rwkv6-1.6b", 2, 0, "bfloat16"), ("zamba2-2.7b", 6, 0, "bfloat16"))
+SHARD_FAULTS = ("grad_left_out", "half_batch", "zero1_stale")
+SHARD_LOSS_ATOL, SHARD_NORM_RTOL, SHARD_UPDATE_RTOL, SHARD_TIMEOUT_S = 1e-3, 1e-2, 3e-2, 900
+SHARD_STEP_LOSS_ATOL, SHARD_SAMPLE_RTOL, SHARD_UPDATE_SAMPLE_RTOL = 1e-2, 0.2, 0.4
+SHARD_SAMPLE, SHARD_WITNESS_SCALE, SHARD_WITNESS_FACTOR = 16384, 1e-6, 3.0
 DIST_XTOL, DIST_NCCL_XTOL, DIST_TIMEOUT_S = 1e-5, 1e-6, 300
 DIST_SWEEPS, DIST_ZTOL, DIST_DOMINANT, SCAN_WEAK_DECAY = 0.25, 1e-6, 1.25, 1e-4
 
@@ -1987,6 +2040,540 @@ def distributed_phase(dev, smi, systems, xstar, coupling) -> dict:
     return launches
 
 
+def _leaf_norm(t, spec, mesh) -> float:
+    """The norm of a whole parameter-shaped tensor from this rank's block:
+    squares summed over "model" where the spec splits the leaf there."""
+    import torch
+
+    from repro_torch.core.distributed import all_reduce_axis
+    from repro_torch.launch.sharding import spec_axes
+
+    sq = t.detach().float().pow(2).sum().reshape(1)
+    if "model" in spec_axes(spec):
+        sq = all_reduce_axis(sq, mesh, "model")
+    return float(torch.sqrt(sq))
+
+
+def local_head_checks(dev) -> list:
+    """flash, WKV6 and SSD at the shapes one rank of phase "sharded" gives
+    them (half the heads of B/2 = 4 rows: stablelm-1.6b 16 of 32 heads in
+    bfloat16, rwkv6-1.6b 16 of 32, zamba2-2.7b 40 of 80 with B and C
+    shared, T=256) against their plain versions, phase 3's limits."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import ssd_plain
+    from repro_torch.kernels.wkv import wkv6_plain
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rn = lambda *sh: torch.randn(*sh, generator=g, device=dev)  # noqa: E731
+    rows = []
+    q, k, v = (rn(SHARD_B // 2, 16, SHARD_T, 64).to(torch.bfloat16) for _ in range(3))
+    err, share = check_close_bf16("sharded flash", ops.flash_attention(q, k, v, causal=True),
+                                  flash_attention_ref(q, k, v, causal=True))
+    rows.append({"kernel": "flash", "shape": [SHARD_B // 2, 16, SHARD_T, 64], "dtype": "bfloat16",
+                 "max_abs_err": err, "bf16_step_share": share})
+    r, kk, vv = (rn(SHARD_B // 2, 16, SHARD_T, 64) for _ in range(3))
+    lw = -torch.exp(0.5 * rn(SHARD_B // 2, 16, SHARD_T, 64))
+    u, s0 = rn(16, 64), torch.zeros(SHARD_B // 2, 16, 64, 64, device=dev)
+    chunk = min(64, SHARD_T)
+    got = ops.wkv6(r, kk, vv, lw, u, s0, chunk=chunk)
+    flat = lambda t: t.reshape(-1, *t.shape[2:])  # noqa: E731
+    want = wkv6_plain(flat(r), flat(kk), flat(vv), flat(lw), u.repeat(SHARD_B // 2, 1), flat(s0),
+                      chunk)
+    rows.append({"kernel": "wkv", "shape": [SHARD_B // 2, 16, SHARD_T, 64],
+                 "max_abs_err": max(check_close("sharded wkv", flat(a), b)
+                                    for a, b in zip(got, want))})
+    x = rn(SHARD_B // 2, 40, SHARD_T, 64)
+    bm, cm = rn(SHARD_B // 2, 1, SHARD_T, 64), rn(SHARD_B // 2, 1, SHARD_T, 64)
+    la = -torch.exp(0.5 * rn(SHARD_B // 2, 40, SHARD_T))
+    s0 = torch.zeros(SHARD_B // 2, 40, 64, 64, device=dev)
+    got = ops.ssd(x, bm.expand(-1, 40, -1, -1), cm.expand(-1, 40, -1, -1), la, s0, chunk=chunk)
+    want = ssd_plain(flat(x), flat(bm), flat(cm), flat(la), flat(s0), chunk, hshare=40)
+    rows.append({"kernel": "ssd", "shape": [SHARD_B // 2, 40, SHARD_T, 64, 64], "hshare": 40,
+                 "max_abs_err": max(check_close("sharded ssd", flat(a), b)
+                                    for a, b in zip(got, want))})
+    return rows
+
+
+def _sharded_config(job: dict):
+    """A phase "sharded" job's configuration: the published one at the
+    job's depth and compute dtype."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(job["arch"])
+    if job["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=job["layers"])
+    return dataclasses.replace(cfg, compute_dtype=job["dtype"])
+
+
+class _RankZero:
+    """SHARD_MESH's shape and rank 0's place in it, as ``local_shard`` and
+    the families' ``param_pspecs`` read a mesh."""
+
+    shape = dict(zip(("data", "model"), SHARD_MESH))
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    def axis_index(self, axes, rank=None) -> int:
+        return 0
+
+
+def _block_sample(t):
+    """SHARD_SAMPLE evenly strided elements of ``t`` (all of a smaller
+    one), float32 on the host."""
+    flat = t.detach().reshape(-1)
+    k = min(flat.numel(), SHARD_SAMPLE)
+    stride = flat.numel() // k
+    return flat[: stride * k : stride].float().cpu()
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| (0 where both are 0)."""
+    den = float(want.double().norm())
+    num = float((got.double() - want.double()).norm())
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+
+def _zero1_stale(cfg, local, p0: dict, mesh) -> None:
+    """Planted fault: every ZeRO-1-sliced leaf's slices of the other data
+    ranks set back to their values before the step, as if the gather after
+    the update had been left out."""
+    import torch
+
+    from repro_torch.train.loop import zero1_dims
+
+    dims = zero1_dims(cfg, local, mesh, True)
+    n_data, mine = mesh.shape["data"], mesh.axis_index(("data",))
+    with torch.no_grad():
+        for name, p in local.named_parameters():
+            d = dims[name]
+            if d is None:
+                continue
+            w = p.shape[d] // n_data
+            for j in range(n_data):
+                if j != mine:
+                    p.narrow(d, j * w, w).copy_(p0[name].narrow(d, j * w, w))
+
+
+def sharded_rank(jobs: list, seed: int) -> dict:
+    """One rank of phase "sharded" on a SHARD_MESH ("data", "model") mesh of
+    gloo ranks on the card: for each job, the whole model from ``seed``
+    on the card, cut to this rank's blocks (``shard_model``) and freed;
+    the sharded loss and gradient of this rank's rows (host clock after a
+    sync), the launches of flash / wkv / ssd in it, every leaf's gradient
+    norm, the messages and bytes by kind and axis; with steps, ZeRO-1
+    train steps (the first under ``step_stats``, the second timed), each
+    leaf's update norm after each, then the planted faults of
+    SHARD_FAULTS from the same weights; the peak memory.  Rank 0 also
+    returns the samples of its blocks (gradients, updates) and holds the
+    kernels at its local-head shapes against their plain versions."""
+
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.roofline import step_stats
+    from repro_torch.launch.sharding import local_shard
+    from repro_torch.models import get_family, sharded
+    from repro_torch.models.api import ShapeSpec
+    from repro_torch.train.loop import TrainConfig, init_sharded_opt_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_test_mesh(SHARD_MESH, ("data", "model"))
+    dev = mesh.device
+    wrappers = {"flash": flash_attention, "wkv": wkv6, "ssd": ssd}
+    rank0 = mesh.rank == 0
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    out = {"coords": mesh.coords()}
+    for job in jobs:
+        cfg = _sharded_config(job)
+        fam = get_family(cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        whole = fam.init(cfg, torch.Generator(dev).manual_seed(seed))
+        local = sharded.shard_model(cfg, whole, mesh)
+        del whole
+        torch.cuda.empty_cache()
+        specs = sharded.param_specs(cfg, mesh)
+        spec = fam.batch_pspecs(cfg, ShapeSpec("sharded", SHARD_T, SHARD_B, "train"), mesh)
+        batch = {"tokens": local_shard(torch.from_numpy(job["tokens"]).to(dev),
+                                       spec["tokens"], mesh)}
+
+        def grad_record(loss, grads):
+            return {"loss": float(loss),
+                    "grad_norms": {n: _leaf_norm(g, specs[n], mesh) for n, g in grads.items()},
+                    "grad_samples": ({n: _block_sample(g) for n, g in grads.items()}
+                                     if rank0 else None)}
+
+        def update_record(p0):
+            norms, samples = {}, {}
+            for n, p in local.named_parameters():
+                d = p.detach() - p0[n].to(dev)
+                norms[n] = _leaf_norm(d, specs[n], mesh)
+                samples[n] = _block_sample(d)
+            return norms, samples if rank0 else None
+
+        def new_step():
+            state = init_sharded_opt_state(cfg, local, mesh, zero1=True)
+            step = make_train_step(cfg, optim.AdamWConfig(lr=SHARD_LR, warmup_steps=0),
+                                   TrainConfig(zero1=True), mesh=mesh)
+            return state, step
+
+        for w in wrappers.values():
+            w.launches = 0
+        D.reset_comm_stats()
+        (loss, grads), grad_s = timed(lambda: sharded.value_and_grad(cfg, local, batch, mesh))
+        rec = {"grad_s": grad_s, "launches": {nm: w.launches for nm, w in wrappers.items()},
+               "comm": D.comm_stats()["by_axis"], **grad_record(loss, grads),
+               "local_param_bytes": sum(p.numel() * p.element_size() for p in local.parameters())}
+        del grads
+        if job["steps"]:
+            p0 = {n: p.detach().to("cpu", copy=True) for n, p in local.named_parameters()}
+            state, step = new_step()
+            obytes = sum(t.numel() * 4 for t in [*state.m.values(), *state.v.values()])
+            for w in wrappers.values():
+                w.launches = 0
+            (m1, stats), step1_s = timed(lambda: step_stats(
+                lambda: step(local, state, {}, batch), rec["local_param_bytes"], obytes))
+            u1 = update_record(p0)
+            D.reset_comm_stats()
+            m2, step_s = timed(lambda: step(local, state, {}, batch))
+            step_comm = D.comm_stats()["by_axis"]
+            u2 = update_record(p0)
+            metrics = [m1, m2]
+            rec.update({
+                "step_losses": [float(m["loss"]) for m in metrics],
+                "step_grad_norms": [float(m["grad_norm"]) for m in metrics],
+                "step1_counted_s": step1_s, "step_s": step_s, "stats": stats,
+                "step_comm": step_comm, "opt_state_bytes": obytes,
+                "step_launches": {nm: w.launches for nm, w in wrappers.items()},
+                "update_norms": [u1[0], u2[0]], "update_samples": [u1[1], u2[1]]})
+            del state, step, metrics
+            rec["faults"] = {}
+
+            def restore():
+                with torch.no_grad():
+                    for n, p in local.named_parameters():
+                        p.copy_(p0[n])
+
+            # a data rank's gradient left out of the average
+            restore()
+            orig = sharded.reduce_grads
+
+            def left_out(grads_, mesh_, axes):
+                if mesh_.axis_index(("data",)) == 1:
+                    for g in grads_.values():
+                        g.zero_()
+                orig(grads_, mesh_, axes)
+
+            sharded.reduce_grads = left_out
+            try:
+                loss, grads = sharded.value_and_grad(cfg, local, batch, mesh)
+            finally:
+                sharded.reduce_grads = orig
+            rec["faults"]["grad_left_out"] = grad_record(loss, grads)
+            del grads
+            # a step on the first half of the rank's rows
+            state, step = new_step()
+            half = {"tokens": batch["tokens"][: batch["tokens"].shape[0] // 2]}
+            m = step(local, state, {}, half)
+            un = update_record(p0)
+            rec["faults"]["half_batch"] = {
+                "step_losses": [float(m["loss"])], "step_grad_norms": [float(m["grad_norm"])],
+                "update_norms": [un[0]], "update_samples": [un[1]]}
+            # ZeRO-1's gather left out: the other data rank's slices stale
+            restore()
+            state, step = new_step()
+            m = step(local, state, {}, batch)
+            _zero1_stale(cfg, local, p0, mesh)
+            un = update_record(p0)
+            with torch.no_grad():
+                after = sharded.loss(cfg, local, batch, mesh).reshape(1)
+            after = D.all_reduce_axis(after, mesh, "data") / mesh.shape["data"]
+            rec["faults"]["zero1_stale"] = {
+                "step_losses": [float(m["loss"]), float(after)],
+                "step_grad_norms": [float(m["grad_norm"])],
+                "update_norms": [un[0]], "update_samples": [un[1]]}
+            del p0, state, step
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        out[job["name"]] = rec
+        del local, batch
+    torch.cuda.empty_cache()
+    if rank0:
+        out["kernels"] = local_head_checks(dev)
+    return out
+
+
+def _shard_checks(got: dict, ref: dict, bf16: bool) -> dict:
+    """``{check: {"reading", "limit", "leaf", "ok"}}`` of rank 0's record
+    ``got`` (the sound run or a fault's) against the single process's
+    ``ref``, for every reading ``got`` has: per-leaf readings report the
+    leaf furthest past its limit.  In bfloat16 a per-leaf limit is at least
+    SHARD_WITNESS_FACTOR times the witness's largest reading among the
+    leaves of its kind (the same name in every layer)."""
+    import re
+
+    out = {}
+
+    def put(name, readings: dict, limit: float, witness: dict | None = None):
+        kind = lambda n: re.sub(r"\.\d+\.", ".*.", n)  # noqa: E731
+        top: dict = {}
+        for n, w in (witness or {}).items():
+            top[kind(n)] = max(top.get(kind(n), 0.0), w)
+        lims = {n: max(limit, SHARD_WITNESS_FACTOR * top[kind(n)]) if witness else limit
+                for n in readings}
+        leaf = max(readings, key=lambda n: readings[n] / lims[n])
+        out[name] = {"reading": readings[leaf], "limit": lims[leaf], "leaf": leaf,
+                     "ok": readings[leaf] <= lims[leaf]}
+
+    wit = ref.get("witness") if bf16 else None
+    if "loss" in got:
+        put("loss", {"loss": abs(got["loss"] - ref["loss"])}, SHARD_LOSS_ATOL)
+        put("grad_norm", {n: abs(got["grad_norms"][n] - w) / max(w, 1e-30)
+                          for n, w in ref["grad_norms"].items()}, SHARD_NORM_RTOL,
+            wit and wit["grad_norm"])
+        put("grad_sample", {n: _rel_l2(got["grad_samples"][n], w)
+                            for n, w in ref["grad_samples"].items()}, SHARD_SAMPLE_RTOL,
+            wit and wit["grad_sample"])
+    if "step_losses" in got:
+        put("step_loss", {f"step {i + 1}": abs(a - b) for i, (a, b) in
+                          enumerate(zip(got["step_losses"], ref["step_losses"]))},
+            SHARD_STEP_LOSS_ATOL)
+        put("step_grad_norm", {f"step {i + 1}": abs(a - b) / b for i, (a, b) in
+                               enumerate(zip(got["step_grad_norms"], ref["step_grad_norms"]))},
+            SHARD_NORM_RTOL)
+        put("update_norm", {f"step {i + 1} {n}": abs(u[n] - w) / max(w, 1e-30)
+                            for i, (u, r) in enumerate(zip(got["update_norms"],
+                                                           ref["update_norms"]))
+                            for n, w in r.items()}, SHARD_UPDATE_RTOL)
+        put("update_sample", {f"step {i + 1} {n}": _rel_l2(u[n], w)
+                              for i, (u, r) in enumerate(zip(got["update_samples"],
+                                                             ref["update_samples"]))
+                              for n, w in r.items()}, SHARD_UPDATE_SAMPLE_RTOL)
+    return out
+
+
+def _single_reference(cfg, fam, tokens, steps: int, dev) -> dict:
+    """The single process on the card: the loss, every leaf's gradient norm
+    and the sample of rank 0's block of it; with steps, each step's loss,
+    gradient norm, and every leaf's update norm and sample after it; in
+    bfloat16 the witness (the same gradient with the weights moved by
+    SHARD_WITNESS_SCALE relative: per leaf, how far the norm and the
+    sample move)."""
+    import torch
+
+    from repro_torch import optim
+    from repro_torch.launch.sharding import local_shard
+    from repro_torch.models import sharded
+    from repro_torch.train import TrainConfig, make_train_step
+
+    specs = sharded.param_specs(cfg, _RankZero())
+
+    def sample(n, t):
+        return _block_sample(local_shard(t, specs[n], _RankZero(), sharded.param_segments(cfg, n)))
+
+    def loss_and_grads(model):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = fam.loss(cfg, model, batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        rec = {"loss": float(loss.detach()), "grad_s": time.perf_counter() - t0,
+               "grad_norms": {n: float(p.grad.float().norm()) for n, p in model.named_parameters()},
+               "grad_samples": {n: sample(n, p.grad) for n, p in model.named_parameters()}}
+        for prm in model.parameters():
+            prm.grad = None
+        return rec
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    model = fam.init(cfg, torch.Generator(dev).manual_seed(SEED)).requires_grad_(True)
+    ref = loss_and_grads(model)
+    if steps:
+        params = dict(model.named_parameters())
+        p0 = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+        state = optim.init(params)
+        step = make_train_step(cfg, optim.AdamWConfig(lr=SHARD_LR, warmup_steps=0), TrainConfig())
+        ms, ref["update_norms"], ref["update_samples"] = [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ms.append(step(model, state, {}, batch))
+            torch.cuda.synchronize()
+            ref["step_s"] = time.perf_counter() - t0
+            norms, samples = {}, {}
+            for n, p in params.items():
+                d = (p.detach() - p0[n].to(dev)).float()
+                norms[n], samples[n] = float(d.norm()), sample(n, d)
+            ref["update_norms"].append(norms)
+            ref["update_samples"].append(samples)
+        ref["step_losses"] = [float(m["loss"]) for m in ms]
+        ref["step_grad_norms"] = [float(m["grad_norm"]) for m in ms]
+        del params, p0, state, step, ms
+    ref["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    del model
+    if cfg.compute_dtype == "bfloat16":
+        torch.cuda.empty_cache()
+        model = fam.init(cfg, torch.Generator(dev).manual_seed(SEED)).requires_grad_(True)
+        g = torch.Generator(dev).manual_seed(SEED + 1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + SHARD_WITNESS_SCALE * torch.randn(p.shape, generator=g, device=dev))
+        moved = loss_and_grads(model)
+        ref["witness"] = {
+            "loss": abs(moved["loss"] - ref["loss"]),
+            "grad_norm": {n: abs(moved["grad_norms"][n] - w) / max(w, 1e-30)
+                          for n, w in ref["grad_norms"].items()},
+            "grad_sample": {n: _rel_l2(moved["grad_samples"][n], w)
+                            for n, w in ref["grad_samples"].items()}}
+        del model
+    return ref
+
+
+def sharded_phase(dev, smi, cal) -> dict:
+    """Phase "sharded": the LM loss, its gradient and ZeRO-1 train steps
+    split over a SHARD_MESH ("data", "model") mesh of gloo ranks, all on
+    the one card (four processes time-sharing cuda:0: no time here is a
+    scaling result), against the single process: first each single-process
+    reference (:func:`_single_reference`), each freed before the next;
+    then the gloo all-reduce rate of two ranks on the card (the link's
+    calibrated figure); then the ranks, all jobs in one spawn.  Every
+    reading of every job and fault is printed before any limit fails the
+    phase.  ``cal`` is phase "calibrate"'s spec.  Returns the launches of
+    flash / wkv / ssd over the ranks' loss and step runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import calibrate
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.launch.roofline import H100_DATASHEET, analyze, model_flops
+    from repro_torch.models import get_family
+    from repro_torch.models.api import ShapeSpec
+
+    t_phase = time.perf_counter()
+    ranks_n = SHARD_MESH[0] * SHARD_MESH[1]
+    note = f"{ranks_n} ranks time-share one card: no time here is a scaling result"
+    jobs, refs = [], {}
+    for arch, layers, steps, dtype in SHARD_RUNS:
+        job = {"name": f"{arch}/{dtype}", "arch": arch, "layers": layers, "steps": steps,
+               "dtype": dtype}
+        cfg = _sharded_config(job)
+        # one batch an architecture, whatever its dtype
+        archs = list(dict.fromkeys(a for a, *_ in SHARD_RUNS))
+        tokens = np.random.default_rng(SEED + archs.index(arch)).integers(
+            0, cfg.vocab, size=(SHARD_B, SHARD_T)).astype(np.int64)
+        jobs.append({**job, "tokens": tokens})
+        refs[job["name"]] = (cfg, _single_reference(cfg, get_family(cfg), tokens, steps, dev))
+    torch.cuda.empty_cache()
+    build.build_all()  # every library in place: the ranks load, none compiles
+    link_bw = calibrate.measure_link_bw(device=dev)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sharded_rank, ranks_n, args=(jobs, SEED), timeout=SHARD_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    launches = {"flash": 0, "wkv": 0, "ssd": 0}
+    failures = []
+    for job in jobs:
+        name, arch = job["name"], job["arch"]
+        cfg, ref = refs[name]
+        per = [r[name] for r in ranks]
+        bf16 = cfg.compute_dtype == "bfloat16"
+        checks = _shard_checks(per[0], ref, bf16)
+        line = {"phase": "sharded", "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                "mesh": dict(zip(("data", "model"), SHARD_MESH)), "batch": [SHARD_B, SHARD_T],
+                "compute_dtype": cfg.compute_dtype, "checks": checks,
+                "loss": [r["loss"] for r in per], "loss_single": ref["loss"],
+                "grad_s": [r["grad_s"] for r in per], "grad_s_single": ref["grad_s"],
+                "launches": [r["launches"] for r in per],
+                "comm_by_axis": [r["comm"] for r in per],
+                "local_param_bytes": [r["local_param_bytes"] for r in per],
+                "peak_mem_bytes": [r["peak_mem_bytes"] for r in per],
+                "peak_mem_bytes_single": ref["peak_mem_bytes"], "note": note,
+                "nvidia_smi": smi}
+        if bf16:
+            wit = ref["witness"]
+            line["witness"] = {"loss": wit["loss"]} | {
+                k: {"worst": max(wit[k].values()), "leaf": max(wit[k], key=wit[k].get)}
+                for k in ("grad_norm", "grad_sample")}
+            f32 = refs.get(f"{arch}/float32")
+            if f32 is not None:  # both processes' bfloat16 norms against float32's
+                def worst(norms):
+                    rel = {n: abs(norms[n] - w) / max(w, 1e-30)
+                           for n, w in f32[1]["grad_norms"].items()}
+                    return {"worst": max(rel.values()), "leaf": max(rel, key=rel.get)}
+                line["grad_norm_against_float32"] = {"single": worst(ref["grad_norms"]),
+                                                     "sharded": worst(per[0]["grad_norms"])}
+        for r in per:
+            for nm in launches:
+                launches[nm] += r["launches"][nm] + r.get("step_launches", {}).get(nm, 0)
+        if job["steps"]:
+            stats = per[0]["stats"]
+            mf = model_flops(cfg, ShapeSpec("sharded", SHARD_T, SHARD_B, "train"))
+            hw_cal = dataclasses.replace(cal, link_bw=link_bw)
+            rows = {tag: analyze(stats, ranks_n, mf, hw=hw).to_dict()
+                    for tag, hw in (("sheet", H100_DATASHEET), ("cal", hw_cal))}
+            line.update({
+                "step_losses": [r["step_losses"] for r in per],
+                "step_losses_single": ref["step_losses"],
+                "step_grad_norms": [r["step_grad_norms"] for r in per],
+                "step_grad_norms_single": ref["step_grad_norms"],
+                "step_s": [r["step_s"] for r in per], "step_s_single": ref["step_s"],
+                "step1_counted_s": [r["step1_counted_s"] for r in per],
+                "step_comm_by_axis": [r["step_comm"] for r in per],
+                "opt_state_bytes": [r["opt_state_bytes"] for r in per],
+                "roofline": rows, "link_bytes_s": {"sheet": H100_DATASHEET.link_bw,
+                                                   "cal": link_bw},
+                "saved_activation_bytes": [r["stats"]["saved_bytes"] for r in per]})
+        emit(line)
+        failures += [f"sharded {name}: {c} {v['reading']:.3e} > {v['limit']:.3e} ({v['leaf']})"
+                     for c, v in checks.items() if not v["ok"]]
+        if len({r["loss"] for r in per}) != 1:
+            failures.append(f"sharded {name}: the ranks' losses {line['loss']} differ")
+        must = {"dense": ("flash",), "rwkv": ("wkv",), "hybrid": ("ssd",)}[cfg.family]
+        failures += [f"sharded {name}: {nm} launched {r['launches'][nm]} times, not once a layer"
+                     for r in per for nm in must if r["launches"][nm] != cfg.n_layers]
+        for fault, got in per[0].get("faults", {}).items():
+            fchecks = _shard_checks(got, ref, bf16)
+            caught = [c for c, v in fchecks.items() if not v["ok"]]
+            emit({"phase": "sharded", "arch": arch, "fault": fault, "checks": fchecks,
+                  "caught_by": caught, "nvidia_smi": smi})
+            if not caught:
+                failures.append(f"sharded {name}: the planted fault {fault} passes every limit")
+        if job["steps"] and set(per[0].get("faults", {})) != set(SHARD_FAULTS):
+            failures.append(f"sharded {name}: faults {sorted(per[0].get('faults', {}))} ran, "
+                            f"not {sorted(SHARD_FAULTS)}")
+    emit({"phase": "sharded", "check": "kernels_at_local_head_shapes",
+          "rtol_normwise": KERNEL_RTOL, "rows": ranks[0]["kernels"], "nvidia_smi": smi})
+    emit({"phase": "sharded", "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase,
+          "launches": launches, "coords": [r["coords"] for r in ranks],
+          "link_bytes_s_cal": link_bw, "link_note": "gloo all-reduce of 64 MiB between two "
+          "ranks on the card, each buffer through a host copy (measured here, after phase "
+          "trace: ranks that end before it shift its host times)", "nvidia_smi": smi})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2085,7 +2672,8 @@ def main() -> int:
           "exponentials_s": {"datasheet": H100_DATASHEET_SFU_S, "calibrated": None},
           "committed_spec": {"name": committed.name, "float32_flop_s": committed.peak_flops,
                              "bfloat16_flop_s": committed.peak_bf16_flops,
-                             "copy_bytes_s": committed.hbm_bw},
+                             "copy_bytes_s": committed.hbm_bw,
+                             "link_bytes_s": committed.link_bw},
           "limit_over_datasheet": CALIBRATE_LIMIT, "nvidia_smi": smi})
     for nm, (got, sheet) in rates.items():
         if not 0.0 < got <= CALIBRATE_LIMIT * sheet:
@@ -3554,6 +4142,10 @@ def main() -> int:
 
     # ---- train: every loss's gradients through the kernels' Functions -------------
     for kernel, n in train_phase(dev, get_config, get_family, reset, counts).items():
+        lm_launches[kernel] += n
+
+    # ---- sharded: the LM loss and the ZeRO-1 step over a (data, model) mesh --------
+    for kernel, n in sharded_phase(dev, smi, cal).items():
         lm_launches[kernel] += n
 
     # ---- 5. timing at the main path's shapes ---------------------------------

@@ -17,8 +17,10 @@ rows (identity padding, a band stored wider than its true bandwidth) take
 pivot 1 instead, so padded embeddings stay exactly blkdiag(A, I).
 
 Every function here is batched over the partition axis P with a Python loop
-over the M block rows, and computes in float32 whatever the storage dtype,
-as the CUDA kernels in ``repro_torch.kernels`` do; results are stored back
+over the M block rows, and computes in the wider of float32 and the storage
+dtype (:func:`compute_dtype`): float64 storage in float64, float32 and
+bfloat16 storage in float32, as the CUDA kernels in ``repro_torch.kernels``
+do for bfloat16 (they take float32 storage only); results are stored back
 in the input dtype.  These are the kernels' plain versions: the CPU path of
 every kernel wrapper and the yardstick the kernels are held against on the
 card.
@@ -31,6 +33,12 @@ from typing import NamedTuple
 import torch
 
 DEFAULT_BOOST = 1e-10
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the plain block kernels compute in for ``dtype`` storage:
+    the wider of it and float32."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -47,12 +55,13 @@ def gj_inverse(a: torch.Tensor, boost_eps: float = DEFAULT_BOOST) -> torch.Tenso
     step ``t`` sees the original structure of row ``t``.
     """
     k = a.shape[-1]
-    x = a.to(torch.float32)
+    cdt = compute_dtype(a.dtype)
+    x = a.to(cdt)
     scale = x.abs().amax(dim=(-2, -1)).clamp_min(1e-30)
     thr = boost_eps * scale
-    eye = torch.eye(k, dtype=torch.float32, device=a.device)
+    eye = torch.eye(k, dtype=cdt, device=a.device)
     aug = torch.cat([x, eye.expand(x.shape)], dim=-1)  # (..., K, 2K)
-    one = torch.ones((), dtype=torch.float32, device=a.device)
+    one = torch.ones((), dtype=cdt, device=a.device)
     for t in range(k):
         piv = aug[..., t, t]
         struct_zero = (aug[..., t, :k] == 0).all(dim=-1)
@@ -89,13 +98,14 @@ def btf_ref(
 ) -> BTFactors:
     """Block-tridiagonal factorization of every partition: (P, M, K, K)."""
     p, m, k, _ = d.shape
-    d32, e32, f32 = (x.to(torch.float32) for x in (d, e, f))
-    sinv = torch.empty_like(d32)
-    l = torch.zeros_like(d32)
-    sinv[:, 0] = gj_inverse(d32[:, 0], boost_eps)
+    cdt = compute_dtype(d.dtype)
+    dc, ec, fc = (x.to(cdt) for x in (d, e, f))
+    sinv = torch.empty_like(dc)
+    l = torch.zeros_like(dc)
+    sinv[:, 0] = gj_inverse(dc[:, 0], boost_eps)
     for j in range(1, m):
-        lj = e32[:, j] @ sinv[:, j - 1]
-        sinv[:, j] = gj_inverse(d32[:, j] - lj @ f32[:, j - 1], boost_eps)
+        lj = ec[:, j] @ sinv[:, j - 1]
+        sinv[:, j] = gj_inverse(dc[:, j] - lj @ fc[:, j - 1], boost_eps)
         l[:, j] = lj
     return BTFactors(sinv=sinv.to(d.dtype), l=l.to(d.dtype), f=f)
 
@@ -107,16 +117,17 @@ def btf_ref(
 
 def bts_ref(factors: BTFactors, b: torch.Tensor) -> torch.Tensor:
     """Solve with the factors.  b: (P, M, K, R) -> x: (P, M, K, R)."""
-    sinv, l, f = (x.to(torch.float32) for x in factors)
-    b32 = b.to(torch.float32)
+    cdt = compute_dtype(factors.sinv.dtype)
+    sinv, l, f = (x.to(cdt) for x in factors)
+    bc = b.to(cdt)
     m = b.shape[1]
-    y = torch.empty_like(b32)
+    y = torch.empty_like(bc)
     # forward:  y_j = b_j - L_j y_{j-1}
-    y[:, 0] = b32[:, 0]
+    y[:, 0] = bc[:, 0]
     for j in range(1, m):
-        y[:, j] = b32[:, j] - l[:, j] @ y[:, j - 1]
+        y[:, j] = bc[:, j] - l[:, j] @ y[:, j - 1]
     # backward: x_{M-1} = Sinv y_{M-1};  x_j = Sinv_j (y_j - F_j x_{j+1})
-    x = torch.empty_like(b32)
+    x = torch.empty_like(bc)
     x[:, m - 1] = sinv[:, m - 1] @ y[:, m - 1]
     for j in range(m - 2, -1, -1):
         x[:, j] = sinv[:, j] @ (y[:, j] - f[:, j] @ x[:, j + 1])
@@ -228,28 +239,29 @@ def fused_factor_spike_padded_ref(
     of shape (P, M, K, K) and the corners (P, K, K).
     """
     p, m, k, _ = d.shape
-    d32, e32, f32, bq32, cq32 = (x.to(torch.float32) for x in (d, e, f, bq, cq))
-    sinv = torch.empty_like(d32)
-    l = torch.zeros_like(d32)
-    sinv[:, 0] = gj_inverse(d32[:, 0], boost_eps)
-    c_ul = gj_inverse(_flip2(d32[:, m - 1]), boost_eps)
-    c_w = cq32
-    c_v = _fliprows(bq32)
+    cdt = compute_dtype(d.dtype)
+    dc, ec, fc, bqc, cqc = (x.to(cdt) for x in (d, e, f, bq, cq))
+    sinv = torch.empty_like(dc)
+    l = torch.zeros_like(dc)
+    sinv[:, 0] = gj_inverse(dc[:, 0], boost_eps)
+    c_ul = gj_inverse(_flip2(dc[:, m - 1]), boost_eps)
+    c_w = cqc
+    c_v = _fliprows(bqc)
     for j in range(1, m):
-        lj = e32[:, j] @ sinv[:, j - 1]
-        sinv[:, j] = gj_inverse(d32[:, j] - lj @ f32[:, j - 1], boost_eps)
+        lj = ec[:, j] @ sinv[:, j - 1]
+        sinv[:, j] = gj_inverse(dc[:, j] - lj @ fc[:, j - 1], boost_eps)
         l[:, j] = lj
         c_w = -(lj @ c_w)
         # reversed chain: d_r[j] = flip2(d[M-1-j]), e_r[j] = flip2(f[M-1-j]),
         # f_r[j-1] = flip2(e[M-j])
-        l_ul = _flip2(f32[:, m - 1 - j]) @ c_ul
-        s_ul = _flip2(d32[:, m - 1 - j]) - l_ul @ _flip2(e32[:, m - j])
+        l_ul = _flip2(fc[:, m - 1 - j]) @ c_ul
+        s_ul = _flip2(dc[:, m - 1 - j]) - l_ul @ _flip2(ec[:, m - j])
         c_ul = gj_inverse(s_ul, boost_eps)
         c_v = -(l_ul @ c_v)
     s_last = sinv[:, m - 1]
-    vb = s_last @ bq32
+    vb = s_last @ bqc
     wb = s_last @ c_w
-    wt = _fliprows(c_ul @ _fliprows(cq32))
+    wt = _fliprows(c_ul @ _fliprows(cqc))
     vt = _fliprows(c_ul @ c_v)
     dt = d.dtype
     return sinv.to(dt), l.to(dt), vb.to(dt), vt.to(dt), wt.to(dt), wb.to(dt)

@@ -58,7 +58,7 @@ from typing import NamedTuple
 
 import torch
 
-from .block_lu import DEFAULT_BOOST, gj_inverse
+from .block_lu import DEFAULT_BOOST, compute_dtype, gj_inverse
 
 
 def _next_pow2(m: int) -> int:
@@ -136,6 +136,13 @@ class BCRFactors:
 # ---------------------------------------------------------------------------
 
 
+def _widen(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The operands in the dtype the plain versions compute in: the wider
+    of float32 and the first operand's storage."""
+    cdt = compute_dtype(ts[0].dtype)
+    return tuple(t.to(cdt) for t in ts)
+
+
 def bcr_inv_odd_ref(
     d: torch.Tensor, boost_eps: float = DEFAULT_BOOST, first: int = 1
 ) -> torch.Tensor:
@@ -152,14 +159,18 @@ def bcr_reduce_ref(
 
     Returns ``(lo, hi, d', e', f')``, each (m/2, K, K).  E_0 = 0 kills the
     i = 0 down-neighbour terms, which the shift fills with zeros.
+    Computed in :func:`~repro_torch.core.block_lu.compute_dtype` of the
+    storage, stored in it.
     """
+    dt = d.dtype
+    d, e, f, a_odd = _widen(d, e, f, a_odd)
     e_odd, f_odd = e[1::2], f[1::2]
     lo = e[0::2] @ _shift_dn(a_odd)  # E_{2i} inv(D_{2i-1})
     hi = f[0::2] @ a_odd  # F_{2i} inv(D_{2i+1})
     d_next = d[0::2] - lo @ _shift_dn(f_odd) - hi @ e_odd
     e_next = -(lo @ _shift_dn(e_odd))
     f_next = -(hi @ f_odd)
-    return lo, hi, d_next, e_next, f_next
+    return tuple(t.to(dt) for t in (lo, hi, d_next, e_next, f_next))
 
 
 def bcr_reduce_level_ref(
@@ -176,8 +187,10 @@ def bcr_reduce_level_ref(
 def bcr_rhs_reduce_ref(lo: torch.Tensor, hi: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Fold the odd right-hand sides of an (m, K, R) level into its even
     equations: b'_i = b_{2i} - lo_i b_{2i-1} - hi_i b_{2i+1}."""
+    dt = b.dtype
+    lo, hi, b = _widen(lo, hi, b)
     b_odd = b[1::2]
-    return b[0::2] - lo @ _shift_dn(b_odd) - hi @ b_odd
+    return (b[0::2] - lo @ _shift_dn(b_odd) - hi @ b_odd).to(dt)
 
 
 def bcr_backsub_ref(
@@ -193,9 +206,11 @@ def bcr_backsub_ref(
     solved even unknowns; returns the level's (m, K, R) solution.  F_odd
     of the chain tail is zero, killing the shifted-in zero neighbour.
     """
+    dt = x.dtype
+    a_odd, e_odd, f_odd, b, x = _widen(a_odd, e_odd, f_odd, b, x)
     x_odd = a_odd @ (b[1::2] - e_odd @ x - f_odd @ _shift_up(x))
     m2, k, r = x.shape
-    return torch.stack([x, x_odd], dim=1).reshape(2 * m2, k, r)
+    return torch.stack([x, x_odd], dim=1).reshape(2 * m2, k, r).to(dt)
 
 
 # ---------------------------------------------------------------------------

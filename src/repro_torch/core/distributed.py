@@ -66,13 +66,13 @@ from .spike import _block_inverse
 # ---------------------------------------------------------------------------
 
 _STATS = dict(permutations=0, messages=0, bytes=0, allreduces=0, allreduce_bytes=0,
-              seconds=0.0)
+              seconds=0.0, by_axis={})
 
 
 def reset_comm_stats() -> None:
     """Zero the counters of :func:`comm_stats`."""
     for name in _STATS:
-        _STATS[name] = 0.0 if name == "seconds" else 0
+        _STATS[name] = 0.0 if name == "seconds" else {} if name == "by_axis" else 0
 
 
 def comm_stats() -> dict:
@@ -80,8 +80,13 @@ def comm_stats() -> dict:
     with at least one pair), ``messages`` and ``bytes`` this rank sent,
     ``allreduces`` and their ``allreduce_bytes``, and ``seconds`` of host
     time inside them.  On gloo a CUDA tensor's host copy waits for the card
-    first; that wait is not counted."""
-    return dict(_STATS)
+    first; that wait is not counted.  ``by_axis`` counts the collectives
+    over one mesh axis (:func:`all_reduce_axis`) as ``{"kind/axis":
+    {"messages", "bytes"}}``, kind ``all_reduce`` or ``all_gather`` (a
+    gather sent as a zero-padded all-reduce), bytes those of the buffer."""
+    out = dict(_STATS)
+    out["by_axis"] = {k: dict(v) for k, v in _STATS["by_axis"].items()}
+    return out
 
 
 def _host(x: torch.Tensor, mesh) -> bool:
@@ -128,7 +133,7 @@ def ppermute(x: torch.Tensor, perm, mesh) -> torch.Tensor:
     return out
 
 
-_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}
+_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
 
 
 def all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
@@ -141,6 +146,30 @@ def all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
     dist.all_reduce(buf, op=_OPS[op], group=mesh.group)
     _STATS["allreduces"] += 1
     _STATS["allreduce_bytes"] += buf.numel() * buf.element_size()
+    _STATS["seconds"] += time.perf_counter() - t0
+    return buf.to(x.device) if host else buf
+
+
+def all_reduce_axis(x: torch.Tensor, mesh, axis: str, op: str = "sum",
+                    kind: str = "all_reduce") -> torch.Tensor:
+    """``x`` reduced over the ranks that differ from this one only along
+    ``axis`` (``mesh.axis_group(axis)``), as a new tensor; counted in
+    ``comm_stats()["by_axis"]`` under ``kind/axis``.  On gloo a CUDA
+    tensor travels through a host copy."""
+    if mesh.shape[axis] == 1:
+        return x.clone()
+    host = _host(x, mesh)
+    if host:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    buf = x.cpu() if host else x.clone()
+    dist.all_reduce(buf, op=_OPS[op], group=mesh.axis_group(axis))
+    nbytes = buf.numel() * buf.element_size()
+    _STATS["allreduces"] += 1
+    _STATS["allreduce_bytes"] += nbytes
+    rec = _STATS["by_axis"].setdefault(f"{kind}/{axis}", {"messages": 0, "bytes": 0})
+    rec["messages"] += 1
+    rec["bytes"] += nbytes
     _STATS["seconds"] += time.perf_counter() - t0
     return buf.to(x.device) if host else buf
 

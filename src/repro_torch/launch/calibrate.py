@@ -11,7 +11,12 @@ ceilings the port's bounds divide by:
     on the tensor cores (the flash kernel's bound);
   * ``measure_stream_bw`` -- sustained memory bandwidth of STREAM "scale"
     (``y = 1.0001 x``) over an array far larger than the 50 MB L2,
-    counting read plus write bytes.
+    counting read plus write bytes;
+  * ``measure_link_bw`` -- the all-reduce rate between two gloo ranks
+    (buffer bytes over seconds), the path the sharded LM step's
+    collectives take on a machine with one card: both ranks on the card,
+    each buffer through a host copy.  It starts two processes; run it
+    where that is wanted (``--link``), not by default.
 
 Each is the median of CUDA-event timed repeats after a warm-up (host
 clock on the CPU).  Run it on the card::
@@ -97,6 +102,48 @@ def measure_stream_bw(nbytes: int = 1 << 30, repeats: int = 10, device=None) -> 
     return 2.0 * x.numel() * 4 / sec
 
 
+def _link_rank(nbytes: int, repeats: int, device) -> float:
+    """One rank of :func:`measure_link_bw`: median seconds of an
+    all-reduce of ``nbytes`` over the group, card buffers through host
+    copies as :func:`repro_torch.core.distributed.all_reduce_axis` sends
+    them."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    x = torch.ones(nbytes // 4, device=dev)
+
+    def once():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        buf = x.cpu() if dev.type == "cuda" else x.clone()
+        dist.all_reduce(buf)
+        buf.to(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for _ in range(2):
+        once()
+    times = []
+    for _ in range(repeats):
+        dist.barrier()
+        t0 = time.perf_counter()
+        once()
+        times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def measure_link_bw(nbytes: int = 64 << 20, repeats: int = 10, device=None) -> float:
+    """Bytes/s of an all-reduce of ``nbytes`` between two gloo ranks on
+    ``device`` (default: the card), each buffer through a host copy: the
+    slower rank's median, host clock."""
+    from .mesh import spawn_ranks
+
+    dev = resolve_device(device)
+    sec = max(spawn_ranks(_link_rank, 2, args=(nbytes, repeats, str(dev))))
+    return nbytes / sec
+
+
 def calibrate(gemm_n: int = 8192, stream_bytes: int = 1 << 30, repeats: int = 10,
               device=None) -> HardwareSpec:
     """Measure the three ceilings on ``device`` (default: the card)."""
@@ -116,9 +163,15 @@ def main(argv=None) -> int:
                     help="stream array size in MiB (default 1024)")
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--device", default=None, help="default: the card")
+    ap.add_argument("--link", action="store_true",
+                    help="also the gloo all-reduce rate between two ranks (64 MiB)")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     spec = calibrate(args.gemm_n, args.stream_mib << 20, args.repeats, dev)
+    if args.link:
+        link = measure_link_bw(device=dev)
+        print(f"link_bw        : {link:.4e} bytes/s "
+              f"({link / 1e9:.3f} GB/s gloo all-reduce, 2 ranks, host copies)")
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device         : {name}")
     print(f"peak_flops     : {spec.peak_flops:.4e} flop/s "

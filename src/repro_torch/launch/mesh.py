@@ -18,8 +18,14 @@ With fewer ranks the same axis names take the scaled-down stand-in
 The mesh keeps the group and the shape itself rather than a
 ``torch.distributed.device_mesh.DeviceMesh``: the card machine has one
 GPU, so the test and smoke runs put several gloo ranks on ``cuda:0``,
-where ``DeviceMesh`` would map rank r to ``cuda:r`` and build a subgroup
-per axis that no code here uses.
+where ``DeviceMesh`` would map rank r to ``cuda:r``.  Like ``DeviceMesh``
+it builds one subgroup per axis and line of ranks (:meth:`Mesh.axis_group`:
+the ranks that differ only along that axis), which the sharded LM path
+reduces over.  ``dist.new_group`` is collective over the whole world, so
+every rank builds every subgroup, in one order (axis by axis, lines in
+row-major order), when the mesh is made; an axis of size 1 gets none, and
+a mesh over a subgroup of the world may split one axis only (its group is
+then the mesh's own), because the ranks outside it would not join.
 
 :func:`spawn_ranks` starts W processes, one a rank, each joining one group
 initialized from a file store in a fresh temporary directory (no fixed TCP
@@ -72,6 +78,44 @@ class Mesh:
         self.rank = dist.get_rank(self.group)
         self.backend = str(dist.get_backend(self.group))
         self.device = resolve_device(device)
+        split = [ax for ax in self.axis_names if self.shape[ax] > 1]
+        if self.group is not dist.group.WORLD and len(split) > 1:
+            # dist.new_group is collective over WORLD: the ranks outside
+            # this group would never join the subgroups' construction
+            raise ValueError(f"a mesh over a subgroup splits at most one axis; {split} are split")
+        self._axis_groups = {ax: self._build_axis_groups(ax) for ax in self.axis_names}
+
+    def _build_axis_groups(self, axis: str):
+        """This rank's subgroup along ``axis`` (every line's group is built
+        on every rank, in row-major order of the other axes); None for an
+        axis of size 1, over which nothing is reduced."""
+        if self.shape[axis] == 1:
+            return None
+        if self.shape[axis] == self.size:
+            return self.group
+        mine = None
+        for line in self.axis_lines(axis):
+            ranks = [r if self.group is dist.group.WORLD else dist.get_global_rank(self.group, r)
+                     for r in line]
+            g = dist.new_group(ranks, backend=self.backend)
+            if self.rank in line:
+                mine = g
+        return mine
+
+    def axis_lines(self, axis: str) -> list[list[int]]:
+        """The lines of ranks along ``axis``: group ranks that agree on every
+        other axis, ordered by their index along ``axis``."""
+        lines: dict[tuple, list[int]] = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            lines.setdefault(tuple(c[a] for a in self.axis_names if a != axis), []).append(r)
+        return [lines[k] for k in sorted(lines)]
+
+    def axis_group(self, axis: str):
+        """The process group of the ranks that differ from this one only
+        along ``axis`` (``mesh.axis_group("model")``); None for an axis of
+        size 1."""
+        return self._axis_groups[axis]
 
     @property
     def size(self) -> int:

@@ -12,10 +12,11 @@ A copy of :mod:`repro.models.api` for every family: ``"rwkv"``,
     init_cache(cfg, batch, max_len, device) -> decode cache (dict of tensors)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
 
-Every configuration field is copied but the JAX execution knobs
-(``remat``, ``scan_layers``, ``kernel_impl``), which have no counterpart
-here; ``expert_sharding`` is kept so that the configurations compare
-equal, and is read by no code of the port.  ``ShapeSpec`` and ``SHAPES``
+The dense, RWKV6 and Zamba2 families' ``forward`` and ``loss`` also take
+a rank ``mesh`` (:mod:`.sharded`).  Every configuration field is copied
+but the JAX execution knobs (``remat``, ``scan_layers``,
+``kernel_impl``), which have no counterpart here; ``expert_sharding`` is
+read by the MoE branch's ``param_pspecs`` only.  ``ShapeSpec`` and ``SHAPES``
 feed :func:`repro_torch.launch.roofline.model_flops`; ``dp_axes`` /
 ``dp_axes_for`` read a rank mesh (:mod:`repro_torch.launch.mesh`) and
 ``supports_shape`` says which shapes a family can run.

@@ -45,12 +45,23 @@ def params_from_jax(cfg: ModelConfig, tree: dict, device=None):
     ``tree``; on the card unless ``device`` names another."""
     t = _tensors(tree, resolve_device(device))
     if cfg.family == "encdec":
+        t["enc_blocks"] = [_layer(t["enc_blocks"], i) for i in range(cfg.n_enc_layers)]
+        t["dec_blocks"] = [_layer(t["dec_blocks"], i) for i in range(cfg.n_layers)]
+    else:
+        t["blocks"] = [_layer(t["blocks"], i) for i in range(cfg.n_layers)]
+    return model_from_tree(cfg, t)
+
+
+def model_from_tree(cfg: ModelConfig, t: dict):
+    """The port's model holding the tensors of ``t``: the JAX package's
+    tree with every stacked layer leaf given as a list of per-layer trees
+    (``blocks``, or whisper's ``enc_blocks`` / ``dec_blocks``)."""
+    if cfg.family == "encdec":
         from .whisper import Whisper
 
-        enc = [_layer(t["enc_blocks"], i) for i in range(cfg.n_enc_layers)]
-        dec = [_layer(t["dec_blocks"], i) for i in range(cfg.n_layers)]
-        return Whisper(cfg, t["embed"], t["pos_dec"], enc, dec, t["enc_ln"], t["dec_ln"])
-    blocks = [_layer(t["blocks"], i) for i in range(cfg.n_layers)]
+        return Whisper(cfg, t["embed"], t["pos_dec"], t["enc_blocks"], t["dec_blocks"],
+                       t["enc_ln"], t["dec_ln"])
+    blocks = t["blocks"]
     if cfg.family == "rwkv":
         from .rwkv import RWKV6
 

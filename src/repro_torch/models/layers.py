@@ -1,5 +1,8 @@
 """Shared layers of the port's LM zoo: norms (RMS, layer, group), RoPE,
-MLP, attention, the next-token loss, and the parameter container.
+MLP, attention, the next-token loss, and the parameter container.  The
+MLP, the attention's projections, the split RMS norm and the loss take an
+optional rank ``mesh`` and split over its "model" axis
+(:mod:`.tensor_parallel`); without one they are the single process's.
 
 A copy of :mod:`repro.models.layers` in PyTorch, with every float32 cast
 point the JAX code has.  Prompt attention is the flash kernel's plain
@@ -17,6 +20,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ref import NEG_INF
+from .tensor_parallel import (
+    copy_to_model,
+    model_size,
+    reduce_from_model,
+    row_parallel,
+    split_count,
+    vocab_parallel_nll,
+)
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -63,6 +74,19 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     x = x.float()
     var = (x * x).mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * w.float()).to(dtype)
+
+
+def split_rms_norm(x: torch.Tensor, w: torch.Tensor, mesh, eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rms_norm` over a last axis split over "model" (the rank holds
+    ``x``'s and ``w``'s blocks), in float32; :func:`rms_norm` itself
+    without a split."""
+    if model_size(mesh) == 1:
+        return rms_norm(x, w, eps)
+    dtype = x.dtype
+    xf = x.float()
+    ss = copy_to_model(reduce_from_model((xf * xf).sum(dim=-1, keepdim=True), mesh), mesh)
+    full_dim = x.shape[-1] * model_size(mesh)
+    return (xf * torch.rsqrt(ss / full_dim + eps) * w.float()).to(dtype)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -126,17 +150,42 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(name)
 
 
-def mlp(params, x: torch.Tensor, act: str = "silu", gated: bool = True) -> torch.Tensor:
-    """SwiGLU-style (gated: wi (D, 2F) fused gate|up) or plain 2-layer MLP."""
-    wi = params["wi"].to(x.dtype)
-    wo = params["wo"].to(x.dtype)
-    h = x @ wi
+def mlp(params, x: torch.Tensor, act: str = "silu", gated: bool = True,
+        mesh=None) -> torch.Tensor:
+    """SwiGLU-style (gated: wi (D, 2F) fused gate|up) or plain 2-layer MLP.
+    With ``mesh``, ``wi`` is column-split (a gated ``wi`` holds the rank's
+    gate columns, then its up columns) and ``wo`` row-split over "model"."""
+    h = copy_to_model(x, mesh) @ params["wi"].to(x.dtype)
     if gated:
         g, up = h.chunk(2, dim=-1)
         h = _act(act, g) * up
     else:
         h = _act(act, h)
-    return h @ wo
+    return row_parallel(h, params["wo"], mesh)
+
+
+# ---------------------------------------------------------------------------
+# Prompt attention's projections (GQA, RoPE)
+# ---------------------------------------------------------------------------
+
+
+def attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, attend, mesh=None) -> torch.Tensor:
+    """Pre-normed ``x`` (B, T, D) through ``wq`` / ``wk`` / ``wv``, RoPE,
+    ``attend(q, k, v)`` on (B, H, T, Dh) heads and ``wo``.  With ``mesh``
+    the projections are column-split and ``wo`` row-split over "model", so
+    ``attend`` sees the rank's own query and KV heads."""
+    b, t, _ = x.shape
+    hd = cfg.head_dim
+    hkv = split_count(cfg.n_kv_heads, mesh, f"{cfg.name}: n_kv_heads")
+    hq = cfg.n_heads // model_size(mesh)
+    xc = copy_to_model(x, mesh)
+    q = (xc @ p["wq"].to(x.dtype)).reshape(b, t, hq, hd)
+    k = (xc @ p["wk"].to(x.dtype)).reshape(b, t, hkv, hd)
+    v = (xc @ p["wv"].to(x.dtype)).reshape(b, t, hkv, hd)
+    q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
+    k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta)
+    o = attend(q, k, v.transpose(1, 2))
+    return row_parallel(o.transpose(1, 2).reshape(b, t, hq * hd), p["wo"], mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -174,10 +223,14 @@ def decode_attention(
 # ---------------------------------------------------------------------------
 
 
-def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor, vocab: int,
+                   mesh=None) -> torch.Tensor:
     """Mean next-token negative log-likelihood, in float32: ``logsumexp -
     picked`` over ``logits[:, :-1, :vocab]`` against ``tokens[:, 1:]``, as
-    every family's loss in the JAX package computes it."""
+    every family's loss in the JAX package computes it.  With ``mesh`` the
+    logits are the rank's vocabulary columns (``vocab_parallel_nll``)."""
+    if model_size(mesh) > 1:
+        return vocab_parallel_nll(logits, tokens, vocab, mesh)
     lg = logits[:, :-1, :vocab].float()
     picked = lg.gather(-1, tokens[:, 1:, None].long())[..., 0]
     return (torch.logsumexp(lg, dim=-1) - picked).mean()

@@ -24,8 +24,18 @@ from torch import nn
 
 from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
-from .api import ModelConfig
+from ..launch.sharding import P
+from .api import ModelConfig, ShapeSpec, dp_axes_for
 from .layers import ParamTree, group_norm, next_token_nll, normal, rms_norm
+from .tensor_parallel import (
+    copy_to_model,
+    gather_from_model,
+    model_size,
+    row_parallel,
+    scatter_to_model,
+    split_count,
+    vocab_parallel_embed,
+)
 
 
 def _heads(cfg: ModelConfig) -> int:
@@ -121,11 +131,15 @@ def _ddlerp(p_att, x, xx):
     return x[:, :, None, :] + sx[:, :, None, :] * mix
 
 
-def _time_mix(cfg: ModelConfig, p_att, x, shift_in, wkv_in):
+def _time_mix(cfg: ModelConfig, p_att, x, shift_in, wkv_in, mesh=None):
     """x: (B, T, D); shift_in: (B, D) last token of the previous call.
-    Returns (out, shift_out, wkv_out)."""
+    Returns (out, shift_out, wkv_out).  With ``mesh`` the receptance, key,
+    value and gate products are column-split and ``wo`` row-split over
+    "model": the WKV6 kernel runs on the rank's heads, and the replicated
+    decay and group-norm weights are sliced to its channels."""
     b, t, d = x.shape
-    h, hd = _heads(cfg), cfg.rwkv_head_dim
+    hd = cfg.rwkv_head_dim
+    h = split_count(_heads(cfg), mesh, "RWKV6 heads")
     xx = torch.cat([shift_in[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
     mixed = _ddlerp(p_att, x, xx)
     xw, xk, xv, xr, xg = mixed.unbind(dim=2)
@@ -135,39 +149,44 @@ def _time_mix(cfg: ModelConfig, p_att, x, shift_in, wkv_in):
         + (torch.tanh(xw @ p_att["wd1"].to(x.dtype)) @ p_att["wd2"].to(x.dtype)).float()
     )  # (B, T, D) <= 0
     heads = lambda y: y.reshape(b, t, h, hd).transpose(1, 2)  # noqa: E731
-    r = heads(xr @ p_att["wr"].to(x.dtype))
-    k = heads(xk @ p_att["wk"].to(x.dtype))
-    v = heads(xv @ p_att["wv"].to(x.dtype))
-    g = xg @ p_att["wg"].to(x.dtype)
-    lw = heads(logw)
+    col = lambda y, w: copy_to_model(y, mesh) @ p_att[w].to(x.dtype)  # noqa: E731
+    r, k, v = heads(col(xr, "wr")), heads(col(xk, "wk")), heads(col(xv, "wv"))
+    g = col(xg, "wg")
+    lw = heads(scatter_to_model(logw, mesh))
 
     sdt = cfg.sdtype
     o, wkv_out = kops.wkv6(
         r.to(sdt), k.to(sdt), v.to(sdt), lw.to(sdt),
         p_att["u"].float(), wkv_in.float(), chunk=min(cfg.ssm_chunk, t),
     )
-    o = o.transpose(1, 2).reshape(b, t, d).to(x.dtype)
-    o = group_norm(o, p_att["ln_x_w"], p_att["ln_x_b"], groups=h)
-    o = (o * F.silu(g)) @ p_att["wo"].to(x.dtype)
+    o = o.transpose(1, 2).reshape(b, t, h * hd).to(x.dtype)
+    o = group_norm(o, scatter_to_model(p_att["ln_x_w"], mesh),
+                   scatter_to_model(p_att["ln_x_b"], mesh), groups=h)
+    o = row_parallel(o * F.silu(g), p_att["wo"], mesh)
     return o, x[:, -1], wkv_out.to(wkv_in.dtype)
 
 
-def _channel_mix(p_ffn, x, shift_in):
+def _channel_mix(p_ffn, x, shift_in, mesh=None):
+    """ReLU^2 channel mix.  With ``mesh``, ``wk`` is column-split and
+    ``wv`` row-split, so ``kv`` comes whole out of the all-reduce, while
+    ``sigmoid(xr @ wr)`` holds the rank's channels of ``wr``'s split and is
+    gathered before the product."""
     xx = torch.cat([shift_in[:, None, :].to(x.dtype), x[:, :-1]], dim=1)
     sx = xx - x
     xk = x + sx * p_ffn["k_maa"].to(x.dtype)
     xr = x + sx * p_ffn["r_maa"].to(x.dtype)
-    kk = F.relu(xk @ p_ffn["wk"].to(x.dtype)) ** 2
-    kv = kk @ p_ffn["wv"].to(x.dtype)
-    return torch.sigmoid(xr @ p_ffn["wr"].to(x.dtype)) * kv, x[:, -1]
+    kk = F.relu(copy_to_model(xk, mesh) @ p_ffn["wk"].to(x.dtype)) ** 2
+    kv = row_parallel(kk, p_ffn["wv"], mesh)
+    gate = torch.sigmoid(copy_to_model(xr, mesh) @ p_ffn["wr"].to(x.dtype))
+    return gather_from_model(gate, mesh) * kv, x[:, -1]
 
 
-def _block_fwd(cfg, p_blk, x, att_shift, ffn_shift, wkv):
+def _block_fwd(cfg, p_blk, x, att_shift, ffn_shift, wkv, mesh=None):
     h1 = rms_norm(x, p_blk["ln1"])
-    att, s_att, wkv = _time_mix(cfg, p_blk["att"], h1, att_shift, wkv)
+    att, s_att, wkv = _time_mix(cfg, p_blk["att"], h1, att_shift, wkv, mesh)
     x = x + att
     h2 = rms_norm(x, p_blk["ln2"])
-    ffn, s_ffn = _channel_mix(p_blk["ffn"], h2, ffn_shift)
+    ffn, s_ffn = _channel_mix(p_blk["ffn"], h2, ffn_shift, mesh)
     return x + ffn, s_att, s_ffn, wkv
 
 
@@ -176,8 +195,8 @@ def _block_fwd(cfg, p_blk, x, att_shift, ffn_shift, wkv):
 # ---------------------------------------------------------------------------
 
 
-def _zero_state(cfg: ModelConfig, batch: int, device) -> dict:
-    h, hd = _heads(cfg), cfg.rwkv_head_dim
+def _zero_state(cfg: ModelConfig, batch: int, device, mesh=None) -> dict:
+    h, hd = _heads(cfg) // model_size(mesh), cfg.rwkv_head_dim
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)  # noqa: E731
     return {
         "att_shift": zeros(cfg.n_layers, batch, cfg.d_model),
@@ -186,11 +205,11 @@ def _zero_state(cfg: ModelConfig, batch: int, device) -> dict:
     }
 
 
-def _layers(cfg: ModelConfig, params, x, state):
+def _layers(cfg: ModelConfig, params, x, state, mesh=None):
     outs = {"att_shift": [], "ffn_shift": [], "wkv": []}
     for i, p_blk in enumerate(params["blocks"]):
         x, s_att, s_ffn, wkv = _block_fwd(
-            cfg, p_blk, x, state["att_shift"][i], state["ffn_shift"][i], state["wkv"][i]
+            cfg, p_blk, x, state["att_shift"][i], state["ffn_shift"][i], state["wkv"][i], mesh
         )
         # the shifts keep the compute dtype's values in the float32 state
         outs["att_shift"].append(s_att.to(state["att_shift"].dtype))
@@ -199,24 +218,28 @@ def _layers(cfg: ModelConfig, params, x, state):
     return x, {name: torch.stack(v) for name, v in outs.items()}
 
 
-def forward(cfg: ModelConfig, params, tokens: torch.Tensor, state: dict | None = None):
+def forward(cfg: ModelConfig, params, tokens: torch.Tensor, state: dict | None = None,
+            mesh=None):
     """Prompt pass with a carried state: tokens (B, T) -> (logits
     (B, T, vocab_padded), state_out).  T must be at most ``ssm_chunk`` or
-    a multiple of it."""
+    a multiple of it.  With a rank ``mesh``, ``params`` are the rank's
+    blocks (``sharded.shard_model``), the inputs its rows, the WKV state
+    its heads', and the logits its vocabulary columns."""
     cdt = cfg.cdtype
     b, _ = tokens.shape
-    x = params["embed"][tokens].to(cdt)
-    state = state if state is not None else _zero_state(cfg, b, tokens.device)
-    x, state_out = _layers(cfg, params, x, state)
+    x = vocab_parallel_embed(params["embed"], tokens, mesh).to(cdt)
+    state = state if state is not None else _zero_state(cfg, b, tokens.device, mesh)
+    x, state_out = _layers(cfg, params, x, state, mesh)
     x = rms_norm(x, params["final_norm"])
-    logits = x @ params["lm_head"].to(cdt)
+    logits = copy_to_model(x, mesh) @ params["lm_head"].to(cdt)
     return logits, state_out
 
 
-def loss(cfg: ModelConfig, params, batch: dict):
+def loss(cfg: ModelConfig, params, batch: dict, mesh=None):
     """(nll, {"nll", "aux": 0}): the next-token loss of ``batch["tokens"]``
-    from a zero state."""
-    nll = next_token_nll(forward(cfg, params, batch["tokens"])[0], batch["tokens"], cfg.vocab)
+    from a zero state (of the rank's rows, with a ``mesh``)."""
+    logits = forward(cfg, params, batch["tokens"], mesh=mesh)[0]
+    nll = next_token_nll(logits, batch["tokens"], cfg.vocab, mesh)
     return nll, {"nll": nll, "aux": torch.zeros((), device=nll.device)}
 
 
@@ -239,3 +262,73 @@ def forward_step(cfg: ModelConfig, params, tokens: torch.Tensor, state: dict):
     x = rms_norm(x, params["final_norm"])
     logits = (x @ params["lm_head"].to(cdt))[:, 0, : cfg.vocab]
     return logits, state_out
+
+
+# ---------------------------------------------------------------------------
+# Specs & shardings (the JAX package's, per layer: see models/transformer.py)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The step inputs of ``shape`` as ``device="meta"`` tensors."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = lambda *sh, dt=torch.float32: torch.empty(sh, dtype=dt, device="meta")  # noqa: E731
+    if shape.kind in ("train", "prefill"):
+        return {"tokens": meta(b, s, dt=torch.int32)}
+    h, hd = _heads(cfg), cfg.rwkv_head_dim
+    return {"tokens": meta(b, 1, dt=torch.int32),
+            "cache": {"att_shift": meta(cfg.n_layers, b, cfg.d_model),
+                      "ffn_shift": meta(cfg.n_layers, b, cfg.d_model),
+                      "wkv": meta(cfg.n_layers, b, h, hd, hd)}}
+
+
+def _block_pspecs() -> dict:
+    return {
+        "ln1": P(None),
+        "ln2": P(None),
+        "att": {
+            "x_maa": P(None),
+            "maa": P(None, None),
+            "maa_w1": P(None, None),
+            "maa_w2": P(None, None, None),
+            "w0": P(None),
+            "wd1": P(None, None),
+            "wd2": P(None, None),
+            "u": P("model", None),
+            "wr": P(None, "model"),
+            "wk": P(None, "model"),
+            "wv": P(None, "model"),
+            "wg": P(None, "model"),
+            "wo": P("model", None),
+            "ln_x_w": P(None),
+            "ln_x_b": P(None),
+        },
+        "ffn": {
+            "k_maa": P(None),
+            "r_maa": P(None),
+            "wk": P(None, "model"),
+            "wv": P("model", None),
+            "wr": P(None, "model"),
+        },
+    }
+
+
+def param_pspecs(cfg: ModelConfig, mesh) -> dict:
+    """Specs of every parameter: heads split over "model"; the channel
+    mix's ``wr`` column-split beside its row-split ``wv``."""
+    return {
+        "embed": P("model", None),
+        "blocks": [_block_pspecs() for _ in range(cfg.n_layers)],
+        "final_norm": P(None),
+        "lm_head": P(None, "model"),
+    }
+
+
+def batch_pspecs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> dict:
+    """Specs of the step inputs: the batch split over the data axes."""
+    dp = dp_axes_for(mesh, shape.global_batch)
+    if shape.kind in ("train", "prefill"):
+        return {"tokens": P(dp, None)}
+    return {"tokens": P(dp, None),
+            "cache": {"att_shift": P(None, dp, None), "ffn_shift": P(None, dp, None),
+                      "wkv": P(None, dp, "model", None, None)}}

@@ -33,17 +33,20 @@ from torch import nn
 
 from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
+from ..launch.sharding import P
 from . import moe as moe_mod
-from .api import ModelConfig
+from .api import ModelConfig, ShapeSpec, dp_axes_for
 from .layers import (
     ParamTree,
     apply_rope,
+    attention,
     decode_attention,
     mlp,
     next_token_nll,
     normal,
     rms_norm,
 )
+from .tensor_parallel import copy_to_model, vocab_parallel_embed
 
 
 # ---------------------------------------------------------------------------
@@ -124,66 +127,61 @@ def _head(cfg: ModelConfig, params) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _attention(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    b, t, _ = x.shape
-    hd = cfg.head_dim
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, t, cfg.n_heads, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
-    q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta)
-    k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta)
-    v = v.transpose(1, 2)
-    o = kops.flash_attention(q, k, v, causal=True, window=cfg.window)
-    o = o.transpose(1, 2).reshape(b, t, cfg.n_heads * hd)
-    return o @ p["wo"].to(x.dtype)
+def _attend(cfg: ModelConfig):
+    return lambda q, k, v: kops.flash_attention(q, k, v, causal=True, window=cfg.window)
 
 
-def _ffn(cfg: ModelConfig, p, h: torch.Tensor):
+def _ffn(cfg: ModelConfig, p, h: torch.Tensor, mesh=None):
     """The block's feed-forward: (y, aux) -- the experts' and their router's
     aux loss, or the MLP's and 0."""
     if cfg.n_experts > 0:
+        if mesh is not None:
+            raise NotImplementedError(f"{cfg.name}: the sharded MoE loss is not ported yet")
         return moe_mod.moe_mlp(cfg, p["moe"], h)
-    return mlp(p["mlp"], h, cfg.act, cfg.gated_mlp), 0.0
+    return mlp(p["mlp"], h, cfg.act, cfg.gated_mlp, mesh), 0.0
 
 
-def _block_fwd(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor):
-    x = x + _attention(cfg, p["attn"], rms_norm(x, p["ln1"]), positions)
-    y, aux = _ffn(cfg, p, rms_norm(x, p["ln2"]))
+def _block_fwd(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor, mesh=None):
+    x = x + attention(cfg, p["attn"], rms_norm(x, p["ln1"]), positions, _attend(cfg), mesh)
+    y, aux = _ffn(cfg, p, rms_norm(x, p["ln2"]), mesh)
     return x + y, aux
 
 
 def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
-            patches: Optional[torch.Tensor] = None):
+            patches: Optional[torch.Tensor] = None, mesh=None):
     """Prompt pass: tokens (B, T), and ``patches`` (B, Pn, D) prepended to
     their embeddings (the VLM stub) -> (logits (B, Pn + T, vocab_padded),
     aux loss as a float32 scalar: the routers' summed over layers, 0 for a
-    dense model)."""
+    dense model).  With a rank ``mesh``, ``params`` are the rank's blocks
+    (``sharded.shard_model``), the inputs its rows, and the logits its
+    vocabulary columns; a dense model only."""
     cdt = cfg.cdtype
-    x = params["embed"][tokens].to(cdt)
+    x = vocab_parallel_embed(params["embed"], tokens, mesh).to(cdt)
     if patches is not None:
         x = torch.cat([patches.to(cdt), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params["blocks"]:
-        x, aux_l = _block_fwd(cfg, blk, x, positions)
+        x, aux_l = _block_fwd(cfg, blk, x, positions, mesh)
         aux = aux + aux_l
     x = rms_norm(x, params["final_norm"])
-    logits = x @ _head(cfg, params).to(cdt)
+    logits = copy_to_model(x, mesh) @ _head(cfg, params).to(cdt)
     return logits, aux
 
 
-def loss(cfg: ModelConfig, params, batch: dict):
+def loss(cfg: ModelConfig, params, batch: dict, mesh=None):
     """(total, {"nll", "aux"}): the next-token loss of ``batch["tokens"]``
     (B, T) plus the routers' aux loss (0 for a dense model, a scalar that
     carries gradient into every router for a MoE one).  With
     ``batch["patches"]`` (B, Pn, D) prepended, only the text region's
-    logits count."""
+    logits count.  With a rank ``mesh``: the loss of the rank's rows from
+    its parameter blocks, the same on every rank of a "model" line."""
     tokens = batch["tokens"]
     patches = batch.get("patches")
-    logits, aux = forward(cfg, params, tokens, patches)
+    logits, aux = forward(cfg, params, tokens, patches, mesh)
     if patches is not None:
         logits = logits[:, patches.shape[1]:]  # text region only
-    nll = next_token_nll(logits, tokens, cfg.vocab)
+    nll = next_token_nll(logits, tokens, cfg.vocab, mesh)
     return nll + aux, {"nll": nll, "aux": aux}
 
 
@@ -238,3 +236,84 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor):
     x = rms_norm(x, params["final_norm"])
     logits = (x @ _head(cfg, params).to(cdt))[:, 0, : cfg.vocab]
     return logits, {"k": cache["k"], "v": cache["v"], "len": cur + 1}
+
+
+# ---------------------------------------------------------------------------
+# Specs & shardings
+# ---------------------------------------------------------------------------
+#
+# The JAX package's specs, on the port's layout: "blocks" is a list of
+# per-layer trees, so each per-layer spec is the JAX one without its
+# leading (layer) entry.  input_specs gives meta tensors (the
+# ShapeDtypeStruct counterpart).
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The step inputs of ``shape`` as ``device="meta"`` tensors."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = lambda sh, dt: torch.empty(sh, dtype=dt, device="meta")  # noqa: E731
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": meta((b, s), torch.int32)}
+        if cfg.n_patches:
+            specs["patches"] = meta((b, cfg.n_patches, cfg.d_model), cfg.cdtype)
+        return specs
+    kv = meta((cfg.n_layers, b, cfg.n_kv_heads, cache_len(cfg, s), cfg.head_dim), cfg.cdtype)
+    return {"tokens": meta((b, 1), torch.int32),
+            "cache": {"k": kv, "v": kv, "len": meta((), torch.int32)}}
+
+
+def _kv_heads_spec(cfg: ModelConfig, mesh, batch: int):
+    """Shard KV heads on 'model' when divisible, else shard head_dim."""
+    dp = dp_axes_for(mesh, batch)
+    model_size = mesh.shape.get("model", 1)
+    if cfg.n_kv_heads % model_size == 0:
+        return P(None, dp, "model", None, None)
+    if cfg.head_dim % model_size == 0:
+        return P(None, dp, None, None, "model")
+    return P(None, dp, None, None, None)
+
+
+def _block_pspecs(cfg: ModelConfig, mesh) -> dict:
+    model_size = mesh.shape.get("model", 1)
+    blk = {
+        "ln1": P(None),
+        "ln2": P(None),
+        "attn": {"wq": P(None, "model"), "wk": P(None, "model"), "wv": P(None, "model"),
+                 "wo": P("model", None)},
+    }
+    if cfg.n_experts > 0:
+        if cfg.expert_sharding == "ep" and cfg.n_experts % model_size == 0:
+            ex = {"wi": P("model", None, None), "wo": P("model", None, None)}
+        else:
+            ex = {"wi": P(None, None, "model"), "wo": P(None, "model", None)}
+        blk["moe"] = {"router": P(None, None), "experts": ex}
+        if cfg.n_shared_experts > 0:
+            blk["moe"]["shared"] = {"wi": P(None, "model"), "wo": P("model", None)}
+    else:
+        blk["mlp"] = {"wi": P(None, "model"), "wo": P("model", None)}
+    return blk
+
+
+def param_pspecs(cfg: ModelConfig, mesh) -> dict:
+    """Specs of every parameter: column-parallel ``wq`` / ``wk`` / ``wv`` /
+    ``wi``, row-parallel ``wo``, the vocabulary split over "model"."""
+    specs = {
+        "embed": P("model", None),
+        "blocks": [_block_pspecs(cfg, mesh) for _ in range(cfg.n_layers)],
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, "model")
+    return specs
+
+
+def batch_pspecs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> dict:
+    """Specs of the step inputs: the batch split over the data axes."""
+    dp = dp_axes_for(mesh, shape.global_batch)
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": P(dp, None)}
+        if cfg.n_patches:
+            specs["patches"] = P(dp, None, None)
+        return specs
+    kv = _kv_heads_spec(cfg, mesh, shape.global_batch)
+    return {"tokens": P(dp, None), "cache": {"k": kv, "v": kv, "len": P()}}

@@ -35,7 +35,8 @@ from torch import nn
 
 from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
-from .api import ModelConfig
+from ..launch.sharding import P
+from .api import ModelConfig, ShapeSpec, dp_axes_for
 from .layers import ParamTree, decode_attention, layer_norm, mlp, next_token_nll, normal
 
 POS_DEC_ROWS = 32_768
@@ -254,3 +255,59 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor):
     x = layer_norm(x, params["dec_ln"]["w"], params["dec_ln"]["b"])
     logits = (x @ params["embed"].T.to(cdt))[:, 0, : cfg.vocab]
     return logits, {**cache, "len": cur + 1}
+
+
+# ---------------------------------------------------------------------------
+# Specs & shardings (the JAX package's, per layer: see models/transformer.py)
+# ---------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """The step inputs of ``shape`` as ``device="meta"`` tensors."""
+    b, s = shape.global_batch, shape.seq_len
+    meta = lambda sh, dt: torch.empty(sh, dtype=dt, device="meta")  # noqa: E731
+    if shape.kind in ("train", "prefill"):
+        return {"frames": meta((b, cfg.enc_seq, cfg.d_model), cfg.cdtype),
+                "tokens": meta((b, s), torch.int32)}
+    kv = lambda sl: meta((cfg.n_layers, b, cfg.n_kv_heads, sl, cfg.head_dim), cfg.cdtype)  # noqa: E731
+    return {"tokens": meta((b, 1), torch.int32),
+            "cache": {"self_k": kv(s), "self_v": kv(s), "cross_k": kv(cfg.enc_seq),
+                      "cross_v": kv(cfg.enc_seq), "len": meta((), torch.int32)}}
+
+
+def _attn_pspecs() -> dict:
+    return {"wq": P(None, "model"), "wk": P(None, "model"), "wv": P(None, "model"),
+            "wo": P("model", None)}
+
+
+def _ln_pspecs() -> dict:
+    return {"w": P(None), "b": P(None)}
+
+
+def param_pspecs(cfg: ModelConfig, mesh) -> dict:
+    """Specs of every parameter (the sharded whisper loss is not ported)."""
+    mlp_specs = lambda: {"wi": P(None, "model"), "wo": P("model", None)}  # noqa: E731
+    enc = lambda: {"ln1": _ln_pspecs(), "attn": _attn_pspecs(), "ln2": _ln_pspecs(),  # noqa: E731
+                   "mlp": mlp_specs()}
+    dec = lambda: {"ln1": _ln_pspecs(), "self_attn": _attn_pspecs(), "ln_x": _ln_pspecs(),  # noqa: E731
+                   "cross_attn": _attn_pspecs(), "ln2": _ln_pspecs(), "mlp": mlp_specs()}
+    return {
+        "embed": P("model", None),
+        "pos_dec": P(None, None),
+        "enc_blocks": [enc() for _ in range(cfg.n_enc_layers)],
+        "dec_blocks": [dec() for _ in range(cfg.n_layers)],
+        "enc_ln": _ln_pspecs(),
+        "dec_ln": _ln_pspecs(),
+    }
+
+
+def batch_pspecs(cfg: ModelConfig, shape: ShapeSpec, mesh) -> dict:
+    """Specs of the step inputs: the batch split over the data axes."""
+    dp = dp_axes_for(mesh, shape.global_batch)
+    if shape.kind in ("train", "prefill"):
+        return {"frames": P(dp, None, None), "tokens": P(dp, None)}
+    model_size = mesh.shape.get("model", 1)
+    kv = (P(None, dp, "model", None, None) if cfg.n_kv_heads % model_size == 0
+          else P(None, dp, None, None, None))
+    return {"tokens": P(dp, None),
+            "cache": {"self_k": kv, "self_v": kv, "cross_k": kv, "cross_v": kv, "len": P()}}

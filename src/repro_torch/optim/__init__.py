@@ -8,5 +8,7 @@ from .adamw import (  # noqa: F401
     apply_updates,
     global_norm,
     init,
+    opt_state_pspecs,
     schedule,
+    zero1_pspecs,
 )

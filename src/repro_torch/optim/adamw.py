@@ -15,8 +15,11 @@ of the update stay near one group's size.  The schedule is a function of
 the step, which the host knows: it is computed there, and nothing in an
 update reads a value back from the card.
 
-The JAX package's ``zero1_pspecs`` / ``opt_state_pspecs`` (sharding
-specs over a mesh) belong to the distributed path and are not here.
+``zero1_pspecs`` / ``opt_state_pspecs`` are the JAX package's specs of
+the optimizer state over a rank mesh (:mod:`repro_torch.launch.sharding`);
+``repro_torch.train.make_train_step(..., mesh=...)`` keeps each rank's
+block of them and updates it with :func:`apply_updates`, given the global
+norm it computed over the mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import math
 from typing import Optional
 
 import torch
+
+from ..launch.sharding import P, entry_axes, tree_map
 
 # Tensors of one foreach group: their sizes summed stay at or under this
 # (or it is a single larger tensor).
@@ -107,17 +112,21 @@ def _groups(tensors: list) -> list[list[int]]:
 
 
 @torch.no_grad()
-def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState) -> dict:
+def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState,
+                  gnorm: Optional[torch.Tensor] = None) -> dict:
     """One AdamW step in place: ``params`` (and ``state.master``), ``m``,
     ``v`` and ``state.step`` change; ``grads`` (keyed as ``params``) are
-    read.  Returns {"grad_norm": the unclipped global norm (a 0-d tensor),
-    "lr": the step's learning rate}."""
+    read.  ``gnorm``: the global norm to clip by, where the tensors given
+    are blocks of a sharded model's (default: theirs).  Returns
+    {"grad_norm": the unclipped global norm (a 0-d tensor), "lr": the
+    step's learning rate}."""
     state.step += 1
     step = state.step
     lr = schedule(cfg, step)
     names = list(params)
     g_all = _float32([grads[n] for n in names])
-    gnorm = global_norm(g_all)
+    if gnorm is None:
+        gnorm = global_norm(g_all)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = cfg.betas
     bc1, bc2 = 1.0 - b1**step, 1.0 - b2**step
@@ -151,3 +160,42 @@ def apply_updates(cfg: AdamWConfig, params: dict, grads: dict, state: AdamWState
             for i, new in zip(idx, p32):
                 params[names[i]].copy_(new)
     return {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: shard optimizer moments over the data axis where possible
+# ---------------------------------------------------------------------------
+
+
+def zero1_pspecs(param_pspecs, params, mesh):
+    """Moment specs: the parameter's spec plus "data" on the first
+    dimension it leaves unsharded whose size the data axis divides (the
+    spec itself when none does, when the leaf is already split over
+    "data", or on a mesh without a data axis of size > 1).  ``params``
+    has ``param_pspecs``'s structure (nested dicts and lists) and holds
+    tensors (``device="meta"`` ones do) or shapes."""
+    data = mesh.shape.get("data", 1)
+
+    def one(spec, p):
+        if data <= 1:
+            return spec
+        if "data" in {a for e in spec for a in entry_axes(e)}:
+            return spec
+        shape = tuple(p.shape) if hasattr(p, "shape") else tuple(p)
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        for i, (e, dim) in enumerate(zip(entries, shape)):
+            if e is None and dim % data == 0:
+                entries[i] = "data"
+                return P(*entries)
+        return spec
+
+    return tree_map(one, param_pspecs, params)
+
+
+def opt_state_pspecs(param_pspecs, params, mesh, zero1: bool = False,
+                     master_weights: bool = False) -> AdamWState:
+    """The specs of an :class:`AdamWState` of parameters placed by
+    ``param_pspecs``: the step replicated, ``m`` / ``v`` (and ``master``)
+    as the parameters, or by :func:`zero1_pspecs` with ``zero1``."""
+    mspec = zero1_pspecs(param_pspecs, params, mesh) if zero1 else param_pspecs
+    return AdamWState(step=P(), m=mspec, v=mspec, master=mspec if master_weights else None)

@@ -13,9 +13,16 @@ A port of :mod:`repro.train.loop`:
   tests use to prove crash recovery.  It runs on the card unless
   ``device`` names another.
 
-Left out: the JAX loop's ``mesh`` argument and ``TrainConfig.zero1``
-(read by none of its training code) -- the distributed path, a later
-slice, adds what it reads.
+With a rank mesh (:mod:`repro_torch.launch.mesh`), ``make_train_step``
+returns the step that ``jax.jit`` makes of the JAX package's step given
+parameter and optimizer-state shardings (``launch/dryrun.py``): each rank
+takes its blocks of the parameters (``fam.param_pspecs``,
+:func:`repro_torch.models.sharded.shard_model`), of the batch
+(``fam.batch_pspecs``) and of the AdamW state (``opt_state_pspecs(...,
+zero1=train_cfg.zero1)``, :func:`init_sharded_opt_state`), and updates
+them in place.  ``TrainLoop`` drives the single process only: it has no
+``mesh`` argument (the JAX loop stores one and reads it nowhere); a
+sharded run calls ``make_train_step(..., mesh=...)`` on each rank.
 """
 
 from __future__ import annotations
@@ -40,7 +47,8 @@ from .checkpoint import CheckpointManager
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX package's loop settings, with its defaults (the checkpoint
-    directory under the temp directory), less its unread ``zero1``."""
+    directory under the temp directory).  ``zero1`` is read by the sharded
+    step only."""
 
     steps: int = 100
     microbatches: int = 1  # gradient accumulation factor
@@ -49,6 +57,7 @@ class TrainConfig:
         default_factory=lambda: str(Path(tempfile.gettempdir()) / "repro_torch_ckpt"))
     keep_checkpoints: int = 3
     log_every: int = 10
+    zero1: bool = False  # shard AdamW's moments over "data" (sharded step)
     grad_compress: bool = False  # int8 error-feedback round trip of every gradient
     straggler_factor: float = 2.5  # flag a step slower than factor * median
     seed: int = 0
@@ -65,7 +74,8 @@ def _microbatches(batch: dict, n: int) -> list[dict]:
     return [{name: p[i] for name, p in parts.items()} for i in range(n)]
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, train_cfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, train_cfg: TrainConfig,
+                    mesh=None):
     """``step(model, opt_state, err_state, batch) -> metrics``: one
     optimizer step on ``batch`` (a dict of tensors: ``tokens``, and
     ``patches`` or ``frames`` where the family reads them).  The model's
@@ -73,7 +83,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, train_cfg: Tra
     metrics (``loss``, ``nll``, ``aux``, ``grad_norm``, ``lr``) are 0-d
     tensors but ``lr``.  With microbatches the gradient is the mean of the
     microbatches' and ``loss`` their mean loss (``aux`` 0), as in the JAX
-    loop.  A parameter the loss does not reach gets a zero gradient."""
+    loop.  A parameter the loss does not reach gets a zero gradient.
+
+    With ``mesh``: the sharded step (:func:`_sharded_step`)."""
+    if mesh is not None:
+        return _sharded_step(cfg, opt_cfg, train_cfg, mesh)
     fam = get_family(cfg)
     nmicro = train_cfg.microbatches
 
@@ -105,6 +119,110 @@ def make_train_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, train_cfg: Tra
         for p in params.values():
             p.grad = None
         return {**metrics, **om, "loss": loss}
+
+    return step
+
+
+def zero1_dims(cfg: ModelConfig, model, mesh, zero1: bool) -> dict:
+    """``{parameter name: the dimension its moments split over "data", or
+    None}`` by ``zero1_pspecs`` (None everywhere without ``zero1``)."""
+    from ..models.sharded import param_specs
+
+    specs = param_specs(cfg, mesh)
+    params = dict(model.named_parameters())
+    if not zero1:
+        return {n: None for n in params}
+    mspecs = optim.zero1_pspecs({n: specs[n] for n in params}, params, mesh)
+    out = {}
+    for n in params:
+        m, s = tuple(mspecs[n]), tuple(specs[n])
+        s += (None,) * (len(m) - len(s))
+        out[n] = next((i for i, (a, b) in enumerate(zip(m, s)) if a == "data" and b != "data"),
+                      None)
+    return out
+
+
+def _zero1_view(t: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
+    """The data rank's slice of ``t`` along ``dim`` (``t`` for None)."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // mesh.shape["data"]
+    return t.narrow(dim, mesh.axis_index(("data",)) * n, n)
+
+
+def init_sharded_opt_state(cfg: ModelConfig, model, mesh, zero1: bool = False):
+    """The rank's block of a fresh AdamW state of the rank's model
+    (:func:`repro_torch.models.sharded.shard_model`): by the parameters'
+    specs, or by ``zero1_pspecs`` -- each data rank's slice of ``m`` and
+    ``v`` -- with ``zero1``."""
+    dims = zero1_dims(cfg, model, mesh, zero1)
+    return optim.init({n: _zero1_view(p.detach(), dims[n], mesh)
+                       for n, p in model.named_parameters()})
+
+
+def _sharded_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, train_cfg: TrainConfig, mesh):
+    """``step(model, opt_state, err_state, batch) -> metrics`` on the rank's
+    blocks: ``model`` from ``shard_model``, ``opt_state`` from
+    :func:`init_sharded_opt_state` (with ``train_cfg.zero1``), ``batch``
+    the rank's block by ``batch_pspecs``.  The gradient is averaged over
+    the data axes; the global norm sums the squares of a "model"-split
+    leaf over "model" and counts a replicated leaf once; with ZeRO-1 each
+    data rank updates its slice of every parameter (and of ``m``, ``v``)
+    and the slices are gathered over "data" after the update.  Metrics as
+    the single process's (``nll`` = ``loss``, ``aux`` 0).  Not with
+    ``grad_compress``: the int8 scale of a leaf is its whole tensor's."""
+    from ..core.distributed import all_reduce_axis
+    from ..launch.sharding import P, gather_shards, spec_axes
+    from ..models import sharded
+
+    if train_cfg.grad_compress:
+        raise NotImplementedError("the sharded step does not compress gradients")
+    nmicro = train_cfg.microbatches
+    specs = sharded.param_specs(cfg, mesh)
+    split = {n for n, sp in specs.items() if "model" in spec_axes(sp)}
+    dims_cache: dict = {}
+
+    def step(model, opt_state, err_state, batch):
+        params = dict(model.named_parameters())
+        if nmicro == 1:
+            loss, grads = sharded.value_and_grad(cfg, model, batch, mesh)
+        else:
+            loss, grads = None, None
+            for mb in _microbatches(batch, nmicro):
+                l_mb, g_mb = sharded.value_and_grad(cfg, model, mb, mesh)
+                loss = l_mb if loss is None else loss + l_mb
+                if grads is None:
+                    grads = g_mb
+                else:
+                    for n in grads:
+                        grads[n] += g_mb[n]
+            loss = loss / nmicro
+            grads = {n: g / nmicro for n, g in grads.items()}
+        dev = loss.device
+        sq_split = torch.zeros((), dtype=torch.float32, device=dev)
+        sq_rep = torch.zeros((), dtype=torch.float32, device=dev)
+        for n, g in grads.items():
+            sq = g.float().pow(2).sum()
+            if n in split:
+                sq_split += sq
+            else:
+                sq_rep += sq
+        if mesh.shape.get("model", 1) > 1:
+            sq_split = all_reduce_axis(sq_split, mesh, "model")
+        gnorm = torch.sqrt(sq_split + sq_rep)
+        if "dims" not in dims_cache:
+            dims_cache["dims"] = zero1_dims(cfg, model, mesh, train_cfg.zero1)
+        dims = dims_cache["dims"]
+        with torch.no_grad():
+            p_views = {n: _zero1_view(p, dims[n], mesh) for n, p in params.items()}
+            g_views = {n: _zero1_view(g, dims[n], mesh) for n, g in grads.items()}
+            om = optim.apply_updates(opt_cfg, p_views, g_views, opt_state, gnorm=gnorm)
+            for n, d in dims.items():
+                if d is not None:
+                    spec = P(*([None] * d + ["data"]))
+                    params[n].copy_(gather_shards(p_views[n].contiguous(), spec, mesh))
+        zero = torch.zeros((), device=dev)
+        return {"nll": loss, "aux": zero, **om, "loss": loss}
 
     return step
 

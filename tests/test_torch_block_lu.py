@@ -222,12 +222,36 @@ def test_pad_couplings_layout():
 
 
 def test_plain_versions_compute_in_float32_and_store_the_input_dtype():
+    """The plain versions compute in the wider of float32 and the storage:
+    float32 storage in float32, as before (the float64 factors differ from
+    it); float64 storage in float64, equal to the JAX package's float64
+    btf_ref, bts_ref and fused pass within 1e-12."""
+    import jax
+
     rng = np.random.default_rng(7)
-    d, e, f, _, _ = _chain(rng, 2, 3, 4)
-    fac64 = tbl.btf_ref(*(torch.tensor(x, dtype=torch.float64) for x in (d, e, f)))
+    d, e, f, b_cpl, c_cpl = _chain(rng, 2, 3, 4)
+    b = rng.normal(size=(2, 3, 4, 2))
+    t64 = [torch.tensor(x, dtype=torch.float64) for x in (d, e, f, b_cpl, c_cpl, b)]
+    fac64 = tbl.btf_ref(*t64[:3])
     fac32 = tbl.btf_ref(_t(d), _t(e), _t(f))
-    assert fac64.sinv.dtype == torch.float64
-    torch.testing.assert_close(fac64.sinv.float(), fac32.sinv, rtol=0, atol=0)
+    assert fac64.sinv.dtype == torch.float64 and fac32.sinv.dtype == torch.float32
+    want32 = np.linalg.inv(d[:, 0].astype(np.float32))
+    np.testing.assert_allclose(fac32.sinv[:, 0].numpy(), want32, rtol=1e-5, atol=1e-6)
+    assert float((fac64.sinv.float() - fac32.sinv).abs().max()) > 0.0
+    x64 = tbl.bts_ref(fac64, t64[5])
+    fs64 = tbl.fused_factor_spike_ref(*t64[:5])
+    assert x64.dtype == torch.float64 and fs64.v_bot.dtype == torch.float64
+    with jax.enable_x64(True):
+        j64 = [jnp.asarray(x.numpy()) for x in t64]
+        jfac = jbl.btf_ref(*j64[:3])
+        jx = jbl.bts_ref(jfac, j64[5])
+        jfs = jbl.fused_factor_spike_ref(*j64[:5])
+        assert jfac.sinv.dtype == jnp.float64
+        pairs = [(fac64.sinv, jfac.sinv), (fac64.l, jfac.l), (x64, jx)]
+        pairs += [(getattr(fs64, n), getattr(jfs, n)) for n in ("v_bot", "v_top", "w_top", "w_bot")]
+        pairs += [(fs64.lu.sinv, jfs.lu.sinv)]
+        for port, ref in pairs:
+            np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=0, atol=1e-12)
 
 
 # ---------------------------------------------------------------------------

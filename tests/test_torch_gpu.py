@@ -1864,3 +1864,100 @@ def test_sequence_parallel_scans_on_two_ranks_of_the_card(cuda):
         _close(shards[1][name]["s"].to(cuda), s_ref)
         for sh in shards:
             assert sh[name]["routes"] == {"block": 0, "step": 0, "split": 1}, sh[name]["routes"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded LM loss on two ranks of the card (one gloo group on cuda:0)
+# ---------------------------------------------------------------------------
+
+SHARDED_B, SHARDED_T = 4, 64
+
+
+def _sharded_cfg(name):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(name, reduced=True), compute_dtype="float32")
+
+
+def _sharded_inputs(cfg, dev):
+    from repro_torch.models import get_family
+
+    model = get_family(cfg).init(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab, (SHARDED_B, SHARDED_T),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    return model, tokens
+
+
+def _sharded_body(names):
+    """The sharded loss and gradient of each reduced config on a (1, 2)
+    ("data", "model") mesh of this process's rank: the loss, the gathered
+    gradients and this rank's flash launches."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_test_mesh((1, 2), ("data", "model"))
+    out = {}
+    for name in names:
+        cfg = _sharded_cfg(name)
+        model, tokens = _sharded_inputs(cfg, mesh.device)
+        local = sharded.shard_model(cfg, model, mesh)
+        before = flash_attention.launches
+        loss, grads = sharded.value_and_grad(cfg, local, {"tokens": tokens}, mesh)
+        out[name] = {"loss": float(loss), "flash": flash_attention.launches - before,
+                     "grads": {n: g.cpu() for n, g in sharded.gather_tree(cfg, grads, mesh).items()}}
+    return out if dist.get_rank() == 0 else None
+
+
+def test_sharded_dense_loss_on_two_ranks_of_the_card(cuda):
+    """The dense loss split over "model" on two ranks of the card (MHA and
+    GQA, float32 compute) against the single process on the card: the loss
+    within 1e-5 relative, each gathered gradient within 1e-4 of its
+    largest magnitude (the CPU tests' limits); each rank's attention ran
+    on the flash kernel, one launch a layer."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import get_family
+
+    names = ("stablelm-1.6b", "minitron-8b")
+    build.build_all()
+    got = spawn_ranks(_sharded_body, 2, args=(names,), timeout=300)[0]
+    for name in names:
+        cfg = _sharded_cfg(name)
+        model, tokens = _sharded_inputs(cfg, cuda)
+        model.requires_grad_(True)
+        loss, _ = get_family(cfg).loss(cfg, model, {"tokens": tokens})
+        loss.backward()
+        assert abs(got[name]["loss"] - float(loss)) <= 1e-5 * abs(float(loss)), name
+        assert got[name]["flash"] == cfg.n_layers, name
+        for n, p in model.named_parameters():
+            want = p.grad.detach()
+            err = float((got[name]["grads"][n].to(cuda) - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), (name, n, err)
+
+
+def test_model_kernels_at_the_ranks_local_head_shapes(cuda):
+    """flash, WKV6 and SSD at the shapes the sharded loss gives one rank of
+    a (2, 2) mesh at the published widths (half the heads, half the batch
+    of B=8, T=256): stablelm-1.6b's 16 of 32 heads in bfloat16,
+    rwkv6-1.6b's 16 of 32, zamba2-2.7b's 40 of 80 with B and C shared;
+    against their plain versions within phase 3's limits."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    from repro_torch.kernels.wkv import wkv6, wkv6_plain
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(4, 16, 256, 64, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    _close_bf16(ops.flash_attention(q, k, v, causal=True), flash_attention_ref(q, k, v, True))
+    args = _wkv_args(cuda, 4 * 16, 256, 64)
+    for got, want in zip(wkv6(*args, 64), wkv6_plain(*args, 64)):
+        _close(got, want)
+    args = _ssd_args(cuda, 4 * 40, 256, 64, 64, hshare=40)
+    for got, want in zip(ssd(*args, 64, hshare=40), ssd_plain(*args, 64, hshare=40)):
+        _close(got, want)

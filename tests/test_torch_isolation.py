@@ -55,7 +55,7 @@ def test_port_files_are_found():
             "deepseek_moe_16b.py", "mixtral_8x22b.py", "phi3_vision_4_2b.py",
             "whisper_medium.py", "autograd.py", "adamw.py", "compress.py", "pipeline.py",
             "checkpoint.py", "loop.py", "mesh.py", "distributed.py",
-            "sequence_parallel.py"} <= names
+            "sequence_parallel.py", "sharding.py", "sharded.py", "tensor_parallel.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/models/convert.py", "src/repro_torch/serve/engine.py",
             "src/repro_torch/configs/__init__.py", "src/repro_torch/core/batched.py",
@@ -73,7 +73,9 @@ def test_port_files_are_found():
             "src/repro_torch/optim/compress.py", "src/repro_torch/data/pipeline.py",
             "src/repro_torch/train/checkpoint.py", "src/repro_torch/train/loop.py",
             "src/repro_torch/launch/mesh.py", "src/repro_torch/core/distributed.py",
-            "src/repro_torch/models/sequence_parallel.py"} <= rel
+            "src/repro_torch/models/sequence_parallel.py",
+            "src/repro_torch/launch/sharding.py", "src/repro_torch/models/sharded.py",
+            "src/repro_torch/models/tensor_parallel.py"} <= rel
 
 
 def test_obs_and_launch_load_neither_jax_nor_the_reference_package():
@@ -81,7 +83,7 @@ def test_obs_and_launch_load_neither_jax_nor_the_reference_package():
     module of jax or of ``repro``."""
     code = (
         "import sys, repro_torch.obs, repro_torch.obs.cost, repro_torch.launch, "
-        "repro_torch.launch.calibrate\n"
+        "repro_torch.launch.calibrate, repro_torch.launch.sharding, repro_torch.models.sharded\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

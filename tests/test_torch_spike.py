@@ -89,7 +89,7 @@ def test_exact_variant_solves_the_banded_system():
     pc = ts.build_preconditioner(bt, variant="E", precond_dtype=torch.float64)
     x = torch.tensor(np.random.default_rng(1).normal(size=n))
     z = pc.apply(tb.band_matvec(torch.tensor(band), x))
-    torch.testing.assert_close(z, x, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(z, x, rtol=1e-10, atol=1e-10)
 
 
 @pytest.mark.parametrize("reduced_solver", ["bcr", "auto"])

@@ -296,12 +296,13 @@ def test_batches_with_patches_and_frames_train(tmp_path):
 
 
 def test_jax_and_port_train_configs_carry_the_same_fields():
-    """Every field but ``zero1``, which no training code of the JAX package
-    reads (the distributed path will bring what reads it)."""
+    """Every field, ``zero1`` (read by the sharded step) included, with the
+    same defaults but the checkpoint directory."""
     import dataclasses
 
     mine = {f.name for f in dataclasses.fields(TrainConfig)}
-    assert mine == {f.name for f in dataclasses.fields(JaxTrainConfig)} - {"zero1"}
+    assert mine == {f.name for f in dataclasses.fields(JaxTrainConfig)}
     assert functools.reduce(lambda a, b: a and b, [
         getattr(TrainConfig(), f) == getattr(JaxTrainConfig(), f)
         for f in mine if f != "checkpoint_dir"])
+
