@@ -58,6 +58,27 @@ calibrate. ``repro_torch.launch.calibrate``: the card's float32 GEMM rate
    cluster size, reduce's by tile size, rhs_reduce's by CTAs a block and
    backsub's by cluster size (an R <= 8 solve on the tiled kernels
    fails);
+dtypes (after phase distributed, so that phase trace runs where it
+   always did). The preconditioner's and the scans' storage dtypes: every solver
+   kernel's bfloat16 and float64 instantiation against its plain version
+   in the same dtype on the card (bfloat16 element by element within one
+   bfloat16 step plus KERNEL_RTOL of the largest value, float64 within
+   DTYPE_F64_RTOL of the largest value) at the main shape (P=64, M=16,
+   K=200), K=37 and K=256, the SaP-E interface chains of 63 and 499
+   blocks of 2K=400 (btf / bts on the chain, cut to its first 64 blocks at
+   499; every BCR kernel at every level of both), the fleet's folded K=16 (1,024 chains; BCR over the 64
+   stacked chains of 2K=32), each row with its cluster size, tile, split
+   or copy route; WKV6 and SSD with bfloat16 inputs at the LM decode and
+   prefill shapes and at chunk 37; then the N=200,000 slices with a
+   float64 preconditioner at tol 1e-10 (D, C, E by chain at P=8, E by BCR
+   at P=64; true_resnorm <= 1e-9, float32's stall printed beside), a
+   bfloat16 one under ``solver="refine"`` at tol 1e-8 (C, E by BCR;
+   true_resnorm <= 1e-8, float32's sweeps beside) and under BiCGStab(2)
+   (R11's witness, printed), one ``SolverEngine`` fleet step of 64
+   systems in each dtype, the launches by (kernel, dtype) of that path
+   (each kernel must launch in each dtype); then a float64 matmul rate
+   (the calibrated float64 ceiling) and every (kernel, dtype) timed at
+   the main shape beside float32, the scans at the prefill shape;
 distributed. ``repro_torch.core.distributed`` on 4 ranks of one gloo group
    on the card (``spawn_ranks``; four processes time-sharing cuda:0, so no
    time is a scaling result): ``full()`` through D, C and "auto", and
@@ -117,7 +138,13 @@ lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
    (B=4, T=512) timed, and a ``ServeEngine`` with 8 slots draining 16
    requests (prompts of 16-48 tokens, 32 new tokens each), with the
    WKV / SSD launches of each path by route (none may take the one-block
-   kernel) and a profiler window of decode ticks;
+   kernel) and a profiler window of decode ticks; then the same model
+   with ``scan_dtype="bfloat16"`` against its float32 scans (5 decode
+   ticks and a B=4, T=512 prefill, each from an empty state and, for
+   RWKV6, from a 64-token prefix's state), each reading beside the plain
+   versions' bfloat16 scans (the witness) and within LM_BF16_SCAN_RTOL of
+   the largest logit or LM_BF16_SCAN_WITNESS times the witness, its
+   bfloat16 scan launches counted;
 dense. Minitron-8B at its published width and depth (32 layers, d=4096,
    GQA 32 over 8, vocab 256,000), random float32 weights from a seeded
    generator, after the other models are freed: ``forward`` over 128
@@ -218,13 +245,17 @@ sharded. The LM loss on a (2, 2) ("data", "model") mesh of 4 gloo ranks,
    under the kernel's (data sheet) bound.  Then each row's share of both
    bounds, a share above 1 of the calibrated bound printed as it is.
 
-Then the kernel summary line, the card's ``nvidia-smi`` name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
+Then the kernel summary line (a row per kernel, and per (kernel, dtype)
+of phase "dtypes": its launches in that phase's slices and fleet steps --
+the scans' in phase lm's bfloat16 runs -- its error against the plain
+version, its time at the main shape), the card's ``nvidia-smi`` name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero without that line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -453,16 +484,18 @@ def check_close(what: str, kernel, plain, rtol: float = KERNEL_RTOL) -> float:
     return err
 
 
-def check_close_bf16(what: str, kernel, plain) -> tuple[float, float]:
+def check_close_bf16(what: str, kernel, plain, atol: float = FLASH_BF16_ATOL
+                     ) -> tuple[float, float]:
     """(max abs difference, largest difference over its limit): every
-    element within FLASH_BF16_STEP |plain| + FLASH_BF16_ATOL max |plain|."""
+    element within FLASH_BF16_STEP |plain| + atol max |plain| (atol
+    FLASH_BF16_ATOL unless given)."""
     import torch
 
     if not bool(torch.isfinite(kernel).all()):
         raise AssertionError(f"{what}: kernel output is not finite")
     got, want = kernel.double(), plain.double()
     diff = (got - want).abs()
-    limit = FLASH_BF16_STEP * want.abs() + FLASH_BF16_ATOL * float(want.abs().max())
+    limit = FLASH_BF16_STEP * want.abs() + atol * float(want.abs().max())
     share = float((diff / limit).max())
     if share > 1.0:
         bad = int((diff > limit).sum())
@@ -2574,6 +2607,609 @@ def sharded_phase(dev, smi, cal) -> dict:
     return launches
 
 
+
+# ---- dtypes: bfloat16 and float64 storage in the solver kernels, bfloat16 scans
+#
+# Phase "dtypes" holds every solver kernel's bfloat16 and float64
+# instantiation, and the scans' bfloat16 one, against the plain versions on
+# the card in the same storage (DTYPE_* limits), drives the main slice at
+# N=200,000, K=200 with a float64 and a bfloat16 preconditioner and one
+# fleet step in each, and times each (kernel, dtype) at the main shape
+# beside float32.  Phase "lm" adds the models with scan_dtype="bfloat16"
+# (lm_bf16_scan_check).
+DTYPE_F64_RTOL = 1e-10  # float64 kernel against plain: normwise, of the largest plain value
+DTYPE_F64_TOL, DTYPE_F64_RESNORM = 1e-10, 1e-9  # float64 preconditioner, BiCGStab(2)
+DTYPE_BF16_TOL = 1e-8  # bfloat16 preconditioner under solver="refine": true_resnorm <= tol
+DTYPE_F32_WITNESS_MAXITER = 60  # P2: float32 at tol 1e-10 runs to its cap
+# The H100 SXM's FP64 tensor-core rate on its data sheet; the calibrated
+# figure is a float64 torch.matmul measured in this phase.
+FP64_DATASHEET_FLOP_S = 67e12
+# rwkv6 / zamba2 logits with scan_dtype="bfloat16" against the same model's
+# float32-scan logits on the card, the model computing in bfloat16 either
+# way: the largest difference at most this share of the largest logit
+# (stated before the first run; PERF.md, PR 26 predictions), or
+# LM_BF16_SCAN_WITNESS times the plain versions' own bfloat16 reading where
+# that is larger: at random weights bfloat16 scan tensors alone move
+# RWKV6-1.6B's logits by 4-44% of the largest (PR 26 runs 2, 4), through
+# the plain versions as through the kernels (L1).
+LM_BF16_SCAN_RTOL, LM_BF16_SCAN_WITNESS = 5e-2, 2.0
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+def bcr_plain_factor(d, e, f):
+    """The plain BCR factor of the chain (d, e, f), padded to 2^L blocks,
+    level by level: ([(d, e, f, a_odd, (lo, hi, d', e', f')) a level], the
+    root block), each level's operands beside its plain outputs."""
+    from repro_torch.core import cyclic_reduction as cr
+
+    d, e, f = cr.pad_chain(d, e, f)
+    levels = []
+    while d.shape[0] > 1:
+        a = cr.bcr_inv_odd_ref(d)
+        out = cr.bcr_reduce_ref(d, e, f, a)
+        levels.append((d, e, f, a, out))
+        d, e, f = out[2:]
+    return levels, d
+
+
+def bcr_plain_solve(levels, root, b):
+    """The plain BCR solve of ``b`` with bcr_plain_factor's levels: ([(lo,
+    hi, b, b') a rhs_reduce level], [(a_odd, e_odd, f_odd, b, x, x') a
+    backsub level]), each level's operands beside its plain output."""
+    from repro_torch.core import cyclic_reduction as cr
+
+    downs = []
+    for _, e, f, a, (lo, hi, *_) in levels:
+        downs.append((lo, hi, b, cr.bcr_rhs_reduce_ref(lo, hi, b)))
+        b = downs[-1][3]
+    x = (cr.bcr_inv_odd_ref(root, first=0)[0] @ b[0])[None]
+    ups = []
+    for (_, e, f, a, _), (_, _, bl, _) in zip(reversed(levels), reversed(downs)):
+        ups.append((a, e[1::2].contiguous(), f[1::2].contiguous(), bl, x,
+                    cr.bcr_backsub_ref(a, e[1::2], f[1::2], bl, x)))
+        x = ups[-1][5]
+    return downs, ups
+
+
+def dtype_phase(dev, smi, band_d1, band_d05, xstar, cal) -> tuple[dict, list]:
+    """Phase "dtypes" (see above).  Returns the main path's launches by
+    (kernel, dtype) and the summary rows of the new (kernel, dtype) pairs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import sap_solver
+    from repro_torch.core import (SaPOptions, band_matvec, band_to_block_tridiag, factor,
+                                  plan_banded, random_banded)
+    from repro_torch.core import block_lu as bl
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.core.spike import _reduced_interface_system
+    from repro_torch.kernels import bcr, build, ops
+    from repro_torch.kernels._launch import entry
+    from repro_torch.kernels.btf import btf
+    from repro_torch.kernels.bts import bts
+    from repro_torch.kernels.fused_spike import fused_factor_spike
+    from repro_torch.kernels.ops import (bcr_work, btf_work, bts_work, fused_work)
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    from repro_torch.kernels.wkv import scan_route, wkv6, wkv6_plain
+    from repro_torch.launch.roofline import H100_DATASHEET as SHEET
+    from repro_torch.serve.solver_engine import SolverEngine
+
+    t_phase = time.perf_counter()
+    bf, f64 = torch.bfloat16, torch.float64
+    dtypes = (bf, f64)
+    wrappers = {"btf": btf, "bts": bts, "fused_factor_spike": fused_factor_spike,
+                "bcr_inv_odd": bcr.inv_odd, "bcr_reduce": bcr.reduce,
+                "bcr_rhs_reduce": bcr.rhs_reduce, "bcr_backsub": bcr.backsub,
+                "wkv": wkv6, "ssd": ssd}
+    solver_names = tuple(wrappers)[:7]
+    libs = {nm: build.load(nm) for nm in ("btf", "bts", "fused_spike", "bcr")}
+    checks, errs = [], {}
+
+    def close(what, kernel, dt, got, want, at, route=None):
+        """got against want in dtype dt; one row of the phase's record."""
+        if dt == bf:
+            err, share = check_close_bf16(f"{what} [{_dtype_name(dt)}]", got, want,
+                                          atol=KERNEL_RTOL)
+            limit = f"2^-7 |plain| + {KERNEL_RTOL} max |plain|, element by element"
+        else:
+            err = check_close(f"{what} [{_dtype_name(dt)}]", got, want, rtol=DTYPE_F64_RTOL)
+            share = rel_err(got, want)[1] / DTYPE_F64_RTOL
+            limit = f"{DTYPE_F64_RTOL} max |plain|, normwise"
+        key = (kernel, _dtype_name(dt))
+        errs[key] = max(errs.get(key, 0.0), err)
+        checks.append({"kernel": kernel, "dtype": _dtype_name(dt), "at": at, "what": what,
+                       "route": route, "max_abs_err": err, "of_limit": share, "limit": limit})
+
+    def solver_kernels(at, d, e, f, b_cpl, c_cpl, rs):
+        p, k = d.shape[0], d.shape[2]
+        for dt in dtypes:
+            dd, ee, ff = (x.to(dt) for x in (d, e, f))
+            cs = entry(libs["btf"], "btf_cluster_size", dt)(p, k)
+            sinv, l = btf(dd, ee, ff)
+            ref = bl.btf_ref(dd, ee, ff)
+            close("sinv", "btf", dt, sinv, ref.sinv, at, {"cluster": cs})
+            close("l", "btf", dt, l, ref.l, at, {"cluster": cs})
+            del sinv, l
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            for r in rs:
+                rhs = torch.randn(dd.shape[:3] + (r,), generator=g, device=dev).to(dt)
+                cs = entry(libs["bts"], "bts_cluster_size", dt)(p, k, r)
+                bulk = entry(libs["bts"], "bts_bulk_route", dt)(
+                    ref.sinv.data_ptr(), ref.l.data_ptr(), ff.data_ptr(), k)
+                close(f"x r={r}", "bts", dt, bts(ref.sinv, ref.l, ff, rhs), bl.bts_ref(ref, rhs),
+                      at, {"cluster": cs, "copies": "tma" if bulk else "element"})
+            del ref
+            if b_cpl is not None:
+                bq, cq = (x.to(dt) for x in bl.pad_couplings(b_cpl, c_cpl, p))
+                cs = entry(libs["fused_spike"], "fused_cluster_size", dt)(p, k)
+                out = fused_factor_spike(dd, ee, ff, bq, cq)
+                want = bl.fused_factor_spike_padded_ref(dd, ee, ff, bq, cq)
+                for nm, o, w in zip(("sinv", "l", "vb", "vt", "wt", "wb"), out, want):
+                    close(nm, "fused_factor_spike", dt, o, w, at, {"cluster": cs})
+                del out, want
+            del dd, ee, ff
+
+    def bcr_kernels(at, d, e, f, rs):
+        """Each BCR kernel at every level of a factor and a solve of the
+        chain, on the plain levels' operands."""
+        for dt in dtypes:
+            levels, root = bcr_plain_factor(*(x.to(dt) for x in (d, e, f)))
+            k = root.shape[1]
+            for dd, ee, ff, a, want in levels:
+                m = dd.shape[0]
+                close(f"m={m}", "bcr_inv_odd", dt, bcr.inv_odd(dd), a, at,
+                      {"cluster": entry(libs["bcr"], "bcr_inv_cluster_size", dt)(k)})
+                tile = entry(libs["bcr"], "bcr_reduce_tile", dt)(m // 2, k)
+                for nm, o, w in zip(("lo", "hi", "d", "e", "f"), bcr.reduce(dd, ee, ff, a), want):
+                    close(f"{nm} m={m}", "bcr_reduce", dt, o, w, at, {"tile": tile})
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            for r in rs:
+                b = torch.randn(levels[0][0].shape[0], k, r, generator=g, device=dev).to(dt)
+                downs, ups = bcr_plain_solve(levels, root, b)
+                for lo, hi, bb, want in downs:
+                    m2 = lo.shape[0]
+                    close(f"r={r} m2={m2}", "bcr_rhs_reduce", dt, bcr.rhs_reduce(lo, hi, bb), want,
+                          at, {"split": entry(libs["bcr"], "bcr_rhs_reduce_split", dt)(m2, k, r)})
+                for a, eo, fo, bb, x, want in ups:
+                    m2 = a.shape[0]
+                    close(f"r={r} m2={m2}", "bcr_backsub", dt, bcr.backsub(a, eo, fo, bb, x), want,
+                          at, {"cluster": entry(libs["bcr"], "bcr_backsub_cluster", dt)(m2, k, r)})
+                del downs, ups
+            del levels, root
+
+    # ---- kernels against their plain versions, in each storage dtype -------
+    bt = band_to_block_tridiag(band_d1, K, 64)
+    assert (bt.p, bt.m, bt.k) == (64, 16, K)
+    solver_kernels(f"main P=64 M=16 K={K}", bt.d, bt.e, bt.f, bt.b_cpl, bt.c_cpl, (1, 4))
+    for at, (n, k, p) in {"K=37": (259, 37, 3), "K=256": (1400, 256, 2)}.items():
+        small = torch.tensor(random_banded(n, k, 1.0, seed=SEED).astype(np.float32), device=dev)
+        sbt = band_to_block_tridiag(small, k, p)
+        solver_kernels(at, sbt.d, sbt.e, sbt.f, sbt.b_cpl, sbt.c_cpl, (1, 4, k))
+    for p in (64, 500):  # the SaP-E interface chains of the d=0.5 band: 63 and 499 blocks
+        sbt = band_to_block_tridiag(band_d05, K, p)
+        fs = ops.fused_factor_spike(sbt.d, sbt.e, sbt.f, sbt.b_cpl, sbt.c_cpl)
+        rd, re, rf = _reduced_interface_system(fs.v_bot, fs.v_top, fs.w_top, fs.w_bot)
+        del sbt, fs
+        at = f"E chain {p - 1} blocks of 2K=400"
+        # btf / bts on at most the chain's first 64 blocks: the plain btf
+        # walks the blocks one by one (seconds a block row at 2K=400)
+        cut = min(p - 1, 64)
+        solver_kernels(at if cut == p - 1 else f"{at}, first {cut}", rd[None, :cut],
+                       re[None, :cut], rf[None, :cut], None, None, (1,))
+        bcr_kernels(at, rd, re, rf, (1,))
+        del rd, re, rf
+    fcfg = sap_solver.fleet()
+    fbands = np.stack([random_banded(fcfg.n, fcfg.k, fcfg.d, seed=SEED + 100 + i)
+                       .astype(np.float32) for i in range(FLEET_S)])
+    fbt = band_to_block_tridiag(torch.tensor(fbands, device=dev), fcfg.k, FLEET_P)
+    fold = lambda t: t.flatten(0, 1)  # noqa: E731  (S, P, ...) -> (S*P, ...)
+    b_f, c_f = bl.pad_couplings(fbt.b_cpl, fbt.c_cpl, FLEET_P)
+    solver_kernels(f"fleet fold {FLEET_S}x{FLEET_P} chains of K={fcfg.k}", fold(fbt.d),
+                   fold(fbt.e), fold(fbt.f), None, None, (1, 4))
+    for dt in dtypes:  # the fused pass on the folded couplings
+        dd, ee, ff, bq, cq = (fold(x).to(dt) for x in (fbt.d, fbt.e, fbt.f, b_f, c_f))
+        out = fused_factor_spike(dd, ee, ff, bq, cq)
+        for nm, o, w in zip(("sinv", "l", "vb", "vt", "wt", "wb"), out,
+                            bl.fused_factor_spike_padded_ref(dd, ee, ff, bq, cq)):
+            close(nm, "fused_factor_spike", dt, o, w, "fleet fold",
+                  {"cluster": entry(libs["fused_spike"], "fused_cluster_size", dt)(
+                      dd.shape[0], fcfg.k)})
+    ebt = band_to_block_tridiag(torch.tensor(np.stack(
+        [random_banded(fcfg.n, fcfg.k, 0.5, seed=SEED + 100 + i).astype(np.float32)
+         for i in range(FLEET_S)]), device=dev), fcfg.k, FLEET_P)
+    efs = ops.fused_factor_spike(ebt.d, ebt.e, ebt.f, ebt.b_cpl, ebt.c_cpl)
+    rd_f, re_f, rf_f = _reduced_interface_system(efs.v_bot, efs.v_top, efs.w_top, efs.w_bot)
+    ends = [cr.pad_chain(*c) for c in zip(rd_f, re_f, rf_f)]
+    bcr_kernels(f"fleet {FLEET_S} stacked chains of 2K={2 * fcfg.k}",
+                *(torch.cat(t) for t in zip(*ends)), (1, 4))
+    del fbt, ebt, efs, rd_f, re_f, rf_f, ends
+    # the scans in bfloat16: the LM decode and prefill shapes and a ragged chunk
+    scan_shapes = {"wkv": {"decode": (LM_SLOTS * 32, 1, 64, 1),
+                           "prefill": (PREFILL_B * 32, PREFILL_T, 64, 64),
+                           "chunk37": (6, 74, 64, 37)},
+                   "ssd": {"decode": (LM_SLOTS * 80, 1, 64, 64, 80, 1),
+                           "prefill": (PREFILL_B * 80, PREFILL_T, 64, 64, 80, 64),
+                           "chunk37": (6, 74, 64, 64, 3, 37)}}
+    scan_args = {}
+    for tag, (bh, t, d, ch) in scan_shapes["wkv"].items():
+        r, k, v, logw, u, s0 = wkv_inputs(dev, bh, t, d, SEED)
+        args = (r.to(bf), k.to(bf), v.to(bf), logw.to(bf), u, s0)
+        scan_args[("wkv", tag)] = (args, ch)
+        o, s = wkv6(*args, ch)
+        po, ps = wkv6_plain(*args, ch)
+        close("o", "wkv", bf, o, po, tag, {"route": scan_route(ch, d)})
+        errs[("wkv", "bfloat16")] = max(errs[("wkv", "bfloat16")],
+                                        check_close(f"wkv {tag} state", s, ps))
+    for tag, (bh, t, n, p, hs, ch) in scan_shapes["ssd"].items():
+        x, b, c, la, s0 = ssd_inputs(dev, bh, t, n, p, hs, SEED)
+        args = (x.to(bf), b.to(bf), c.to(bf), la, s0)
+        scan_args[("ssd", tag)] = (args, ch, hs)
+        y, s = ssd(*args, ch, hs)
+        py, ps = ssd_plain(*args, ch, hs)
+        close("y", "ssd", bf, y, py, tag, {"route": scan_route(ch, n, p)})
+        errs[("ssd", "bfloat16")] = max(errs[("ssd", "bfloat16")],
+                                        check_close(f"ssd {tag} state", s, ps))
+    torch.cuda.synchronize()
+    emit({"phase": "dtypes", "check": "kernels_vs_plain", "rows": checks,
+          "limits": {"bfloat16": [FLASH_BF16_STEP, KERNEL_RTOL], "float64": DTYPE_F64_RTOL},
+          "worst_of_limit": max(c["of_limit"] for c in checks), "nvidia_smi": smi})
+
+    # ---- the main slice at N=200,000, K=200 in each preconditioner dtype -----
+    # the launch counts are set to 0 here and read after the fleet step
+    for w in wrappers.values():
+        w.launches = 0
+        w.by_dtype.clear()
+    systems = {"d1.0": (band_d1, band_matvec(band_d1.double(), xstar)),
+               "d0.5": (band_d05, band_matvec(band_d05.double(), xstar))}
+    runs = [("D", "d1.0", dict(p=64, variant="D")), ("C", "d1.0", dict(p=64, variant="C")),
+            ("E_chain_p8", "d0.5", dict(p=8, variant="E", reduced_solver="chain")),
+            ("E_bcr_p64", "d0.5", dict(p=64, variant="E", reduced_solver="bcr"))]
+
+    def slice_run(band, rhs, **kw):
+        opts = SaPOptions(**kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fac = factor(plan_banded(band, opts))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = fac.solve(rhs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        xerr = float((res.x - xstar).norm() / xstar.norm())
+        out = {"variant": fac.variant, "p": fac.p, "reduced_solver": fac.pc.reduced_solver,
+               "precond_dtype": _dtype_name(fac.pc.lu.sinv.dtype), "solver": fac.solver,
+               "tol": opts.tol, "iterations": float(res.iterations),
+               "converged": bool(res.converged), "true_resnorm": float(res.true_resnorm),
+               "x_rel_err": xerr, "factor_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3}
+        del fac, res
+        return out
+
+    slices = []
+    for name, sysname, kw in runs:
+        band, rhs = systems[sysname]
+        row = {"run": name, "float64": slice_run(band, rhs, tol=DTYPE_F64_TOL, maxiter=MAXITER,
+                                                 precond_dtype="float64", **kw)}
+        row["float32_same_tol"] = slice_run(band, rhs, tol=DTYPE_F64_TOL,
+                                            maxiter=DTYPE_F32_WITNESS_MAXITER,
+                                            precond_dtype="float32", **kw)
+        slices.append(row)
+        emit({"phase": "dtypes", "slice": name, **row, "limit": DTYPE_F64_RESNORM})
+    for name, sysname, kw in runs[1::2]:  # C and E with BCR
+        band, rhs = systems[sysname]
+        row = {"run": name, "bfloat16_refine": slice_run(
+                   band, rhs, tol=DTYPE_BF16_TOL, maxiter=MAXITER, precond_dtype="bfloat16",
+                   solver="refine", **kw),
+               "float32_refine": slice_run(band, rhs, tol=DTYPE_BF16_TOL, maxiter=MAXITER,
+                                           precond_dtype="float32", solver="refine", **kw),
+               "bfloat16_bicgstab2_r11": slice_run(band, rhs, tol=DTYPE_BF16_TOL, maxiter=MAXITER,
+                                                   precond_dtype="bfloat16", **kw)}
+        slices.append(row)
+        emit({"phase": "dtypes", "slice": name, **row, "limit": DTYPE_BF16_TOL})
+    # one fleet step of 64 systems through SolverEngine in each new dtype:
+    # float64 under fleet()'s BiCGStab(2), bfloat16 under refinement (R11)
+    fleet_x = np.random.default_rng(SEED + 1).normal(size=(FLEET_S, fcfg.n))
+    fleet_b = band_matvec(torch.tensor(fbands, device=dev, dtype=torch.float64),
+                          torch.tensor(fleet_x, device=dev)).cpu().numpy()
+    fleet = {}
+    for dt in dtypes:
+        fopts = dataclasses.replace(fcfg.to_sap_options(FLEET_P), precond_dtype=_dtype_name(dt),
+                                    solver="refine" if dt == bf else "bicgstab2")
+        eng = SolverEngine(fopts, max_batch=fcfg.max_batch, cache_size=fcfg.fac_cache,
+                           rounding=fcfg.bucket_rounding)
+        for i in range(FLEET_S):
+            eng.submit_system(fbands[i], fleet_b[i])
+        torch.cuda.synchronize()
+        before = {nm: w.launches for nm, w in wrappers.items()}
+        t0 = time.perf_counter()
+        done = eng.step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step_launches = {nm: w.launches - before[nm] for nm, w in wrappers.items()
+                         if w.launches != before[nm]}
+        # the S systems fold into each kernel's chain axis: one factor launch
+        # for all of them, as one system's C factor (fused + btf once each)
+        if step_launches.get("fused_factor_spike", 0) > 1 or step_launches.get("btf", 0) > 1:
+            raise AssertionError(f"dtypes: a {dt} fleet step's factor launched per system: "
+                                 f"{step_launches}")
+        worst = max(float(r.result.true_resnorm) for r in done)
+        fleet[_dtype_name(dt)] = {
+            "systems": len(done), "solver": fopts.solver, "step_ms": step_ms,
+            "launches": step_launches, "worst_true_resnorm": worst,
+            "tol": fcfg.tol, "escalated": sum(bool(r.result.escalated) for r in done),
+            "misconverged": sum(bool(r.result.misconverged) for r in done),
+            "converged": sum(bool(r.result.converged) for r in done)}
+        if len(done) != FLEET_S:
+            raise AssertionError(f"dtypes: a {dt} fleet step solved {len(done)} of {FLEET_S}")
+        del eng, done
+    launches = {nm: {_dtype_name(d): c for d, c in w.by_dtype.items()}
+                for nm, w in wrappers.items()}
+    emit({"phase": "dtypes", "fleet_step": fleet, "launches_by_dtype": launches})
+    for row in slices:
+        if "float64" in row and not row["float64"]["true_resnorm"] <= DTYPE_F64_RESNORM:
+            raise AssertionError(f"dtypes {row['run']}: float64 true_resnorm "
+                                 f"{row['float64']['true_resnorm']:.3e} > {DTYPE_F64_RESNORM}")
+        if "bfloat16_refine" in row and not (row["bfloat16_refine"]["true_resnorm"]
+                                             <= DTYPE_BF16_TOL):
+            raise AssertionError(f"dtypes {row['run']}: bfloat16 refine true_resnorm "
+                                 f"{row['bfloat16_refine']['true_resnorm']:.3e} > "
+                                 f"{DTYPE_BF16_TOL}")
+    for nm in solver_names:
+        for dt in dtypes:
+            if not launches[nm].get(_dtype_name(dt)):
+                raise AssertionError(f"dtypes: the main path never launched {nm} in {dt}")
+
+    # ---- timing at the main shape, each dtype beside float32 ---------------
+    f64_a = torch.randn(4096, 4096, device=dev, dtype=f64)
+    f64_ms = cuda_ms(lambda: f64_a @ f64_a, 10)
+    f64_rate = 2 * 4096**3 / (f64_ms * 1e-3)
+    del f64_a
+    emit({"phase": "calibrate", "float64_flop_s": {"measured": f64_rate,
+                                                   "datasheet": FP64_DATASHEET_FLOP_S,
+                                                   "measured_over_datasheet":
+                                                   f64_rate / FP64_DATASHEET_FLOP_S},
+          "how": "torch.matmul of two 4096 x 4096 float64 matrices, 10 calls"})
+
+    def bound(dt, flops, nbytes):
+        fl_sheet = FP64_DATASHEET_FLOP_S if dt == f64 else SHEET.peak_flops
+        fl_cal = f64_rate if dt == f64 else cal.peak_flops
+        ms, by = roofline_bound(flops, nbytes, SHEET.hbm_bw, fl_sheet)
+        ms_cal, by_cal = roofline_bound(flops, nbytes, cal.hbm_bw, fl_cal)
+        return {"bound_ms": ms, "bound_by": by, "bound_ms_calibrated": ms_cal,
+                "bound_by_calibrated": by_cal}
+
+    sbt = band_to_block_tridiag(band_d05, K, 64)
+    fs = ops.fused_factor_spike(sbt.d, sbt.e, sbt.f, sbt.b_cpl, sbt.c_cpl)
+    chain = _reduced_interface_system(fs.v_bot, fs.v_top, fs.w_top, fs.w_bot)
+    del sbt, fs
+    p, m = 64, 16
+    summary, timing = [], []
+    for dt in (torch.float32,) + dtypes:
+        isz = torch.tensor([], dtype=dt).element_size()
+        d, e, f = (x.to(dt) for x in (bt.d, bt.e, bt.f))
+        bq, cq = (x.to(dt) for x in bl.pad_couplings(bt.b_cpl, bt.c_cpl, p))
+        fac = bl.btf_ref(d, e, f)
+        rhs = torch.randn(p, m, K, 1, device=dev).to(dt)
+        levels, root = bcr_plain_factor(*(x.to(dt) for x in chain))
+        h = torch.randn(levels[0][0].shape[0], 2 * K, 1, device=dev).to(dt)
+        downs, ups = ([op[:-1] for op in ops_] for ops_ in bcr_plain_solve(levels, root, h))
+        facts = [lv[:4] for lv in levels]
+        work = bcr_work(chain[0].shape[0], 2 * K, 1, isz)
+        lib = dt != bf  # torch.linalg.inv takes no bfloat16
+        specs = {
+            "btf": (lambda: btf(d, e, f), lambda: bl.btf_ref(d, e, f),
+                    (lambda: btf_library(d, e, f)) if lib else None, btf_work(p, m, K, isz),
+                    "src/repro_torch/kernels/csrc/btf.cu", "src/repro/kernels/btf.py:40", 3),
+            "bts": (lambda: bts(fac.sinv, fac.l, f, rhs), lambda: bl.bts_ref(fac, rhs), None,
+                    bts_work(p, m, K, 1, isz), "src/repro_torch/kernels/csrc/bts.cu",
+                    "src/repro/kernels/bts.py:27", 20),
+            "fused_factor_spike": (
+                lambda: fused_factor_spike(d, e, f, bq, cq),
+                lambda: bl.fused_factor_spike_padded_ref(d, e, f, bq, cq),
+                (lambda: fused_library(d, e, f, bq, cq)) if lib else None, fused_work(p, m, K, isz),
+                "src/repro_torch/kernels/csrc/fused_spike.cu",
+                "src/repro/kernels/fused_spike.py:47", 3),
+            "bcr_inv_odd": (lambda: [bcr.inv_odd(fa[0]) for fa in facts],
+                            lambda: [cr.bcr_inv_odd_ref(fa[0]) for fa in facts],
+                            (lambda: [torch.linalg.inv(fa[0][1::2]) for fa in facts])
+                            if lib else None, work["inv_odd"],
+                            "src/repro_torch/kernels/csrc/bcr.cu", "src/repro/kernels/bcr.py:43", 3),
+            "bcr_reduce": (lambda: [bcr.reduce(*fa) for fa in facts],
+                           lambda: [cr.bcr_reduce_ref(*fa) for fa in facts],
+                           lambda: [reduce_library(*fa) for fa in facts], work["reduce"],
+                           "src/repro_torch/kernels/csrc/bcr.cu", "src/repro/kernels/bcr.py:48", 3),
+            "bcr_rhs_reduce": (lambda: [bcr.rhs_reduce(*a) for a in downs],
+                               lambda: [cr.bcr_rhs_reduce_ref(*a) for a in downs],
+                               lambda: [rhs_reduce_library(*a) for a in downs],
+                               work["rhs_reduce"], "src/repro_torch/kernels/csrc/bcr.cu",
+                               "src/repro/kernels/bcr.py:79", 20),
+            "bcr_backsub": (lambda: [bcr.backsub(*a) for a in ups],
+                            lambda: [cr.bcr_backsub_ref(*a) for a in ups],
+                            lambda: [backsub_library(*a) for a in ups], work["backsub"],
+                            "src/repro_torch/kernels/csrc/bcr.cu", "src/repro/kernels/bcr.py:89",
+                            20),
+        }
+        for nm, (kern, plain, library, (flops, nbytes), source, replaces, reps) in specs.items():
+            saved = wrappers[nm].launches, dict(wrappers[nm].by_dtype)
+            # the BCR solve's launches are short: queued behind a spin, so
+            # the host's gaps do not count (no profiler: a long process's
+            # profiler stops seeing kernels), the library loop the same way
+            short = nm in ("bcr_rhs_reduce", "bcr_backsub")
+            ms = queued_ms(kern, reps) if short else cuda_ms(kern, reps)
+            plain_ms = cuda_ms(plain, 1)
+            library_ms = (None if not library else queued_ms(library, reps) if short
+                          else cuda_ms(library, reps))
+            wrappers[nm].launches = saved[0]  # timing launches are not the path's
+            wrappers[nm].by_dtype.clear()
+            wrappers[nm].by_dtype.update(saved[1])
+            ms_is = ("queued, the levels of one R=1 solve of the P=64 chain" if short else
+                     "events, one call" + (" (all levels of one factor of the P=64 chain)"
+                                           if nm.startswith("bcr") else ""))
+            row = {"name": nm if dt == torch.float32 else f"{nm}_{_dtype_name(dt)}",
+                   "dtype": _dtype_name(dt), "ms": ms, "ms_is": ms_is, "plain_ms": plain_ms,
+                   "library_ms": library_ms, **bound(dt, flops, nbytes),
+                   "bytes": nbytes, "flops": flops}
+            timing.append(row)
+            if dt != torch.float32:
+                summary.append({"name": row["name"], "route": "cuda", "source": source,
+                                "replaces": replaces,
+                                "launches": launches[nm].get(_dtype_name(dt), 0),
+                                "max_abs_err": errs[(nm, _dtype_name(dt))], "ms": ms,
+                                "plain_ms": plain_ms, **bound(dt, flops, nbytes),
+                                "library_ms": library_ms, "dtype": _dtype_name(dt),
+                                "ms_is": ms_is})
+        del d, e, f, bq, cq, fac, rhs, levels, root, downs, ups, facts
+    # the scans at the prefill shape, bfloat16 beside float32
+    for nm, (fn, plain_fn) in {"wkv": (wkv6, wkv6_plain), "ssd": (ssd, ssd_plain)}.items():
+        spec = scan_args[(nm, "prefill")]
+        args, ch = spec[0], spec[1]
+        extra = spec[2:]
+        f32_args = tuple(a.float() for a in args)
+        if nm == "wkv":
+            bh, t, dd = args[0].shape
+            flops, nbytes = wkv_work(bh, t, dd)
+            nbytes_bf = nbytes - 2.0 * bh * 5 * t * dd  # r, k, v, log w, o in 2 bytes
+        else:
+            bh, t, p_ = args[0].shape
+            n_ = args[1].shape[-1]
+            flops, nbytes = ssd_work(bh, t, n_, p_, extra[0])
+            nbytes_bf = nbytes - 2.0 * (2 * bh * t * p_ + 2 * (bh // extra[0]) * t * n_)
+        rows = {}
+        for dt, a, nb in ((torch.float32, f32_args, nbytes), (bf, args, nbytes_bf)):
+            saved = wrappers[nm].launches, dict(wrappers[nm].by_dtype)
+            ms = queued_ms(lambda a=a: fn(*a, ch, *extra), 20)
+            plain_ms = cuda_ms(lambda a=a: plain_fn(*a, ch, *extra), 3)
+            wrappers[nm].launches = saved[0]
+            wrappers[nm].by_dtype.clear()
+            wrappers[nm].by_dtype.update(saved[1])
+            rows[_dtype_name(dt)] = {"name": nm if dt == torch.float32 else f"{nm}_bfloat16",
+                                     "dtype": _dtype_name(dt), "ms": ms, "ms_is": "queued",
+                                     "plain_ms": plain_ms, "library_ms": None,
+                                     **bound(torch.float32, flops, nb), "bytes": nb,
+                                     "flops": flops}
+            timing.append(rows[_dtype_name(dt)])
+        r = rows["bfloat16"]
+        summary.append({"name": r["name"], "route": "cuda",
+                        "source": f"src/repro_torch/kernels/csrc/{nm}.cu",
+                        "replaces": ("src/repro/kernels/wkv_chunk.py:38" if nm == "wkv"
+                                     else "src/repro/kernels/ssd_chunk.py:26"),
+                        "launches": None, "max_abs_err": errs[(nm, "bfloat16")],
+                        **{k_: r[k_] for k_ in ("ms", "ms_is", "plain_ms", "bound_ms", "bound_by",
+                                                "bound_ms_calibrated", "bound_by_calibrated",
+                                                "library_ms", "dtype")},
+                        "at": f"prefill {PREFILL_B}x{PREFILL_T}"})
+    for row in timing:
+        for what in ("ms", "library_ms"):
+            if row.get(what) is not None and row[what] < row["bound_ms"]:
+                raise AssertionError(f"dtypes: {row['name']} {what} {row[what]:.4g} reads under "
+                                     f"its bound {row['bound_ms']:.4g} ms")
+    emit({"phase": "dtypes", "check": "timing_main_shape", "rows": timing,
+          "float64_flop_s": {"datasheet": FP64_DATASHEET_FLOP_S, "calibrated": f64_rate},
+          "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi})
+    return launches, summary
+
+
+def lm_bf16_scan_check(dev, cfg, fam, params, seed: int) -> dict:
+    """One model with scan_dtype="bfloat16" against the same model with
+    float32 scans, both computing in the model's bfloat16: five decode
+    ticks and a B=4, T=512 prefill, each from an empty state and, for
+    RWKV6, from the state of a 64-token prefix (L1: its cold start is
+    ill-conditioned).  Each reading is the largest logit difference over
+    the largest logit: the kernels' bfloat16 scans against the kernels'
+    float32 scans (gated), the plain versions' bfloat16 scans against the
+    same float32 run (the witness: what the dtype alone moves), and the
+    kernels' bfloat16 scans against the plain versions' (the kernels'
+    own share).  Every reading is gated: the kernels' against the float32
+    run at most LM_BF16_SCAN_RTOL of the largest logit or
+    LM_BF16_SCAN_WITNESS times the witness, whichever is larger.  Also the
+    bfloat16 scan launches and the prefill ms of each scan dtype."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+    from repro_torch.kernels.wkv import wkv6, wkv6_plain
+
+    rwkv = cfg.family == "rwkv"
+    kernel = wkv6 if rwkv else ssd
+    attr, plain = ("_wkv6", wkv6_plain) if rwkv else ("_ssd", ssd_plain)
+    bf = torch.bfloat16
+    c_bf = dataclasses.replace(cfg, scan_dtype="bfloat16")
+    assert cfg.scan_dtype == "float32"
+    rng = np.random.default_rng(seed)
+    prefix = torch.tensor(rng.integers(0, cfg.vocab, size=(PREFILL_B, CONSISTENCY_T)), device=dev)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, size=(PREFILL_B, 5)), device=dev)
+    ptoks = torch.tensor(rng.integers(0, cfg.vocab, size=(PREFILL_B, PREFILL_T)), device=dev)
+    out = {"scan_dtype": "bfloat16", "against": "float32 scans", "rtol": LM_BF16_SCAN_RTOL,
+           "witness_factor": LM_BF16_SCAN_WITNESS, "compute_dtype": cfg.compute_dtype}
+    before = kernel.by_dtype.get(bf, 0)
+
+    def runs(state):
+        """(decode logits, prefill logits) from ``state`` (None: empty)."""
+        def cache():
+            if state is None:
+                return fam.init_cache(cfg, PREFILL_B, 8)
+            return {nm: v.clone() for nm, v in state.items()}
+        got = {}
+        for tag, c, via_plain in (("f32", cfg, False), ("bf16", c_bf, False),
+                                  ("bf16_plain", c_bf, True)):
+            real = getattr(ops, attr)
+            if via_plain:
+                setattr(ops, attr, plain)
+            try:
+                cc, dec = cache(), []
+                for i in range(5):
+                    lg, cc = fam.decode_step(c, params, cc, toks[:, i:i + 1])
+                    dec.append(lg[..., : cfg.vocab].float())
+                pf, _ = fam.forward(c, params, ptoks, None if state is None else cache())
+                got[tag] = (torch.stack(dec), pf[..., : cfg.vocab].float())
+            finally:
+                setattr(ops, attr, real)
+        return got
+
+    def reading(a, b, ref):
+        return float((a - b).abs().max()) / float(ref.abs().max())
+
+    with torch.inference_mode():
+        states = {"cold": None}
+        if rwkv:
+            states["warm"] = fam.forward(cfg, params, prefix)[1]
+        for sname, state in states.items():
+            got = runs(state)
+            for i, what in enumerate(("decode", "prefill")):
+                f32, k_bf, p_bf = (got[t][i] for t in ("f32", "bf16", "bf16_plain"))
+                r = {"kernel_bf16_vs_f32": reading(k_bf, f32, f32),
+                     "plain_bf16_vs_f32": reading(p_bf, f32, f32),
+                     "kernel_bf16_vs_plain_bf16": reading(k_bf, p_bf, p_bf),
+                     "max_abs_logit": float(f32.abs().max()),
+                     "finite": bool(torch.isfinite(k_bf).all())}
+                r["limit"] = max(LM_BF16_SCAN_RTOL, LM_BF16_SCAN_WITNESS * r["plain_bf16_vs_f32"])
+                out[f"{what}_{sname}"] = r
+            del got
+        del states
+        for nm, c in (("float32_scan", cfg), ("bfloat16_scan", c_bf)):
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fam.forward(c, params, ptoks)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[f"prefill_ms_{nm}"] = ms
+    out["bfloat16_launches"] = kernel.by_dtype.get(bf, 0) - before
+    emit({"phase": "lm", "arch": cfg.name, "check": "bfloat16_scans", **out})
+    for key, r in out.items():
+        if isinstance(r, dict) and not (r["finite"] and r["kernel_bf16_vs_f32"] <= r["limit"]):
+            raise AssertionError(f"{cfg.name} bfloat16 scans: {key} logits "
+                                 f"{r['kernel_bf16_vs_f32']:.3e} of the largest off the "
+                                 f"float32 scans' (limit {r['limit']:.3e})")
+    if not out["bfloat16_launches"]:
+        raise AssertionError(f"{cfg.name}: scan_dtype=bfloat16 never launched the bfloat16 kernel")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3368,7 +4004,12 @@ def main() -> int:
     dist_launches = distributed_phase(dev, smi, systems, xstar, coupling)
     for nm in ("btf", "bts", "fused_factor_spike", "bcr_inv_odd"):
         totals[nm] += dist_launches[nm]
+
+    # ---- dtypes: bfloat16 and float64 preconditioners, bfloat16 scans ----------
+    # after phase trace, whose host-time ratios it would disturb
+    dtype_launches, dtype_summary = dtype_phase(dev, smi, band_d1, band_d05, xstar, cal)
     del systems, band_d05, sparse_plan, a_sparse, csr
+    torch.cuda.empty_cache()
 
     # ---- the solver's serving path: fleet, batch_full, service ----------------
     from torch.profiler import ProfilerActivity, profile
@@ -4029,6 +4670,10 @@ def main() -> int:
             launches["serve"] = serve_counts[kernel]
             by_route["serve"] = dict(wrappers[kernel].by_route)
             window_line = decode_window(cfg, fam, params, rng)
+        # the same model with scan_dtype="bfloat16" against its float32 scans
+        bf16_line = lm_bf16_scan_check(dev, cfg, fam, params, SEED)
+        dtype_launches[kernel]["bfloat16"] = (dtype_launches[kernel].get("bfloat16", 0)
+                                              + bf16_line["bfloat16_launches"])
         for nm in ("prefill", "serve"):
             if launches[nm] == 0:
                 raise AssertionError(f"{arch}: the {nm} path never launched the {kernel} kernel")
@@ -4044,6 +4689,7 @@ def main() -> int:
             "prefill_ms": prefill_ms, "prefill_shape": [PREFILL_B, PREFILL_T],
             "serve": serve_line, "decode_window": window_line,
             "launches": {kernel: launches}, "launches_by_route": {kernel: by_route},
+            "bfloat16_scans": bf16_line,
         })
         del params
         torch.cuda.empty_cache()
@@ -4567,7 +5213,12 @@ def main() -> int:
             if share["of_calibrated_bound"] > 1.0:
                 above.append(share)
     emit({"phase": "shares", "rows": shares, "above_calibrated_bound": above})
-    emit({"kernels": summary})
+    # the bfloat16 and float64 rows (phase "dtypes"); the scans' launches are
+    # phase lm's scan_dtype="bfloat16" runs
+    for entry in dtype_summary:
+        if entry["launches"] is None:
+            entry["launches"] = dtype_launches[entry["name"].split("_")[0]].get("bfloat16", 0)
+    emit({"kernels": summary + dtype_summary})
     print(smi, flush=True)
     emit({
         "ok": True,

@@ -20,8 +20,8 @@ Every function here is batched over the partition axis P with a Python loop
 over the M block rows, and computes in the wider of float32 and the storage
 dtype (:func:`compute_dtype`): float64 storage in float64, float32 and
 bfloat16 storage in float32, as the CUDA kernels in ``repro_torch.kernels``
-do for bfloat16 (they take float32 storage only); results are stored back
-in the input dtype.  These are the kernels' plain versions: the CPU path of
+do for each of the three storage dtypes; results are stored back in the
+input dtype.  These are the kernels' plain versions: the CPU path of
 every kernel wrapper and the yardstick the kernels are held against on the
 card.
 """

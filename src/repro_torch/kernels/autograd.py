@@ -20,6 +20,12 @@ card requires grad; on the CPU, autograd differentiates the plain
 versions directly.  The raw wrappers keep refusing operands that require
 grad (:func:`._launch.check_no_grad`): inside ``Function.forward`` grad
 mode is off.  ``backward_calls`` counts the recomputes by kernel.
+
+bfloat16 scan tensors (``scan_dtype="bfloat16"``) take the same path: the
+forward runs the kernels' bfloat16 instantiation, the recompute casts
+them to float32 as the plain version does, and the gradients come back
+in the inputs' dtypes (bfloat16 for r, k, v, log w and x, B, C; float32
+for u, log a and the state).
 """
 
 from __future__ import annotations

@@ -37,6 +37,15 @@ once; they are counted in ``rhs_reduce.by_split`` and
 kernels (``backsub`` then two grids through a workspace), counted apart
 in ``rhs_reduce.block_launches`` and ``backsub.block_launches``.
 
+Storage: float32, bfloat16 or float64, each on its own instantiation
+(``by_dtype`` on each wrapper counts them): every kernel reads its blocks
+and vectors in the storage dtype, computes in float32 (float64 for
+float64) and stores its outputs rounded to the storage dtype once, as
+the plain versions round each level; ``reduce`` keeps lo and hi in the
+compute dtype for its second grid (a workspace, bfloat16 only) and the
+tiled ``backsub`` its t.  Float16, integer and mixed dtypes raise before
+any build.
+
 On a CPU tensor each wrapper runs its plain version from
 :mod:`repro_torch.core.cyclic_reduction`; on a CUDA tensor it launches the
 kernel or raises.
@@ -46,7 +55,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.block_lu import DEFAULT_BOOST
+from ..core.block_lu import DEFAULT_BOOST, compute_dtype
 from ..core.cyclic_reduction import (
     bcr_backsub_ref,
     bcr_inv_odd_ref,
@@ -54,7 +63,7 @@ from ..core.cyclic_reduction import (
     bcr_rhs_reduce_ref,
 )
 from . import build
-from ._launch import check_grid, check_operands, check_shape, stream_handle
+from ._launch import SOLVER_DTYPES, check_grid, check_operands, check_shape, entry, stream_handle
 
 
 def _blocks(what: str, t: torch.Tensor) -> tuple[int, int]:
@@ -74,22 +83,26 @@ def inv_odd(d: torch.Tensor, boost_eps: float = DEFAULT_BOOST, first: int = 1) -
     """
     if d.device.type == "cpu":
         return bcr_inv_odd_ref(d, boost_eps, first)
-    check_operands("bcr inv_odd", d.device, d=d)
+    dtype = check_operands("bcr inv_odd", d.device, SOLVER_DTYPES, d=d)
     m, k = _blocks("bcr inv_odd", d)
     count = len(range(first, m, 2))
     lib = build.load("bcr")
     out = torch.empty((count, k, k), dtype=d.dtype, device=d.device)
     if count:
-        cluster = lib.bcr_inv_cluster_size(k)
+        cluster = entry(lib, "bcr_inv_cluster_size", dtype)(k)
         if cluster < 0:
             build.check(lib, -cluster, "bcr inv_odd cluster size")
         check_grid("bcr inv_odd", "x", count * max(cluster, 1))
-        code = lib.bcr_inv_launch(
-            d.data_ptr(), out.data_ptr(), count, first, k, boost_eps, cluster,
+        per_block = entry(lib, "bcr_inv_workspace_floats", dtype)(k, cluster)
+        ws = torch.empty((max(1, count * per_block),), dtype=compute_dtype(dtype),
+                         device=d.device)
+        code = entry(lib, "bcr_inv_launch", dtype)(
+            d.data_ptr(), out.data_ptr(), ws.data_ptr(), count, first, k, boost_eps, cluster,
             stream_handle(d.device),
         )
-        build.check(lib, code, f"bcr inv_odd (cluster {cluster})")
+        build.check(lib, code, f"bcr inv_odd (cluster {cluster}, {dtype})")
         inv_odd.launches += 1
+        inv_odd.by_dtype[dtype] = inv_odd.by_dtype.get(dtype, 0) + 1
         if cluster == 0:
             inv_odd.block_launches += 1
     return out
@@ -102,7 +115,7 @@ def reduce(
     ``(lo, hi, d', e', f')``, each (m/2, K, K)."""
     if d.device.type == "cpu":
         return bcr_reduce_ref(d, e, f, a_odd)
-    check_operands("bcr reduce", d.device, d=d, e=e, f=f, a_odd=a_odd)
+    dtype = check_operands("bcr reduce", d.device, SOLVER_DTYPES, d=d, e=e, f=f, a_odd=a_odd)
     m, k = _blocks("bcr reduce", d)
     if m % 2:
         raise ValueError(f"bcr reduce: chain length {m} must be even")
@@ -111,17 +124,20 @@ def reduce(
     check_shape("bcr reduce", "a_odd", a_odd, (m // 2, k, k))
     check_grid("bcr reduce", "z", m // 2)  # a level's block rows on z
     lib = build.load("bcr")
-    tile = lib.bcr_reduce_tile(m // 2, k)
+    tile = entry(lib, "bcr_reduce_tile", dtype)(m // 2, k)
     if tile < 0:
         build.check(lib, -tile, "bcr reduce tile")
     lo, hi, dn, en, fn = (torch.empty_like(a_odd) for _ in range(5))
-    code = lib.bcr_reduce_launch(
+    ws = torch.empty((max(1, entry(lib, "bcr_reduce_workspace_floats", dtype)(m // 2, k)),),
+                     dtype=compute_dtype(dtype), device=d.device)
+    code = entry(lib, "bcr_reduce_launch", dtype)(
         d.data_ptr(), e.data_ptr(), f.data_ptr(), a_odd.data_ptr(), lo.data_ptr(),
-        hi.data_ptr(), dn.data_ptr(), en.data_ptr(), fn.data_ptr(), m // 2, k, tile,
-        stream_handle(d.device),
+        hi.data_ptr(), dn.data_ptr(), en.data_ptr(), fn.data_ptr(), ws.data_ptr(), m // 2, k,
+        tile, stream_handle(d.device),
     )
-    build.check(lib, code, f"bcr reduce (tile {tile})")
+    build.check(lib, code, f"bcr reduce (tile {tile}, {dtype})")
     reduce.launches += 1
+    reduce.by_dtype[dtype] = reduce.by_dtype.get(dtype, 0) + 1
     reduce.by_tile[tile] = reduce.by_tile.get(tile, 0) + 1
     return lo, hi, dn, en, fn
 
@@ -131,13 +147,13 @@ def rhs_reduce(lo: torch.Tensor, hi: torch.Tensor, b: torch.Tensor) -> torch.Ten
     b (m, K, R) -> (m/2, K, R)."""
     if b.device.type == "cpu":
         return bcr_rhs_reduce_ref(lo, hi, b)
-    check_operands("bcr rhs_reduce", b.device, lo=lo, hi=hi, b=b)
+    dtype = check_operands("bcr rhs_reduce", b.device, SOLVER_DTYPES, lo=lo, hi=hi, b=b)
     m2, k = _blocks("bcr rhs_reduce", lo)
     check_shape("bcr rhs_reduce", "hi", hi, (m2, k, k))
     r = b.shape[-1]
     check_shape("bcr rhs_reduce", "b", b, (2 * m2, k, r))
     lib = build.load("bcr")
-    split = lib.bcr_rhs_reduce_split(m2, k, r)
+    split = entry(lib, "bcr_rhs_reduce_split", dtype)(m2, k, r)
     if split < 0:
         build.check(lib, -split, "bcr rhs_reduce split")
     if split:
@@ -145,12 +161,13 @@ def rhs_reduce(lo: torch.Tensor, hi: torch.Tensor, b: torch.Tensor) -> torch.Ten
     else:  # the tiled kernel puts the level's rows on y
         check_grid("bcr rhs_reduce", "y", m2)
     out = torch.empty((m2, k, r), dtype=b.dtype, device=b.device)
-    code = lib.bcr_rhs_reduce_launch(
+    code = entry(lib, "bcr_rhs_reduce_launch", dtype)(
         lo.data_ptr(), hi.data_ptr(), b.data_ptr(), out.data_ptr(), m2, k, r, split,
         stream_handle(b.device),
     )
-    build.check(lib, code, f"bcr rhs_reduce (split {split})")
+    build.check(lib, code, f"bcr rhs_reduce (split {split}, {dtype})")
     rhs_reduce.launches += 1
+    rhs_reduce.by_dtype[dtype] = rhs_reduce.by_dtype.get(dtype, 0) + 1
     rhs_reduce.by_split[split] = rhs_reduce.by_split.get(split, 0) + 1
     if split == 0:
         rhs_reduce.block_launches += 1
@@ -169,7 +186,8 @@ def backsub(
     the level's (m, K, R) solution."""
     if b.device.type == "cpu":
         return bcr_backsub_ref(a_odd, e_odd, f_odd, b, x)
-    check_operands("bcr backsub", b.device, a_odd=a_odd, e_odd=e_odd, f_odd=f_odd, b=b, x=x)
+    dtype = check_operands("bcr backsub", b.device, SOLVER_DTYPES, a_odd=a_odd, e_odd=e_odd,
+                           f_odd=f_odd, b=b, x=x)
     m2, k = _blocks("bcr backsub", a_odd)
     for name, t in (("e_odd", e_odd), ("f_odd", f_odd)):
         check_shape("bcr backsub", name, t, (m2, k, k))
@@ -177,22 +195,24 @@ def backsub(
     check_shape("bcr backsub", "x", x, (m2, k, r))
     check_shape("bcr backsub", "b", b, (2 * m2, k, r))
     lib = build.load("bcr")
-    cluster = lib.bcr_backsub_cluster(m2, k, r)
+    cluster = entry(lib, "bcr_backsub_cluster", dtype)(m2, k, r)
     if cluster < 0:
         build.check(lib, -cluster, "bcr backsub cluster size")
     if cluster:
         check_grid("bcr backsub", "x", m2 * cluster)
     else:  # the tiled kernels put the level's rows on y
         check_grid("bcr backsub", "y", m2)
-    t = torch.empty_like(x) if cluster == 0 else None  # the tiled kernels' workspace
+    # the tiled kernels' workspace, in the compute dtype
+    t = torch.empty(x.shape, dtype=compute_dtype(dtype), device=x.device) if cluster == 0 else None
     out = torch.empty((2 * m2, k, r), dtype=x.dtype, device=x.device)
-    code = lib.bcr_backsub_launch(
+    code = entry(lib, "bcr_backsub_launch", dtype)(
         a_odd.data_ptr(), e_odd.data_ptr(), f_odd.data_ptr(), b.data_ptr(), x.data_ptr(),
         None if t is None else t.data_ptr(), out.data_ptr(), m2, k, r, cluster,
         stream_handle(b.device),
     )
-    build.check(lib, code, f"bcr backsub (cluster {cluster})")
+    build.check(lib, code, f"bcr backsub (cluster {cluster}, {dtype})")
     backsub.launches += 1
+    backsub.by_dtype[dtype] = backsub.by_dtype.get(dtype, 0) + 1
     backsub.by_cluster[cluster] = backsub.by_cluster.get(cluster, 0) + 1
     if cluster == 0:
         backsub.block_launches += 1
@@ -201,11 +221,15 @@ def backsub(
 
 inv_odd.launches = 0
 inv_odd.block_launches = 0  # those of them on the one-block kernel
+inv_odd.by_dtype = {}  # launches by storage dtype (so on for the others)
 reduce.launches = 0
+reduce.by_dtype = {}
 reduce.by_tile = {}  # launches by tile size
 rhs_reduce.launches = 0
+rhs_reduce.by_dtype = {}
 rhs_reduce.block_launches = 0  # those of them on the tiled kernel
 rhs_reduce.by_split = {}  # launches by CTAs a block (0: the tiled kernel)
 backsub.launches = 0
+backsub.by_dtype = {}
 backsub.block_launches = 0  # those of them on the tiled kernels
 backsub.by_cluster = {}  # launches by cluster size (0: the tiled kernels)

@@ -14,6 +14,13 @@ K = 200; 16 for the SaP-E reduced chain of 2K = 400.  Blocks no cluster of
 16 holds (K above ~720) take the one-block kernel, the block in device
 memory; those launches are also counted apart, in ``btf.block_launches``.
 
+Storage: float32, bfloat16 or float64 (``precond_dtype``), each on its own
+instantiation of the kernel (``btf.by_dtype`` counts them); bfloat16
+computes in float32 and keeps the carried inverse and multiplier in a
+float32 workspace, float64 computes in float64 (a larger cluster: its
+slab is twice the bytes).  Float16, integer and mixed dtypes raise before
+any build.
+
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.core.block_lu.btf_ref`); on a CUDA tensor it launches
 the kernel or raises.
@@ -23,9 +30,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.block_lu import DEFAULT_BOOST, btf_ref
+from ..core.block_lu import DEFAULT_BOOST, btf_ref, compute_dtype
 from . import build
-from ._launch import check_grid, check_operands, check_shape, stream_handle
+from ._launch import SOLVER_DTYPES, check_grid, check_operands, check_shape, entry, stream_handle
 
 
 def btf(
@@ -35,25 +42,26 @@ def btf(
     if d.device.type == "cpu":
         fac = btf_ref(d, e, f, boost_eps)
         return fac.sinv, fac.l
-    check_operands("btf", d.device, d=d, e=e, f=f)
+    dtype = check_operands("btf", d.device, SOLVER_DTYPES, d=d, e=e, f=f)
     p, m, k, _ = d.shape
     for name, t in (("d", d), ("e", e), ("f", f)):
         check_shape("btf", name, t, (p, m, k, k))
     lib = build.load("btf")
-    cluster = lib.btf_cluster_size(p, k)
+    cluster = entry(lib, "btf_cluster_size", dtype)(p, k)
     if cluster < 0:
         build.check(lib, -cluster, "btf cluster size")
     check_grid("btf", "x", p * max(cluster, 1))
     sinv = torch.empty_like(d)
     l = torch.empty_like(d)
-    ws = torch.empty((p * lib.btf_workspace_floats(k, cluster),), dtype=torch.float32,
-                     device=d.device)
-    code = lib.btf_launch(
+    ws = torch.empty((max(1, p * entry(lib, "btf_workspace_floats", dtype)(k, cluster)),),
+                     dtype=compute_dtype(dtype), device=d.device)
+    code = entry(lib, "btf_launch", dtype)(
         d.data_ptr(), e.data_ptr(), f.data_ptr(), sinv.data_ptr(), l.data_ptr(),
         ws.data_ptr(), p, m, k, boost_eps, cluster, stream_handle(d.device),
     )
-    build.check(lib, code, f"btf (cluster {cluster})")
+    build.check(lib, code, f"btf (cluster {cluster}, {dtype})")
     btf.launches += 1
+    btf.by_dtype[dtype] = btf.by_dtype.get(dtype, 0) + 1
     if cluster == 0:
         btf.block_launches += 1
     return sinv, l
@@ -61,3 +69,4 @@ def btf(
 
 btf.launches = 0
 btf.block_launches = 0  # those of them on the one-block kernel
+btf.by_dtype = {}  # launches by storage dtype

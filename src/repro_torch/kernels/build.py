@@ -37,8 +37,11 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _L = ctypes.c_long
-# C signatures of every exported function: name -> (restype, argtypes)
+# C signatures of every exported float32 entry point: name -> (restype,
+# argtypes).  The solver kernels' float arguments are the boost threshold,
+# which the float64 entry points take as a double.
 SIGNATURES = {
     "btf": {
         "btf_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
@@ -49,7 +52,7 @@ SIGNATURES = {
         "bts_launch": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "bts_cluster_size": (_I, [_I, _I, _I]),
         "bts_ring_stages": (_I, [_I, _I, _I]),
-        "bts_workspace_floats": (_L, [_I, _I, _I]),
+        "bts_workspace_floats": (_L, [_I, _I, _I, _I]),
         "bts_bulk_route": (_I, [_P, _P, _P, _I]),
     },
     "fused_spike": {
@@ -61,10 +64,12 @@ SIGNATURES = {
         "fused_cluster_size": (_I, [_I, _I]),
     },
     "bcr": {
-        "bcr_inv_launch": (_I, [_P, _P, _I, _I, _I, _F, _I, _P]),
+        "bcr_inv_launch": (_I, [_P, _P, _P, _I, _I, _I, _F, _I, _P]),
+        "bcr_inv_workspace_floats": (_L, [_I, _I]),
         "bcr_inv_max_clusters": (_I, [_I, _I]),
         "bcr_inv_cluster_size": (_I, [_I]),
-        "bcr_reduce_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "bcr_reduce_launch": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+        "bcr_reduce_workspace_floats": (_L, [_I, _I]),
         "bcr_reduce_tile": (_I, [_I, _I]),
         "bcr_rhs_reduce_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
         "bcr_rhs_reduce_split": (_I, [_I, _I, _I]),
@@ -87,6 +92,19 @@ SIGNATURES = {
         "flash_launch": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     },
 }
+# One entry point per storage dtype (csrc/common.cuh: SAP_DTYPE_ENTRIES):
+# the solver sources export every function above again as NAME_bf16 and
+# NAME_f64, the scans their launch and workspace functions as NAME_bf16.
+_TYPED = {"btf": ("_bf16", "_f64"), "bts": ("_bf16", "_f64"),
+          "fused_spike": ("_bf16", "_f64"), "bcr": ("_bf16", "_f64"),
+          "wkv": ("_bf16",), "ssd": ("_bf16",)}
+for _src, _suffixes in _TYPED.items():
+    for _name, (_res, _args) in list(SIGNATURES[_src].items()):
+        if _name == "ssd_split_head_group":
+            continue
+        for _suf in _suffixes:
+            SIGNATURES[_src][_name + _suf] = (
+                _res, [_D if a is _F and _suf == "_f64" else a for a in _args])
 for _fns in SIGNATURES.values():
     _fns["sap_error_string"] = (ctypes.c_char_p, [_I])
 
@@ -136,7 +154,8 @@ def _finish_build(proc: subprocess.Popen, tmp: Path, out: Path) -> str:
 def build_all() -> dict[str, list[str]]:
     """Compile every kernel source, one nvcc process each, all in parallel.
 
-    Returns, for each source it compiled, ptxas's register and spill lines.
+    Returns, for each source it compiled, ptxas's lines naming each entry
+    function (mangled) and giving its registers and spills.
     """
     started = {n: b for n in SOURCES if (b := _start_build(n)) is not None}
     report, errors = {}, []
@@ -149,7 +168,7 @@ def build_all() -> dict[str, list[str]]:
         report[name] = [
             line.split(":", 1)[-1].strip()
             for line in log.splitlines()
-            if "registers" in line or "spill" in line
+            if "registers" in line or "spill" in line or "Compiling entry function" in line
         ]
     if errors:
         raise RuntimeError("\n".join(errors))

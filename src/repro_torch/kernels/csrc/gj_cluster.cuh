@@ -4,8 +4,11 @@
 // btf.cu and fused_spike.cu.
 //
 // Layout.  A cluster of cs CTAs owns one block; CTA r owns the rows
-// [r R, r R + R), R = ceil(K / cs), in a slab of R x ld floats in its shared
-// memory (ld = K rounded up to 4; the pad columns are zero).  Beside the
+// [r R, r R + R), R = ceil(K / cs), in a slab of R x ld elements of the
+// compute type C (common.cuh: float for float32 and bfloat16 storage,
+// double for float64) in its shared memory (ld = K rounded up to 4; the
+// pad columns are zero).  A float64 slab is twice the bytes, so the same
+// block takes a larger cluster.  Beside the
 // slab each CTA keeps a scratch area that the elimination uses for the
 // strip of pivot rows and the products use to stage their operands, two
 // pivot columns and the reduction scratch.
@@ -31,8 +34,9 @@
 // update, so this is the column-by-column algorithm up to the order of
 // each element's sum.  scale = max |A| is a cluster-wide maximum taken
 // before the first panel (cluster_max); a structurally zero row stays zero
-// under (iii), as under the unblocked steps.  float32 FMA on the CUDA
-// cores: no tensor cores, no TF32.
+// under (iii), as under the unblocked steps.  FMA in C on the CUDA cores:
+// no tensor cores, no TF32.  The products read their device operands in
+// the storage type T or in C (the carried workspaces) and convert on load.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -63,34 +67,38 @@ __host__ __device__ inline int pass_rows(int k, int cs) {
   return kTileRows * imin(tiles, (kClusterThreads - 1) / n4 + 2);
 }
 
-// Floats of a CTA's scratch: the elimination's strip and panel columns,
+// Elements of a CTA's scratch: the elimination's strip and panel columns,
 // and, when `products`, at least the products' staged operands.
-__host__ __device__ inline int slab_scratch_floats(int k, int cs, bool products) {
+__host__ __device__ inline int slab_scratch_elems(int k, int cs, bool products) {
   const int ld = slab_ld(k), rows4 = (slab_rows(k, cs) + 3) & ~3;
   const int gj = kPanel * rows4 + kPanel * ld;
   const int prod = 2 * kStage * (pass_rows(k, cs) + 4 + ld);  // two staged slices
   return products ? imax(gj, prod) : gj;
 }
 
-// Dynamic shared bytes of one CTA: slab, scratch, pivot columns, reduction.
+// Dynamic shared bytes of one CTA: slab, scratch, pivot columns, reduction,
+// all of the compute type C.
+template <typename C>
 inline size_t slab_smem_bytes(int k, int cs, bool products) {
-  return sizeof(float) * ((size_t)slab_rows(k, cs) * slab_ld(k) +
-                          slab_scratch_floats(k, cs, products) + 2 * kPanel + kRed);
+  return sizeof(C) * ((size_t)slab_rows(k, cs) * slab_ld(k) +
+                      slab_scratch_elems(k, cs, products) + 2 * kPanel + kRed);
 }
 
 // One CTA's view of the block.
+template <typename C>
 struct Slab {
-  float* w;       // rows x ld: W[row0 + r, c] at r * ld + c
-  float* rowp;    // kPanel x rows4: W[row0 + r, t0 + j] at j * rows4 + r  (elimination)
-  float* strip;   // kPanel x ld: the strip as copied, then R              (elimination)
-  float* stage;   // the products' staged operands (the same scratch)
-  float* colbuf;  // 2 x kPanel: the strip's pivot column, by step parity
-  float* red;     // kRed
+  C* w;       // rows x ld: W[row0 + r, c] at r * ld + c
+  C* rowp;    // kPanel x rows4: W[row0 + r, t0 + j] at j * rows4 + r  (elimination)
+  C* strip;   // kPanel x ld: the strip as copied, then R              (elimination)
+  C* stage;   // the products' staged operands (the same scratch)
+  C* colbuf;  // 2 x kPanel: the strip's pivot column, by step parity
+  C* red;     // kRed
   int k, cs, rows, ld, rows4, row0, nrows;
 };
 
-__device__ inline Slab make_slab(float* smem, int k, int cs, int rank, bool products) {
-  Slab s;
+template <typename C>
+__device__ inline Slab<C> make_slab(C* smem, int k, int cs, int rank, bool products) {
+  Slab<C> s;
   s.k = k;
   s.cs = cs;
   s.rows = slab_rows(k, cs);
@@ -102,7 +110,7 @@ __device__ inline Slab make_slab(float* smem, int k, int cs, int rank, bool prod
   s.rowp = s.w + s.rows * s.ld;
   s.strip = s.rowp + kPanel * s.rows4;
   s.stage = s.rowp;
-  s.colbuf = s.rowp + slab_scratch_floats(k, cs, products);
+  s.colbuf = s.rowp + slab_scratch_elems(k, cs, products);
   s.red = s.colbuf + 2 * kPanel;
   return s;
 }
@@ -112,12 +120,13 @@ __device__ inline Slab make_slab(float* smem, int k, int cs, int rank, bool prod
 // before it), then the maximum over the CTAs' red[32].  The next write of
 // red[32] comes after a later cluster barrier (the panels'), so no CTA
 // reads it while it changes.
-__device__ inline float cluster_max(cg::cluster_group& cluster, float mx, float* red) {
+template <typename C>
+__device__ inline C cluster_max(cg::cluster_group& cluster, C mx, C* red) {
   block_max(mx, red);
   cluster.sync();
-  float scale = 0.f;
+  C scale = C(0);
   const int cs = (int)cluster.num_blocks();
-  for (int r = 0; r < cs; ++r) scale = fmaxf(scale, cluster.map_shared_rank(red, r)[32]);
+  for (int r = 0; r < cs; ++r) scale = fmax(scale, cluster.map_shared_rank(red, r)[32]);
   return scale;
 }
 
@@ -130,23 +139,22 @@ __device__ inline float cluster_max(cg::cluster_group& cluster, float mx, float*
 // n kClusterThreads, n < NC); K <= NC kClusterThreads.  Inlined into its
 // caller (inv_cluster_kernel); kernels that also run products call
 // gj_cluster_inverse_apart.
-template <int NC>
-__device__ __forceinline__ void gj_cluster_inverse(cg::cluster_group& cluster, const Slab& s,
-                                                   float thr) {
+template <int NC, typename C>
+__device__ __forceinline__ void gj_cluster_inverse(cg::cluster_group& cluster, const Slab<C>& s,
+                                                   C thr) {
   const int tid = threadIdx.x, k = s.k, ld = s.ld, rows = s.rows, rows4 = s.rows4;
   const int row0 = s.row0, nrows = s.nrows;
-  float* slab = s.w;
-  float* rowp = s.rowp;
-  float* strip = s.strip;
-  float* colbuf = s.colbuf;
+  C* slab = s.w;
+  C* rowp = s.rowp;
+  C* strip = s.strip;
+  C* colbuf = s.colbuf;
 
   // this CTA's rows of the panel at p0 (b0 rows) take R from `strip`
   auto take_r = [&](int p0, int b0) {
     const int lo = max(p0, row0), hi = min(p0 + b0, row0 + nrows), n4 = ld / 4;
     for (int e = tid; e < (hi - lo) * n4; e += kClusterThreads) {
       const int row = lo + e / n4, c4 = e % n4;
-      reinterpret_cast<float4*>(slab + (row - row0) * ld)[c4] =
-          reinterpret_cast<const float4*>(strip + (row - p0) * ld)[c4];
+      as4(slab + (row - row0) * ld + 4 * c4) = as4(strip + (row - p0) * ld + 4 * c4);
     }
   };
 
@@ -155,30 +163,30 @@ __device__ __forceinline__ void gj_cluster_inverse(cg::cluster_group& cluster, c
     const int b = min(kPanel, k - t0);
     take_r(prev, prev_b);  // (iv) of the previous panel
     __syncthreads();        // `strip` has been read
-    // (i) the strip, from its owners: 16-byte copies into `strip` (remote
-    // shared memory serves few requests a cycle, so 4-byte reads are slow),
-    // then each thread takes its columns
+    // (i) the strip, from its owners: 16-byte (or wider) copies into
+    // `strip` (remote shared memory serves few requests a cycle, so 4-byte
+    // reads are slow), then each thread takes its columns
     const int n4 = ld / 4;
     for (int e = tid; e < b * n4; e += kClusterThreads) {
       const int j = e / n4, row = t0 + j, owner = row / rows;
-      reinterpret_cast<float4*>(strip + j * ld)[e - j * n4] = reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(slab, owner) + (row - owner * rows) * ld)[e - j * n4];
+      as4(strip + j * ld + 4 * (e - j * n4)) = as4(
+          cluster.map_shared_rank(slab, owner) + (row - owner * rows) * ld + 4 * (e - j * n4));
     }
     __syncthreads();
-    float sv[NC][kPanel];  // sv[n][j] = W[t0 + j, c_n]
+    C sv[NC][kPanel];  // sv[n][j] = W[t0 + j, c_n]
 #pragma unroll
     for (int j = 0; j < kPanel; ++j)
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
         const int c = tid + n * kClusterThreads;
-        sv[n][j] = j < b && c < k ? strip[j * ld + c] : 0.f;
+        sv[n][j] = j < b && c < k ? strip[j * ld + c] : C(0);
       }
     // (ii) the b steps on the strip
 #pragma unroll
     for (int j = 0; j < kPanel; ++j) {
       if (j < b) {
         const int t = t0 + j;
-        float* cb = colbuf + (j & 1) * kPanel;
+        C* cb = colbuf + (j & 1) * kPanel;
         bool nz = false;
 #pragma unroll
         for (int n = 0; n < NC; ++n) {
@@ -186,34 +194,33 @@ __device__ __forceinline__ void gj_cluster_inverse(cg::cluster_group& cluster, c
           if (c == t) {
 #pragma unroll
             for (int i4 = 0; i4 < kPanel / 4; ++i4)
-              reinterpret_cast<float4*>(cb)[i4] = make_float4(sv[n][4 * i4], sv[n][4 * i4 + 1],
-                                                              sv[n][4 * i4 + 2], sv[n][4 * i4 + 3]);
+              as4(cb + 4 * i4) =
+                  v4(sv[n][4 * i4], sv[n][4 * i4 + 1], sv[n][4 * i4 + 2], sv[n][4 * i4 + 3]);
           }
-          nz |= c >= t && c < k && sv[n][j] != 0.f;
+          nz |= c >= t && c < k && sv[n][j] != C(0);
         }
         nz = __syncthreads_or(nz);  // W[t, t..K-1] has a nonzero; cb is written
-        float piv = cb[j];
-        if (fabsf(piv) < thr) piv = piv >= 0.f ? thr : -thr;
-        if (!nz) piv = 1.f;
-        const float4* cb4 = reinterpret_cast<const float4*>(cb);
+        C piv = cb[j];
+        if (fabs(piv) < thr) piv = piv >= C(0) ? thr : -thr;
+        if (!nz) piv = C(1);
 #pragma unroll
         for (int n = 0; n < NC; ++n) {
           // row t / piv, column t of the I half 1 / piv; the other rows
           // subtract cb[i] times it, column t (own) starting from 0
           if (tid + n * kClusterThreads >= k) continue;  // whole warps past K skip the work
           const bool own = tid + n * kClusterThreads == t;
-          const float rv = (own ? 1.f : sv[n][j]) / piv;
+          const C rv = (own ? C(1) : sv[n][j]) / piv;
           if (own) {
 #pragma unroll
-            for (int i = 0; i < kPanel; ++i) sv[n][i] = 0.f;
+            for (int i = 0; i < kPanel; ++i) sv[n][i] = C(0);
           }
 #pragma unroll
           for (int i4 = 0; i4 < kPanel / 4; ++i4) {
-            const float4 c4 = cb4[i4];
-            const float ci[4] = {c4.x, c4.y, c4.z, c4.w};
+            const V4<C> c4 = as4(cb + 4 * i4);
+            const C ci[4] = {c4.x, c4.y, c4.z, c4.w};
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-              if (4 * i4 + e != j) sv[n][4 * i4 + e] = fmaf(-ci[e], rv, sv[n][4 * i4 + e]);
+              if (4 * i4 + e != j) sv[n][4 * i4 + e] = fma(-ci[e], rv, sv[n][4 * i4 + e]);
           }
           sv[n][j] = rv;
         }
@@ -230,38 +237,36 @@ __device__ __forceinline__ void gj_cluster_inverse(cg::cluster_group& cluster, c
     }
     for (int e = tid; e < kPanel * nrows; e += kClusterThreads) {
       const int j = e / nrows, r = e - j * nrows;
-      rowp[j * rows4 + r] = j < b ? slab[r * ld + t0 + j] : 0.f;
+      rowp[j * rows4 + r] = j < b ? slab[r * ld + t0 + j] : C(0);
     }
     __syncthreads();
     // (iii) tiles of 4 rows x 4 columns; panel rows are computed, not stored
     const int ntiles = ((nrows + 3) / 4) * n4;
     for (int e = tid; e < ntiles; e += kClusterThreads) {
       const int r0 = 4 * (e / n4), c0 = 4 * (e % n4);
-      float acc[4][4];
+      C acc[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float4 w = r0 + i < nrows ? *reinterpret_cast<const float4*>(slab + (r0 + i) * ld + c0)
-                                        : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float wv[4] = {w.x, w.y, w.z, w.w};
+        const V4<C> w = r0 + i < nrows ? as4(slab + (r0 + i) * ld + c0) : v4zero<C>();
+        const C wv[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = c0 + q >= t0 && c0 + q < t0 + b ? 0.f : wv[q];
+        for (int q = 0; q < 4; ++q) acc[i][q] = c0 + q >= t0 && c0 + q < t0 + b ? C(0) : wv[q];
       }
 #pragma unroll 8
       for (int j = 0; j < kPanel; ++j) {
-        const float4 pa = *reinterpret_cast<const float4*>(rowp + j * rows4 + r0);
-        const float4 rb = *reinterpret_cast<const float4*>(strip + j * ld + c0);
-        const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, rv[4] = {rb.x, rb.y, rb.z, rb.w};
+        const V4<C> pa = as4(rowp + j * rows4 + r0);
+        const V4<C> rb = as4(strip + j * ld + c0);
+        const C pv[4] = {pa.x, pa.y, pa.z, pa.w}, rv[4] = {rb.x, rb.y, rb.z, rb.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(-pv[i], rv[q], acc[i][q]);
+          for (int q = 0; q < 4; ++q) acc[i][q] = fma(-pv[i], rv[q], acc[i][q]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = row0 + r0 + i;
         if (r0 + i < nrows && (row < t0 || row >= t0 + b))
-          *reinterpret_cast<float4*>(slab + (r0 + i) * ld + c0) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          as4(slab + (r0 + i) * ld + c0) = v4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
       }
     }
     cluster.sync();  // (iv)
@@ -274,9 +279,9 @@ __device__ __forceinline__ void gj_cluster_inverse(cg::cluster_group& cluster, c
 
 // gj_cluster_inverse compiled apart from its caller, for btf's and the
 // fused pass's kernels: inlined there beside the products, it spilled.
-template <int NC>
-__device__ __noinline__ void gj_cluster_inverse_apart(cg::cluster_group& cluster, const Slab& s,
-                                                      float thr) {
+template <int NC, typename C>
+__device__ __noinline__ void gj_cluster_inverse_apart(cg::cluster_group& cluster, const Slab<C>& s,
+                                                      C thr) {
   gj_cluster_inverse<NC>(cluster, s, thr);
 }
 
@@ -294,7 +299,7 @@ __device__ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                "r"(bytes)
                : "memory");
 }
-__device__ inline void bulk_copy(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+__device__ inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
           "r"(smem_addr(dst)),
@@ -305,6 +310,11 @@ __device__ inline void bulk_copy(float* dst, const float* src, uint32_t bytes, u
 __device__ inline void cp_async_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
                : "memory");
+}
+// a plain arrival (release: this thread's earlier shared stores are seen by
+// the waiters)
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 __device__ inline void mbar_wait(uint64_t* bar, int parity) {
   uint32_t done = 0;
@@ -318,16 +328,29 @@ __device__ inline void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
-// 4 and 16 bytes global -> shared, asynchronously (cp.async)
-__device__ inline void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src));
+// 4, 8 and 16 bytes global -> shared, asynchronously (cp.async)
+__device__ inline void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
-__device__ inline void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src));
+__device__ inline void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ inline void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+// one element of C (4 or 8 bytes) global -> shared, asynchronously
+template <typename C>
+__device__ inline void cp_async_elem(C* dst, const C* src) {
+  if constexpr (sizeof(C) == 8)
+    cp_async8(dst, src);
+  else
+    cp_async4(dst, src);
+}
+// four consecutive elements of C (16 or 32 bytes, 16-byte aligned)
+template <typename C>
+__device__ inline void cp_async_vec4(C* dst, const C* src) {
+  cp_async16(dst, src);
+  if constexpr (sizeof(C) == 8) cp_async16(dst + 2, src + 2);
 }
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -335,44 +358,58 @@ __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// dst = src: by cp.async when the source already holds the compute type
+// C and lies in device memory, else a load converted to C.
+template <typename C, typename E>
+__device__ inline void stage_elem(C* dst, const E* src, bool global) {
+  if constexpr (std::is_same<E, C>::value) {
+    if (global)
+      cp_async_elem(dst, src);
+    else
+      *dst = *src;
+  } else {
+    *dst = conv<C>(*src);
+  }
+}
+
 // Start staging the slice [k0, k0 + kStage) of the product's operands: the
 // pass's rows [rbase, rbase + arows) of A transposed into `as` (stride
-// astride), B's rows into `bs` (stride ld); zeros past the edges.  Global
-// sources are copied by cp.async (16 bytes at a time for B when its rows
-// are contiguous and aligned), A in shared memory by plain loads.
-__device__ inline void stage_slice(const Slab& s, Mat A, bool a_global, Mat B, bool b_vec,
-                                   float* as, float* bs, int astride, int rbase, int arows, int n,
-                                   int q, int r, int k0) {
+// astride), B's rows into `bs` (stride ld); zeros past the edges.  Device
+// operands of the compute type are copied by cp.async (16 bytes at a time
+// for B when its rows are contiguous and aligned); storage-type operands
+// and A in shared memory by loads converted to C.
+template <typename C, typename EA, typename EB>
+__device__ inline void stage_slice(const Slab<C>& s, Mat<EA> A, bool a_global, Mat<EB> B,
+                                   bool b_vec, C* as, C* bs, int astride, int rbase, int arows,
+                                   int n, int q, int r, int k0) {
   const int tid = threadIdx.x, ld = s.ld, n4 = ld / 4;
   for (int e = tid; e < arows * kStage; e += kClusterThreads) {
     const int i = e / kStage, kk = e - i * kStage, row = rbase + i, col = k0 + kk;
-    float* dst = as + kk * astride + i;
-    if (row < n && col < q) {
-      if (a_global)
-        cp_async4(dst, &A.at(row, col));
-      else
-        *dst = A.at(row, col);
-    } else {
-      *dst = 0.f;
-    }
+    C* dst = as + kk * astride + i;
+    if (row < n && col < q)
+      stage_elem(dst, &A.at(row, col), a_global);
+    else
+      *dst = C(0);
   }
   if (b_vec) {
     for (int e = tid; e < kStage * n4; e += kClusterThreads) {
       const int kk = e / n4, c = 4 * (e - kk * n4), row = k0 + kk;
-      float* dst = bs + kk * ld + c;
-      if (row < q && c < r)
-        cp_async16(dst, &B.at(row, c));
-      else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      C* dst = bs + kk * ld + c;
+      if constexpr (std::is_same<EB, C>::value) {
+        if (row < q && c < r)
+          cp_async_vec4(dst, &B.at(row, c));
+        else
+          as4(dst) = v4zero<C>();
+      }
     }
   } else {
     for (int e = tid; e < kStage * ld; e += kClusterThreads) {
       const int kk = e / ld, c = e - kk * ld, row = k0 + kk;
-      float* dst = bs + kk * ld + c;
+      C* dst = bs + kk * ld + c;
       if (row < q && c < r)
-        cp_async4(dst, &B.at(row, c));
+        stage_elem(dst, &B.at(row, c), true);
       else
-        *dst = 0.f;
+        *dst = C(0);
     }
   }
 }
@@ -388,30 +425,33 @@ __device__ inline void stage_slice(const Slab& s, Mat A, bool a_global, Mat B, b
 // of A, transposed, and the slice of B, so a warp reads one row of B with
 // consecutive 16-byte loads and broadcasts A.  Compiled apart from its
 // caller, which keeps it clear of the caller's live registers (inlined, it
-// spilled).  C must not overlap A, B or the scratch.  Returns the thread's
-// max |C| over the entries it wrote.
-__device__ __noinline__ float slab_product(const Slab& s, Mat C, Mat A, Mat B, Mat base, float sign,
-                                           int n, int q, int r) {
+// spilled).  The operands may each be of the storage or the compute type
+// (converted as staged); the output is stored as its own type.  C must not
+// overlap A, B or the scratch.  Returns the thread's max |C| over the
+// entries it wrote, before the output's rounding.
+template <typename Cd, typename EO, typename EA, typename EB, typename EBase>
+__device__ __noinline__ Cd slab_product(const Slab<Cd>& s, Mat<EO> C, Mat<EA> A, Mat<EB> B,
+                                        Mat<EBase> base, Cd sign, int n, int q, int r) {
   const int tid = threadIdx.x, ld = s.ld, n4 = ld / 4;
   const int nrt = (n + kTileRows - 1) / kTileRows, ntiles = nrt * n4;
   const int astride = pass_rows(s.k, s.cs) + 4, nslices = (q + kStage - 1) / kStage;
-  float* as[2] = {s.stage, s.stage + kStage * (astride + ld)};
-  float* bs[2] = {as[0] + kStage * astride, as[1] + kStage * astride};
+  Cd* as[2] = {s.stage, s.stage + kStage * (astride + ld)};
+  Cd* bs[2] = {as[0] + kStage * astride, as[1] + kStage * astride};
   const bool a_global = __isGlobal(A.p);
-  const bool b_vec = B.cs == 1 && B.rs % 4 == 0 && r % 4 == 0 &&
+  const bool b_vec = std::is_same<EB, Cd>::value && B.cs == 1 && B.rs % 4 == 0 && r % 4 == 0 &&
                      (reinterpret_cast<uintptr_t>(B.p) & 15) == 0 && __isGlobal(B.p);
-  float mx = 0.f;
+  Cd mx = Cd(0);
   for (int t0 = 0; t0 < ntiles; t0 += kClusterThreads) {
     const int rt_lo = t0 / n4, rt_hi = min((t0 + kClusterThreads - 1) / n4, nrt - 1);
     const int rbase = kTileRows * rt_lo, arows = kTileRows * (rt_hi - rt_lo + 1);
     const int tile = t0 + tid;
     const int rt = tile / n4, ct = tile % n4;
     const int ar = kTileRows * (rt - rt_lo), c0 = 4 * ct;
-    float acc[kTileRows][4];
+    Cd acc[kTileRows][4];
 #pragma unroll
     for (int i = 0; i < kTileRows; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[i][j] = Cd(0);
     stage_slice(s, A, a_global, B, b_vec, as[0], bs[0], astride, rbase, arows, n, q, r, 0);
     cp_async_commit();
     for (int sl = 0; sl < nslices; ++sl) {
@@ -426,19 +466,19 @@ __device__ __noinline__ float slab_product(const Slab& s, Mat C, Mat A, Mat B, M
       }
       __syncthreads();
       if (tile < ntiles) {
-        const float* a = as[sl & 1] + ar;
-        const float* b = bs[sl & 1] + c0;
+        const Cd* a = as[sl & 1] + ar;
+        const Cd* b = bs[sl & 1] + c0;
 #pragma unroll
         for (int kk = 0; kk < kStage; ++kk) {
-          const float4 a0 = *reinterpret_cast<const float4*>(a + kk * astride);
-          const float4 a1 = *reinterpret_cast<const float4*>(a + kk * astride + 4);
-          const float4 bv = *reinterpret_cast<const float4*>(b + kk * ld);
-          const float av[kTileRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+          const V4<Cd> a0 = as4(a + kk * astride);
+          const V4<Cd> a1 = as4(a + kk * astride + 4);
+          const V4<Cd> bv = as4(b + kk * ld);
+          const Cd av[kTileRows] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const Cd bb[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
           for (int i = 0; i < kTileRows; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bb[j], acc[i][j]);
+            for (int j = 0; j < 4; ++j) acc[i][j] = fma(av[i], bb[j], acc[i][j]);
         }
       }
       __syncthreads();  // this buffer is free for slice sl + 2
@@ -450,9 +490,9 @@ __device__ __noinline__ float slab_product(const Slab& s, Mat C, Mat A, Mat B, M
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           if (row < n && c0 + j < r) {
-            const float v = (base.p ? base.at(row, c0 + j) : 0.f) + sign * acc[i][j];
-            C.at(row, c0 + j) = v;
-            mx = fmaxf(mx, fabsf(v));
+            const Cd v = (base.p ? base.template get<Cd>(row, c0 + j) : Cd(0)) + sign * acc[i][j];
+            C.put(row, c0 + j, v);
+            mx = fmax(mx, fabs(v));
           }
         }
       }
@@ -461,25 +501,35 @@ __device__ __noinline__ float slab_product(const Slab& s, Mat C, Mat A, Mat B, M
   return mx;
 }
 
-// Copy rows [0, n) of an n x r matrix into the slab (pad columns zeroed)
-// and return the thread's max |value|.
-__device__ inline float slab_load(const Slab& s, Mat src, int n) {
-  float mx = 0.f;
+// Copy rows [0, n) of an n x r matrix into the slab (pad columns zeroed),
+// converted to C, and return the thread's max |value|.
+template <typename C, typename E>
+__device__ inline C slab_load(const Slab<C>& s, Mat<E> src, int n) {
+  C mx = C(0);
   for (int e = threadIdx.x; e < n * s.ld; e += blockDim.x) {
     const int r = e / s.ld, c = e - r * s.ld;
-    const float v = c < s.k ? src.at(r, c) : 0.f;
+    const C v = c < s.k ? src.template get<C>(r, c) : C(0);
     s.w[e] = v;
-    mx = fmaxf(mx, fabsf(v));
+    mx = fmax(mx, fabs(v));
   }
   return mx;
 }
 
-// dst rows [0, n) = this CTA's slab rows.
-__device__ inline void slab_store(const Slab& s, Mat dst, int n) {
+// dst rows [0, n) = this CTA's slab rows, rounded to dst's type.
+template <typename C, typename E>
+__device__ inline void slab_store(const Slab<C>& s, Mat<E> dst, int n) {
   for (int e = threadIdx.x; e < n * s.k; e += blockDim.x) {
     const int r = e / s.k, c = e - r * s.k;
-    dst.at(r, c) = s.w[r * s.ld + c];
+    dst.put(r, c, s.w[r * s.ld + c]);
   }
+}
+
+// dst = src for this CTA's n rows of K (the carried value in C to its
+// output, rounded), when the two are different buffers.
+template <typename C, typename E>
+__device__ inline void rows_out(E* dst, const C* src, long n_elems) {
+  if (static_cast<const void*>(dst) == static_cast<const void*>(src)) return;
+  for (long e = threadIdx.x; e < n_elems; e += blockDim.x) dst[e] = conv<E>(src[e]);
 }
 
 // Host side of a cluster launch: attributes set once per kernel and
@@ -523,8 +573,8 @@ int max_active_clusters(Kernel kern, int cs, size_t smem, int threads = kCluster
   };
   static Entry cache[64];
   static int used = 0;
-  static const void* attrs_set[8];
-  static int attrs_dev[8], nattrs = 0;
+  static const void* attrs_set[24];
+  static int attrs_dev[24], nattrs = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
@@ -540,7 +590,7 @@ int max_active_clusters(Kernel kern, int cs, size_t smem, int threads = kCluster
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return -(int)err;
-    if (nattrs < 8) {
+    if (nattrs < 24) {
       attrs_set[nattrs] = key;
       attrs_dev[nattrs++] = dev;
     }
@@ -572,20 +622,21 @@ int grow_cluster(Kernel kern, int chains, int cs, SmemOf smem_of) {
   return cs;
 }
 
-// The cluster size for `chains` independent K x K chains: the smallest
-// power of two whose slab fits the shared memory one block may opt in to,
-// doubled while the chains' clusters of the doubled size still fit on the
-// card at once, up to kClusterMax; 0 when no cluster holds the block (the
-// caller's one-block route).  A negative cudaError_t code on failure.
-template <typename Kernel>
+// The cluster size for `chains` independent K x K chains whose slabs hold
+// the compute type C: the smallest power of two whose slab fits the
+// shared memory one block may opt in to, doubled while the chains'
+// clusters of the doubled size still fit on the card at once, up to
+// kClusterMax; 0 when no cluster holds the block (the caller's one-block
+// route).  A negative cudaError_t code on failure.
+template <typename C, typename Kernel>
 int cluster_size_for(Kernel kern, int chains, int k) {
   if (k <= 0 || chains <= 0) return -(int)cudaErrorInvalidValue;
   if (k > 2 * kClusterThreads) return 0;
   const size_t optin = (size_t)smem_optin();
   int cs = 1;
-  while (cs <= kClusterMax && slab_smem_bytes(k, cs, true) > optin) cs *= 2;
+  while (cs <= kClusterMax && slab_smem_bytes<C>(k, cs, true) > optin) cs *= 2;
   if (cs > kClusterMax) return 0;
-  return grow_cluster(kern, chains, cs, [k](int c) { return slab_smem_bytes(k, c, true); });
+  return grow_cluster(kern, chains, cs, [k](int c) { return slab_smem_bytes<C>(k, c, true); });
 }
 
 }  // namespace sap

@@ -15,7 +15,17 @@
 //   block (anything else: a dimension above 64 or not a multiple of 4, a
 //         chunk above 64) -- the first port's kernel, one thread block per
 //         row walking every chunk.
+//
+// Input types: the per-token tensors (WKV6's r, k, v, log w; SSD's x, B,
+// C) are float32 or bfloat16 (scan_dtype), each kernel a template over
+// that type T: loads convert to float32 (gld, gld4), the output is stored
+// in T once (gst4); the state, u, log a and every workspace stay float32,
+// and everything is computed in float32.  For bfloat16 the split route's
+// first launch writes its chunk-local output to a float32 workspace that
+// the carry reads, so the output is rounded once.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -66,19 +76,47 @@ __device__ inline float at(float4 v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+using bf16 = __nv_bfloat16;
+
+// One element, and four consecutive ones (8-byte aligned for bfloat16),
+// of an input tensor as float32; four outputs stored rounded to T.
+__device__ inline float gld(const float* p) { return *p; }
+__device__ inline float gld(const bf16* p) { return __bfloat162float(*p); }
+__device__ inline float4 gld4(const float* p) { return ld4(p); }
+__device__ inline float4 gld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ inline void gst(float* p, float v) { *p = v; }
+__device__ inline void gst(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ inline void gst4(float* p, float4 v) { st4(p, v); }
+__device__ inline void gst4(bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y), b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 // Stage rows [0, rows) of a row-major (rows x cols) global matrix with row
-// stride gld into shared memory with row stride sld, by 16-byte cp.async
-// copies (cols a multiple of 4, both starts 16-byte aligned); rows
-// [rows, rows_pad) are zeroed.  The caller commits and waits.
-__device__ inline void stage_rows(float* dst, int sld, const float* src, long gld, int rows,
+// stride gld into shared memory with row stride sld as float32: by 16-byte
+// cp.async copies for float32 (cols a multiple of 4, both starts 16-byte
+// aligned), by converting loads for bfloat16; rows [rows, rows_pad) are
+// zeroed.  The caller commits and waits.
+template <typename T>
+__device__ inline void stage_rows(float* dst, int sld, const T* src, long gld, int rows,
                                   int rows_pad, int cols) {
   const int quads = cols >> 2;
   for (int e = threadIdx.x; e < rows_pad * quads; e += blockDim.x) {
     const int i = e / quads, q = 4 * (e - i * quads);
-    if (i < rows)
+    if (i >= rows)
+      st4(dst + i * sld + q, make_float4(0.f, 0.f, 0.f, 0.f));
+    else if constexpr (sizeof(T) == 4)
       cp_async16(dst + i * sld + q, src + i * gld + q);
     else
-      st4(dst + i * sld + q, make_float4(0.f, 0.f, 0.f, 0.f));
+      st4(dst + i * sld + q, gld4(src + i * gld + q));
   }
 }
 
@@ -87,8 +125,9 @@ __device__ inline void stage_rows(float* dst, int sld, const float* src, long gl
 // state columns) walks the row's chunks in order:
 //   out[t, j] = post[t] * (sum_q lhs[t, q] S[q, j]) + out[t, j]
 //   S[q, j]   = dec[q] * S[q, j] + dS[q, j]
-// out holds the chunk-local output from the first launch; lhs is C (SSD,
-// post = e^{Lcum}) or r * e^{Lprev} (WKV, no post); dec is the chunk's
+// loc holds the chunk-local output from the first launch (out itself for
+// float32 outputs); lhs is C (SSD, post = e^{Lcum}; of the input type) or
+// r * e^{Lprev} (WKV, no post; float32); dec is the chunk's
 // decay, e^{Llast} (a scalar for SSD, per state row for WKV).  lhs is
 // staged by cp.async one chunk ahead; the state slice stays in shared
 // memory; each thread owns a 4 x 4 tile of out (rows strided by 16, so the
@@ -101,17 +140,19 @@ constexpr int kCarryThreads = 128;
 constexpr int kCarryLds = kCarryCols + 4;
 constexpr int kCarryQuads = kMaxDim * kCarryCols / 4 / kCarryThreads;  // state quads a thread
 
+template <typename TL, typename TO>
 struct CarryArgs {
-  const float* lhs;  // rows of row r, chunk c at lhs + ((r / lhs_share) * t + c * chunk) * k
+  const TL* lhs;  // rows of row r, chunk c at lhs + ((r / lhs_share) * t + c * chunk) * k
   int lhs_share;
   const float* post;  // null, or post[r * t + c * chunk + i]
   const float* dec;   // dec[r * dec_row + c * dec_chunk + dec_off + q * dec_q]
   long dec_row;
   int dec_chunk, dec_off, dec_q;
   const float* ds;  // dS of (r, c): ds + ((long)r * nc + c) * k * p, (k x p)
-  const float* s0;  // (rows, k, p)
-  float* out;       // (rows, t, p)
-  float* sout;      // (rows, k, p)
+  const float* s0;   // (rows, k, p)
+  const float* loc;  // (rows, t, p): the chunk-local output
+  TO* out;           // (rows, t, p)
+  float* sout;       // (rows, k, p)
   int t, k, p, chunk;
 };
 
@@ -123,8 +164,8 @@ inline size_t carry_smem_bytes(int k, int chunk) {
 // kCarryPacked: capped so that the five CTAs an SM that 44 KB of shared
 // memory allows (K = C = 64) fit, with a few spills (launch_carry picks).
 constexpr int kCarryPacked = 5;
-template <int MinBlocks>
-__global__ void __launch_bounds__(kCarryThreads, MinBlocks) carry_kernel(CarryArgs a) {
+template <int MinBlocks, typename TL, typename TO>
+__global__ void __launch_bounds__(kCarryThreads, MinBlocks) carry_kernel(CarryArgs<TL, TO> a) {
   extern __shared__ float4 carry_smem[];
   const int k = a.k, ldk = k + 4, cp = up4(a.chunk), nc = a.t / a.chunk;
   float* lbuf[2] = {reinterpret_cast<float*>(carry_smem),
@@ -134,7 +175,7 @@ __global__ void __launch_bounds__(kCarryThreads, MinBlocks) carry_kernel(CarryAr
   const int j0 = blockIdx.y * kCarryCols, ncols = min(kCarryCols, a.p - j0), nq = ncols >> 2;
   const int tid = threadIdx.x, ti = tid >> 3, tj = tid & 7, jq = 4 * tj;
   const bool col_on = jq < ncols;
-  const float* lhs_row = a.lhs + (row / a.lhs_share) * a.t * k;
+  const TL* lhs_row = a.lhs + (row / a.lhs_share) * a.t * k;
 
   for (int e = tid; e < k * nq; e += kCarryThreads) {
     const int q = e / nq, jj = 4 * (e - q * nq);
@@ -148,12 +189,12 @@ __global__ void __launch_bounds__(kCarryThreads, MinBlocks) carry_kernel(CarryAr
                                a.chunk, cp, k);
     cp_async_commit();
     // this chunk's local outputs, dS and the decay, loaded while lhs lands
-    float* const orow = a.out + (row * a.t + c0 + ti) * a.p + j0 + jq;
+    const long orow = (row * a.t + c0 + ti) * a.p + j0 + jq;
     float4 loc[4], dsv[kCarryQuads];
     float dec[kCarryQuads];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      loc[i] = col_on && ti + 16 * i < a.chunk ? ld4(orow + 16L * i * a.p)
+      loc[i] = col_on && ti + 16 * i < a.chunk ? ld4(a.loc + orow + 16L * i * a.p)
                                                : make_float4(0.f, 0.f, 0.f, 0.f);
     const float* decp = a.dec + row * a.dec_row + (long)c * a.dec_chunk + a.dec_off;
     const float* ds = a.ds + (row * nc + c) * (long)k * a.p + j0;
@@ -195,7 +236,7 @@ __global__ void __launch_bounds__(kCarryThreads, MinBlocks) carry_kernel(CarryAr
       o.y = g * acc[i][1] + o.y;
       o.z = g * acc[i][2] + o.z;
       o.w = g * acc[i][3] + o.w;
-      st4(orow + 16L * i * a.p, o);
+      gst4(a.out + orow + 16L * i * a.p, o);
     }
     __syncthreads();  // every thread has read S
 #pragma unroll
@@ -221,24 +262,25 @@ __global__ void __launch_bounds__(kCarryThreads, MinBlocks) carry_kernel(CarryAr
 // else the packed copy: on the H100, WKV's 256 CTAs at RWKV6-1.6B's prefill
 // run faster unpacked, SSD's 640 at Zamba2-2.7B's faster packed, in one
 // wave instead of two (PERF.md §6).
-inline cudaError_t launch_carry(const CarryArgs& a, int rows, cudaStream_t stream) {
+template <typename TL, typename TO>
+inline cudaError_t launch_carry(const CarryArgs<TL, TO>& a, int rows, cudaStream_t stream) {
   static SmemOptIn optin_free, optin_packed;
   const size_t smem = carry_smem_bytes(a.k, a.chunk);
   const dim3 grid(rows, (a.p + kCarryCols - 1) / kCarryCols);
-  cudaError_t err = optin_free.ensure(carry_kernel<1>, smem);
+  cudaError_t err = optin_free.ensure(carry_kernel<1, TL, TO>, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, carry_kernel<1>, kCarryThreads,
-                                                        smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, carry_kernel<1, TL, TO>,
+                                                        kCarryThreads, smem);
   if (err != cudaSuccess) return err;
   if ((long)grid.x * grid.y <= (long)per_sm * sms) {
-    carry_kernel<1><<<grid, kCarryThreads, smem, stream>>>(a);
+    carry_kernel<1, TL, TO><<<grid, kCarryThreads, smem, stream>>>(a);
   } else {
-    err = optin_packed.ensure(carry_kernel<kCarryPacked>, smem);
+    err = optin_packed.ensure(carry_kernel<kCarryPacked, TL, TO>, smem);
     if (err != cudaSuccess) return err;
-    carry_kernel<kCarryPacked><<<grid, kCarryThreads, smem, stream>>>(a);
+    carry_kernel<kCarryPacked, TL, TO><<<grid, kCarryThreads, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }

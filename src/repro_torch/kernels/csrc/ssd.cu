@@ -26,12 +26,20 @@
 //
 // Bound on the H100: at decode (C = 1) bytes -- the N x P state is read
 // and written once per token; at prefill (C = 64) operations, ~4 C N P
-// flops per chunk in the products.  float32 throughout, no tensor cores.
+// flops per chunk in the products.  float32 arithmetic throughout, no
+// tensor cores; x, B, C and y are float32 or bfloat16 (the kernels'
+// template T, scan.cuh), log a, the state and the workspaces float32.
+// Entry points: ssd_launch (float32) and ssd_launch_bf16.
 #include "scan.cuh"
 
 namespace {
 
 using scan::at;
+using scan::bf16;
+using scan::gld;
+using scan::gld4;
+using scan::gst;
+using scan::gst4;
 using scan::ld4;
 using scan::st4;
 using scan::up4;
@@ -40,10 +48,11 @@ using scan::up4;
 // turn, each as fma(x, fma(y, fma(z, fma(w, acc))))).  From a zero state a
 // token's output is (c . b) x on both routes, so they give the same bits
 // there (the first token of a forward and of a decode step agree exactly).
-__device__ inline float cb_dot(const float* c, const float* b, int n) {
+template <typename T>
+__device__ inline float cb_dot(const T* c, const T* b, int n) {
   float acc = 0.f;
   for (int q = 0; q < n; q += 4) {
-    const float4 cv = ld4(c + q), bv = ld4(b + q);
+    const float4 cv = gld4(c + q), bv = gld4(b + q);
     acc = fmaf(cv.x, bv.x, fmaf(cv.y, bv.y, fmaf(cv.z, bv.z, fmaf(cv.w, bv.w, acc))));
   }
   return acc;
@@ -54,11 +63,12 @@ __device__ inline float cb_dot(const float* c, const float* b, int n) {
 // 4) owns the column quad 16 w + 4 q on state rows g, g + 8, ..., g + 56.
 // All eight quads are loaded before any arithmetic; sums over N are
 // shuffles across g.
+template <typename T>
 __global__ void __launch_bounds__(128)
-    ssd_step_kernel(const float* __restrict__ x, const float* __restrict__ b,
-                    const float* __restrict__ c, const float* __restrict__ loga,
-                    const float* __restrict__ s0, float* __restrict__ y,
-                    float* __restrict__ sout, int t, int n, int p, int hshare) {
+    ssd_step_kernel(const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ c,
+                    const float* __restrict__ loga, const float* __restrict__ s0,
+                    T* __restrict__ y, float* __restrict__ sout, int t, int n, int p,
+                    int hshare) {
   const long row = blockIdx.x, brow = row / hshare;
   const int lane = threadIdx.x & 31, g = lane >> 2;
   const int j = 16 * (threadIdx.x >> 5) + 4 * (lane & 3);
@@ -70,17 +80,17 @@ __global__ void __launch_bounds__(128)
     s[i] = on && q < n ? ld4(s0 + (row * n + q) * p + j) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   for (int tt = 0; tt < t; ++tt) {
-    const float* bt = b + (brow * t + tt) * n;
-    const float* ct = c + (brow * t + tt) * n;
+    const T* bt = b + (brow * t + tt) * n;
+    const T* ct = c + (brow * t + tt) * n;
     float bv[8], cv[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int q = g + 8 * i;
-      bv[i] = q < n ? bt[q] : 0.f;
-      cv[i] = q < n ? ct[q] : 0.f;
+      bv[i] = q < n ? gld(bt + q) : 0.f;
+      cv[i] = q < n ? gld(ct + q) : 0.f;
     }
     const float cb = cb_dot(ct, bt, n);
-    const float4 xv = on ? ld4(x + (row * t + tt) * p + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 xv = on ? gld4(x + (row * t + tt) * p + j) : make_float4(0.f, 0.f, 0.f, 0.f);
     const float ea = expf(loga[row * t + tt]);
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -98,9 +108,9 @@ __global__ void __launch_bounds__(128)
       acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
     }
     if (on && g == 0)
-      st4(y + (row * t + tt) * p + j,
-          make_float4(ea * acc.x + cb * xv.x, ea * acc.y + cb * xv.y, ea * acc.z + cb * xv.z,
-                      ea * acc.w + cb * xv.w));
+      gst4(y + (row * t + tt) * p + j,
+           make_float4(ea * acc.x + cb * xv.x, ea * acc.y + cb * xv.y, ea * acc.z + cb * xv.z,
+                       ea * acc.w + cb * xv.w));
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       s[i].x = ea * s[i].x + bv[i] * xv.x;
@@ -154,15 +164,16 @@ struct ChunkLayout {  // shared memory, in floats; row strides padded by 4
   }
 };
 
-// grid (rows / hg, T / chunk).  ws_ds: (rows, T / chunk, n, p); ws_ea:
+// grid (rows / hg, T / chunk).  yloc: (rows, T, p), the chunk-local
+// output (y itself for float32); ws_ds: (rows, T / chunk, n, p); ws_ea:
 // (rows, T) = e^{Lcum} of each token within its chunk.
 // three CTAs an SM: their shared memory allows it, the registers are capped to match
+template <typename T>
 __global__ void __launch_bounds__(kChunkThreads, 3)
-    ssd_chunk_kernel(const float* __restrict__ x, const float* __restrict__ b,
-                     const float* __restrict__ c, const float* __restrict__ loga,
-                     float* __restrict__ y, float* __restrict__ ws_ds,
-                     float* __restrict__ ws_ea, int t, int n, int p, int chunk, int hshare,
-                     int hg) {
+    ssd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ c,
+                     const float* __restrict__ loga, float* __restrict__ yloc,
+                     float* __restrict__ ws_ds, float* __restrict__ ws_ea, int t, int n, int p,
+                     int chunk, int hshare, int hg) {
   extern __shared__ float4 chunk_smem[];
   float* sm = reinterpret_cast<float*>(chunk_smem);
   const ChunkLayout ly(n, p, chunk);
@@ -183,7 +194,7 @@ __global__ void __launch_bounds__(kChunkThreads, 3)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int e = tid + kChunkThreads * i, tt = e / pq;
-      xnext[i] = tt < chunk ? ld4(x + (row * t + c0 + tt) * p + 4 * (e - tt * pq))
+      xnext[i] = tt < chunk ? gld4(x + (row * t + c0 + tt) * p + 4 * (e - tt * pq))
                             : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
@@ -271,7 +282,7 @@ __global__ void __launch_bounds__(kChunkThreads, 3)
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         if (4 * ti + u < chunk)
-          st4(y + (row * t + c0 + 4 * ti + u) * p + jq,
+          st4(yloc + (row * t + c0 + 4 * ti + u) * p + jq,
               make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]));
     }
     if (tid < (n >> 2) * pq) {  // dS: rows 4 ni .. 4 ni + 3 of N, columns 4 pj ..
@@ -304,11 +315,12 @@ __global__ void __launch_bounds__(kChunkThreads, 3)
 // stride of width + 1 floats, so lanes walking s read distinct banks.
 constexpr int kBlockThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-    ssd_block_kernel(const float* __restrict__ x, const float* __restrict__ b,
-                     const float* __restrict__ c, const float* __restrict__ loga,
-                     const float* __restrict__ s0, float* __restrict__ y,
-                     float* __restrict__ sout, int t, int n, int p, int chunk, int hshare) {
+    ssd_block_kernel(const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ c,
+                     const float* __restrict__ loga, const float* __restrict__ s0,
+                     T* __restrict__ y, float* __restrict__ sout, int t, int n, int p, int chunk,
+                     int hshare) {
   extern __shared__ float smem[];
   const int pp = p + 1, np = n + 1;
   float* X = smem;              // C x pp
@@ -326,13 +338,13 @@ __global__ void __launch_bounds__(kBlockThreads)
     __syncthreads();  // the previous chunk's state update has read its buffers
     for (int i = tid; i < chunk * p; i += nt) {
       const int tt = i / p, j = i % p;
-      X[tt * pp + j] = x[(row * t + c0 + tt) * p + j];
+      X[tt * pp + j] = gld(x + (row * t + c0 + tt) * p + j);
     }
     for (int i = tid; i < chunk * n; i += nt) {
       const int tt = i / n, j = i % n;
       const long gi = (brow * t + c0 + tt) * n + j;
-      Bm[tt * np + j] = b[gi];
-      Cm[tt * np + j] = c[gi];
+      Bm[tt * np + j] = gld(b + gi);
+      Cm[tt * np + j] = gld(c + gi);
     }
     for (int i = tid; i < chunk; i += nt) Lc[i] = loga[row * t + c0 + i];
     __syncthreads();
@@ -361,7 +373,7 @@ __global__ void __launch_bounds__(kBlockThreads)
       float inter = 0.f, intra = 0.f;
       for (int q = 0; q < n; ++q) inter = fmaf(Cm[tt * np + q], S[q * p + j], inter);
       for (int ss = 0; ss <= tt; ++ss) intra = fmaf(G[tt * chunk + ss], X[ss * pp + j], intra);
-      y[(row * t + c0 + tt) * p + j] = expf(Lc[tt]) * inter + intra;
+      gst(y + (row * t + c0 + tt) * p + j, expf(Lc[tt]) * inter + intra);
     }
     // the outputs above do not read B: scale it for the state update meanwhile
     for (int i = tid; i < chunk * n; i += nt) {
@@ -402,20 +414,21 @@ int ssd_head_group(int bh, int nc, int hshare) {
 
 }  // namespace
 
+namespace {
+
 // Floats of device workspace the split route needs: dS per (row, chunk) and
-// e^{Lcum} per (row, token).
-extern "C" long ssd_workspace_floats(int bh, int t, int n, int p, int chunk) {
-  return (long)bh * ((long)(t / chunk) * n * p + t);
+// e^{Lcum} per (row, token); for bfloat16 also the chunk-local output per
+// (row, token).
+template <typename T>
+long workspace_floats_t(int bh, int t, int n, int p, int chunk) {
+  const long loc = sizeof(T) == 4 ? 0 : (long)t * p;
+  return (long)bh * ((long)(t / chunk) * n * p + t + loc);
 }
 
-// x, y: (bh, t, p); b, c: (bh / hshare, t, n); loga: (bh, t); s0, sout:
-// (bh, n, p); ws: ssd_workspace_floats floats (split route; else unused);
-// t a multiple of chunk, bh a multiple of hshare; route a scan::Route the
-// shape fits (the step and split routes also need 16-byte-aligned
-// operands).  Returns a cudaError_t code.
-extern "C" int ssd_launch(const float* x, const float* b, const float* c, const float* loga,
-                          const float* s0, float* y, float* sout, float* ws, int bh, int t, int n,
-                          int p, int chunk, int hshare, int route, void* stream) {
+template <typename T>
+int launch_t(const T* x, const T* b, const T* c, const float* loga, const float* s0, T* y,
+             float* sout, float* ws, int bh, int t, int n, int p, int chunk, int hshare, int route,
+             void* stream) {
   if (bh <= 0 || chunk <= 0 || t % chunk != 0 || hshare <= 0 || bh % hshare != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -424,8 +437,8 @@ extern "C" int ssd_launch(const float* x, const float* b, const float* c, const 
                    scan::aligned(sout);
   if (route == scan::kStep) {
     if (chunk != 1 || !vec) return (int)cudaErrorInvalidValue;
-    ssd_step_kernel<<<bh, 32 * ((p + 15) / 16), 0, st>>>(x, b, c, loga, s0, y, sout, t, n, p,
-                                                          hshare);
+    ssd_step_kernel<T><<<bh, 32 * ((p + 15) / 16), 0, st>>>(x, b, c, loga, s0, y, sout, t, n, p,
+                                                             hshare);
     return (int)cudaGetLastError();
   }
   if (route == scan::kSplit) {
@@ -433,27 +446,53 @@ extern "C" int ssd_launch(const float* x, const float* b, const float* c, const 
     static scan::SmemOptIn optin;
     const int nc = t / chunk, hg = ssd_head_group(bh, nc, hshare);
     const size_t smem = sizeof(float) * (size_t)ChunkLayout(n, p, chunk).total;
-    cudaError_t err = optin.ensure(ssd_chunk_kernel, smem);
+    cudaError_t err = optin.ensure(ssd_chunk_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
     float* ws_ds = ws;
     float* ws_ea = ws + (long)bh * nc * n * p;
-    ssd_chunk_kernel<<<dim3(bh / hg, nc), kChunkThreads, smem, st>>>(
-        x, b, c, loga, y, ws_ds, ws_ea, t, n, p, chunk, hshare, hg);
+    float* yloc = sizeof(T) == 4 ? reinterpret_cast<float*>(y) : ws_ea + (long)bh * t;
+    ssd_chunk_kernel<T><<<dim3(bh / hg, nc), kChunkThreads, smem, st>>>(
+        x, b, c, loga, yloc, ws_ds, ws_ea, t, n, p, chunk, hshare, hg);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    scan::CarryArgs a{c, hshare, ws_ea, ws_ea, t, chunk, chunk - 1, 0, ws_ds, s0, y, sout,
-                      t, n, p, chunk};
+    scan::CarryArgs<T, T> a{c, hshare, ws_ea, ws_ea, t, chunk, chunk - 1, 0, ws_ds, s0, yloc, y,
+                            sout, t, n, p, chunk};
     return (int)scan::launch_carry(a, bh, st);
   }
   if (route != scan::kBlock) return (int)cudaErrorInvalidValue;
   static scan::SmemOptIn optin;
   const size_t smem = ssd_block_smem_bytes(n, p, chunk);
-  const cudaError_t err = optin.ensure(ssd_block_kernel, smem);
+  const cudaError_t err = optin.ensure(ssd_block_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  ssd_block_kernel<<<bh, kBlockThreads, smem, st>>>(x, b, c, loga, s0, y, sout, t, n, p, chunk,
-                                                    hshare);
+  ssd_block_kernel<T><<<bh, kBlockThreads, smem, st>>>(x, b, c, loga, s0, y, sout, t, n, p, chunk,
+                                                       hshare);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// For each input type (ssd_launch: float32, ssd_launch_bf16):
+//
+// ssd_workspace_floats: floats of device workspace the split route needs.
+//
+// ssd_launch: x, y: (bh, t, p); b, c: (bh / hshare, t, n), all of the
+// input type; loga: (bh, t); s0, sout: (bh, n, p), float32; ws:
+// ssd_workspace_floats floats (split route; else unused); t a multiple of
+// chunk, bh a multiple of hshare; route a scan::Route the shape fits (the
+// step and split routes also need 16-byte-aligned operands).  Returns a
+// cudaError_t code.
+#define SSD_ENTRIES(T, SUF)                                                                      \
+  extern "C" long ssd_workspace_floats##SUF(int bh, int t, int n, int p, int chunk) {            \
+    return workspace_floats_t<T>(bh, t, n, p, chunk);                                            \
+  }                                                                                              \
+  extern "C" int ssd_launch##SUF(const T* x, const T* b, const T* c, const float* loga,          \
+                                 const float* s0, T* y, float* sout, float* ws, int bh, int t,   \
+                                 int n, int p, int chunk, int hshare, int route, void* stream) { \
+    return launch_t<T>(x, b, c, loga, s0, y, sout, ws, bh, t, n, p, chunk, hshare, route,        \
+                       stream);                                                                  \
+  }
+SSD_ENTRIES(float, )
+SSD_ENTRIES(bf16, _bf16)
 
 // The heads a split-route chunk CTA takes together (chip_smoke.py prints it).
 extern "C" int ssd_split_head_group(int bh, int t, int chunk, int hshare) {

@@ -33,13 +33,21 @@
 //
 // Bound on the H100: at decode (C = 1) bytes -- the D x D state is read
 // and written once per token; at prefill, bytes as well when counted in
-// the token-by-token form (chip_smoke.py: wkv_work).  float32 throughout,
-// no tensor cores.
+// the token-by-token form (chip_smoke.py: wkv_work).  float32 arithmetic
+// throughout, no tensor cores; r, k, v, log w and o are float32 or
+// bfloat16 (the kernels' template T, scan.cuh), u, the state and the
+// workspaces float32.  Entry points: wkv_launch (float32) and
+// wkv_launch_bf16.
 #include "scan.cuh"
 
 namespace {
 
 using scan::at;
+using scan::bf16;
+using scan::gld;
+using scan::gld4;
+using scan::gst;
+using scan::gst4;
 using scan::ld4;
 using scan::st4;
 using scan::up4;
@@ -49,12 +57,13 @@ using scan::up4;
 // four partial sums meet by two shuffles.  From a zero state a token's
 // output is its bonus times v, so the two routes then give the same bits
 // (RWKV6's first token is ill-conditioned at random weights, PERF.md L1).
-__device__ inline float bonus_sum(const float* r, const float* k, const float* u, int d, bool on) {
+template <typename T>
+__device__ inline float bonus_sum(const T* r, const T* k, const float* u, int d, bool on) {
   const int part = threadIdx.x & 3;
   float acc = 0.f;
   if (on)
     for (int j = 4 * part; j < d; j += 16) {
-      const float4 rv = ld4(r + j), kv = ld4(k + j), uv = ld4(u + j);
+      const float4 rv = gld4(r + j), kv = gld4(k + j), uv = ld4(u + j);
       acc = fmaf(rv.x * uv.x, kv.x, acc);
       acc = fmaf(rv.y * uv.y, kv.y, acc);
       acc = fmaf(rv.z * uv.z, kv.z, acc);
@@ -68,11 +77,12 @@ __device__ inline float bonus_sum(const float* r, const float* k, const float* u
 // A CTA per row, a warp per 16 state columns: lane (g = lane / 4, q = lane %
 // 4) owns the column quad 16 w + 4 q on state rows g, g + 8, ..., g + 56.
 // u is staged in shared memory for the bonus.
+template <typename T>
 __global__ void __launch_bounds__(128)
-    wkv_step_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ logw,
-                    const float* __restrict__ u, const float* __restrict__ s0,
-                    float* __restrict__ o, float* __restrict__ sout, int t, int d) {
+    wkv_step_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ logw, const float* __restrict__ u,
+                    const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sout,
+                    int t, int d) {
   const long row = blockIdx.x;
   const int lane = threadIdx.x & 31, g = lane >> 2;
   const int j = 16 * (threadIdx.x >> 5) + 4 * (lane & 3);
@@ -93,12 +103,12 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int q = g + 8 * i;
-      rv[i] = q < d ? r[base + q] : 0.f;
-      kv[i] = q < d ? k[base + q] : 0.f;
-      wv[i] = q < d ? expf(logw[base + q]) : 0.f;
+      rv[i] = q < d ? gld(r + base + q) : 0.f;
+      kv[i] = q < d ? gld(k + base + q) : 0.f;
+      wv[i] = q < d ? expf(gld(logw + base + q)) : 0.f;
     }
     const float bonus = bonus_sum(r + base, k + base, us, d, true);
-    const float4 vq = on ? ld4(v + base + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 vq = on ? gld4(v + base + j) : make_float4(0.f, 0.f, 0.f, 0.f);
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -115,8 +125,8 @@ __global__ void __launch_bounds__(128)
       acc.w += __shfl_xor_sync(0xffffffffu, acc.w, m);
     }
     if (on && g == 0)
-      st4(o + base + j, make_float4(acc.x + bonus * vq.x, acc.y + bonus * vq.y,
-                                    acc.z + bonus * vq.z, acc.w + bonus * vq.w));
+      gst4(o + base + j, make_float4(acc.x + bonus * vq.x, acc.y + bonus * vq.y,
+                                     acc.z + bonus * vq.z, acc.w + bonus * vq.w));
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       s[i].x = wv[i] * s[i].x + kv[i] * vq.x;
@@ -152,15 +162,17 @@ struct ChunkLayout {  // shared memory, in floats; row strides padded by 4
   }
 };
 
-// grid (rows, T / chunk).  ws_ds: (rows, T / chunk, d, d); ws_rh: (rows, T,
+// grid (rows, T / chunk).  oloc: (rows, T, d), the chunk-local output
+// (o itself for float32); ws_ds: (rows, T / chunk, d, d); ws_rh: (rows, T,
 // d) = r * e^{Lprev}; ws_el: (rows, T / chunk, d) = e^{Llast}.
 // three CTAs an SM: their shared memory allows it, the registers are capped to match
+template <typename T>
 __global__ void __launch_bounds__(kChunkThreads, 3)
-    wkv_chunk_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ logw,
-                     const float* __restrict__ u, float* __restrict__ o,
-                     float* __restrict__ ws_ds, float* __restrict__ ws_rh,
-                     float* __restrict__ ws_el, int t, int d, int chunk) {
+    wkv_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ logw, const float* __restrict__ u,
+                     float* __restrict__ oloc, float* __restrict__ ws_ds,
+                     float* __restrict__ ws_rh, float* __restrict__ ws_el, int t, int d,
+                     int chunk) {
   extern __shared__ float4 chunk_smem[];
   float* sm = reinterpret_cast<float*>(chunk_smem);
   const ChunkLayout ly(d, chunk);
@@ -182,7 +194,7 @@ __global__ void __launch_bounds__(kChunkThreads, 3)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int e = tid + kChunkThreads * i, tt = e / dq;
-    vreg[i] = tt < chunk ? ld4(v + seq + (long)tt * d + 4 * (e - tt * dq))
+    vreg[i] = tt < chunk ? gld4(v + seq + (long)tt * d + 4 * (e - tt * dq))
                          : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   scan::cp_async_wait<0>();
@@ -335,8 +347,9 @@ __global__ void __launch_bounds__(kChunkThreads, 3)
       if (tt < chunk) {
         const float b = Bn[tt];
         const float4 vt = ld4(Vs + tt * ld + jq);
-        st4(o + seq + (long)tt * d + jq, make_float4(acc[a][0] + b * vt.x, acc[a][1] + b * vt.y,
-                                                     acc[a][2] + b * vt.z, acc[a][3] + b * vt.w));
+        st4(oloc + seq + (long)tt * d + jq,
+            make_float4(acc[a][0] + b * vt.x, acc[a][1] + b * vt.y, acc[a][2] + b * vt.z,
+                        acc[a][3] + b * vt.w));
       }
     }
   }
@@ -368,11 +381,12 @@ __global__ void __launch_bounds__(kChunkThreads, 3)
 // channels in a register.  Chunk buffers use a row stride of D + 1 floats.
 constexpr int kBlockThreads = 256;
 
+template <typename T>
 __global__ void __launch_bounds__(kBlockThreads)
-    wkv_block_kernel(const float* __restrict__ r, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ logw,
-                     const float* __restrict__ u, const float* __restrict__ s0,
-                     float* __restrict__ o, float* __restrict__ sout, int t, int d, int chunk) {
+    wkv_block_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ logw, const float* __restrict__ u,
+                     const float* __restrict__ s0, T* __restrict__ o, float* __restrict__ sout,
+                     int t, int d, int chunk) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* R = smem;             // C x dp: r, then r * e^{Lprev}
@@ -395,10 +409,10 @@ __global__ void __launch_bounds__(kBlockThreads)
     for (int i = tid; i < chunk * d; i += nt) {
       const int tt = i / d, dd = i % d;
       const long gi = seq + (long)(c0 + tt) * d + dd;
-      R[tt * dp + dd] = r[gi];
-      K[tt * dp + dd] = k[gi];
-      V[tt * dp + dd] = v[gi];
-      L[tt * dp + dd] = logw[gi];
+      R[tt * dp + dd] = gld(r + gi);
+      K[tt * dp + dd] = gld(k + gi);
+      V[tt * dp + dd] = gld(v + gi);
+      L[tt * dp + dd] = gld(logw + gi);
     }
     __syncthreads();
     // threads [0, d) scan one channel each; the next C threads form one bonus each
@@ -444,7 +458,7 @@ __global__ void __launch_bounds__(kBlockThreads)
       float inter = 0.f, intra = 0.f;
       for (int dd = 0; dd < d; ++dd) inter = fmaf(R[tt * dp + dd], S[dd * d + j], inter);
       for (int ss = 0; ss < tt; ++ss) intra = fmaf(G[tt * chunk + ss], V[ss * dp + j], intra);
-      o[seq + (long)(c0 + tt) * d + j] = (inter + intra) + Bn[tt] * V[tt * dp + j];
+      gst(o + seq + (long)(c0 + tt) * d + j, (inter + intra) + Bn[tt] * V[tt * dp + j]);
     }
     __syncthreads();  // every output has read the chunk's incoming state
     for (int i = tid; i < d * d; i += nt) {
@@ -465,20 +479,22 @@ size_t wkv_block_smem_bytes(int d, int chunk) {
 
 }  // namespace
 
+namespace {
+
 // Floats of device workspace the split route needs: dS per (row, chunk),
-// r * e^{Lprev} per (row, token) and e^{Llast} per (row, chunk).
-extern "C" long wkv_workspace_floats(int bh, int t, int d, int chunk) {
+// r * e^{Lprev} per (row, token) and e^{Llast} per (row, chunk); for
+// bfloat16 also the chunk-local output per (row, token).
+template <typename T>
+long workspace_floats_t(int bh, int t, int d, int chunk) {
   const long nc = t / chunk;
-  return (long)bh * (nc * d * d + (long)t * d + nc * d);
+  const long loc = sizeof(T) == 4 ? 0 : (long)t * d;
+  return (long)bh * (nc * d * d + (long)t * d + nc * d + loc);
 }
 
-// r, k, v, logw, o: (bh, t, d); u: (bh, d); s0, sout: (bh, d, d); ws:
-// wkv_workspace_floats floats (split route; else unused); t a multiple of
-// chunk; route a scan::Route the shape fits (the step and split routes also
-// need 16-byte-aligned operands).  Returns a cudaError_t code.
-extern "C" int wkv_launch(const float* r, const float* k, const float* v, const float* logw,
-                          const float* u, const float* s0, float* o, float* sout, float* ws,
-                          int bh, int t, int d, int chunk, int route, void* stream) {
+template <typename T>
+int launch_t(const T* r, const T* k, const T* v, const T* logw, const float* u, const float* s0,
+             T* o, float* sout, float* ws, int bh, int t, int d, int chunk, int route,
+             void* stream) {
   if (bh <= 0 || chunk <= 0 || t % chunk != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const bool vec = scan::fits(d) && scan::aligned(r) && scan::aligned(k) && scan::aligned(v) &&
@@ -486,7 +502,7 @@ extern "C" int wkv_launch(const float* r, const float* k, const float* v, const 
                    scan::aligned(sout);
   if (route == scan::kStep) {
     if (chunk != 1 || !vec) return (int)cudaErrorInvalidValue;
-    wkv_step_kernel<<<bh, 32 * ((d + 15) / 16), 0, st>>>(r, k, v, logw, u, s0, o, sout, t, d);
+    wkv_step_kernel<T><<<bh, 32 * ((d + 15) / 16), 0, st>>>(r, k, v, logw, u, s0, o, sout, t, d);
     return (int)cudaGetLastError();
   }
   if (route == scan::kSplit) {
@@ -494,24 +510,49 @@ extern "C" int wkv_launch(const float* r, const float* k, const float* v, const 
     static scan::SmemOptIn optin;
     const int nc = t / chunk;
     const size_t smem = sizeof(float) * (size_t)ChunkLayout(d, chunk).total;
-    cudaError_t err = optin.ensure(wkv_chunk_kernel, smem);
+    cudaError_t err = optin.ensure(wkv_chunk_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
     float* ws_ds = ws;
     float* ws_rh = ws_ds + (long)bh * nc * d * d;
     float* ws_el = ws_rh + (long)bh * t * d;
-    wkv_chunk_kernel<<<dim3(bh, nc), kChunkThreads, smem, st>>>(r, k, v, logw, u, o, ws_ds,
-                                                                ws_rh, ws_el, t, d, chunk);
+    float* oloc = sizeof(T) == 4 ? reinterpret_cast<float*>(o) : ws_el + (long)bh * nc * d;
+    wkv_chunk_kernel<T><<<dim3(bh, nc), kChunkThreads, smem, st>>>(r, k, v, logw, u, oloc, ws_ds,
+                                                                   ws_rh, ws_el, t, d, chunk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    scan::CarryArgs a{ws_rh, 1, nullptr, ws_el, (long)nc * d, d, 0, 1, ws_ds, s0, o, sout,
-                      t, d, d, chunk};
+    scan::CarryArgs<float, T> a{ws_rh, 1, nullptr, ws_el, (long)nc * d, d, 0, 1, ws_ds, s0,
+                                oloc, o, sout, t, d, d, chunk};
     return (int)scan::launch_carry(a, bh, st);
   }
   if (route != scan::kBlock) return (int)cudaErrorInvalidValue;
   static scan::SmemOptIn optin;
   const size_t smem = wkv_block_smem_bytes(d, chunk);
-  const cudaError_t err = optin.ensure(wkv_block_kernel, smem);
+  const cudaError_t err = optin.ensure(wkv_block_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  wkv_block_kernel<<<bh, kBlockThreads, smem, st>>>(r, k, v, logw, u, s0, o, sout, t, d, chunk);
+  wkv_block_kernel<T><<<bh, kBlockThreads, smem, st>>>(r, k, v, logw, u, s0, o, sout, t, d,
+                                                       chunk);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// For each input type (wkv_launch: float32, wkv_launch_bf16):
+//
+// wkv_workspace_floats: floats of device workspace the split route needs.
+//
+// wkv_launch: r, k, v, logw, o: (bh, t, d) of the input type; u: (bh, d);
+// s0, sout: (bh, d, d), float32; ws: wkv_workspace_floats floats (split
+// route; else unused); t a multiple of chunk; route a scan::Route the
+// shape fits (the step and split routes also need 16-byte-aligned
+// operands).  Returns a cudaError_t code.
+#define WKV_ENTRIES(T, SUF)                                                                     \
+  extern "C" long wkv_workspace_floats##SUF(int bh, int t, int d, int chunk) {                  \
+    return workspace_floats_t<T>(bh, t, d, chunk);                                              \
+  }                                                                                             \
+  extern "C" int wkv_launch##SUF(const T* r, const T* k, const T* v, const T* logw,             \
+                                 const float* u, const float* s0, T* o, float* sout, float* ws, \
+                                 int bh, int t, int d, int chunk, int route, void* stream) {    \
+    return launch_t<T>(r, k, v, logw, u, s0, o, sout, ws, bh, t, d, chunk, route, stream);      \
+  }
+WKV_ENTRIES(float, )
+WKV_ENTRIES(bf16, _bf16)

@@ -19,6 +19,11 @@ at P = 64, K = 200.  Blocks no cluster of 16 holds take the one-block
 kernel; those launches are also counted apart, in
 ``fused_factor_spike.block_launches``.
 
+Storage: float32, bfloat16 or float64, each on its own instantiation
+(``fused_factor_spike.by_dtype`` counts them); bfloat16 computes in
+float32, float64 in float64, and the workspace is of that compute dtype.
+Float16, integer and mixed dtypes raise before any build.
+
 On a CPU tensor the wrapper runs the plain version
 (:func:`repro_torch.core.block_lu.fused_factor_spike_padded_ref`); on a CUDA
 tensor it launches the kernel or raises.
@@ -28,9 +33,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.block_lu import DEFAULT_BOOST, fused_factor_spike_padded_ref
+from ..core.block_lu import DEFAULT_BOOST, compute_dtype, fused_factor_spike_padded_ref
 from . import build
-from ._launch import check_grid, check_operands, check_shape, stream_handle
+from ._launch import SOLVER_DTYPES, check_grid, check_operands, check_shape, entry, stream_handle
 
 
 def fused_factor_spike(
@@ -50,29 +55,31 @@ def fused_factor_spike(
     """
     if d.device.type == "cpu":
         return fused_factor_spike_padded_ref(d, e, f, bq, cq, boost_eps)
-    check_operands("fused_factor_spike", d.device, d=d, e=e, f=f, bq=bq, cq=cq)
+    dtype = check_operands("fused_factor_spike", d.device, SOLVER_DTYPES, d=d, e=e, f=f, bq=bq,
+                           cq=cq)
     p, m, k, _ = d.shape
     for name, t in (("d", d), ("e", e), ("f", f)):
         check_shape("fused_factor_spike", name, t, (p, m, k, k))
     for name, t in (("bq", bq), ("cq", cq)):
         check_shape("fused_factor_spike", name, t, (p, k, k))
     lib = build.load("fused_spike")
-    cluster = lib.fused_cluster_size(p, k)
+    cluster = entry(lib, "fused_cluster_size", dtype)(p, k)
     if cluster < 0:
         build.check(lib, -cluster, "fused_factor_spike cluster size")
     check_grid("fused_factor_spike", "x", p * max(cluster, 1))
     sinv = torch.empty_like(d)
     l = torch.empty_like(d)
     vb, vt, wt, wb = (torch.empty_like(bq) for _ in range(4))
-    ws = torch.empty((p * lib.fused_workspace_floats(k, cluster),), dtype=torch.float32,
-                     device=d.device)
-    code = lib.fused_launch(
+    ws = torch.empty((p * entry(lib, "fused_workspace_floats", dtype)(k, cluster),),
+                     dtype=compute_dtype(dtype), device=d.device)
+    code = entry(lib, "fused_launch", dtype)(
         d.data_ptr(), e.data_ptr(), f.data_ptr(), bq.data_ptr(), cq.data_ptr(),
         sinv.data_ptr(), l.data_ptr(), vb.data_ptr(), vt.data_ptr(), wt.data_ptr(),
         wb.data_ptr(), ws.data_ptr(), p, m, k, boost_eps, cluster, stream_handle(d.device),
     )
-    build.check(lib, code, f"fused_factor_spike (cluster {cluster})")
+    build.check(lib, code, f"fused_factor_spike (cluster {cluster}, {dtype})")
     fused_factor_spike.launches += 1
+    fused_factor_spike.by_dtype[dtype] = fused_factor_spike.by_dtype.get(dtype, 0) + 1
     if cluster == 0:
         fused_factor_spike.block_launches += 1
     return sinv, l, vb, vt, wt, wb
@@ -80,3 +87,4 @@ def fused_factor_spike(
 
 fused_factor_spike.launches = 0
 fused_factor_spike.block_launches = 0  # those of them on the one-block kernel
+fused_factor_spike.by_dtype = {}  # launches by storage dtype

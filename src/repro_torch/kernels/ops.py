@@ -192,8 +192,9 @@ def bcr_solve(factors: BCRFactors, b: torch.Tensor) -> torch.Tensor:
 # algebraic flop counts (``repro/kernels/ops.py``), copied unchanged: its
 # cost tests hold its HLO-derived counters to them.  The ``*_work`` return
 # (flops, bytes) that a function must do -- each input read once, each
-# output written once, float32 -- counted row by row as the kernels here
-# run it; ``chip_smoke.py`` divides them by the card's peaks for each
+# output written once, ``itemsize`` bytes an element (4, float32, unless
+# given: 2 for bfloat16, 8 for float64 storage) -- counted row by row as
+# the kernels here run it; ``chip_smoke.py`` divides them by the card's peaks for each
 # kernel's bound, and :mod:`repro_torch.obs.cost` sums them into stage costs.
 
 
@@ -236,34 +237,34 @@ def bcr_flops(m: int, k: int) -> float:
     return float(m) * 10.0 * k**3
 
 
-def btf_work(p: int, m: int, k: int) -> tuple[float, float]:
+def btf_work(p: int, m: int, k: int, itemsize: int = 4) -> tuple[float, float]:
     """(flops, bytes) a block-tridiagonal LU of P chains of M K x K blocks
     must do.  Row 0 only inverts (2K^3); rows 1..M-1 each form L_j (2K^3),
     S_j = D_j - L_j F_{j-1} (2K^3 + K^2) and invert S_j (2K^3).  Reads every
     D, E_1..E_{M-1} and F_0..F_{M-2}; writes sinv and l."""
     flops = p * ((6 * m - 4) * k**3 + (m - 1) * k**2)
-    return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m)
+    return float(flops), float(itemsize) * p * k * k * ((3 * m - 2) + 2 * m)
 
 
-def bts_work(p: int, m: int, k: int, r: int) -> tuple[float, float]:
+def bts_work(p: int, m: int, k: int, r: int, itemsize: int = 4) -> tuple[float, float]:
     """(flops, bytes) of both sweeps for R right-hand sides: M-1 forward
     products, sinv_{M-1} y, then F_j x_{j+1} and sinv_j (...) for j < M-1,
     each 2K^2 R flops.  Reads sinv, l_1..l_{M-1}, f_0..f_{M-2} and b;
     writes x."""
     flops = p * ((6 * m - 4) * k * k * r + 2 * (m - 1) * k * r)
-    return float(flops), 4.0 * p * ((3 * m - 2) * k * k + 2 * m * k * r)
+    return float(flops), float(itemsize) * p * ((3 * m - 2) * k * k + 2 * m * k * r)
 
 
-def fused_work(p: int, m: int, k: int) -> tuple[float, float]:
+def fused_work(p: int, m: int, k: int, itemsize: int = 4) -> tuple[float, float]:
     """(flops, bytes) of the fused pass: the LU and the UL recurrence (btf's
     work each), the two spike carries (M-1 products each) and the four
     corner products.  Reads the chain blocks btf reads plus bq and cq;
     writes sinv, l and the four K x K corners."""
     flops = p * ((16 * m - 4) * k**3 + 2 * (m - 1) * k**2)
-    return float(flops), 4.0 * p * k * k * ((3 * m - 2) + 2 * m + 2 + 4)
+    return float(flops), float(itemsize) * p * k * k * ((3 * m - 2) + 2 * m + 2 + 4)
 
 
-def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
+def bcr_work(m: int, k: int, r: int, itemsize: int = 4) -> dict[str, tuple[float, float]]:
     """(flops, bytes) of each BCR kernel over all levels of one factor
     (inv_odd, reduce) or one solve with R right-hand sides (rhs_reduce,
     backsub), for a chain of m blocks of K x K padded to 2^L blocks.  Each
@@ -278,7 +279,7 @@ def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
     backsub reads a, e, f, the odd RHS and x, writes the level's solution
     (6K^2 R + 2KR flops a row)."""
     rows = (1 << max(m - 1, 0).bit_length()) - 1
-    blk, vec = 4.0 * k * k, 4.0 * k * r
+    blk, vec = float(itemsize) * k * k, float(itemsize) * k * r
     return {
         "inv_odd": (2.0 * k**3 * (rows + 1), 2 * blk * (rows + 1)),
         "reduce": (rows * (12.0 * k**3 + 2 * k * k), rows * 11 * blk),
@@ -287,17 +288,19 @@ def bcr_work(m: int, k: int, r: int) -> dict[str, tuple[float, float]]:
     }
 
 
-def reduce_level_work(m2: int, k: int) -> tuple[float, float]:
+def reduce_level_work(m2: int, k: int, itemsize: int = 4) -> tuple[float, float]:
     """(flops, bytes) of one reduce level of m2 even rows, as bcr_work
     counts a row: six K x K products and two block subtractions, reading
     D_2i, E, F, a and writing lo, hi, D', E', F' (11 blocks)."""
-    return m2 * (12.0 * k**3 + 2 * k * k), m2 * 11 * 4.0 * k * k
+    return m2 * (12.0 * k**3 + 2 * k * k), m2 * 11 * float(itemsize) * k * k
 
 
-def solve_level_work(m2: int, k: int, r: int) -> dict[str, tuple[float, float]]:
+def solve_level_work(
+    m2: int, k: int, r: int, itemsize: int = 4
+) -> dict[str, tuple[float, float]]:
     """(flops, bytes) of one rhs_reduce and one backsub level of m2 even
     rows, as bcr_work counts a row."""
-    blk, vec = 4.0 * k * k, 4.0 * k * r
+    blk, vec = float(itemsize) * k * k, float(itemsize) * k * r
     return {"rhs_reduce": (m2 * (4.0 * k * k * r + 2 * k * r), m2 * (2 * blk + 3 * vec)),
             "backsub": (m2 * (6.0 * k * k * r + 2 * k * r), m2 * (3 * blk + 4 * vec))}
 
@@ -305,15 +308,6 @@ def solve_level_work(m2: int, k: int, r: int) -> dict[str, tuple[float, float]]:
 # ---------------------------------------------------------------------------
 # Sequence-mixing recurrences (flattened over batch x heads)
 # ---------------------------------------------------------------------------
-
-
-def _scan_dtype_on_card(what: str, *tensors: torch.Tensor) -> None:
-    for t in tensors:
-        if t.device.type == "cuda" and t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{what}: the CUDA kernel takes float32 scan tensors, got {t.dtype} "
-                "(scan_dtype='bfloat16' is not ported to the card yet)"
-            )
 
 
 def wkv6(
@@ -327,7 +321,6 @@ def wkv6(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked WKV6 recurrence; returns (output (B, H, T, D), final state).
     Differentiable: on the card through :class:`.autograd.WKV6`."""
-    _scan_dtype_on_card("wkv6", r, k, v, logw)
     bsz, h, t, d = r.shape
     flat = lambda x: x.reshape(bsz * h, *x.shape[2:]).contiguous()  # noqa: E731
     u_full = u.expand(bsz, h, d).reshape(bsz * h, d).contiguous()
@@ -354,7 +347,6 @@ def ssd(
     Differentiable: on the card through :class:`.autograd.SSD`, whose
     gradient for that row is summed over the heads.
     """
-    _scan_dtype_on_card("ssd", x, b, c)
     bsz, h, t, p = x.shape
     n = b.shape[-1]
     flat = lambda a: a.reshape(bsz * h, *a.shape[2:]).contiguous()  # noqa: E731

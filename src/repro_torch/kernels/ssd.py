@@ -9,6 +9,11 @@ of heads that share B and C.  ``b`` and ``c`` may be shared by ``hshare``
 consecutive rows (Mamba-2 broadcasts them over the heads of a token): the
 kernel then reads row ``i // hshare`` and no per-head copy is made.
 
+x, b and c may be float32 or bfloat16 (``scan_dtype``; one dtype for the
+three, on the kernel's bfloat16 instantiation), log a and the state
+float32; the kernel computes in float32 and writes y in x's dtype.
+``ssd.by_dtype`` counts the calls by that dtype.
+
 Bound on the H100: bytes at decode (T = 1: the state is read and written
 once per token), operations at prefill (5 N P flops a token, counted in
 the token-by-token form).
@@ -23,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import check_operands, check_shape, stream_handle
+from ._launch import SCAN_DTYPES, check_operands, check_shape, entry, stream_handle
 from .ref import accumulation_dtype, ssd_chunked_ref
 from .wkv import ROUTES, aligned, check_chunk, scan_route
 
@@ -57,7 +62,8 @@ def ssd(
         raise ValueError(f"ssd: {bh} rows are not a multiple of hshare={hshare}")
     if x.device.type == "cpu":
         return ssd_plain(x, b, c, loga, state, chunk, hshare)
-    check_operands("ssd", x.device, x=x, b=b, c=c, loga=loga, state=state)
+    dtype = check_operands("ssd", x.device, SCAN_DTYPES, x=x, b=b, c=c)
+    check_operands("ssd", x.device, loga=loga, state=state)
     check_shape("ssd", "b", b, (bh // hshare, t, n))
     check_shape("ssd", "c", c, (bh // hshare, t, n))
     check_shape("ssd", "loga", loga, (bh, t))
@@ -70,18 +76,20 @@ def ssd(
     s_out = torch.empty_like(state)
     if bh == 0:
         return y, s_out
-    ws = (torch.empty(lib.ssd_workspace_floats(bh, t, n, p, chunk), dtype=torch.float32,
-                      device=x.device) if route == "split" else None)
-    code = lib.ssd_launch(
+    ws = (torch.empty(entry(lib, "ssd_workspace_floats", dtype)(bh, t, n, p, chunk),
+                      dtype=torch.float32, device=x.device) if route == "split" else None)
+    code = entry(lib, "ssd_launch", dtype)(
         x.data_ptr(), b.data_ptr(), c.data_ptr(), loga.data_ptr(), state.data_ptr(),
         y.data_ptr(), s_out.data_ptr(), None if ws is None else ws.data_ptr(), bh, t, n, p,
         chunk, hshare, ROUTES.index(route), stream_handle(x.device),
     )
-    build.check(lib, code, f"ssd ({route} route)")
+    build.check(lib, code, f"ssd ({route} route, {dtype})")
     ssd.launches += 1
+    ssd.by_dtype[dtype] = ssd.by_dtype.get(dtype, 0) + 1
     ssd.by_route[route] += 1
     return y, s_out
 
 
 ssd.launches = 0  # wrapper calls that launched (the split route's two kernels count once)
 ssd.by_route = dict.fromkeys(ROUTES, 0)  # those calls by route
+ssd.by_dtype = {}  # those calls by the dtype of x, b, c

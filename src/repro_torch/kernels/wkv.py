@@ -14,6 +14,11 @@ shape, and ``wkv6.by_route`` counts the calls each took:
 - ``"block"`` (D above 64 or not a multiple of 4, a chunk above 64): the
   first port's kernel, one thread block per row walking its chunks.
 
+r, k, v and log w may be float32 or bfloat16 (``scan_dtype``; one dtype
+for the four, on the kernel's bfloat16 instantiation), u and the state
+float32; the kernel computes in float32 and writes o in the inputs'
+dtype.  ``wkv6.by_dtype`` counts the calls by that dtype.
+
 Bound on the H100: bytes, at decode (T = 1: the state is read and written
 once per token) and at prefill when counted in the token-by-token form.
 
@@ -27,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._launch import check_operands, check_shape, stream_handle
+from ._launch import SCAN_DTYPES, check_operands, check_shape, entry, stream_handle
 from .ref import accumulation_dtype, wkv6_chunked_ref
 
 
@@ -82,7 +87,8 @@ def wkv6(
     check_chunk("wkv6", t, chunk)
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, logw, u, state, chunk)
-    check_operands("wkv6", r.device, r=r, k=k, v=v, logw=logw, u=u, state=state)
+    dtype = check_operands("wkv6", r.device, SCAN_DTYPES, r=r, k=k, v=v, logw=logw)
+    check_operands("wkv6", r.device, u=u, state=state)
     for name, x in (("k", k), ("v", v), ("logw", logw)):
         check_shape("wkv6", name, x, (bh, t, d))
     check_shape("wkv6", "u", u, (bh, d))
@@ -95,18 +101,20 @@ def wkv6(
     s_out = torch.empty_like(state)
     if bh == 0:
         return o, s_out
-    ws = (torch.empty(lib.wkv_workspace_floats(bh, t, d, chunk), dtype=torch.float32,
-                      device=r.device) if route == "split" else None)
-    code = lib.wkv_launch(
+    ws = (torch.empty(entry(lib, "wkv_workspace_floats", dtype)(bh, t, d, chunk),
+                      dtype=torch.float32, device=r.device) if route == "split" else None)
+    code = entry(lib, "wkv_launch", dtype)(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
         state.data_ptr(), o.data_ptr(), s_out.data_ptr(), None if ws is None else ws.data_ptr(),
         bh, t, d, chunk, ROUTES.index(route), stream_handle(r.device),
     )
-    build.check(lib, code, f"wkv6 ({route} route)")
+    build.check(lib, code, f"wkv6 ({route} route, {dtype})")
     wkv6.launches += 1
+    wkv6.by_dtype[dtype] = wkv6.by_dtype.get(dtype, 0) + 1
     wkv6.by_route[route] += 1
     return o, s_out
 
 
 wkv6.launches = 0  # wrapper calls that launched (the split route's two kernels count once)
 wkv6.by_route = dict.fromkeys(ROUTES, 0)  # those calls by route
+wkv6.by_dtype = {}  # those calls by the dtype of r, k, v, log w

@@ -21,7 +21,9 @@ import torch
 
 from repro_torch.core import SaPOptions, band_to_block_tridiag, factor, plan_banded, random_banded
 from repro_torch.core import block_lu as bl
+from repro_torch.core.block_lu import compute_dtype
 from repro_torch.kernels import ops
+from repro_torch.kernels._launch import entry
 from repro_torch.kernels.btf import btf
 from repro_torch.kernels.bts import bts
 from repro_torch.kernels.fused_spike import fused_factor_spike
@@ -47,10 +49,10 @@ def _close(kernel, plain):
     assert float(diff) <= 1e-4 * max(float(plain.double().abs().max()), 1e-30)
 
 
-def _close_bf16(kernel, plain):
+def _close_bf16(kernel, plain, atol=1e-5):
     assert bool(torch.isfinite(kernel).all())
     got, want = kernel.double(), plain.double()
-    limit = 2.0**-7 * want.abs() + 1e-5 * float(want.abs().max())
+    limit = 2.0**-7 * want.abs() + atol * float(want.abs().max())
     assert bool(((got - want).abs() <= limit).all())
 
 
@@ -111,10 +113,11 @@ def _btf_on(cuda, d, e, f, cluster):
     lib = build.load("btf")
     p, m, k, _ = d.shape
     sinv, l = torch.empty_like(d), torch.empty_like(d)
-    ws = torch.empty(max(1, p * lib.btf_workspace_floats(k, cluster)), device=cuda)
-    code = lib.btf_launch(d.data_ptr(), e.data_ptr(), f.data_ptr(), sinv.data_ptr(),
-                          l.data_ptr(), ws.data_ptr(), p, m, k, bl.DEFAULT_BOOST, cluster,
-                          torch.cuda.current_stream(cuda).cuda_stream)
+    ws = torch.empty(max(1, p * entry(lib, "btf_workspace_floats", d.dtype)(k, cluster)),
+                     dtype=compute_dtype(d.dtype), device=cuda)
+    code = entry(lib, "btf_launch", d.dtype)(
+        d.data_ptr(), e.data_ptr(), f.data_ptr(), sinv.data_ptr(), l.data_ptr(), ws.data_ptr(),
+        p, m, k, bl.DEFAULT_BOOST, cluster, torch.cuda.current_stream(cuda).cuda_stream)
     build.check(lib, code, f"btf (cluster {cluster})")
     return sinv, l
 
@@ -125,10 +128,12 @@ def _fused_on(cuda, d, e, f, bq, cq, cluster):
     lib = build.load("fused_spike")
     p, m, k, _ = d.shape
     outs = [torch.empty_like(d), torch.empty_like(d)] + [torch.empty_like(bq) for _ in range(4)]
-    ws = torch.empty(max(1, p * lib.fused_workspace_floats(k, cluster)), device=cuda)
-    code = lib.fused_launch(d.data_ptr(), e.data_ptr(), f.data_ptr(), bq.data_ptr(),
-                            cq.data_ptr(), *[o.data_ptr() for o in outs], ws.data_ptr(), p, m, k,
-                            bl.DEFAULT_BOOST, cluster, torch.cuda.current_stream(cuda).cuda_stream)
+    ws = torch.empty(max(1, p * entry(lib, "fused_workspace_floats", d.dtype)(k, cluster)),
+                     dtype=compute_dtype(d.dtype), device=cuda)
+    code = entry(lib, "fused_launch", d.dtype)(
+        d.data_ptr(), e.data_ptr(), f.data_ptr(), bq.data_ptr(), cq.data_ptr(),
+        *[o.data_ptr() for o in outs], ws.data_ptr(), p, m, k, bl.DEFAULT_BOOST, cluster,
+        torch.cuda.current_stream(cuda).cuda_stream)
     build.check(lib, code, f"fused (cluster {cluster})")
     return outs
 
@@ -158,10 +163,11 @@ def _bts_on(cuda, facs, b, cluster):
     lib = build.load("bts")
     p, m, k, r = b.shape
     x = torch.empty_like(b)
-    ws = torch.empty(max(1, p * lib.bts_workspace_floats(k, r, cluster)), device=cuda)
-    code = lib.bts_launch(facs.sinv.data_ptr(), facs.l.data_ptr(), facs.f.data_ptr(),
-                          b.data_ptr(), x.data_ptr(), ws.data_ptr(), p, m, k, r, cluster,
-                          torch.cuda.current_stream(cuda).cuda_stream)
+    ws = torch.empty(max(1, p * entry(lib, "bts_workspace_floats", b.dtype)(m, k, r, cluster)),
+                     dtype=compute_dtype(b.dtype), device=cuda)
+    code = entry(lib, "bts_launch", b.dtype)(
+        facs.sinv.data_ptr(), facs.l.data_ptr(), facs.f.data_ptr(), b.data_ptr(), x.data_ptr(),
+        ws.data_ptr(), p, m, k, r, cluster, torch.cuda.current_stream(cuda).cuda_stream)
     return x, code
 
 
@@ -284,9 +290,15 @@ def test_kernels_refuse_operands_that_require_grad(cuda):
 
 
 def test_wrappers_reject_non_float32(cuda):
+    """bfloat16 and float64 storage run (their own instantiations); float16
+    and mixed block dtypes are refused before any launch."""
     bt = _split(cuda, 64, 4, 2)
-    with pytest.raises(TypeError):
-        btf(bt.d.double(), bt.e.double(), bt.f.double())
+    before = btf.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16 or float64"):
+        btf(bt.d.half(), bt.e.half(), bt.f.half())
+    with pytest.raises(TypeError, match="one storage dtype"):
+        btf(bt.d.double(), bt.e, bt.f)
+    assert btf.launches == before
 
 
 @pytest.mark.parametrize("variant", ["C", "D", "E"])
@@ -424,9 +436,12 @@ def _reduce_on(d, e, f, a, tile):
 
     lib = build.load("bcr")
     outs = [torch.empty_like(a) for _ in range(5)]
-    code = lib.bcr_reduce_launch(d.data_ptr(), e.data_ptr(), f.data_ptr(), a.data_ptr(),
-                                 *[o.data_ptr() for o in outs], a.shape[0], a.shape[1], tile,
-                                 torch.cuda.current_stream().cuda_stream)
+    m2, k = a.shape[0], a.shape[1]
+    ws = torch.empty(max(1, entry(lib, "bcr_reduce_workspace_floats", a.dtype)(m2, k)),
+                     dtype=compute_dtype(a.dtype), device=a.device)
+    code = entry(lib, "bcr_reduce_launch", a.dtype)(
+        d.data_ptr(), e.data_ptr(), f.data_ptr(), a.data_ptr(), *[o.data_ptr() for o in outs],
+        ws.data_ptr(), m2, k, tile, torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, f"bcr reduce (tile {tile})")
     return outs
 
@@ -479,10 +494,10 @@ def _rhs_on(lo, hi, b, split):
     from repro_torch.kernels import build
 
     lib = build.load("bcr")
-    out = torch.empty(lo.shape[0], lo.shape[1], b.shape[-1], device=b.device)
-    code = lib.bcr_rhs_reduce_launch(lo.data_ptr(), hi.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                     lo.shape[0], lo.shape[1], b.shape[-1], split,
-                                     torch.cuda.current_stream().cuda_stream)
+    out = torch.empty(lo.shape[0], lo.shape[1], b.shape[-1], dtype=b.dtype, device=b.device)
+    code = entry(lib, "bcr_rhs_reduce_launch", b.dtype)(
+        lo.data_ptr(), hi.data_ptr(), b.data_ptr(), out.data_ptr(), lo.shape[0], lo.shape[1],
+        b.shape[-1], split, torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, f"bcr rhs_reduce (split {split})")
     return out
 
@@ -494,12 +509,12 @@ def _backsub_on(a, e, f, b, x, cluster):
 
     lib = build.load("bcr")
     m2, k, r = x.shape
-    t = torch.empty_like(x)
-    out = torch.empty(2 * m2, k, r, device=x.device)
-    code = lib.bcr_backsub_launch(a.data_ptr(), e.data_ptr(), f.data_ptr(), b.data_ptr(),
-                                  x.data_ptr(), t.data_ptr() if cluster == 0 else None,
-                                  out.data_ptr(), m2, k, r, cluster,
-                                  torch.cuda.current_stream().cuda_stream)
+    t = torch.empty(x.shape, dtype=compute_dtype(x.dtype), device=x.device)
+    out = torch.empty(2 * m2, k, r, dtype=x.dtype, device=x.device)
+    code = entry(lib, "bcr_backsub_launch", x.dtype)(
+        a.data_ptr(), e.data_ptr(), f.data_ptr(), b.data_ptr(), x.data_ptr(),
+        t.data_ptr() if cluster == 0 else None, out.data_ptr(), m2, k, r, cluster,
+        torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, f"bcr backsub (cluster {cluster})")
     return out
 
@@ -667,7 +682,9 @@ def test_bcr_wrappers_reject_bad_operands(cuda):
 
     d, e, f, b = _bcr_chain(cuda, 4, 8, 1)
     with pytest.raises(TypeError):
-        bcr.inv_odd(d.double())
+        bcr.inv_odd(d.half())
+    with pytest.raises(TypeError, match="one storage dtype"):
+        bcr.rhs_reduce(d[:2].double(), d[:2], b)
     with pytest.raises(ValueError):
         bcr.reduce(d[:3], e[:3], f[:3], d[:1])
 
@@ -928,9 +945,13 @@ def test_scan_kernels_reject_what_they_do_not_take(cuda):
     u, s0 = torch.randn(2, 8, device=cuda), torch.zeros(1, 2, 8, 8, device=cuda)
     with pytest.raises(ValueError, match="chunk"):
         ops.wkv6(r, r, r, -r.abs(), u, s0, chunk=64)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        rb = r.bfloat16()
-        ops.wkv6(rb, rb, rb, -rb.abs(), u, s0, chunk=32)
+    rb = r.bfloat16()  # bfloat16 scan tensors run; float16 and mixed are refused
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.wkv6(r.half(), r.half(), r.half(), -r.abs().half(), u, s0, chunk=32)
+    with pytest.raises(TypeError, match="one storage dtype"):
+        ops.wkv6(rb, rb, r, -rb.abs(), u, s0, chunk=32)
+    with pytest.raises(TypeError, match="float32"):
+        ops.wkv6(rb, rb, rb, -rb.abs(), u.bfloat16(), s0, chunk=32)
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
@@ -1961,3 +1982,335 @@ def test_model_kernels_at_the_ranks_local_head_shapes(cuda):
     args = _ssd_args(cuda, 4 * 40, 256, 64, 64, hshare=40)
     for got, want in zip(ssd(*args, 64, hshare=40), ssd_plain(*args, 64, hshare=40)):
         _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# storage dtypes: bfloat16 and float64 instantiations of the solver kernels,
+# bfloat16 scan tensors
+# ---------------------------------------------------------------------------
+#
+# Each (kernel, dtype) against its plain version on the card, on the same
+# storage: bfloat16 element by element within one bfloat16 step of the
+# plain value plus 1e-4 of its largest value (both compute in float32 from
+# the same bfloat16 inputs and round each output once; the float32 sums
+# run in another order, compounding over the block rows, as in _close);
+# float64 within 1e-10 of the largest plain value (both compute in float64).
+
+NEW_DTYPES = [torch.bfloat16, torch.float64]
+
+
+def _close_dtype(kernel, plain):
+    assert kernel.dtype == plain.dtype
+    if kernel.dtype == torch.bfloat16:
+        _close_bf16(kernel, plain, atol=1e-4)
+    else:
+        assert bool(torch.isfinite(kernel).all())
+        diff = float((kernel - plain).abs().max())
+        assert diff <= 1e-10 * max(float(plain.abs().max()), 1e-300)
+
+
+# (n, k, p): K = 37 takes the element-copy ring in every dtype, K = 20 the
+# bulk route in float32 / float64 and not in bfloat16 (20 % 8), K = 200
+# and 256 the bulk route in all three; 200 and 256 grow the float64 cluster
+DTYPE_SHAPES = [(259, 37, 3), (3200, 20, 8), (12800, 200, 4), (1400, 256, 2)]
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+@pytest.mark.parametrize("n,k,p", DTYPE_SHAPES)
+def test_solver_kernels_in_each_storage_dtype(cuda, dtype, n, k, p):
+    """btf, bts (R = 1, 4 and K) and the fused pass through the wrappers,
+    each launching its dtype's instantiation."""
+    bt = _split(cuda, n, k, p)
+    d, e, f = (x.to(dtype) for x in (bt.d, bt.e, bt.f))
+    before = [btf.by_dtype.get(dtype, 0), bts.by_dtype.get(dtype, 0),
+              fused_factor_spike.by_dtype.get(dtype, 0)]
+    sinv, l = btf(d, e, f)
+    ref = bl.btf_ref(d, e, f)
+    _close_dtype(sinv, ref.sinv)
+    _close_dtype(l, ref.l)
+    for r in (1, 4, k):
+        rhs = torch.randn(d.shape[:3] + (r,), device=cuda).to(dtype)
+        _close_dtype(bts(ref.sinv, ref.l, f, rhs), bl.bts_ref(ref, rhs))
+    bq, cq = (x.to(dtype) for x in bl.pad_couplings(bt.b_cpl, bt.c_cpl, p))
+    for got, want in zip(fused_factor_spike(d, e, f, bq, cq),
+                         bl.fused_factor_spike_padded_ref(d, e, f, bq, cq)):
+        _close_dtype(got, want)
+    assert [btf.by_dtype[dtype], bts.by_dtype[dtype], fused_factor_spike.by_dtype[dtype]] == [
+        before[0] + 1, before[1] + 3, before[2] + 1]
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+@pytest.mark.parametrize("n,k,p", [(259, 37, 3), (3200, 20, 8), (12800, 200, 4)])
+def test_bts_copy_routes_and_clusters_in_each_dtype(cuda, dtype, n, k, p):
+    """bts forced onto cluster sizes 0 (one block), 1, 2 and 16 in each
+    dtype: the bulk route when a block row is a multiple of 16 bytes (K % 8
+    in bfloat16, K % 2 in float64), element copies else."""
+    from repro_torch.kernels import build
+
+    bt = _split(cuda, n, k, p)
+    d, e, f = (x.to(dtype) for x in (bt.d, bt.e, bt.f))
+    ref = bl.btf_ref(d, e, f)
+    lib = build.load("bts")
+    bulk = entry(lib, "bts_bulk_route", dtype)(ref.sinv.data_ptr(), ref.l.data_ptr(),
+                                               f.data_ptr(), k)
+    assert bulk == (k * d.element_size() % 16 == 0)
+    b = torch.randn(d.shape[:3] + (1,), device=cuda).to(dtype)
+    for cluster in (0, 1, 2, 16):
+        x, code = _bts_on(cuda, ref, b, cluster)
+        build.check(lib, code, f"bts (cluster {cluster}, {dtype})")
+        torch.cuda.synchronize()
+        _close_dtype(x, bl.bts_ref(ref, b))
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+@pytest.mark.parametrize("n,k,p", [(259, 37, 3), (12800, 200, 4)])
+def test_btf_and_fused_routes_in_each_dtype(cuda, dtype, n, k, p):
+    """btf and the fused pass on the one-block kernel (0), the wrapper's
+    cluster size and 16 CTAs, in each dtype."""
+    from repro_torch.kernels import build
+
+    bt = _split(cuda, n, k, p)
+    d, e, f = (x.to(dtype) for x in (bt.d, bt.e, bt.f))
+    bq, cq = (x.to(dtype) for x in bl.pad_couplings(bt.b_cpl, bt.c_cpl, p))
+    ref = bl.btf_ref(d, e, f)
+    want = bl.fused_factor_spike_padded_ref(d, e, f, bq, cq)
+    sizes = {0, 16, entry(build.load("btf"), "btf_cluster_size", dtype)(p, k),
+             entry(build.load("fused_spike"), "fused_cluster_size", dtype)(p, k)}
+    for cluster in sorted(sizes):
+        sinv, l = _btf_on(cuda, d, e, f, cluster)
+        torch.cuda.synchronize()
+        _close_dtype(sinv, ref.sinv)
+        _close_dtype(l, ref.l)
+        for got, w in zip(_fused_on(cuda, d, e, f, bq, cq, cluster), want):
+            _close_dtype(got, w)
+
+
+def test_float64_slab_takes_a_larger_cluster(cuda):
+    """The float64 slab is twice the bytes: at K = 200 a chain needs at least
+    4 CTAs (float32 1), the SaP-E reduced chain's 2K = 400 takes 16 in btf
+    (1.3 MB across the cluster) and in the BCR inverse (float32 4)."""
+    from repro_torch.kernels import build
+
+    lib = build.load("btf")
+    assert entry(lib, "btf_cluster_size", torch.float64)(64, 200) >= 4
+    assert entry(lib, "btf_cluster_size", torch.float64)(1, 400) == 16
+    bcr = build.load("bcr")
+    assert (bcr.bcr_inv_cluster_size(400), bcr.bcr_inv_cluster_size_f64(400)) == (4, 16)
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+@pytest.mark.parametrize("m,k", [(16, 37), (64, 400)])
+def test_bcr_kernels_in_each_dtype(cuda, dtype, m, k):
+    """inv_odd, reduce, rhs_reduce and backsub through the wrappers at every
+    level of a chain's factor and solve, each on the plain levels' operands
+    (in bfloat16 each level rounds its outputs, so a whole chain run through
+    the kernels drifts from the plain one by more than a step), R = 1, 4
+    and 9 (the tiled kernels); then the whole ops.bcr_factor / bcr_solve,
+    each wrapper counting its launches under the dtype, x normwise within
+    1e-2 (bfloat16) or 1e-10 (float64) of the plain chain's."""
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.kernels import bcr
+
+    d, e, f, _ = (x.to(dtype) for x in _bcr_chain(cuda, m, k, 1, seed=k))
+    e[0] = 0.0
+    f[-1] = 0.0
+    wrappers = (bcr.inv_odd, bcr.reduce, bcr.rhs_reduce, bcr.backsub)
+    before = [w.by_dtype.get(dtype, 0) for w in wrappers]
+    dd, ee, ff = cr.pad_chain(d, e, f)
+    levels = []
+    while dd.shape[0] > 1:
+        a = cr.bcr_inv_odd_ref(dd)
+        _close_dtype(bcr.inv_odd(dd), a)
+        want = cr.bcr_reduce_ref(dd, ee, ff, a)
+        for got, w in zip(bcr.reduce(dd, ee, ff, a), want):
+            _close_dtype(got, w)
+        levels.append((want[0], want[1], a, ee[1::2].contiguous(), ff[1::2].contiguous()))
+        dd, ee, ff = want[2:]
+    for r in (1, 4, 9):
+        b = torch.randn(2 * levels[0][0].shape[0], k, r, device=cuda).to(dtype)
+        rhs = []
+        for lo, hi, *_ in levels:
+            rhs.append(b)
+            want = cr.bcr_rhs_reduce_ref(lo, hi, b)
+            _close_dtype(bcr.rhs_reduce(lo, hi, b), want)
+            b = want
+        x = (cr.bcr_inv_odd_ref(dd, first=0)[0] @ b[0])[None]
+        for (lo, hi, a, eo, fo), bl_ in zip(reversed(levels), reversed(rhs)):
+            want = cr.bcr_backsub_ref(a, eo, fo, bl_, x)
+            _close_dtype(bcr.backsub(a, eo, fo, bl_, x), want)
+            x = want
+    got, want = ops.bcr_factor(d, e, f), cr.bcr_factor(d, e, f)
+    h = torch.randn(m, k, 1, device=cuda).to(dtype)
+    gx, wx = ops.bcr_solve(got, h).double(), cr.bcr_solve(want, h).double()
+    assert float((gx - wx).abs().max()) <= (1e-2 if dtype == torch.bfloat16 else 1e-10) * float(
+        wx.abs().max())
+    assert all(w.by_dtype[dtype] > n for w, n in zip(wrappers, before))
+
+
+@pytest.mark.parametrize("variant,reduced", [("D", "auto"), ("C", "auto"), ("E", "chain"),
+                                             ("E", "bcr")])
+def test_lifecycle_in_each_precond_dtype_on_the_card(cuda, variant, reduced):
+    """factor / solve on the card with a float64 preconditioner (BiCGStab(2)
+    at tol 1e-10: true residual <= 1e-9, x within 1e-9 of the CPU's) and a
+    bfloat16 one under refinement (true residual <= tol), against the same
+    run on the CPU (plain versions)."""
+    band = random_banded(4000, 10, 1.0 if variant != "E" else 0.5, seed=1)
+    b = np.random.default_rng(2).normal(size=4000)
+    for pdt, solver, tol in (("float64", "bicgstab2", 1e-10), ("bfloat16", "refine", 1e-8)):
+        opts = SaPOptions(p=16, variant=variant, reduced_solver=reduced, tol=tol,
+                          precond_dtype=pdt, solver=solver)
+        gfac = factor(plan_banded(band, opts))
+        assert gfac.pc.lu.sinv.dtype == getattr(torch, pdt)
+        gpu = gfac.solve(b)
+        cpu = factor(plan_banded(band, opts, device="cpu")).solve(b)
+        assert float(gpu.true_resnorm) <= (1e-9 if pdt == "float64" else tol)
+        if pdt == "float64":
+            diff = float((gpu.x.cpu() - cpu.x).norm() / cpu.x.norm())
+            assert diff <= 1e-9, diff
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+@pytest.mark.parametrize("k", [190, 400, 800])
+def test_inv_odd_with_boosts_in_each_dtype(cuda, dtype, k):
+    """The odd-block inverse in each dtype on the route its block size
+    picks (800: the one-block kernel, its elimination block in a compute-
+    dtype workspace for bfloat16), with boosted pivots and exactly zero
+    rows and columns, which invert to the identity."""
+    from repro_torch.core import cyclic_reduction as cr
+    from repro_torch.kernels import bcr
+
+    d = _bcr_chain(cuda, 6, k, 1, seed=k)[0]
+    boosted = [1, k // 3, k - 2]
+    d[:, boosted, boosted] = 0.0
+    zero = [0, k // 2, k - 1]
+    d[3, zero, :] = 0.0
+    d[3, :, zero] = 0.0
+    d = d.to(dtype)
+    before = bcr.inv_odd.by_dtype.get(dtype, 0)
+    got = bcr.inv_odd(d, 0.05)
+    _close_dtype(got, cr.bcr_inv_odd_ref(d, 0.05))
+    eye = torch.eye(k, device=cuda, dtype=dtype)
+    assert torch.equal(got[1][zero], eye[zero]) and torch.equal(got[1][:, zero], eye[:, zero])
+    assert bcr.inv_odd.by_dtype[dtype] == before + 1
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+@pytest.mark.parametrize("k", [37, 20, 400])
+def test_bcr_solve_kernels_at_forced_routes_in_each_dtype(cuda, dtype, k):
+    """rhs_reduce and backsub on the tiled kernels (0) and on splits /
+    clusters of 1, 4 and 16, in each dtype: element copies for K = 37 in
+    every dtype and for K = 20 in bfloat16 (40 bytes a row), bulk rows for
+    K = 20 in float64 and for 400."""
+    from repro_torch.core import cyclic_reduction as cr
+
+    for r in (1, 3):
+        lo, hi, a, e, f, b, x = (t.to(dtype) for t in _solve_level(cuda, 4, k, r, seed=k))
+        for size in (0, 1, 4, 16):
+            _close_dtype(_rhs_on(lo, hi, b, size), cr.bcr_rhs_reduce_ref(lo, hi, b))
+            _close_dtype(_backsub_on(a, e, f, b, x, size), cr.bcr_backsub_ref(a, e, f, b, x))
+
+
+@pytest.mark.parametrize("dtype", NEW_DTYPES)
+def test_reduce_at_every_tile_in_each_dtype(cuda, dtype):
+    from repro_torch.core import cyclic_reduction as cr
+
+    for m2, k in ((2, 190), (32, 400)):
+        d, e, f, _ = (x.to(dtype) for x in _bcr_chain(cuda, 2 * m2, k, 1, seed=m2 + k))
+        e[0] = 0.0
+        f[-1] = 0.0
+        a = _bcr_chain(cuda, m2, k, 1, seed=k)[0].to(dtype)
+        for tile in (96, 80, 64, 32):
+            for got, want in zip(_reduce_on(d, e, f, a, tile), cr.bcr_reduce_ref(d, e, f, a)):
+                _close_dtype(got, want)
+
+
+@pytest.mark.parametrize("bh,t,d,chunk,route", WKV_ROUTE_SHAPES)
+def test_wkv_in_bfloat16_on_every_route(cuda, bh, t, d, chunk, route):
+    """bfloat16 r, k, v, log w (u and the state float32): o in bfloat16 within
+    one step of the plain version's, the state in float32 within 1e-4."""
+    from repro_torch.kernels.wkv import wkv6, wkv6_plain
+
+    r, k, v, logw, u, s0 = _wkv_args(cuda, bh, t, d)
+    args = (r.bfloat16(), k.bfloat16(), v.bfloat16(), logw.bfloat16(), u, s0)
+    before = (wkv6.by_route[route], wkv6.by_dtype.get(torch.bfloat16, 0))
+    o, s = wkv6(*args, chunk)
+    assert (wkv6.by_route[route], wkv6.by_dtype[torch.bfloat16]) == (before[0] + 1, before[1] + 1)
+    po, ps = wkv6_plain(*args, chunk)
+    assert o.dtype == torch.bfloat16 and s.dtype == torch.float32
+    _close_bf16(o, po, atol=1e-4)
+    _close(s, ps)
+
+
+@pytest.mark.parametrize("bh,t,n,p,chunk,hshare,route",
+                         [(320, 1, 64, 64, 1, 80, "step"), (320, 512, 64, 64, 64, 80, "split"),
+                          (6, 74, 64, 64, 37, 3, "split"), (4, 32, 6, 8, 16, 1, "block")])
+def test_ssd_in_bfloat16_on_every_route(cuda, bh, t, n, p, chunk, hshare, route):
+    from repro_torch.kernels.ssd import ssd, ssd_plain
+
+    x, bm, cm, la, s0 = _ssd_args(cuda, bh, t, n, p, hshare)
+    args = (x.bfloat16(), bm.bfloat16(), cm.bfloat16(), la, s0)
+    before = ssd.by_route[route]
+    y, s = ssd(*args, chunk, hshare=hshare)
+    assert ssd.by_route[route] == before + 1
+    py, ps = ssd_plain(*args, chunk, hshare=hshare)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    _close_bf16(y, py, atol=1e-4)
+    _close(s, ps)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-2.7b"])
+def test_reduced_model_with_bfloat16_scans_on_the_card_matches_the_cpu(cuda, arch):
+    """scan_dtype="bfloat16": forward and decode_step of the reduced model
+    on the card (the scans' bfloat16 instantiations) against the same
+    parameters on the CPU (plain versions, the same bfloat16 scan inputs):
+    within 1e-2 of the largest logit -- bfloat16 outputs that may round a
+    step apart feed the following layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+    from repro_torch.models import get_family
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), scan_dtype="bfloat16")
+    fam = get_family(cfg)
+    cpu_params = fam.init(cfg, device="cpu")
+    gpu_params = fam.init(cfg, device="cpu").to(cuda)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=(2, 32)))
+    bf = torch.bfloat16
+    before = wkv6.by_dtype.get(bf, 0) + ssd.by_dtype.get(bf, 0)
+
+    def close(got, want):
+        assert float((got.cpu() - want).abs().max()) <= 1e-2 * float(want.abs().max())
+
+    got, _ = fam.forward(cfg, gpu_params, toks.to(cuda))
+    close(got, fam.forward(cfg, cpu_params, toks)[0])
+    cache_g = fam.init_cache(cfg, 2, 16)
+    cache_c = fam.init_cache(cfg, 2, 16, device="cpu")
+    for i in range(4):
+        lg, cache_g = fam.decode_step(cfg, gpu_params, cache_g, toks[:, i:i + 1].to(cuda))
+        lc, cache_c = fam.decode_step(cfg, cpu_params, cache_c, toks[:, i:i + 1])
+        close(lg, lc)
+    assert wkv6.by_dtype.get(bf, 0) + ssd.by_dtype.get(bf, 0) >= before + 5 * cfg.n_layers
+
+
+def test_bfloat16_scans_train_through_the_autograd_functions(cuda):
+    """WKV6 with bfloat16 scan tensors that require grad: the forward on the
+    kernel, one recompute in backward, gradients in the inputs' dtypes (u
+    float32) close to autograd of the plain version at the same inputs."""
+    from repro_torch.kernels import autograd as kgrad
+    from repro_torch.kernels.wkv import wkv6_plain
+
+    r, k, v, logw, u, s0 = _wkv_args(cuda, 4, 64, 64)
+    base = [t.bfloat16() for t in (r, k, v, logw)] + [u]
+    got = [t.clone().requires_grad_(True) for t in base]
+    before = kgrad.backward_calls["wkv6"]
+    o, _ = ops.wkv6(*(t[None] for t in got[:4]), got[4], s0[None], chunk=16)
+    o.float().square().sum().backward()
+    assert kgrad.backward_calls["wkv6"] == before + 1
+    want = [t.clone().requires_grad_(True) for t in base]
+    wkv6_plain(*want, s0, 16)[0].float().square().sum().backward()
+    for g, w in zip(got, want):
+        assert g.grad.dtype == g.dtype
+        err = float((g.grad.double() - w.grad.double()).abs().max())
+        assert err <= 2e-2 * float(w.grad.double().abs().max())

@@ -149,12 +149,15 @@ def test_wrappers_reject_bad_operands_before_launching(monkeypatch):
     from repro_torch.kernels import _launch
 
     d, e, f = _chain()
-    with pytest.raises(TypeError, match="float32"):
-        _launch.check_operands("btf", d.device, d=d.double(), e=e, f=f)
+    solver = _launch.SOLVER_DTYPES  # float32, bfloat16, float64: float16 and mixed still refused
+    with pytest.raises(TypeError, match="float32 or bfloat16 or float64"):
+        _launch.check_operands("btf", d.device, solver, d=d.half(), e=e.half(), f=f.half())
+    with pytest.raises(TypeError, match="one storage dtype"):
+        _launch.check_operands("btf", d.device, solver, d=d.double(), e=e, f=f)
     with pytest.raises(ValueError, match="contiguous"):
-        _launch.check_operands("btf", d.device, d=d.transpose(-1, -2), e=e, f=f)
+        _launch.check_operands("btf", d.device, solver, d=d.transpose(-1, -2), e=e, f=f)
     with pytest.raises(ValueError, match="on"):
-        _launch.check_operands("btf", torch.device("meta"), d=d, e=e, f=f)
+        _launch.check_operands("btf", torch.device("meta"), solver, d=d, e=e, f=f)
     with pytest.raises(ValueError, match="shape"):
         _launch.check_shape("btf", "e", e[:, :2], tuple(d.shape))
     q = torch.randn(1, 4, 8, 16)

@@ -136,12 +136,12 @@ def gj_instrumented(hdr: str) -> str:
          "#define KMARK(i) U0 = clock64(); Q[i] += U0 - T0; T0 = U0;\n"
          "#define KDONE(n) if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) "
          "for (int i = 0; i < n; ++i) g_kern[i] += Q[i];\n"),
-        ("  float* colbuf = s.colbuf;\n\n",
-         "  float* colbuf = s.colbuf;\n  long long P[8] = {}, T = clock64(), U;\n"
+        ("  C* colbuf = s.colbuf;\n\n",
+         "  C* colbuf = s.colbuf;\n  long long P[8] = {}, T = clock64(), U;\n"
          "#define MARK(i) U = clock64(); P[i] += U - T; T = U;\n"),
         ("    take_r(prev, prev_b);  // (iv) of the previous panel\n",
          "    take_r(prev, prev_b);  // (iv) of the previous panel\n    MARK(0)\n"),
-        ("    float sv[NC][kPanel];", "    MARK(1)\n    float sv[NC][kPanel];"),
+        ("    C sv[NC][kPanel];", "    MARK(1)\n    C sv[NC][kPanel];"),
         ("    // R and this CTA's rows' panel columns to shared memory\n",
          "    MARK(2)\n    // R and this CTA's rows' panel columns to shared memory\n"),
         ("    // (iii) tiles of 4 rows x 4 columns; panel rows are computed, not stored\n",
@@ -182,10 +182,11 @@ DSMEM_STAGE = (
     "      reinterpret_cast<float4*>(bs + kk * ld)[c4] = v;\n"
     "    }\n"
     "  } else if (b_vec) {\n")
-DSMEM_BTF = ("rowmajor(sinv + blk - kk, k), none(), 1.f, n, k, k);\n    __syncthreads();",
-             "none(), none(), 1.f, n, k, k);\n    cluster.sync();")
-DSMEM_FUSED = ("rowmajor(side == 0 ? inv - kk : inv, k), none(), 1.f, n, k, k);\n"
-               "    __syncthreads();", "none(), none(), 1.f, n, k, k);\n    cluster.sync();")
+DSMEM_BTF = ("rowmajor(inv_prev, k),\n                 none<C>(), C(1), n, k, k);\n"
+             "    __syncthreads();", "none<C>(),\n                 none<C>(), C(1), n, k, k);\n"
+             "    cluster.sync();")
+DSMEM_FUSED = ("rowmajor(inv_prev, k), none<C>(), C(1), n, k, k);\n    __syncthreads();",
+               "none<C>(), none<C>(), C(1), n, k, k);\n    cluster.sync();")
 
 
 def btf_instrumented(src: str) -> str:
@@ -195,18 +196,20 @@ def btf_instrumented(src: str) -> str:
         src,
         ("  const int n = s.nrows;\n  const long kk",
          "  long long Q[8] = {}, T0 = clock64(), U0;\n  const int n = s.nrows;\n  const long kk"),
-        ("  slab_store(s, rowmajor(sinv + chain + mine, k), n);\n",
-         "  slab_store(s, rowmajor(sinv + chain + mine, k), n);\n  KMARK(0)\n"),
+        ("  if (!same) slab_store(s, rowmajor(inv_c + mine, k), n);\n\n",
+         "  if (!same) slab_store(s, rowmajor(inv_c + mine, k), n);\n  KMARK(0)\n\n"),
         ("    __syncthreads();  // l_j's rows are written\n",
          "    __syncthreads();  // l_j's rows are written\n    KMARK(1)\n"),
         ("    // 3. inv(S_j)\n", "    KMARK(2)\n"),
         ("    scale = cluster_max(cluster, mx, s.red);\n",
          "    scale = cluster_max(cluster, mx, s.red);\n    KMARK(3)\n"),
-        ("    slab_store(s, rowmajor(sinv + blk + mine, k), n);\n  }\n}",
-         "    slab_store(s, rowmajor(sinv + blk + mine, k), n);\n    KMARK(5)\n  }\n  KDONE(6)\n}"),
-        ("    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));\n    slab_store",
-         "    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));\n    KMARK(4)\n"
-         "    slab_store"),
+        ("    if (!same) slab_store(s, rowmajor(inv_c + mine, k), n);\n  }\n}",
+         "    if (!same) slab_store(s, rowmajor(inv_c + mine, k), n);\n    KMARK(5)\n  }\n"
+         "  KDONE(6)\n}"),
+        ("    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmax(scale, C(1e-30)));\n"
+         "    slab_store",
+         "    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmax(scale, C(1e-30)));\n"
+         "    KMARK(4)\n    slab_store"),
     )
 
 
@@ -217,20 +220,22 @@ def fused_instrumented(src: str) -> str:
         src,
         ("  const int n = s.nrows, row0 = s.row0;\n",
          "  long long Q[8] = {}, T0 = clock64(), U0;\n  const int n = s.nrows, row0 = s.row0;\n"),
-        ("  slab_store(s, rowmajor((side == 0 ? sinv + chain : inv_ul) + mine, k), n);\n",
-         "  slab_store(s, rowmajor((side == 0 ? sinv + chain : inv_ul) + mine, k), n);\n  KMARK(0)\n"),
+        ("  if (!lu_out) slab_store(s, rowmajor(inv_c + mine, k), n);\n\n",
+         "  if (!lu_out) slab_store(s, rowmajor(inv_c + mine, k), n);\n  KMARK(0)\n\n"),
         ("    __syncthreads();  // the multiplier's rows are written\n",
          "    __syncthreads();  // the multiplier's rows are written\n    KMARK(1)\n"),
         ("    // the spike carry: c <- -(mult c), all of the previous carry read\n",
          "    KMARK(2)\n"),
         ("    scale = cluster_max(cluster, mx, s.red);",
          "    KMARK(3)\n    scale = cluster_max(cluster, mx, s.red);"),
-        ("    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));\n    slab_store",
-         "    KMARK(4)\n    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmaxf(scale, 1e-30f));\n"
-         "    KMARK(5)\n    slab_store"),
-        ("    slab_store(s, rowmajor(inv + mine, k), n);\n  }\n",
-         "    slab_store(s, rowmajor(inv + mine, k), n);\n    KMARK(6)\n  }\n"),
-        ("none(), 1.f, n, k, k);\n  }\n}", "none(), 1.f, n, k, k);\n  }\n  KMARK(7)\n  KDONE(8)\n}"),
+        ("    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmax(scale, C(1e-30)));\n"
+         "    if (side == 0) slab_store",
+         "    KMARK(4)\n    gj_cluster_inverse_apart<NC>(cluster, s, boost_eps * fmax(scale, C(1e-30)));\n"
+         "    KMARK(5)\n    if (side == 0) slab_store"),
+        ("    if (!lu_out) slab_store(s, rowmajor(inv_c + mine, k), n);\n  }\n",
+         "    if (!lu_out) slab_store(s, rowmajor(inv_c + mine, k), n);\n    KMARK(6)\n  }\n"),
+        ("none<C>(), C(1), n, k, k);\n  }\n}",
+         "none<C>(), C(1), n, k, k);\n  }\n  KMARK(7)\n  KDONE(8)\n}"),
     )
 
 
@@ -273,10 +278,10 @@ def reduce_instrumented(src: str) -> str:
          "    T0 = clock64();\n    cp_async_wait<1>();\n"),
         ("    __syncthreads();     // ... for every thread; slice s-1's buffer is free\n",
          "    __syncthreads();\n    KMARK(0)\n"),
-        ("    cp_async_commit();\n    const float* as = smem",
-         "    cp_async_commit();\n    KMARK(1)\n    const float* as = smem"),
-        ("acc[i][j] = fmaf(av, bv[j], acc[i][j]);\n        }\n      }\n    }\n  }\n",
-         "acc[i][j] = fmaf(av, bv[j], acc[i][j]);\n        }\n      }\n    }\n    KMARK(2)\n  }\n"
+        ("    cp_async_commit();\n    const C* as = smem",
+         "    cp_async_commit();\n    KMARK(1)\n    const C* as = smem"),
+        ("acc[i][j] = fma(av, bv[j], acc[i][j]);\n        }\n      }\n    }\n  }\n",
+         "acc[i][j] = fma(av, bv[j], acc[i][j]);\n        }\n      }\n    }\n    KMARK(2)\n  }\n"
          "  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0)\n"
          "    for (int i = 0; i < 3; ++i) atomicAdd(reinterpret_cast<unsigned long long*>(&g_kern[i]),\n"
          "                                          (unsigned long long)Q[i]);\n"),
@@ -309,10 +314,12 @@ def solve_instrumented(src: str) -> str:
     return patched(
         src, SOLVE_STAMPS,
         ("  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
-         "  const int ld = solve_ld(k), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+         "  const int ld = solve_ld(k), ldr = ring_ld<T>(k), lane = threadIdx.x & 31,\n"
+         "            warp = threadIdx.x >> 5;\n"
          "  const int nw = blockDim.x >> 5, i = blockIdx.x / split, n = solve_rows(k, split);\n",
          "  SMARK(0)\n  extern __shared__ __align__(16) unsigned char smem_raw[];\n"
-         "  const int ld = solve_ld(k), lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+         "  const int ld = solve_ld(k), ldr = ring_ld<T>(k), lane = threadIdx.x & 31,\n"
+         "            warp = threadIdx.x >> 5;\n"
          "  const int nw = blockDim.x >> 5, i = blockIdx.x / split, n = solve_rows(k, split);\n"),
         ("  stage_vector(vn, b + (2L * i + 1) * kr, k, r, ld);\n  __syncthreads();\n",
          "  stage_vector(vn, b + (2L * i + 1) * kr, k, r, ld);\n  __syncthreads();\n  SMARK(1)\n"),
@@ -549,7 +556,7 @@ def main() -> int:
             kb, device=dev)
         out = torch.empty(1, kb, kb, device=dev)
         gj, _ = phases(lib, lambda: checked(lib.bcr_inv_launch(
-            blocks.data_ptr(), out.data_ptr(), 1, 1, kb, 1e-10, cs, stream), "inverse"))
+            blocks.data_ptr(), out.data_ptr(), None, 1, 1, kb, 1e-10, cs, stream), "inverse"))
         print(json.dumps({"inv_phases": {"k": kb, "cluster": cs, "cycles": sum(gj),
                                          **dict(zip(GJ_PHASES, gj))}}), flush=True)
 
@@ -611,8 +618,8 @@ def main() -> int:
     routes = {}
     for cs in (lib.bcr_inv_cluster_size(190), 0):
         def run(cs=cs):
-            code = lib.bcr_inv_launch(blocks.data_ptr(), out.data_ptr(), 32, 1, 190, 1e-10, cs,
-                                      stream)
+            code = lib.bcr_inv_launch(blocks.data_ptr(), out.data_ptr(), None, 32, 1, 190,
+                                      1e-10, cs, stream)
             if code:
                 raise RuntimeError(f"inverse launch failed: {code}")
         routes[f"cluster{cs}" if cs else "block"] = cuda_ms(run, 5)
@@ -655,7 +662,8 @@ def main() -> int:
 
         def run(lib=lib):
             checked(lib.bcr_reduce_launch(d.data_ptr(), e.data_ptr(), f.data_ptr(), a.data_ptr(),
-                                          *[o.data_ptr() for o in outs], m2, kb, 0, stream),
+                                          *[o.data_ptr() for o in outs], None, m2, kb, 0,
+                                          stream),
                     "reduce")
         _, kern = phases(lib, run)
         slices = m2 * 3 * -(-kb // 16)  # each row's first lo tile and first D' tile (2 products)
