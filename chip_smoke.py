@@ -99,7 +99,7 @@ distributed. ``repro_torch.core.distributed`` on 4 ranks of one gloo group
 trace. ``full()`` C (fused), ``exact()`` E (BCR) at P=64 and the sparse
    ``plan -> factor -> solve`` at P=64 again (the host plan traced once),
    ``TRACE_REPS`` warm ``factor`` / ``solve`` calls, each untraced and
-   then under a ``repro_torch.obs.Tracer``: the stage tree (``summary()``)
+   under a ``repro_torch.obs.Tracer`` (the order alternating): the stage tree (``summary()``)
    and each span's ms, the span tree against ``TRACE_TREES``, the median
    factor and krylov span within 0.9x-1.5x (+2 ms) of the median untraced
    host time, the traced/untraced ratio, the Chrome export's B/E pairs
@@ -199,7 +199,12 @@ train. Training, after every serving phase has freed its model:
    version's output, the gradients exactly equal, each backward's ms beside its
    kernel's forward ms; the restart path at stablelm-reduced (a fault at
    step 30 of 50, one restart from the step-20 checkpoint, the restored
-   parameters equal to the saved ones bit for bit);
+   parameters equal to the saved ones bit for bit); every run
+   at its published remat ("full"), and stablelm-1.6b at remat "none",
+   "full" and "dots" and zamba2-2.7b at "none" and "full" from the same
+   weights on one batch: the step ms, the peak memory, the kernel's
+   launches a step, the first step's loss and gradient norm equal across
+   the modes and the peak at "full" below "none"'s;
 sharded. The LM loss on a (2, 2) ("data", "model") mesh of 4 gloo ranks,
    all on the one card, after phase train: first the single-process
    references on the card (stablelm-1.6b at its published width and depth
@@ -214,12 +219,18 @@ sharded. The LM loss on a (2, 2) ("data", "model") mesh of 4 gloo ranks,
    ranks, each with its blocks of the parameters (``shard_model``) and of
    B=8 x T=256 tokens: the loss, every leaf's gradient norm and sample,
    the flash / WKV6 / SSD kernel launched once a layer on the rank's
-   local heads; for stablelm two ``make_train_step(mesh=...)`` steps with
-   ZeRO-1 (the step losses, the gradient norms, every leaf's update norm
-   and sample), then three planted faults (a data rank's gradient left
-   out of the average, a step on half the batch, ZeRO-1's gather left
-   out), each of which must fail at least one of the limits the sound run
-   passes (SHARD_* below); per rank the times (host clock after a sync),
+   local heads (twice under remat); for stablelm two
+   ``make_train_step(mesh=...)`` steps with ZeRO-1 (the step losses, the
+   gradient norms, every leaf's update norm and sample) and a compressed
+   one (also each leaf's int8 scale), then four planted faults (a data
+   rank's gradient left out of the average, a step on half the batch,
+   ZeRO-1's gather left out, a split leaf's scale its block's own); also
+   deepseek-moe-16b ("ep", 2 layers), mixtral-8x22b ("tp", 1
+   layer) and whisper-medium in float32, the MoE jobs with the aux term
+   and the route flips against the single process and two planted faults
+   (the gates' gradient not summed over "model", a per-rank load
+   balance); every fault must fail at least one of the limits the sound
+   run passes (SHARD_* below); per rank the times (host clock after a sync),
    peak memory, messages and bytes by kind and axis, and ``analyze``'s
    roofline row against the data sheet's NVLink and the calibrated gloo
    link; rank 0 holds the three kernels at its local-head shapes against
@@ -341,6 +352,17 @@ TRAIN_VOCAB, TRAIN_B, TRAIN_T = 512, 8, 256
 TRAIN_COMPRESS_STEPS, TRAIN_FIXED_STEPS = 5, 5
 TRAIN_MICRO_LOSS_RTOL, TRAIN_MICRO_GRAD_RTOL, TRAIN_MICRO_UPDATE_RTOL = 1e-5, 5e-2, 1e-1
 TRAIN_RESTART = {"steps": 50, "fault_at": 30, "checkpoint_every": 20}
+# Every run above takes its configuration's published remat
+# ("full"), and phase train adds TRAIN_REMAT: each (arch, modes) trained
+# TRAIN_REMAT_STEPS steps on one batch from the same weights and a fresh
+# state at each remat mode; the step ms (median of steps 2 on: with two
+# steps the host-bound step read 0.87-1.18x "none" at "full" in two
+# runs), the peak memory, the launches a step; the first step's loss and
+# gradient norm
+# within TRAIN_REMAT_RTOL of remat="none"'s (the replay recomputes the
+# same values), and the peak at "full" below "none"'s.
+TRAIN_REMAT = (("stablelm-1.6b", ("none", "full", "dots")), ("zamba2-2.7b", ("none", "full")))
+TRAIN_REMAT_STEPS, TRAIN_REMAT_RTOL = 6, 1e-6
 # flash kernel against its plain version in bfloat16, element by element:
 # both compute in float32 and round the output to bfloat16 once, so where
 # the float32 values straddle a rounding boundary they differ by one
@@ -386,7 +408,10 @@ BATCH_XTOL = 1e-5
 # TRACE_SPAN_SLACK_S: a span far under it would be one that did not wait
 # for the card.  One call of each is too few: the host's clock on a shared
 # machine once read an untraced E krylov call at 15.0 ms where the same call
-# reads 12.2-12.6 ms.
+# reads 12.2-12.6 ms; and five were too few for the sparse solve, whose
+# host-synced sweeps read 8-16 ms within a run, in spells several calls
+# long (one run's untraced calls 13.9, 14.0, 14.1, 10.8, 9.5 ms, its traced
+# ones 14.3, 13.2, 11.3, 9.8, 9.5).  The pairs alternate their order.
 _FACTOR_FUSED = ("factor", (("factor.split", ()), ("factor.fused", ()), ("factor.reduced", ())))
 TRACE_TREES = {
     "C": (_FACTOR_FUSED, ("krylov", ())),
@@ -395,7 +420,7 @@ TRACE_TREES = {
                                       ("reorder.assemble", ()))),)),
                _FACTOR_FUSED, ("krylov", ())),
 }
-TRACE_SPAN_RANGE, TRACE_SPAN_SLACK_S, TRACE_REPS = (0.9, 1.5), 0.002, 5
+TRACE_SPAN_RANGE, TRACE_SPAN_SLACK_S, TRACE_REPS = (0.9, 1.5), 0.002, 15
 # Phase "cost": an engine with cost_accounting at fleet()'s shape, COST_S
 # systems, a miss step then a hit step; an achieved fraction (roofline
 # seconds over measured seconds) above COST_LIMIT fails.
@@ -443,11 +468,46 @@ DIST_RANKS, DIST_P, DIST_P500, DIST_TOL = 4, 64, 500, 1e-6
 # 1.3e-3 / 8.9e-2, step gradient norm 1.9e-3 / 0.42, update norm
 # 3.1e-3 / 0.29, update sample 0.20 / 0.75; the loss limit is the JAX
 # package's (a left-out gradient leaves the averaged loss as it was).
+#
+# Every job runs at its published remat ("full": each layer's
+# forward replayed in the backward, its kernels launched twice), and the
+# phase adds the MoE and encoder-decoder losses and a compressed ZeRO-1
+# step.  deepseek-moe-16b ("ep": 64 experts over model = 2) at 2 of 28
+# layers, mixtral-8x22b ("tp", its published setting) at 1 of 56, and
+# whisper-medium at full depth, all three at full width in float32 (the
+# route and aux readings below are float32's); each rank's model is made
+# whole on the card one rank at a time, cut to its blocks and freed, so
+# that four whole mixtral layers are never held at once.  A MoE job also
+# reads the aux term alone (relative; under 1% of the loss, so the loss's
+# limit cannot see a wrong load balance) and the route flips (routed
+# slots whose expert differs from the single process's, over every layer
+# and data rank): limits SHARD_AUX_RTOL and SHARD_FLIP_SHARE of the routed
+# slots, or SHARD_WITNESS_FACTOR times the witness's reading where that is
+# larger (the single process with its weights moved by
+# SHARD_WITNESS_SCALE).  stablelm's job adds one compressed ZeRO-1 step
+# (grad_compress=True) from the same weights, against the single
+# process's compressed step, with the step limits above.  Planted faults
+# of each job (SHARD_RUNS' last entry): the three above, and
+# router_partial (the gates' gradient not summed over "model"), aux_local
+# (the load balance of each rank's own frac and mean_prob), scale_local
+# (a split leaf's int8 scale from the rank's block alone, read against
+# the compressed step, whose scales are read too: SHARD_SCALE_RTOL).
 SHARD_MESH, SHARD_B, SHARD_T, SHARD_LR = (2, 2), 8, 256, 5e-4
-SHARD_RUNS = (("stablelm-1.6b", None, 2, "bfloat16"),
-              ("rwkv6-1.6b", 2, 0, "float32"), ("zamba2-2.7b", 6, 0, "float32"),
-              ("rwkv6-1.6b", 2, 0, "bfloat16"), ("zamba2-2.7b", 6, 0, "bfloat16"))
-SHARD_FAULTS = ("grad_left_out", "half_batch", "zero1_stale")
+SHARD_RUNS = (
+    ("stablelm-1.6b", None, 2, "bfloat16",
+     ("grad_left_out", "half_batch", "zero1_stale", "scale_local")),
+    ("rwkv6-1.6b", 2, 0, "float32", ()), ("zamba2-2.7b", 6, 0, "float32", ()),
+    ("rwkv6-1.6b", 2, 0, "bfloat16", ()), ("zamba2-2.7b", 6, 0, "bfloat16", ()),
+    ("deepseek-moe-16b", 2, 0, "float32", ("router_partial", "aux_local")),
+    ("mixtral-8x22b", 1, 0, "float32", ()), ("whisper-medium", None, 0, "float32", ()))
+SHARD_FAULT_AGAINST = {"scale_local": "compress"}  # the reference a fault is read against
+SHARD_AUX_RTOL, SHARD_FLIP_SHARE = 1e-4, 1e-3
+# The compressed step's int8 scale of each JAX leaf (its largest |g| / 127
+# over the whole leaf) against the single process's, relative: bfloat16
+# moves the largest element by its rounding.  Between the sound run and
+# scale_local on the H100 (80GB HBM3, 700 W): 1.14e-2 sound,
+# 4.84e-2 with the fault (a rank's block holds most of a leaf's top).
+SHARD_SCALE_RTOL = 3e-2
 SHARD_LOSS_ATOL, SHARD_NORM_RTOL, SHARD_UPDATE_RTOL, SHARD_TIMEOUT_S = 1e-3, 1e-2, 3e-2, 900
 SHARD_STEP_LOSS_ATOL, SHARD_SAMPLE_RTOL, SHARD_UPDATE_SAMPLE_RTOL = 1e-2, 0.2, 0.4
 SHARD_SAMPLE, SHARD_WITNESS_SCALE, SHARD_WITNESS_FACTOR = 16384, 1e-6, 3.0
@@ -744,28 +804,39 @@ def host_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_ms(fn, reps: int) -> tuple[float, dict]:
+def device_ms(fn, reps: int, launches=None) -> tuple[float, dict]:
     """Device milliseconds per call of ``fn`` from the profiler's kernel
     time over ``reps`` calls in a row, and by kernel (name: [ms per launch,
     launches per call, launches recorded]).  Unlike CUDA events around the
-    loop, it does not count the host's gaps between short launches.  The
-    profiler can miss a few launches of a window, so a call's time is each
-    kernel's mean time per recorded launch times its launches per call
-    (recorded launches over calls, rounded)."""
+    loop, it does not count the host's gaps between short launches.
+    ``launches``, where given, returns the running count of launches the
+    kernel wrappers ``fn`` calls have made.  In a long process the profiler
+    loses launches, or sees none: a kernel recorded a number of times that
+    is not a multiple of ``reps``, or fewer kernels recorded than the
+    wrappers launched, is a window with launches lost, whose per-call sum
+    would read low (a time under the card's bound).  Such a window is timed
+    by :func:`queued_ms` instead and its by-kernel split is None (the
+    caller labels the time "queued")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
+    before = launches() if launches else 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    launched = launches() - before if launches else 0
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise AssertionError("the profiler saw no kernel on the card")
-    by_kernel = {e.key[:72]: [e.self_device_time_total / 1e3 / e.count,
-                              max(1, round(e.count / reps)), e.count] for e in events}
+    lost = [e.key[:72] for e in events if e.count % reps]
+    if not events or lost or sum(e.count for e in events) < launched:
+        print(f"device_ms: the profiler lost launches ({sum(e.count for e in events)} recorded, "
+              f"{launched} launched, {len(lost)} kernels' counts not a multiple of {reps} "
+              "calls); timed queued", file=sys.stderr, flush=True)
+        return queued_ms(fn, reps), None
+    by_kernel = {e.key[:72]: [e.self_device_time_total / 1e3 / e.count, e.count // reps, e.count]
+                 for e in events}
     return sum(ms * n for ms, n, _ in by_kernel.values()), by_kernel
 
 
@@ -776,7 +847,11 @@ def queued_ms(fn, reps: int) -> float:
     them.  Unlike events around a loop the host feeds, it does not count the
     host's gaps; unlike the profiler's kernel time, it counts the card's own
     gap from one launch to the next (~1.3 us on the H100).  It needs no
-    profiler, which in a long process stops seeing kernels."""
+    profiler, which in a long process loses launches.  The card holds a
+    bounded queue of pending launches: a window of more launches blocks the
+    host until the spin ends, and the calls then run at the host's pace.  A
+    window whose enqueueing outlasted its spin is timed again in groups of a
+    quarter as many calls, each behind a spin of its own."""
     import torch
 
     fn()  # warm-up
@@ -785,15 +860,28 @@ def queued_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4e9 * host_s) + 2_000_000)  # cycles: twice the host's time at 2 GHz
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    host_s = (time.perf_counter() - t0) / reps  # a call's host and device time
+    group = reps
+    while True:
+        total, done, paced = 0.0, 0, True
+        while done < reps:
+            n = min(group, reps - done)
+            spin, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            spin.record()
+            torch.cuda._sleep(int(4e9 * host_s * n) + 2_000_000)  # cycles: 2x at 2 GHz
+            t1 = time.perf_counter()
+            start.record()
+            for _ in range(n):
+                fn()
+            stop.record()
+            enqueue_ms = (time.perf_counter() - t1) * 1e3
+            torch.cuda.synchronize()
+            paced = paced and enqueue_ms < spin.elapsed_time(start)
+            total += start.elapsed_time(stop)
+            done += n
+        if paced or group == 1:
+            return total / reps
+        group = max(1, group // 4)
 
 
 def rotating(make, nbytes: float):
@@ -908,9 +996,9 @@ def zoo_phases(dev, get_config, get_family, reset, counts, serve, decode_window,
         ``moe.slot_counts`` on every layer's input."""
         plain, tally = moe.moe_mlp, []
 
-        def spy(cfg_, p, h):
+        def spy(cfg_, p, h, mesh=None):
             tally.append(moe.slot_counts(cfg_, p["router"], h))
-            return plain(cfg_, p, h)
+            return plain(cfg_, p, h, mesh)
 
         moe.moe_mlp = spy
         try:
@@ -1155,8 +1243,9 @@ def train_phase(dev, get_config, get_family, reset, counts) -> dict:
     if not losses[-1] <= losses[0] - TRAIN_DROP:
         raise AssertionError(f"train: step {TRAIN_STEPS}'s loss {losses[-1]:.4f} is not "
                              f"{TRAIN_DROP} below step 1's {losses[0]:.4f}")
-    if per_step != [cfg.n_layers] * TRAIN_STEPS:
-        raise AssertionError(f"train: flash launches a step {per_step}, not {cfg.n_layers} each")
+    per_layer = _loss_launches(cfg)["flash"]  # twice a layer under remat
+    if per_step != [per_layer] * TRAIN_STEPS:
+        raise AssertionError(f"train: flash launches a step {per_step}, not {per_layer} each")
     step_ms = [r["step_time_s"] * 1e3 for r in log]
     median_ms = statistics.median(step_ms[1:])
     peak = torch.cuda.max_memory_allocated() - held
@@ -1392,10 +1481,12 @@ def train_phase(dev, get_config, get_family, reset, counts) -> dict:
             raise AssertionError(f"train {arch}: losses {gl} do not fall")
         if not all(math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0 for r in rows):
             raise AssertionError(f"train {arch}: gradient norms {rows}")
-        if by_route["block"] or c[kernel] != TRAIN_FIXED_STEPS * cfg.n_layers:
+        per_step = _loss_launches(cfg)[kernel]
+        if by_route["block"] or c[kernel] != TRAIN_FIXED_STEPS * per_step:
             raise AssertionError(f"train {arch}: {c[kernel]} {kernel} launches {by_route}, want "
-                                 f"{cfg.n_layers} a step, none on the one-block kernel")
+                                 f"{per_step} a step, none on the one-block kernel")
         emit({"phase": "train", "arch": arch, "check": "fixed_batch", "batch": [TRAIN_B, TRAIN_T],
+              "remat": cfg.remat,
               "steps": rows, "median_step_ms": statistics.median(r["ms"] for r in rows[1:]),
               "launches": {kernel: c[kernel], "flash": c["flash"]},
               "launches_by_route": {kernel: by_route}, "backward_recomputes": recomputes,
@@ -1404,6 +1495,68 @@ def train_phase(dev, get_config, get_family, reset, counts) -> dict:
               "other_phases_bytes": held})
         del model, params, state, fixed, step
         torch.cuda.empty_cache()
+
+    # ---- 3b. remat: the same steps at every mode, step ms and peak memory -------
+    remat_rows = {}
+    for arch, modes in TRAIN_REMAT:
+        base = get_config(arch)
+        kernel = {"dense": "flash", "rwkv": "wkv", "hybrid": "ssd"}[base.family]
+        fixed = {"tokens": torch.tensor(np.random.default_rng(SEED + 2).integers(
+            0, base.vocab, size=(TRAIN_B, TRAIN_T)), device=dev)}
+        rows = {}
+        for mode in modes:
+            cfg = dataclasses.replace(base, remat=mode)
+            fam = get_family(cfg)
+            held = start_line()
+            model = fam.init(cfg, torch.Generator(dev).manual_seed(SEED), device=dev)
+            model.requires_grad_(True)
+            params = dict(model.named_parameters())
+            state = optim.init(params)
+            step = make_train_step(cfg, optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=0),
+                                   TrainConfig(checkpoint_dir=tmp))
+            reset()
+            steps = []
+            for _ in range(TRAIN_REMAT_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(model, state, {}, fixed)
+                torch.cuda.synchronize()
+                steps.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                              "ms": (time.perf_counter() - t0) * 1e3})
+            c = counts()
+            add_launches()
+            rows[mode] = {"steps": steps, "median_step_ms_2_on": statistics.median(
+                r["ms"] for r in steps[1:]), "peak_mem_bytes": torch.cuda.max_memory_allocated()
+                - held, "other_phases_bytes": held,
+                "launches_a_step": c[kernel] / TRAIN_REMAT_STEPS}
+            del model, params, state, step, m
+            torch.cuda.empty_cache()
+        first = rows["none"]["steps"][0]
+        for mode, row in rows.items():
+            got = row["steps"][0]
+            row["first_step_rel_diff"] = {
+                q: abs(got[q] - first[q]) / abs(first[q]) for q in ("loss", "grad_norm")}
+            row["step_ms_over_none"] = row["median_step_ms_2_on"] / rows["none"][
+                "median_step_ms_2_on"]
+            row["peak_over_none"] = row["peak_mem_bytes"] / rows["none"]["peak_mem_bytes"]
+        remat_rows[arch] = rows
+        emit({"phase": "train", "arch": arch, "check": "remat", "batch": [TRAIN_B, TRAIN_T],
+              "compute_dtype": base.compute_dtype, "rtol": TRAIN_REMAT_RTOL, "modes": rows,
+              "nvidia_smi": nvidia_smi()})
+        for mode, row in rows.items():
+            if max(row["first_step_rel_diff"].values()) > TRAIN_REMAT_RTOL:
+                raise AssertionError(f"train {arch} remat={mode}: the first step's loss and "
+                                     f"gradient norm {row['first_step_rel_diff']} differ from "
+                                     f"remat='none''s")
+            want = _loss_launches(dataclasses.replace(base, remat=mode))[kernel]
+            if row["launches_a_step"] != want:
+                raise AssertionError(f"train {arch} remat={mode}: {row['launches_a_step']} "
+                                     f"{kernel} launches a step, not {want}")
+        if "full" in rows and not rows["full"]["peak_mem_bytes"] < rows["none"]["peak_mem_bytes"]:
+            raise AssertionError(f"train {arch}: the peak at remat='full' "
+                                 f"({rows['full']['peak_mem_bytes']}) is not below 'none''s "
+                                 f"({rows['none']['peak_mem_bytes']})")
+        del fixed
 
     # ---- 4. each Function against autograd of its plain version, on the card -----
     def grads_of(fn, inputs, weight):
@@ -2091,7 +2244,8 @@ def local_head_checks(dev) -> list:
     """flash, WKV6 and SSD at the shapes one rank of phase "sharded" gives
     them (half the heads of B/2 = 4 rows: stablelm-1.6b 16 of 32 heads in
     bfloat16, rwkv6-1.6b 16 of 32, zamba2-2.7b 40 of 80 with B and C
-    shared, T=256) against their plain versions, phase 3's limits."""
+    shared, T=256; the MoE and whisper jobs' heads in float32) against
+    their plain versions, phase 3's limits."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2107,6 +2261,23 @@ def local_head_checks(dev) -> list:
                                   flash_attention_ref(q, k, v, causal=True))
     rows.append({"kernel": "flash", "shape": [SHARD_B // 2, 16, SHARD_T, 64], "dtype": "bfloat16",
                  "max_abs_err": err, "bf16_step_share": share})
+    # float32, the MoE and whisper jobs' local heads: deepseek-moe-16b 8 of
+    # 16, mixtral-8x22b 24 of 48 over 4 of 8 KV heads in its window,
+    # whisper-medium's encoder (8 of 16, T = 1,500, bidirectional) and its
+    # decoder's cross-attention (256 queries to 1,500 keys)
+    for job, (hq, hk, tq, tk, d, causal, window) in (
+            ("deepseek-moe-16b", (8, 8, SHARD_T, SHARD_T, 128, True, None)),
+            ("mixtral-8x22b", (24, 4, SHARD_T, SHARD_T, 128, True, 4096)),
+            ("whisper-medium encoder", (8, 8, 1500, 1500, 64, False, None)),
+            ("whisper-medium cross", (8, 8, SHARD_T, 1500, 64, False, None))):
+        q = rn(SHARD_B // 2, hq, tq, d)
+        k, v = rn(SHARD_B // 2, hk, tk, d), rn(SHARD_B // 2, hk, tk, d)
+        err = check_close(f"sharded flash {job}",
+                          ops.flash_attention(q, k, v, causal=causal, window=window),
+                          flash_attention_ref(q, k, v, causal=causal, window=window))
+        rows.append({"kernel": "flash", "job": job, "dtype": "float32",
+                     "shape": [SHARD_B // 2, hq, hk, tq, tk, d, causal, window],
+                     "max_abs_err": err})
     r, kk, vv = (rn(SHARD_B // 2, 16, SHARD_T, 64) for _ in range(3))
     lw = -torch.exp(0.5 * rn(SHARD_B // 2, 16, SHARD_T, 64))
     u, s0 = rn(16, 64), torch.zeros(SHARD_B // 2, 16, 64, 64, device=dev)
@@ -2193,20 +2364,109 @@ def _zero1_stale(cfg, local, p0: dict, mesh) -> None:
                     p.narrow(d, j * w, w).copy_(p0[name].narrow(d, j * w, w))
 
 
+class _RoutesRecorded:
+    """Each MoE layer's top-k expert indices (a host int tensor (NG, G, k)
+    per call of ``moe.route``) while the context is open."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.plain, self.routes = moe, moe.route, []
+
+        def route(*args):
+            got = self.plain(*args)
+            self.routes.append(got[3].detach().to("cpu", copy=True))
+            return got
+
+        moe.route = route
+        return self.routes
+
+    def __exit__(self, *exc):
+        self.moe.route = self.plain
+
+
+class _ScalesRecorded:
+    """Each int8 scale the round trip quantizes with (a float a gradient
+    tensor, in ``compress_tree``'s order) while the context is open, by
+    the JAX leaf of the tensor (``leaf_key``): the whole leaf's scale."""
+
+    def __init__(self, names):
+        from repro_torch.optim import compress
+
+        groups: dict = {}
+        for n in names:
+            groups.setdefault(compress.leaf_key(n), []).append(n)
+        self.order = [k for k, ns in groups.items() for _ in ns]
+        self.compress = compress
+
+    def __enter__(self):
+        self.plain, self.seen = self.compress._quantize, []
+
+        def quantize(g32, scale):
+            self.seen.append(float(scale))
+            return self.plain(g32, scale)
+
+        self.compress._quantize = quantize
+        self.scales = {}
+        return self.scales
+
+    def __exit__(self, *exc):
+        self.compress._quantize = self.plain
+        self.scales.update(zip(self.order, self.seen))
+
+
+def _job_batch(cfg, job: dict, dev, mesh=None) -> dict:
+    """A job's batch on the card: its tokens and, for whisper, frames drawn
+    from SEED + 7 on the card (the same on every process); with ``mesh``
+    the rank's block of each (``batch_pspecs``)."""
+    import torch
+
+    from repro_torch.launch.sharding import local_shard
+    from repro_torch.models import get_family
+    from repro_torch.models.api import ShapeSpec
+
+    batch = {"tokens": torch.from_numpy(job["tokens"]).to(dev)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(SHARD_B, cfg.enc_seq, cfg.d_model, device=dev,
+                                      generator=torch.Generator(dev).manual_seed(SEED + 7))
+    if mesh is None:
+        return batch
+    spec = get_family(cfg).batch_pspecs(cfg, ShapeSpec("sharded", SHARD_T, SHARD_B, "train"),
+                                        mesh)
+    return {k: local_shard(v, spec[k], mesh) for k, v in batch.items()}
+
+
+def _loss_launches(cfg) -> dict:
+    """The launches one loss and gradient must make of its family's kernel
+    (a rank's, or the single process's): one a layer, twice under
+    ``remat`` (the backward replays each layer's forward); whisper's
+    encoder layers once, its decoder layers twice (self and cross);
+    Zamba2's shared attention outside the replay is not counted."""
+    rep = 1 if cfg.remat == "none" else 2
+    if cfg.family in ("dense", "moe"):
+        return {"flash": rep * cfg.n_layers}
+    if cfg.family == "encdec":
+        return {"flash": rep * (cfg.n_enc_layers + 2 * cfg.n_layers)}
+    return {"wkv" if cfg.family == "rwkv" else "ssd": rep * cfg.n_layers}
+
+
 def sharded_rank(jobs: list, seed: int) -> dict:
     """One rank of phase "sharded" on a SHARD_MESH ("data", "model") mesh of
     gloo ranks on the card: for each job, the whole model from ``seed``
-    on the card, cut to this rank's blocks (``shard_model``) and freed;
-    the sharded loss and gradient of this rank's rows (host clock after a
-    sync), the launches of flash / wkv / ssd in it, every leaf's gradient
-    norm, the messages and bytes by kind and axis; with steps, ZeRO-1
-    train steps (the first under ``step_stats``, the second timed), each
-    leaf's update norm after each, then the planted faults of
-    SHARD_FAULTS from the same weights; the peak memory.  Rank 0 also
+    on the card, one rank at a time, cut to this rank's blocks
+    (``shard_model``) and freed; the sharded loss and gradient of this
+    rank's rows (host clock after a sync), the launches of flash / wkv /
+    ssd in it, every leaf's gradient norm, the messages and bytes by kind
+    and axis, and for a MoE job the aux term (averaged over "data") and
+    the routes; with steps, ZeRO-1 train steps (the first under
+    ``step_stats``, the second timed), each leaf's update norm after each,
+    then a compressed ZeRO-1 step from the same weights; the planted faults
+    of the job from the same weights; the peak memory.  Rank 0 also
     returns the samples of its blocks (gradients, updates) and holds the
     kernels at its local-head shapes against their plain versions."""
 
     import torch
+    import torch.distributed as dist
 
     from repro_torch import optim
     from repro_torch.core import distributed as D
@@ -2215,10 +2475,10 @@ def sharded_rank(jobs: list, seed: int) -> dict:
     from repro_torch.kernels.wkv import wkv6
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.roofline import step_stats
-    from repro_torch.launch.sharding import local_shard
-    from repro_torch.models import get_family, sharded
-    from repro_torch.models.api import ShapeSpec
-    from repro_torch.train.loop import TrainConfig, init_sharded_opt_state, make_train_step
+    from repro_torch.models import get_family, moe, sharded
+    from repro_torch.train import loop
+    from repro_torch.train.loop import (TrainConfig, init_sharded_error_state,
+                                        init_sharded_opt_state, make_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_test_mesh(SHARD_MESH, ("data", "model"))
@@ -2235,24 +2495,33 @@ def sharded_rank(jobs: list, seed: int) -> dict:
 
     out = {"coords": mesh.coords()}
     for job in jobs:
+        t_job = time.perf_counter()
         cfg = _sharded_config(job)
         fam = get_family(cfg)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        whole = fam.init(cfg, torch.Generator(dev).manual_seed(seed))
-        local = sharded.shard_model(cfg, whole, mesh)
-        del whole
-        torch.cuda.empty_cache()
+        for r in range(mesh.size):  # one whole model on the card at a time
+            if mesh.rank == r:
+                whole = fam.init(cfg, torch.Generator(dev).manual_seed(seed))
+                local = sharded.shard_model(cfg, whole, mesh)
+                del whole
+                torch.cuda.empty_cache()
+            dist.barrier()
         specs = sharded.param_specs(cfg, mesh)
-        spec = fam.batch_pspecs(cfg, ShapeSpec("sharded", SHARD_T, SHARD_B, "train"), mesh)
-        batch = {"tokens": local_shard(torch.from_numpy(job["tokens"]).to(dev),
-                                       spec["tokens"], mesh)}
+        batch = _job_batch(cfg, job, dev, mesh)
+        is_moe = cfg.family == "moe"
 
-        def grad_record(loss, grads):
-            return {"loss": float(loss),
-                    "grad_norms": {n: _leaf_norm(g, specs[n], mesh) for n, g in grads.items()},
-                    "grad_samples": ({n: _block_sample(g) for n, g in grads.items()}
-                                     if rank0 else None)}
+        def grad_record(loss, grads, routes=None):
+            rec = {"loss": float(loss),
+                   "grad_norms": {n: _leaf_norm(g, specs[n], mesh) for n, g in grads.items()},
+                   "grad_samples": ({n: _block_sample(g) for n, g in grads.items()}
+                                    if rank0 else None)}
+            if is_moe:
+                with torch.no_grad():
+                    aux = fam.loss(cfg, local, batch, mesh=mesh)[1]["aux"].reshape(1)
+                rec["aux"] = float(D.all_reduce_axis(aux, mesh, "data") / mesh.shape["data"])
+                rec["routes"] = routes
+            return rec
 
         def update_record(p0):
             norms, samples = {}, {}
@@ -2262,22 +2531,46 @@ def sharded_rank(jobs: list, seed: int) -> dict:
                 samples[n] = _block_sample(d)
             return norms, samples if rank0 else None
 
-        def new_step():
+        def new_step(compress=False):
             state = init_sharded_opt_state(cfg, local, mesh, zero1=True)
             step = make_train_step(cfg, optim.AdamWConfig(lr=SHARD_LR, warmup_steps=0),
-                                   TrainConfig(zero1=True), mesh=mesh)
+                                   TrainConfig(zero1=True, grad_compress=compress), mesh=mesh)
             return state, step
+
+        def restore():
+            with torch.no_grad():
+                for n, p in local.named_parameters():
+                    p.copy_(p0[n])
+
+        def compressed_step():
+            """One compressed ZeRO-1 step from p0: metrics, updates and
+            each leaf's error norm."""
+            restore()
+            torch.cuda.empty_cache()
+            state, step = new_step(compress=True)
+            err = init_sharded_error_state(cfg, local, mesh)
+            with _ScalesRecorded(err) as scales:
+                m = step(local, state, err, batch)
+            un = update_record(p0)
+            return {"step_losses": [float(m["loss"])], "step_grad_norms": [float(m["grad_norm"])],
+                    "update_norms": [un[0]], "update_samples": [un[1]], "scales": scales,
+                    "err_norms": {n: _leaf_norm(e, specs[n], mesh) for n, e in err.items()}}
 
         for w in wrappers.values():
             w.launches = 0
         D.reset_comm_stats()
-        (loss, grads), grad_s = timed(lambda: sharded.value_and_grad(cfg, local, batch, mesh))
+        with _RoutesRecorded() as routes:
+            (loss, grads), grad_s = timed(lambda: sharded.value_and_grad(cfg, local, batch, mesh))
         rec = {"grad_s": grad_s, "launches": {nm: w.launches for nm, w in wrappers.items()},
-               "comm": D.comm_stats()["by_axis"], **grad_record(loss, grads),
+               "comm": D.comm_stats()["by_axis"],
+               # the forward's routes; a remat replay routes the layers again
+               **grad_record(loss, grads, routes[:cfg.n_layers]),
                "local_param_bytes": sum(p.numel() * p.element_size() for p in local.parameters())}
         del grads
+        p0 = ({n: p.detach().to("cpu", copy=True) for n, p in local.named_parameters()}
+              if job["steps"] or job["faults"] else None)
+        rec["faults"] = {}
         if job["steps"]:
-            p0 = {n: p.detach().to("cpu", copy=True) for n, p in local.named_parameters()}
             state, step = new_step()
             obytes = sum(t.numel() * 4 for t in [*state.m.values(), *state.v.values()])
             for w in wrappers.values():
@@ -2298,14 +2591,8 @@ def sharded_rank(jobs: list, seed: int) -> dict:
                 "step_launches": {nm: w.launches for nm, w in wrappers.items()},
                 "update_norms": [u1[0], u2[0]], "update_samples": [u1[1], u2[1]]})
             del state, step, metrics
-            rec["faults"] = {}
-
-            def restore():
-                with torch.no_grad():
-                    for n, p in local.named_parameters():
-                        p.copy_(p0[n])
-
-            # a data rank's gradient left out of the average
+            rec["compress"] = compressed_step()
+        if "grad_left_out" in job["faults"]:  # a data rank's gradient left out of the average
             restore()
             orig = sharded.reduce_grads
 
@@ -2322,15 +2609,17 @@ def sharded_rank(jobs: list, seed: int) -> dict:
                 sharded.reduce_grads = orig
             rec["faults"]["grad_left_out"] = grad_record(loss, grads)
             del grads
-            # a step on the first half of the rank's rows
+        if "half_batch" in job["faults"]:  # a step on the first half of the rank's rows
+            restore()
             state, step = new_step()
-            half = {"tokens": batch["tokens"][: batch["tokens"].shape[0] // 2]}
+            half = {k: v[: v.shape[0] // 2] for k, v in batch.items()}
             m = step(local, state, {}, half)
             un = update_record(p0)
             rec["faults"]["half_batch"] = {
                 "step_losses": [float(m["loss"])], "step_grad_norms": [float(m["grad_norm"])],
                 "update_norms": [un[0]], "update_samples": [un[1]]}
-            # ZeRO-1's gather left out: the other data rank's slices stale
+            del state, step, m
+        if "zero1_stale" in job["faults"]:  # ZeRO-1's gather left out
             restore()
             state, step = new_step()
             m = step(local, state, {}, batch)
@@ -2343,9 +2632,32 @@ def sharded_rank(jobs: list, seed: int) -> dict:
                 "step_losses": [float(m["loss"]), float(after)],
                 "step_grad_norms": [float(m["grad_norm"])],
                 "update_norms": [un[0]], "update_samples": [un[1]]}
-            del p0, state, step
+            del state, step, m
+        if "scale_local" in job["faults"]:  # a split leaf's int8 scale its block's own
+            plain = loop.scale_over_model
+            loop.scale_over_model = lambda top, mesh_, split_leaf: top
+            try:
+                rec["faults"]["scale_local"] = compressed_step()
+            finally:
+                loop.scale_over_model = plain
+        for fault, patch in (("router_partial", ("combine_gates", lambda g, mesh_: g)),
+                             ("aux_local", ("balance_mean", lambda t, mesh_: t))):
+            if fault in job["faults"]:  # the MoE faults: the loss and gradient again
+                restore()
+                plain = getattr(moe, patch[0])
+                setattr(moe, patch[0], patch[1])
+                try:
+                    loss, grads = sharded.value_and_grad(cfg, local, batch, mesh)
+                    rec["faults"][fault] = grad_record(loss, grads)
+                finally:
+                    setattr(moe, patch[0], plain)
+                del grads
+        del p0
         rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rec["job_s"] = time.perf_counter() - t_job
         out[job["name"]] = rec
+        if rank0:
+            print(f"sharded: {job['name']} ranks {rec['job_s']:.1f} s", file=sys.stderr, flush=True)
         del local, batch
     torch.cuda.empty_cache()
     if rank0:
@@ -2376,6 +2688,17 @@ def _shard_checks(got: dict, ref: dict, bf16: bool) -> dict:
                      "ok": readings[leaf] <= lims[leaf]}
 
     wit = ref.get("witness") if bf16 else None
+    if "aux" in got and "aux" in ref:
+        rel = lambda a: abs(a - ref["aux"]) / abs(ref["aux"])  # noqa: E731
+        put("aux", {"aux": rel(got["aux"])},
+            max(SHARD_AUX_RTOL, SHARD_WITNESS_FACTOR * rel(ref["witness_routing"]["aux"])))
+    if "scales" in got:
+        put("scale", {k: abs(got["scales"][k] - w) / w for k, w in ref["scales"].items()},
+            SHARD_SCALE_RTOL)
+    if "route_flips" in got:
+        put("route_flips", {"routes": got["route_flips"]},
+            max(SHARD_FLIP_SHARE * ref["routed_slots"],
+                SHARD_WITNESS_FACTOR * ref["witness_routing"]["route_flips"]))
     if "loss" in got:
         put("loss", {"loss": abs(got["loss"] - ref["loss"])}, SHARD_LOSS_ATOL)
         put("grad_norm", {n: abs(got["grad_norms"][n] - w) / max(w, 1e-30)
@@ -2402,13 +2725,27 @@ def _shard_checks(got: dict, ref: dict, bf16: bool) -> dict:
     return out
 
 
-def _single_reference(cfg, fam, tokens, steps: int, dev) -> dict:
+def _route_flips(want: list, got: list, data_index: int) -> int:
+    """Routed slots whose expert differs: a rank's routes (a (NG/data, G,
+    k) tensor a layer, its data block's groups) against the single
+    process's (NG, G, k) a layer."""
+    flips = 0
+    for w, g in zip(want, got, strict=True):
+        ng = g.shape[0]
+        flips += int((w[data_index * ng:(data_index + 1) * ng] != g).sum())
+    return flips
+
+
+def _single_reference(cfg, fam, job: dict, dev) -> dict:
     """The single process on the card: the loss, every leaf's gradient norm
-    and the sample of rank 0's block of it; with steps, each step's loss,
-    gradient norm, and every leaf's update norm and sample after it; in
-    bfloat16 the witness (the same gradient with the weights moved by
-    SHARD_WITNESS_SCALE relative: per leaf, how far the norm and the
-    sample move)."""
+    and the sample of rank 0's block of it (a MoE model also its aux term
+    and routes); with steps, each step's loss, gradient norm, and every
+    leaf's update norm and sample after it, then one compressed step from
+    the same weights (and its error norms); in bfloat16 the witness (the
+    same gradient with the weights moved by SHARD_WITNESS_SCALE relative:
+    per leaf, how far the norm and the sample move); for a MoE model the
+    routing witness (how far the aux term moves and how many routes flip
+    with the weights so moved)."""
     import torch
 
     from repro_torch import optim
@@ -2417,6 +2754,7 @@ def _single_reference(cfg, fam, tokens, steps: int, dev) -> dict:
     from repro_torch.train import TrainConfig, make_train_step
 
     specs = sharded.param_specs(cfg, _RankZero())
+    steps = job["steps"]
 
     def sample(n, t):
         return _block_sample(local_shard(t, specs[n], _RankZero(), sharded.param_segments(cfg, n)))
@@ -2424,20 +2762,32 @@ def _single_reference(cfg, fam, tokens, steps: int, dev) -> dict:
     def loss_and_grads(model):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, _ = fam.loss(cfg, model, batch)
+        with _RoutesRecorded() as routes:
+            loss, metrics = fam.loss(cfg, model, batch)
         loss.backward()
         torch.cuda.synchronize()
         rec = {"loss": float(loss.detach()), "grad_s": time.perf_counter() - t0,
                "grad_norms": {n: float(p.grad.float().norm()) for n, p in model.named_parameters()},
                "grad_samples": {n: sample(n, p.grad) for n, p in model.named_parameters()}}
+        if cfg.family == "moe":
+            rec.update({"aux": float(metrics["aux"]), "routes": list(routes),
+                        "routed_slots": sum(r.numel() for r in routes)})
         for prm in model.parameters():
             prm.grad = None
         return rec
 
+    def moved_model():
+        model = fam.init(cfg, torch.Generator(dev).manual_seed(SEED)).requires_grad_(True)
+        g = torch.Generator(dev).manual_seed(SEED + 1)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + SHARD_WITNESS_SCALE * torch.randn(p.shape, generator=g, device=dev))
+        return model
+
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+    batch = _job_batch(cfg, job, dev)
     model = fam.init(cfg, torch.Generator(dev).manual_seed(SEED)).requires_grad_(True)
     ref = loss_and_grads(model)
     if steps:
@@ -2446,38 +2796,65 @@ def _single_reference(cfg, fam, tokens, steps: int, dev) -> dict:
         state = optim.init(params)
         step = make_train_step(cfg, optim.AdamWConfig(lr=SHARD_LR, warmup_steps=0), TrainConfig())
         ms, ref["update_norms"], ref["update_samples"] = [], [], []
+
+        def updates():
+            norms, samples = {}, {}
+            for n, p in params.items():
+                d = (p.detach() - p0[n].to(dev)).float()
+                norms[n], samples[n] = float(d.norm()), sample(n, d)
+            return norms, samples
+
         for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ms.append(step(model, state, {}, batch))
             torch.cuda.synchronize()
             ref["step_s"] = time.perf_counter() - t0
-            norms, samples = {}, {}
-            for n, p in params.items():
-                d = (p.detach() - p0[n].to(dev)).float()
-                norms[n], samples[n] = float(d.norm()), sample(n, d)
+            norms, samples = updates()
             ref["update_norms"].append(norms)
             ref["update_samples"].append(samples)
         ref["step_losses"] = [float(m["loss"]) for m in ms]
         ref["step_grad_norms"] = [float(m["grad_norm"]) for m in ms]
-        del params, p0, state, step, ms
+        del state, step, ms
+        # one compressed step from the same weights and a fresh state
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(p0[n])
+        err = optim.compress.init_error_state(params)
+        step = make_train_step(cfg, optim.AdamWConfig(lr=SHARD_LR, warmup_steps=0),
+                               TrainConfig(grad_compress=True))
+        with _ScalesRecorded(err) as scales:
+            m = step(model, optim.init(params), err, batch)
+        norms, samples = updates()
+        ref["compress"] = {"step_losses": [float(m["loss"])],
+                           "step_grad_norms": [float(m["grad_norm"])],
+                           "update_norms": [norms], "update_samples": [samples],
+                           "scales": scales,
+                           "err_norms": {n: float(e.norm()) for n, e in err.items()}}
+        del params, p0, step, err
     ref["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     del model
     if cfg.compute_dtype == "bfloat16":
         torch.cuda.empty_cache()
-        model = fam.init(cfg, torch.Generator(dev).manual_seed(SEED)).requires_grad_(True)
-        g = torch.Generator(dev).manual_seed(SEED + 1)
-        with torch.no_grad():
-            for p in model.parameters():
-                p.mul_(1 + SHARD_WITNESS_SCALE * torch.randn(p.shape, generator=g, device=dev))
-        moved = loss_and_grads(model)
-        ref["witness"] = {
-            "loss": abs(moved["loss"] - ref["loss"]),
-            "grad_norm": {n: abs(moved["grad_norms"][n] - w) / max(w, 1e-30)
-                          for n, w in ref["grad_norms"].items()},
-            "grad_sample": {n: _rel_l2(moved["grad_samples"][n], w)
-                            for n, w in ref["grad_samples"].items()}}
-        del model
+        moved = loss_and_grads(moved_model())
+    elif cfg.family == "moe":  # the routing witness needs the forward only
+        torch.cuda.empty_cache()
+        with torch.no_grad(), _RoutesRecorded() as routes:
+            aux = fam.loss(cfg, moved_model(), batch)[1]["aux"]
+        moved = {"aux": float(aux), "routes": list(routes)}
+    if cfg.compute_dtype == "bfloat16" or cfg.family == "moe":
+        if cfg.family == "moe":
+            ref["witness_routing"] = {
+                "aux": moved["aux"],
+                "route_flips": _route_flips(ref["routes"], moved["routes"], 0)}
+        if cfg.compute_dtype == "bfloat16":
+            ref["witness"] = {
+                "loss": abs(moved["loss"] - ref["loss"]),
+                "grad_norm": {n: abs(moved["grad_norms"][n] - w) / max(w, 1e-30)
+                              for n, w in ref["grad_norms"].items()},
+                "grad_sample": {n: _rel_l2(moved["grad_samples"][n], w)
+                                for n, w in ref["grad_samples"].items()}}
+        del moved
     return ref
 
 
@@ -2508,16 +2885,19 @@ def sharded_phase(dev, smi, cal) -> dict:
     ranks_n = SHARD_MESH[0] * SHARD_MESH[1]
     note = f"{ranks_n} ranks time-share one card: no time here is a scaling result"
     jobs, refs = [], {}
-    for arch, layers, steps, dtype in SHARD_RUNS:
+    for arch, layers, steps, dtype, faults in SHARD_RUNS:
         job = {"name": f"{arch}/{dtype}", "arch": arch, "layers": layers, "steps": steps,
-               "dtype": dtype}
+               "dtype": dtype, "faults": faults}
         cfg = _sharded_config(job)
         # one batch an architecture, whatever its dtype
         archs = list(dict.fromkeys(a for a, *_ in SHARD_RUNS))
-        tokens = np.random.default_rng(SEED + archs.index(arch)).integers(
+        job["tokens"] = np.random.default_rng(SEED + archs.index(arch)).integers(
             0, cfg.vocab, size=(SHARD_B, SHARD_T)).astype(np.int64)
-        jobs.append({**job, "tokens": tokens})
-        refs[job["name"]] = (cfg, _single_reference(cfg, get_family(cfg), tokens, steps, dev))
+        jobs.append(job)
+        t0 = time.perf_counter()
+        refs[job["name"]] = (cfg, _single_reference(cfg, get_family(cfg), job, dev))
+        print(f"sharded: {job['name']} single-process reference {time.perf_counter() - t0:.1f} s",
+              file=sys.stderr, flush=True)
     torch.cuda.empty_cache()
     build.build_all()  # every library in place: the ranks load, none compiles
     link_bw = calibrate.measure_link_bw(device=dev)
@@ -2531,10 +2911,15 @@ def sharded_phase(dev, smi, cal) -> dict:
         cfg, ref = refs[name]
         per = [r[name] for r in ranks]
         bf16 = cfg.compute_dtype == "bfloat16"
-        checks = _shard_checks(per[0], ref, bf16)
+        got0 = dict(per[0])
+        if cfg.family == "moe":  # every data rank's routes, once a "model" line
+            got0["route_flips"] = sum(
+                _route_flips(ref["routes"], r[name]["routes"], r["coords"]["data"])
+                for r in ranks if r["coords"]["model"] == 0)
+        checks = _shard_checks(got0, ref, bf16)
         line = {"phase": "sharded", "arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
                 "mesh": dict(zip(("data", "model"), SHARD_MESH)), "batch": [SHARD_B, SHARD_T],
-                "compute_dtype": cfg.compute_dtype, "checks": checks,
+                "compute_dtype": cfg.compute_dtype, "remat": cfg.remat, "checks": checks,
                 "loss": [r["loss"] for r in per], "loss_single": ref["loss"],
                 "grad_s": [r["grad_s"] for r in per], "grad_s_single": ref["grad_s"],
                 "launches": [r["launches"] for r in per],
@@ -2543,6 +2928,14 @@ def sharded_phase(dev, smi, cal) -> dict:
                 "peak_mem_bytes": [r["peak_mem_bytes"] for r in per],
                 "peak_mem_bytes_single": ref["peak_mem_bytes"], "note": note,
                 "nvidia_smi": smi}
+        if cfg.family == "moe":
+            line.update({
+                "expert_sharding": cfg.expert_sharding, "n_experts": cfg.n_experts,
+                "aux": [r["aux"] for r in per], "aux_single": ref["aux"],
+                "route_flips": got0["route_flips"], "routed_slots": ref["routed_slots"],
+                "witness_routing": ref["witness_routing"]})
+        if cfg.family == "encdec":
+            line["enc_layers"] = cfg.n_enc_layers
         if bf16:
             wit = ref["witness"]
             line["witness"] = {"loss": wit["loss"]} | {
@@ -2577,24 +2970,38 @@ def sharded_phase(dev, smi, cal) -> dict:
                 "roofline": rows, "link_bytes_s": {"sheet": H100_DATASHEET.link_bw,
                                                    "cal": link_bw},
                 "saved_activation_bytes": [r["stats"]["saved_bytes"] for r in per]})
+        if "compress" in per[0]:
+            cchecks = _shard_checks(per[0]["compress"], ref["compress"], bf16)
+            checks.update({f"compress_{c}": v for c, v in cchecks.items()})
+            errs = {n: abs(per[0]["compress"]["err_norms"][n] - w) / max(w, 1e-30)
+                    for n, w in ref["compress"]["err_norms"].items()}
+            line["compress"] = {
+                "step_loss": per[0]["compress"]["step_losses"][0],
+                "step_loss_single": ref["compress"]["step_losses"][0],
+                "step_grad_norm": per[0]["compress"]["step_grad_norms"][0],
+                "step_grad_norm_single": ref["compress"]["step_grad_norms"][0],
+                "err_norm_rel_diff": {"worst": max(errs.values()),
+                                      "leaf": max(errs, key=errs.get)}}
         emit(line)
         failures += [f"sharded {name}: {c} {v['reading']:.3e} > {v['limit']:.3e} ({v['leaf']})"
                      for c, v in checks.items() if not v["ok"]]
         if len({r["loss"] for r in per}) != 1:
             failures.append(f"sharded {name}: the ranks' losses {line['loss']} differ")
-        must = {"dense": ("flash",), "rwkv": ("wkv",), "hybrid": ("ssd",)}[cfg.family]
-        failures += [f"sharded {name}: {nm} launched {r['launches'][nm]} times, not once a layer"
-                     for r in per for nm in must if r["launches"][nm] != cfg.n_layers]
+        must = _loss_launches(cfg)
+        failures += [f"sharded {name}: {nm} launched {r['launches'][nm]} times, not {n}"
+                     for r in per for nm, n in must.items() if r["launches"][nm] != n]
         for fault, got in per[0].get("faults", {}).items():
-            fchecks = _shard_checks(got, ref, bf16)
+            against = ref[SHARD_FAULT_AGAINST[fault]] if fault in SHARD_FAULT_AGAINST else ref
+            fchecks = _shard_checks(got, {**against, "witness": ref.get("witness"),
+                                          "witness_routing": ref.get("witness_routing")}, bf16)
             caught = [c for c, v in fchecks.items() if not v["ok"]]
             emit({"phase": "sharded", "arch": arch, "fault": fault, "checks": fchecks,
                   "caught_by": caught, "nvidia_smi": smi})
             if not caught:
                 failures.append(f"sharded {name}: the planted fault {fault} passes every limit")
-        if job["steps"] and set(per[0].get("faults", {})) != set(SHARD_FAULTS):
+        if set(per[0].get("faults", {})) != set(job["faults"]):
             failures.append(f"sharded {name}: faults {sorted(per[0].get('faults', {}))} ran, "
-                            f"not {sorted(SHARD_FAULTS)}")
+                            f"not {sorted(job['faults'])}")
     emit({"phase": "sharded", "check": "kernels_at_local_head_shapes",
           "rtol_normwise": KERNEL_RTOL, "rows": ranks[0]["kernels"], "nvidia_smi": smi})
     emit({"phase": "sharded", "ranks_s": ranks_s, "seconds": time.perf_counter() - t_phase,
@@ -3953,14 +4360,19 @@ def main() -> int:
         untraced_s = {"factor": [], "krylov": []}
         traced_s = {"factor": [], "krylov": []}
         for rep in range(TRACE_REPS):
-            for st, t in untraced_call().items():
-                untraced_s[st].append(t)
+            traced_first = rep % 2 == 1  # so a drift in time favours neither
+            if not traced_first:
+                for st, t in untraced_call().items():
+                    untraced_s[st].append(t)
             rep_tracer = tracer if rep == 0 else Tracer()  # the first holds the sparse plan
             with use_tracer(rep_tracer):
                 fac = factor(pl)
                 res = fac.solve(rhs)
             for st in traced_s:
                 traced_s[st].append(rep_tracer.find(st)[0].duration_s)
+            if traced_first:
+                for st, t in untraced_call().items():
+                    untraced_s[st].append(t)
         untraced = {st: statistics.median(ts) for st, ts in untraced_s.items()}
         traced = {st: statistics.median(ts) for st, ts in traced_s.items()}
         x = res.x
@@ -4875,7 +5287,8 @@ def main() -> int:
     for name, s in specs.items():
         saved = wrappers[name].launches
         if s.get("device_time"):
-            ms, by_kernel = device_ms(s["kernel"], s["reps"])
+            ms, by_kernel = device_ms(s["kernel"], s["reps"],
+                                      lambda: wrappers[name].launches)
             wall_ms = host_ms(s["kernel"], s["reps"])
         else:
             ms, by_kernel, wall_ms = cuda_ms(s["kernel"], s["reps"]), None, None
@@ -4898,7 +5311,8 @@ def main() -> int:
             **bound(flops, nbytes), "library_ms": library_ms,
         })
         if wall_ms is not None:
-            summary[-1].update(ms_is="device", host_ms=wall_ms)
+            summary[-1].update(ms_is="device" if by_kernel is not None else "queued",
+                               host_ms=wall_ms)
         shape = list(chain[0].shape) if name in bcr_specs else [p, m, k]
         emit({"phase": "timing", "kernel": name, "ms": ms, "host_ms": wall_ms,
               "device_ms_by_kernel": by_kernel, "plain_ms": plain_ms,
@@ -5052,9 +5466,10 @@ def main() -> int:
         routes_of = kern.by_split if which == 0 else kern.by_cluster
         saved = kern.launches, kern.block_launches, dict(routes_of)
         args500 = solves500[1][which]
-        ms, by_kernel = device_ms(each(kern, args500), 20)
+        ms, by_kernel = device_ms(each(kern, args500), 20, lambda: kern.launches)
         entry["p500"] = {
-            "ms": ms, "host_ms": host_ms(each(kern, args500), 20), "device_ms_by_kernel": by_kernel,
+            "ms": ms, "ms_is": "device" if by_kernel is not None else "queued",
+            "host_ms": host_ms(each(kern, args500), 20), "device_ms_by_kernel": by_kernel,
             "plain_ms": cuda_ms(each(plain_fn, args500), 2),
             "library_ms": device_ms(each(lib_fn, args500), 20)[0],
             **bound(*work500[name[4:]]),
@@ -5128,12 +5543,13 @@ def main() -> int:
                 plain = lambda: ssd_plain(*args, c, zb_h)  # noqa: E731
             saved = wrappers[name].launches, dict(wrappers[name].by_route)
             reps = 200 if tag == "decode" else 20
-            ms, by_kernel = device_ms(kern, reps)
+            ms, by_kernel = device_ms(kern, reps, lambda: wrappers[name].launches)
             wall_ms = host_ms(kern, reps)
             plain_ms = cuda_ms(plain, 5 if tag == "decode" else 2)
             wrappers[name].launches = saved[0]  # timing launches are not the path's
             wrappers[name].by_route.update(saved[1])
-            row = {"ms": ms, "host_ms": wall_ms, "device_ms_by_kernel": by_kernel,
+            row = {"ms": ms, "ms_is": "device" if by_kernel is not None else "queued",
+                   "host_ms": wall_ms, "device_ms_by_kernel": by_kernel,
                    "scan_route": scan_routes[f"{name}_{tag}"], "plain_ms": plain_ms,
                    **bound(flops, nbytes), "max_abs_err": errs[f"{name}_{tag}"], "shape": shape}
             emit({"phase": "timing", "kernel": name, "at": tag, **row, "library_ms": None,

@@ -32,4 +32,5 @@ def reduced() -> ModelConfig:
         act="relu2",
         gated_mlp=False,
         compute_dtype="float32",
+        remat="none",
     )

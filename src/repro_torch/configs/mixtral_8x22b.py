@@ -37,4 +37,5 @@ def reduced() -> ModelConfig:
         top_k=2,
         moe_group=64,
         compute_dtype="float32",
+        remat="none",
     )

@@ -28,4 +28,5 @@ def reduced() -> ModelConfig:
         d_ff=128,
         vocab=512,
         compute_dtype="float32",
+        remat="none",
     )

@@ -31,4 +31,5 @@ def reduced() -> ModelConfig:
         vocab=512,
         n_patches=8,
         compute_dtype="float32",
+        remat="none",
     )

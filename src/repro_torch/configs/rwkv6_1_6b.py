@@ -33,4 +33,5 @@ def reduced() -> ModelConfig:
         rwkv_lora=8,
         ssm_chunk=16,
         compute_dtype="float32",
+        remat="none",
     )

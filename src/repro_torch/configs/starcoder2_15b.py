@@ -34,4 +34,5 @@ def reduced() -> ModelConfig:
         gated_mlp=False,
         window=32,
         compute_dtype="float32",
+        remat="none",
     )

@@ -41,4 +41,5 @@ def reduced() -> ModelConfig:
         enc_seq=32,
         tie_embeddings=True,
         compute_dtype="float32",
+        remat="none",
     )

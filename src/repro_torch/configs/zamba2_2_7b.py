@@ -39,4 +39,5 @@ def reduced() -> ModelConfig:
         attn_every=2,
         ssm_chunk=16,
         compute_dtype="float32",
+        remat="none",
     )

@@ -12,11 +12,13 @@ A copy of :mod:`repro.models.api` for every family: ``"rwkv"``,
     init_cache(cfg, batch, max_len, device) -> decode cache (dict of tensors)
     decode_step(cfg, params, cache, tokens) -> (logits, cache)
 
-The dense, RWKV6 and Zamba2 families' ``forward`` and ``loss`` also take
-a rank ``mesh`` (:mod:`.sharded`).  Every configuration field is copied
-but the JAX execution knobs (``remat``, ``scan_layers``,
-``kernel_impl``), which have no counterpart here; ``expert_sharding`` is
-read by the MoE branch's ``param_pspecs`` only.  ``ShapeSpec`` and ``SHAPES``
+Every family's ``forward`` and ``loss`` also take a rank ``mesh``
+(:mod:`.sharded`).  Every configuration field is copied but the JAX
+execution knobs ``scan_layers`` and ``kernel_impl``, which have no
+counterpart here.  ``remat`` rematerializes each layer of a training
+forward (:func:`.layers.remat`, ``torch.utils.checkpoint``);
+``expert_sharding`` picks the MoE layer's split over "model".
+``ShapeSpec`` and ``SHAPES``
 feed :func:`repro_torch.launch.roofline.model_flops`; ``dp_axes`` /
 ``dp_axes_for`` read a rank mesh (:mod:`repro_torch.launch.mesh`) and
 ``supports_shape`` says which shapes a family can run.
@@ -54,7 +56,7 @@ class ModelConfig:
     n_shared_experts: int = 0
     top_k: int = 2
     capacity_factor: float = 1.25
-    expert_sharding: str = "ep"  # "ep" | "tp": the JAX package's sharding, unread here
+    expert_sharding: str = "ep"  # "ep" (experts split over "model") | "tp" (F split)
     router_aux_coef: float = 0.01
     moe_group: int = 512  # token group size of the GShard-style dispatch
     # --- RWKV6 ---------------------------------------------------------------
@@ -73,6 +75,7 @@ class ModelConfig:
     n_patches: int = 0  # precomputed patch embeddings prepended to text
     # --- execution knobs ---------------------------------------------------------
     compute_dtype: str = "bfloat16"
+    remat: str = "full"  # none | full | dots
     ssm_chunk: int = 64
     scan_dtype: str = "float32"  # dtype of the SaP-scan tensors
     attn_block_k: int = 512

@@ -64,6 +64,61 @@ def normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Rematerialization (the JAX package's jax.checkpoint of a layer)
+# ---------------------------------------------------------------------------
+
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    """The "dots" policy's contexts: save the outputs of the unbatched
+    products (``aten.mm`` / ``aten.addmm``), recompute everything else --
+    ``checkpoint_dots_with_no_batch_dims``.  A ``bmm`` (attention, the
+    experts) has a batch dimension and is recomputed."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _records(args) -> bool:
+    """Whether autograd records a call on ``args``: grad mode on, and a
+    tensor argument or a parameter of a module argument requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.requires_grad:
+            return True
+        if isinstance(a, nn.Module) and any(p.requires_grad for p in a.parameters()):
+            return True
+    return False
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, rematerialized as ``cfg.remat`` says when autograd
+    records (:func:`_records`): "none" keeps every activation, "full" keeps
+    ``fn``'s inputs and recomputes the rest in the backward, "dots" also
+    keeps the unbatched products' outputs.  Where autograd does not record
+    (serving: no grad, or frozen parameters) it is ``fn(*args)``.  Under a
+    rank mesh the recompute replays ``fn``'s "model" collectives in the
+    backward, every rank in the same order."""
+    if cfg.remat == "none" or not _records(args):
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    if cfg.remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=_dots_context)
+    if cfg.remat != "full":
+        raise ValueError(f"{cfg.name}: remat={cfg.remat!r}, not none | full | dots")
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+# ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 

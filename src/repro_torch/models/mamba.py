@@ -37,6 +37,7 @@ from .layers import (
     mlp,
     next_token_nll,
     normal,
+    remat,
     rms_norm,
     split_rms_norm,
 )
@@ -268,8 +269,8 @@ def _segments(cfg: ModelConfig, params, x, state, shared, mesh=None):
     conv, ssm = [], []
     for s in range(ns):
         for i in range(s * sl, (s + 1) * sl):
-            x, c, m = _mamba_fwd(cfg, params["blocks"][i], x, state["conv"][i], state["ssm"][i],
-                                 mesh)
+            x, c, m = remat(cfg, _mamba_fwd, cfg, params["blocks"][i], x, state["conv"][i],
+                            state["ssm"][i], mesh)
             conv.append(c)
             ssm.append(m)
         if cfg.attn_every:

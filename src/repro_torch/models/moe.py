@@ -20,6 +20,14 @@ round(G k capacity_factor / E)))`` with Python's half-to-even ``round``;
 and the cast of the weights, the dispatch and the combine tensors to the
 compute dtype at each use.  Aux loss: ``router_aux_coef`` times the
 Switch-style load balance plus 1e-3 times the router z-loss.
+
+On a rank mesh (the JAX package's GSPMD placement of
+``transformer.param_pspecs``: experts over "model" for "ep", each
+expert's F for "tp") every rank routes its rows over all experts, as the
+single process does, keeps its own experts' slots (or its slice of F),
+and one all-reduce over "model" sums the partial outputs; the gates'
+gradient is summed over "model" (:func:`combine_gates`) and the load
+balance reads the global batch's statistics (:func:`balance_mean`).
 """
 
 from __future__ import annotations
@@ -29,6 +37,14 @@ import torch.nn.functional as F
 
 from .api import ModelConfig
 from .layers import _act, normal
+from .tensor_parallel import (
+    copy_to_model,
+    data_axes,
+    data_mean,
+    model_index,
+    model_size,
+    reduce_from_model,
+)
 
 
 def _positions_in_expert(expert_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -66,29 +82,69 @@ def slot_counts(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
     return (pos >= capacity(cfg, group)).sum(), pos.numel()
 
 
-def moe_mlp(cfg: ModelConfig, params, x: torch.Tensor):
+def _groups(cfg: ModelConfig, tokens: int, mesh) -> int:
+    """The group size: ``moe_group``, or the global batch's token count
+    if smaller (a rank's ``tokens`` times the data axes' size), as the
+    single process takes it over the whole batch.  A rank whose tokens are
+    not a whole number of groups raises: regrouping would change the
+    capacity and the dropped slots."""
+    axes = data_axes(mesh)
+    data = mesh.axis_size(axes) if axes else 1
+    group = min(cfg.moe_group, tokens * data)
+    if tokens % group:
+        where = f" on a rank ({tokens} of {tokens * data} tokens)" if data > 1 else ""
+        raise ValueError(f"{cfg.name}: tokens={tokens}{where} not divisible by group={group}")
+    return group
+
+
+def combine_gates(gate_vals: torch.Tensor, mesh) -> torch.Tensor:
+    """The gates entering the combine.  Each rank's combine multiplies only
+    its own experts' outputs (or its slice of F), so the gradient into the
+    gates is a partial sum over "model", summed here on the backward pass."""
+    return copy_to_model(gate_vals, mesh)
+
+
+def balance_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A routing statistic of the rank's tokens (``frac``, ``mean_prob``)
+    averaged over the data axes: the global batch's, as the load balance
+    reads it."""
+    return data_mean(t, mesh)
+
+
+def moe_mlp(cfg: ModelConfig, params, x: torch.Tensor, mesh=None):
     """x: (B, S, D) -> (y (B, S, D), aux loss, a float32 scalar).
 
     params:
       router   : (D, E)
       experts  : {wi: (E, D, 2F or F), wo: (E, F, D)}
       shared   : {wi: (D, s*2F), wo: (s*F, D)}        (optional)
+
+    With a rank ``mesh``, ``x`` is the rank's rows (replicated over
+    "model") and ``params`` its blocks (``transformer._block_pspecs``):
+    under "ep" experts ``[r E/m, (r+1) E/m)``, under "tp" every expert's
+    slice of F (the gate and up columns of ``wi`` each split), the router
+    replicated, the shared experts split as a dense MLP.  Routing, top k,
+    positions and capacity are the single process's over all E experts; the
+    rank keeps its experts' dispatch and combine columns, and one all-reduce
+    over "model" sums the partial outputs.  The load balance takes ``frac``
+    and ``mean_prob`` over the global batch (:func:`balance_mean`).
     """
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     tokens = b * s
-    group = min(cfg.moe_group, tokens)
+    group = _groups(cfg, tokens, mesh)
     ng = tokens // group
-    if ng * group != tokens:
-        raise ValueError(f"tokens={tokens} not divisible by group={group}")
     xg = x.reshape(ng, group, d)
 
     # ---- routing (float32) and aux losses ------------------------------------
+    # from the layer input itself: its cotangent from the router is whole on
+    # every rank and must not be summed over "model"
     logits, probs, gate_vals, gate_idx = route(cfg, params["router"], xg)
     # a one-hot sum, not bincount: bincount reads its input's maximum back
     # to the host, a sync a layer on the card
     frac = F.one_hot(gate_idx, e).sum(dim=(0, 1, 2)).float() / (tokens * k)
-    lb_loss = e * torch.sum(frac * probs.mean(dim=(0, 1)))
+    mean_prob = probs.mean(dim=(0, 1))
+    lb_loss = e * torch.sum(balance_mean(frac, mesh) * balance_mean(mean_prob, mesh))
     z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     aux = cfg.router_aux_coef * lb_loss + 1e-3 * z_loss
 
@@ -101,22 +157,28 @@ def moe_mlp(cfg: ModelConfig, params, x: torch.Tensor):
     disp = torch.zeros(ng, group, e * cap, device=x.device)
     disp.scatter_(2, flat, keep.float())
     combine = torch.zeros(ng, group, e * cap, device=x.device)
-    combine.scatter_(2, flat, keep.float() * gate_vals)
+    combine.scatter_(2, flat, keep.float() * combine_gates(gate_vals, mesh))
+    wi = params["experts"]["wi"].to(cdt)  # (E or E/m, D, 2F|F or its split)
+    wo = params["experts"]["wo"].to(cdt)  # (E or E/m, F or F/m, D)
+    e_loc = wi.shape[0]
+    if e_loc != e:  # "ep": this rank's experts' columns
+        lo = model_index(mesh) * e_loc * cap
+        disp, combine = disp[..., lo:lo + e_loc * cap], combine[..., lo:lo + e_loc * cap]
     disp, combine = disp.to(cdt), combine.to(cdt)
 
     # ---- expert compute --------------------------------------------------------
-    wi = params["experts"]["wi"].to(cdt)  # (E, D, 2F|F)
-    wo = params["experts"]["wo"].to(cdt)  # (E, F, D)
-    xc = xg.to(cdt)
+    xc = copy_to_model(xg, mesh).to(cdt)
     xe = torch.matmul(disp.transpose(1, 2), xc)  # (NG, E*C, D)
-    xe = xe.reshape(ng, e, cap, d).transpose(0, 1).reshape(e, ng * cap, d)
+    xe = xe.reshape(ng, e_loc, cap, d).transpose(0, 1).reshape(e_loc, ng * cap, d)
     h = torch.bmm(xe, wi)
     if cfg.gated_mlp:
         gte, up = h.chunk(2, dim=-1)
         h = _act(cfg.act, gte) * up
     ye = torch.bmm(h, wo)  # (E, NG*C, D)
-    ye = ye.reshape(e, ng, cap, d).transpose(0, 1).reshape(ng, e * cap, d)
-    y = torch.matmul(combine, ye)  # (NG, G, D)
+    ye = ye.reshape(e_loc, ng, cap, d).transpose(0, 1).reshape(ng, e_loc * cap, d)
+    sharded = model_size(mesh) > 1
+    # partial sums over "model" in float32, rounded once after the reduce
+    y = torch.matmul(combine.float(), ye.float()) if sharded else torch.matmul(combine, ye)
 
     # ---- shared (always-on) experts ----------------------------------------------
     if cfg.n_shared_experts > 0:
@@ -124,7 +186,10 @@ def moe_mlp(cfg: ModelConfig, params, x: torch.Tensor):
         if cfg.gated_mlp:
             g2, up2 = hs.chunk(2, dim=-1)
             hs = _act(cfg.act, g2) * up2
-        y = y + hs @ params["shared"]["wo"].to(cdt)
+        wo_s = params["shared"]["wo"].to(cdt)
+        y = y + (hs.float() @ wo_s.float() if sharded else hs @ wo_s)
+    if sharded:
+        y = reduce_from_model(y, mesh).to(cdt)
 
     return y.reshape(b, s, d).to(x.dtype), aux
 

@@ -26,7 +26,7 @@ from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
 from ..launch.sharding import P
 from .api import ModelConfig, ShapeSpec, dp_axes_for
-from .layers import ParamTree, group_norm, next_token_nll, normal, rms_norm
+from .layers import ParamTree, group_norm, next_token_nll, normal, remat, rms_norm
 from .tensor_parallel import (
     copy_to_model,
     gather_from_model,
@@ -208,9 +208,9 @@ def _zero_state(cfg: ModelConfig, batch: int, device, mesh=None) -> dict:
 def _layers(cfg: ModelConfig, params, x, state, mesh=None):
     outs = {"att_shift": [], "ffn_shift": [], "wkv": []}
     for i, p_blk in enumerate(params["blocks"]):
-        x, s_att, s_ffn, wkv = _block_fwd(
-            cfg, p_blk, x, state["att_shift"][i], state["ffn_shift"][i], state["wkv"][i], mesh
-        )
+        x, s_att, s_ffn, wkv = remat(
+            cfg, _block_fwd, cfg, p_blk, x, state["att_shift"][i], state["ffn_shift"][i],
+            state["wkv"][i], mesh)
         # the shifts keep the compute dtype's values in the float32 state
         outs["att_shift"].append(s_att.to(state["att_shift"].dtype))
         outs["ffn_shift"].append(s_ffn.to(state["ffn_shift"].dtype))

@@ -12,18 +12,34 @@ kernels (:mod:`repro_torch.kernels.ops`) on local heads.
 :func:`value_and_grad` averages the loss and every gradient over the data
 axes.
 
-Two parameter layouts differ from a contiguous split of the spec's
+Some parameter layouts differ from a contiguous split of the spec's
 dimension, because a contiguous split would cut a fused axis at the wrong
-place: the gated MLP's ``wi`` (``[gate | up]``) and Zamba2's ``in_proj``
-(``[z | x | B | C | dt]``) and ``conv_w`` / ``conv_b`` (``[x | B | C]``).
-A rank holds its share of every segment (:func:`param_segments`, placed
-by :func:`shard_model` and undone by :func:`gather_model`): the block has
-the spec's shape, and the local product yields the rank's gate and up
-columns, or its heads' z, x and dt beside a share of B and C.
+place: the gated MLP's ``wi`` (``[gate | up]``), and so a MoE layer's
+gated ``experts.wi`` under "tp" (split along F) and its shared experts'
+``wi``, and Zamba2's ``in_proj`` (``[z | x | B | C | dt]``) and
+``conv_w`` / ``conv_b`` (``[x | B | C]``).  A rank holds its share of
+every segment (:func:`param_segments`, placed by :func:`shard_model` and
+undone by :func:`gather_model`): the block has the spec's shape, and the
+local product yields the rank's gate and up columns, or its heads' z, x
+and dt beside a share of B and C.
 
 Families: dense (MHA, GQA, the sliding window, the VLM stub's patches),
-RWKV6 and the Zamba2 hybrid.  The MoE and encoder-decoder losses are not
-here yet.
+MoE (``expert_sharding`` "ep": the rank's experts; "tp": every expert's
+slice of F; routing over all experts on every rank, the load balance over
+the global batch: :func:`repro_torch.models.moe.moe_mlp`), RWKV6, the
+Zamba2 hybrid and the whisper encoder-decoder (the attention and MLP split
+as the dense family's, the tied head over the vocabulary).
+
+Messages: a layer's "model" all-reduces run in the forward (the
+row-parallel sums, the split norms and gathers) and in the backward (the
+column-parallel inputs' gradients), in the layers' order on every rank.
+Under ``cfg.remat`` "full" or "dots" the backward first replays each
+layer's forward (:func:`repro_torch.models.layers.remat`), and with it the
+layer's forward all-reduces: every rank replays them in the same order, so
+the collectives still pair up.  The replay stops at the last tensor the
+backward reads (the checkpoint's early stop), so a dense layer sends its
+attention's row-parallel sum twice and its MLP's, which ends the layer,
+once.
 """
 
 from __future__ import annotations
@@ -36,11 +52,11 @@ import torch
 from ..core.distributed import all_reduce_axis
 from ..launch.sharding import flatten, gather_shards, local_shard
 from .api import ModelConfig, get_family
+from .tensor_parallel import data_axes
 
 # A gradient bucket's elements (128 MB of float32): few all-reduces over
 # the data axes, and a bounded host copy each on gloo.
 GRAD_BUCKET_ELEMENTS = 1 << 25
-SHARDED_FAMILIES = ("dense", "rwkv", "hybrid")
 
 
 def loss(cfg: ModelConfig, params, batch: dict, mesh) -> torch.Tensor:
@@ -48,40 +64,36 @@ def loss(cfg: ModelConfig, params, batch: dict, mesh) -> torch.Tensor:
     block), from its parameter blocks (``shard_model``): the family's
     ``loss`` given the mesh, the same value on every rank of a "model"
     line.  The global loss is its mean over the data axes."""
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: the sharded {cfg.family} loss is not ported yet")
     return get_family(cfg).loss(cfg, params, batch, mesh=mesh)[0]
 
 
-def data_axes(mesh) -> tuple[str, ...]:
-    """The mesh's data axes ("pod", "data"), over which the batch is split."""
-    return tuple(a for a in ("pod", "data") if a in mesh.shape)
-
-
 def reduce_grads(grads: dict, mesh, axes) -> None:
-    """Average every gradient over ``axes`` in place, float32 gradients
-    concatenated into buckets of at most GRAD_BUCKET_ELEMENTS (one
-    all-reduce a bucket and axis)."""
+    """Average every gradient over ``axes`` in place, in buckets of at most
+    GRAD_BUCKET_ELEMENTS float32 elements (one all-reduce a bucket and
+    axis): whole gradients concatenated, and a gradient larger than a
+    bucket cut into bucket-sized pieces, so no message (and no host copy on
+    gloo) exceeds a bucket."""
     axes = [ax for ax in axes if mesh.shape[ax] > 1]
     if not axes:
         return
     scale = 1.0 / mesh.axis_size(axes)
-    names = list(grads)
+    pieces = [flat[off:off + GRAD_BUCKET_ELEMENTS]
+              for flat in (g.view(-1) for g in grads.values())
+              for off in range(0, flat.numel(), GRAD_BUCKET_ELEMENTS)]
     start = 0
-    while start < len(names):
+    while start < len(pieces):
         end, size = start, 0
-        while end < len(names) and (end == start or size + grads[names[end]].numel()
-                                    <= GRAD_BUCKET_ELEMENTS):
-            size += grads[names[end]].numel()
+        while end < len(pieces) and size + pieces[end].numel() <= GRAD_BUCKET_ELEMENTS:
+            size += pieces[end].numel()
             end += 1
-        group = [grads[n] for n in names[start:end]]
-        flat = torch.cat([g.reshape(-1).float() for g in group])
+        group = pieces[start:end]
+        flat = torch.cat([g.float() for g in group])
         for ax in axes:
             flat = all_reduce_axis(flat, mesh, ax)
         flat.mul_(scale)
         off = 0
         for g in group:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
+            g.copy_(flat[off:off + g.numel()])
             off += g.numel()
         start = end
 
@@ -104,8 +116,7 @@ def value_and_grad(cfg: ModelConfig, model, batch: dict, mesh):
     reduce_grads(grads, mesh, axes)
     value = local.detach()
     for ax in axes:
-        if mesh.shape[ax] > 1:
-            value = all_reduce_axis(value, mesh, ax) / mesh.shape[ax]
+        value = all_reduce_axis(value, mesh, ax) / mesh.shape[ax]
     return value, grads
 
 
@@ -120,6 +131,11 @@ def param_segments(cfg: ModelConfig, name: str) -> Optional[dict]:
     key = re.sub(r"\.\d+\.", ".*.", name)
     if cfg.gated_mlp and key in ("blocks.*.mlp.wi", "shared_attn.mlp.wi"):
         return {1: [cfg.d_ff, cfg.d_ff]}
+    if cfg.gated_mlp and key == "blocks.*.moe.experts.wi":  # (E, D, [gate | up])
+        return {2: [cfg.d_ff, cfg.d_ff]}
+    if cfg.gated_mlp and key == "blocks.*.moe.shared.wi":
+        fs = cfg.d_ff * cfg.n_shared_experts
+        return {1: [fs, fs]}
     if cfg.family == "hybrid":
         from .mamba import _dims
 

@@ -56,8 +56,17 @@ def model_size(mesh) -> int:
     return 1 if mesh is None else mesh.shape.get(MODEL, 1)
 
 
-def _model_index(mesh) -> int:
+def model_index(mesh) -> int:
+    """This rank's place along "model" (0 without a mesh)."""
     return mesh.axis_index((MODEL,)) if model_size(mesh) > 1 else 0
+
+
+def data_axes(mesh) -> tuple[str, ...]:
+    """The mesh's data axes ("pod", "data") of size above 1, over which
+    the batch is split (none without a mesh)."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1)
 
 
 def split_count(total: int, mesh, what: str) -> int:
@@ -75,7 +84,7 @@ def _all_reduce(x: torch.Tensor, mesh, kind: str = "all_reduce", op: str = "sum"
 
 
 def _slice(x: torch.Tensor, mesh, dim: int, segments) -> torch.Tensor:
-    return take_block(x, dim, model_size(mesh), _model_index(mesh), segments).contiguous()
+    return take_block(x, dim, model_size(mesh), model_index(mesh), segments).contiguous()
 
 
 def _gather(x: torch.Tensor, mesh, dim: int, segments) -> torch.Tensor:
@@ -83,7 +92,7 @@ def _gather(x: torch.Tensor, mesh, dim: int, segments) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim] *= n
     buf = x.new_zeros(shape)
-    place_block(buf, x, dim, n, _model_index(mesh), segments)
+    place_block(buf, x, dim, n, model_index(mesh), segments)
     return _all_reduce(buf, mesh, kind="all_gather")
 
 
@@ -102,6 +111,21 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         return _all_reduce(x.contiguous(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _DataMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        from ..core.distributed import all_reduce_axis
+
+        axes = data_axes(mesh)
+        for ax in axes:
+            x = all_reduce_axis(x.contiguous(), mesh, ax)
+        return x / mesh.axis_size(axes)
 
     @staticmethod
     def backward(ctx, g):
@@ -140,6 +164,15 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """Partial sums all-reduced over "model" forward, identity backward:
     after a row-parallel product, read whole by replicated code."""
     return _Reduce.apply(x, mesh) if model_size(mesh) > 1 else x
+
+
+def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over the data axes of a statistic of the rank's rows,
+    forward; identity backward.  Every data rank's loss reads the same
+    mean, and ``sharded.value_and_grad`` averages the ranks' gradients over
+    the data axes, so each rank passes its cotangent back unscaled: the
+    average then carries the mean's own 1 / n.  Without data axes, ``x``."""
+    return _DataMean.apply(x, mesh) if data_axes(mesh) else x
 
 
 def max_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -182,7 +215,7 @@ def vocab_parallel_embed(embed: torch.Tensor, tokens: torch.Tensor, mesh) -> tor
     if model_size(mesh) == 1:
         return embed[tokens]
     v_loc = embed.shape[0]
-    ids = tokens.long() - _model_index(mesh) * v_loc
+    ids = tokens.long() - model_index(mesh) * v_loc
     own = (ids >= 0) & (ids < v_loc)
     x = embed[ids.clamp(0, v_loc - 1)] * own[..., None].to(embed.dtype)
     return reduce_from_model(x, mesh)
@@ -194,7 +227,7 @@ def vocab_parallel_nll(logits: torch.Tensor, tokens: torch.Tensor, vocab: int,
     ((B, T, V / model) on each rank): the mean over this rank's rows."""
     lg = logits[:, :-1].float()
     v_loc = lg.shape[-1]
-    lo = _model_index(mesh) * v_loc
+    lo = model_index(mesh) * v_loc
     cols = lo + torch.arange(v_loc, device=lg.device)
     lg = lg.masked_fill(cols >= vocab, float("-inf"))
     mx = max_over_model(lg.detach().amax(dim=-1, keepdim=True), mesh)

@@ -44,6 +44,7 @@ from .layers import (
     mlp,
     next_token_nll,
     normal,
+    remat,
     rms_norm,
 )
 from .tensor_parallel import copy_to_model, vocab_parallel_embed
@@ -135,9 +136,7 @@ def _ffn(cfg: ModelConfig, p, h: torch.Tensor, mesh=None):
     """The block's feed-forward: (y, aux) -- the experts' and their router's
     aux loss, or the MLP's and 0."""
     if cfg.n_experts > 0:
-        if mesh is not None:
-            raise NotImplementedError(f"{cfg.name}: the sharded MoE loss is not ported yet")
-        return moe_mod.moe_mlp(cfg, p["moe"], h)
+        return moe_mod.moe_mlp(cfg, p["moe"], h, mesh)
     return mlp(p["mlp"], h, cfg.act, cfg.gated_mlp, mesh), 0.0
 
 
@@ -154,7 +153,8 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     aux loss as a float32 scalar: the routers' summed over layers, 0 for a
     dense model).  With a rank ``mesh``, ``params`` are the rank's blocks
     (``sharded.shard_model``), the inputs its rows, and the logits its
-    vocabulary columns; a dense model only."""
+    vocabulary columns.  Under grad each block is rematerialized as
+    ``cfg.remat`` says (:func:`~repro_torch.models.layers.remat`)."""
     cdt = cfg.cdtype
     x = vocab_parallel_embed(params["embed"], tokens, mesh).to(cdt)
     if patches is not None:
@@ -162,7 +162,7 @@ def forward(cfg: ModelConfig, params, tokens: torch.Tensor,
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params["blocks"]:
-        x, aux_l = _block_fwd(cfg, blk, x, positions, mesh)
+        x, aux_l = remat(cfg, _block_fwd, cfg, blk, x, positions, mesh)
         aux = aux + aux_l
     x = rms_norm(x, params["final_norm"])
     logits = copy_to_model(x, mesh) @ _head(cfg, params).to(cdt)

@@ -24,6 +24,12 @@ K/V and only :func:`precompute_cross_kv` fills them (the JAX package's
 serving engine never does: ROADMAP R8).  ``decode_step`` writes the new
 self key and value in place; like the JAX package's dynamic slices, the
 write slot and the decoder position are clamped to the last row.
+
+``forward`` / ``loss`` take a rank ``mesh`` (:mod:`.sharded`): the heads
+and the MLP split over "model" as the dense family's
+(:mod:`.tensor_parallel`), the tied head over the vocabulary, the frames
+over the data axes.  A training forward rematerializes each encoder and
+decoder block as ``cfg.remat`` says.
 """
 
 from __future__ import annotations
@@ -37,7 +43,22 @@ from ..device import generator_on, resolve_device
 from ..kernels import ops as kops
 from ..launch.sharding import P
 from .api import ModelConfig, ShapeSpec, dp_axes_for
-from .layers import ParamTree, decode_attention, layer_norm, mlp, next_token_nll, normal
+from .layers import (
+    ParamTree,
+    decode_attention,
+    layer_norm,
+    mlp,
+    next_token_nll,
+    normal,
+    remat,
+)
+from .tensor_parallel import (
+    copy_to_model,
+    model_size,
+    row_parallel,
+    split_count,
+    vocab_parallel_embed,
+)
 
 POS_DEC_ROWS = 32_768
 
@@ -130,61 +151,88 @@ def init(cfg: ModelConfig, generator: torch.Generator | None = None, device=None
 # ---------------------------------------------------------------------------
 
 
-def _mha(cfg: ModelConfig, p, xq: torch.Tensor, xkv: torch.Tensor, causal: bool) -> torch.Tensor:
+def _mha(cfg: ModelConfig, p, xq: torch.Tensor, xkv: torch.Tensor, causal: bool,
+         mesh=None) -> torch.Tensor:
+    """Attention of ``xq`` to ``xkv`` (the same tensor in self-attention).
+    With ``mesh`` the projections are column-split and ``wo`` row-split
+    over "model" (the rank's heads); a cross-attention's ``xkv`` comes in
+    through ``copy_to_model`` already (:func:`decode_train`)."""
     b, tq, _ = xq.shape
     hd = cfg.head_dim
-    q = (xq @ p["wq"].to(xq.dtype)).reshape(b, tq, cfg.n_heads, hd)
-    k = (xkv @ p["wk"].to(xq.dtype)).reshape(b, -1, cfg.n_kv_heads, hd)
-    v = (xkv @ p["wv"].to(xq.dtype)).reshape(b, -1, cfg.n_kv_heads, hd)
+    hkv = split_count(cfg.n_kv_heads, mesh, f"{cfg.name}: n_kv_heads")
+    hq = cfg.n_heads // model_size(mesh)
+    xc = copy_to_model(xq, mesh)
+    xkv = xc if xkv is xq else xkv
+    q = (xc @ p["wq"].to(xq.dtype)).reshape(b, tq, hq, hd)
+    k = (xkv @ p["wk"].to(xq.dtype)).reshape(b, -1, hkv, hd)
+    v = (xkv @ p["wv"].to(xq.dtype)).reshape(b, -1, hkv, hd)
     o = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                              causal=causal)
-    return o.transpose(1, 2).reshape(b, tq, cfg.n_heads * hd) @ p["wo"].to(xq.dtype)
+    return row_parallel(o.transpose(1, 2).reshape(b, tq, hq * hd), p["wo"], mesh)
 
 
-def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+def _enc_block(cfg: ModelConfig, p, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"])
+    x = x + _mha(cfg, p["attn"], h, h, False, mesh)
+    h = layer_norm(x, p["ln2"]["w"], p["ln2"]["b"])
+    return x + mlp(p["mlp"], h, "gelu", False, mesh)
+
+
+def _dec_block(cfg: ModelConfig, p, x: torch.Tensor, enc: torch.Tensor,
+               mesh=None) -> torch.Tensor:
+    h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"])
+    x = x + _mha(cfg, p["self_attn"], h, h, True, mesh)
+    h = layer_norm(x, p["ln_x"]["w"], p["ln_x"]["b"])
+    x = x + _mha(cfg, p["cross_attn"], h, enc, False, mesh)
+    h = layer_norm(x, p["ln2"]["w"], p["ln2"]["b"])
+    return x + mlp(p["mlp"], h, "gelu", False, mesh)
+
+
+def encode(cfg: ModelConfig, params, frames: torch.Tensor, mesh=None) -> torch.Tensor:
     """frames: (B, enc_seq, D) precomputed embeddings (the conv stub) ->
-    the encoder's output (B, enc_seq, D) in the compute dtype."""
+    the encoder's output (B, enc_seq, D) in the compute dtype.  Under grad
+    each block is rematerialized as ``cfg.remat`` says."""
     cdt = cfg.cdtype
     x = frames.to(cdt) + _sinusoids(frames.shape[1], cfg.d_model, frames.device).to(cdt)
     for p in params["enc_blocks"]:
-        h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"])
-        x = x + _mha(cfg, p["attn"], h, h, causal=False)
-        h = layer_norm(x, p["ln2"]["w"], p["ln2"]["b"])
-        x = x + mlp(p["mlp"], h, "gelu", gated=False)
+        x = remat(cfg, _enc_block, cfg, p, x, mesh)
     return layer_norm(x, params["enc_ln"]["w"], params["enc_ln"]["b"])
 
 
-def decode_train(cfg: ModelConfig, params, tokens: torch.Tensor,
-                 enc: torch.Tensor) -> torch.Tensor:
+def decode_train(cfg: ModelConfig, params, tokens: torch.Tensor, enc: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """The decoder over whole token sequences (B, T) attending to ``enc``:
-    logits (B, T, vocab_padded)."""
+    logits (B, T, vocab_padded) -- with ``mesh`` the rank's vocabulary
+    columns of them (the tied head's split embedding, transposed).  Under
+    grad each block is rematerialized as ``cfg.remat`` says."""
     cdt = cfg.cdtype
     t = tokens.shape[1]
-    x = params["embed"][tokens].to(cdt) + params["pos_dec"][:t].to(cdt)
+    x = vocab_parallel_embed(params["embed"], tokens, mesh).to(cdt)
+    x = x + params["pos_dec"][:t].to(cdt)
+    enc = copy_to_model(enc, mesh)  # every layer's cross K / V read it
     for p in params["dec_blocks"]:
-        h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"])
-        x = x + _mha(cfg, p["self_attn"], h, h, causal=True)
-        h = layer_norm(x, p["ln_x"]["w"], p["ln_x"]["b"])
-        x = x + _mha(cfg, p["cross_attn"], h, enc, causal=False)
-        h = layer_norm(x, p["ln2"]["w"], p["ln2"]["b"])
-        x = x + mlp(p["mlp"], h, "gelu", gated=False)
+        x = remat(cfg, _dec_block, cfg, p, x, enc, mesh)
     x = layer_norm(x, params["dec_ln"]["w"], params["dec_ln"]["b"])
-    return x @ params["embed"].T.to(cdt)  # tied head
+    return copy_to_model(x, mesh) @ params["embed"].T.to(cdt)  # tied head
 
 
-def forward(cfg: ModelConfig, params, batch: dict):
+def forward(cfg: ModelConfig, params, batch: dict, mesh=None):
     """batch {"frames": (B, enc_seq, D), "tokens": (B, T)} -> (logits (B, T,
-    vocab_padded), aux loss 0 as a float32 scalar)."""
-    enc = encode(cfg, params, batch["frames"])
-    logits = decode_train(cfg, params, batch["tokens"], enc)
+    vocab_padded), aux loss 0 as a float32 scalar).  With a rank ``mesh``,
+    ``params`` are the rank's blocks (``sharded.shard_model``), the batch
+    its rows, and the logits its vocabulary columns."""
+    enc = encode(cfg, params, batch["frames"], mesh)
+    logits = decode_train(cfg, params, batch["tokens"], enc, mesh)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def loss(cfg: ModelConfig, params, batch: dict):
+def loss(cfg: ModelConfig, params, batch: dict, mesh=None):
     """(nll, {"nll", "aux": 0}): the next-token loss of the decoder over
-    ``batch["tokens"]`` attending to the encoded ``batch["frames"]``."""
-    logits, aux = forward(cfg, params, batch)
-    nll = next_token_nll(logits, batch["tokens"], cfg.vocab)
+    ``batch["tokens"]`` attending to the encoded ``batch["frames"]`` (of
+    the rank's rows, the same on every rank of a "model" line, with a
+    ``mesh``)."""
+    logits, aux = forward(cfg, params, batch, mesh)
+    nll = next_token_nll(logits, batch["tokens"], cfg.vocab, mesh)
     return nll, {"nll": nll, "aux": aux}
 
 
@@ -285,7 +333,9 @@ def _ln_pspecs() -> dict:
 
 
 def param_pspecs(cfg: ModelConfig, mesh) -> dict:
-    """Specs of every parameter (the sharded whisper loss is not ported)."""
+    """Specs of every parameter: the attention and the MLP split as the
+    dense family's, the tied embedding over the vocabulary, ``pos_dec``
+    and the layer norms replicated."""
     mlp_specs = lambda: {"wi": P(None, "model"), "wo": P("model", None)}  # noqa: E731
     enc = lambda: {"ln1": _ln_pspecs(), "attn": _attn_pspecs(), "ln2": _ln_pspecs(),  # noqa: E731
                    "mlp": mlp_specs()}

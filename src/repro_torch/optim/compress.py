@@ -44,10 +44,13 @@ def leaf_key(name: str) -> str:
     return ".".join(part for part in name.split(".") if not part.isdigit())
 
 
-def compress_tree(grads: dict, err: dict):
+def compress_tree(grads: dict, err: dict, leaf_max=None):
     """The int8 round trip of every gradient: (decompressed gradients, new
     errors), both keyed as ``grads``; one scale for the tensors of one
-    JAX leaf (:func:`leaf_key`)."""
+    JAX leaf (:func:`leaf_key`).  ``leaf_max(names, top)``, where given,
+    turns the largest ``|g + err|`` of a leaf's local tensors into the
+    whole leaf's (a rank's block of a split leaf: the max over the ranks
+    that hold the rest)."""
     groups: dict[str, list[str]] = {}
     for name in grads:
         groups.setdefault(leaf_key(name), []).append(name)
@@ -55,6 +58,8 @@ def compress_tree(grads: dict, err: dict):
     for names in groups.values():
         g32 = [grads[n].float() + err[n] for n in names]
         top = torch.stack([g.abs().max() for g in g32]).max()
+        if leaf_max is not None:
+            top = leaf_max(names, top)
         scale = torch.clamp(top, min=1e-30) / 127.0
         for n, g in zip(names, g32):
             q, new_err[n] = _quantize(g, scale)

@@ -160,6 +160,24 @@ def init_sharded_opt_state(cfg: ModelConfig, model, mesh, zero1: bool = False):
                        for n, p in model.named_parameters()})
 
 
+def init_sharded_error_state(cfg: ModelConfig, model, mesh) -> dict:
+    """Zero int8 error feedback for the sharded step with
+    ``grad_compress``: the rank's block of every parameter of its model
+    (:func:`repro_torch.models.sharded.shard_model`), float32 (never
+    sliced by ZeRO-1: the round trip comes before the slicing)."""
+    return optim.compress.init_error_state(dict(model.named_parameters()))
+
+
+def scale_over_model(top: torch.Tensor, mesh, split_leaf: bool) -> torch.Tensor:
+    """A compressed leaf's largest ``|g + err|`` from the rank's block:
+    the max over "model" where the leaf is split there (every rank then
+    quantizes its block with the whole leaf's scale), the block's own for
+    a replicated leaf."""
+    from ..models.tensor_parallel import max_over_model
+
+    return max_over_model(top.reshape(1), mesh).reshape(()) if split_leaf else top
+
+
 def _sharded_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, train_cfg: TrainConfig, mesh):
     """``step(model, opt_state, err_state, batch) -> metrics`` on the rank's
     blocks: ``model`` from ``shard_model``, ``opt_state`` from
@@ -169,14 +187,16 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, train_cfg: Train
     leaf over "model" and counts a replicated leaf once; with ZeRO-1 each
     data rank updates its slice of every parameter (and of ``m``, ``v``)
     and the slices are gathered over "data" after the update.  Metrics as
-    the single process's (``nll`` = ``loss``, ``aux`` 0).  Not with
-    ``grad_compress``: the int8 scale of a leaf is its whole tensor's."""
+    the single process's (``nll`` = ``loss``, ``aux`` 0).  With
+    ``grad_compress`` the averaged gradients go through the int8 round
+    trip first, as the single process's do: ``err_state`` from
+    :func:`init_sharded_error_state`, a split leaf's scale the whole
+    leaf's (:func:`scale_over_model`), and the global norm and the update
+    taken from the compressed gradients."""
     from ..core.distributed import all_reduce_axis
     from ..launch.sharding import P, gather_shards, spec_axes
     from ..models import sharded
 
-    if train_cfg.grad_compress:
-        raise NotImplementedError("the sharded step does not compress gradients")
     nmicro = train_cfg.microbatches
     specs = sharded.param_specs(cfg, mesh)
     split = {n for n, sp in specs.items() if "model" in spec_axes(sp)}
@@ -198,6 +218,16 @@ def _sharded_step(cfg: ModelConfig, opt_cfg: optim.AdamWConfig, train_cfg: Train
                         grads[n] += g_mb[n]
             loss = loss / nmicro
             grads = {n: g / nmicro for n, g in grads.items()}
+        if train_cfg.grad_compress:
+            leaves: dict = {}
+            for n in grads:
+                leaves.setdefault(optim.compress.leaf_key(n), []).append(n)
+            for names in leaves.values():  # a leaf at a time: one leaf's copies held
+                out, new_err = optim.compress.compress_tree(
+                    {n: grads[n] for n in names}, err_state,
+                    leaf_max=lambda names_, top: scale_over_model(top, mesh, names_[0] in split))
+                grads.update(out)
+                err_state.update(new_err)
         dev = loss.device
         sq_split = torch.zeros((), dtype=torch.float32, device=dev)
         sq_rep = torch.zeros((), dtype=torch.float32, device=dev)

@@ -1962,6 +1962,33 @@ def test_sharded_dense_loss_on_two_ranks_of_the_card(cuda):
             assert err <= 1e-4 * float(want.abs().max()), (name, n, err)
 
 
+def test_sharded_moe_loss_on_two_ranks_of_the_card(cuda):
+    """The MoE loss split over "model" on two ranks of the card (deepseek-
+    moe's experts and its shared experts, mixtral's four experts; float32
+    compute): the same limits against the single process on the card as
+    the dense loss, the routers' gradients included; the flash kernel once
+    a layer."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import get_family
+
+    names = ("deepseek-moe-16b", "mixtral-8x22b")
+    build.build_all()
+    got = spawn_ranks(_sharded_body, 2, args=(names,), timeout=300)[0]
+    for name in names:
+        cfg = _sharded_cfg(name)
+        model, tokens = _sharded_inputs(cfg, cuda)
+        model.requires_grad_(True)
+        loss, _ = get_family(cfg).loss(cfg, model, {"tokens": tokens})
+        loss.backward()
+        assert abs(got[name]["loss"] - float(loss)) <= 1e-5 * abs(float(loss)), name
+        assert got[name]["flash"] == cfg.n_layers, name
+        for n, p in model.named_parameters():
+            want = p.grad.detach()
+            err = float((got[name]["grads"][n].to(cuda) - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max()), (name, n, err)
+
+
 def test_model_kernels_at_the_ranks_local_head_shapes(cuda):
     """flash, WKV6 and SSD at the shapes the sharded loss gives one rank of
     a (2, 2) mesh at the published widths (half the heads, half the batch
@@ -2314,3 +2341,65 @@ def test_bfloat16_scans_train_through_the_autograd_functions(cuda):
         assert g.grad.dtype == g.dtype
         err = float((g.grad.double() - w.grad.double()).abs().max())
         assert err <= 2e-2 * float(w.grad.double().abs().max())
+
+
+# ---------------------------------------------------------------------------
+# remat: each layer's forward replayed in the backward, on the card
+# ---------------------------------------------------------------------------
+
+
+def _remat_run(cuda, name, mode, b, t, layers):
+    """(loss, {name: gradient}, kernel launches, peak bytes above the
+    start) of one loss and backward of a reduced config at ``remat=mode``,
+    float32 compute, the same weights and tokens at every mode."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ssd import ssd
+    from repro_torch.kernels.wkv import wkv6
+    from repro_torch.models import get_family
+
+    cfg = dataclasses.replace(get_config(name, reduced=True), remat=mode, n_layers=layers)
+    fam = get_family(cfg)
+    model = fam.init(cfg, torch.Generator(cuda).manual_seed(0), device=cuda).requires_grad_(True)
+    tokens = torch.randint(0, cfg.vocab, (b, t), generator=torch.Generator().manual_seed(1))
+    wrappers = (flash_attention, wkv6, ssd)
+    before = [w.launches for w in wrappers]
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = fam.loss(cfg, model, {"tokens": tokens.to(cuda)})
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    launches = {w.__name__: w.launches - n for w, n in zip(wrappers, before)}
+    return float(loss.detach()), {n: p.grad.detach() for n, p in model.named_parameters()}, \
+        launches, peak
+
+
+@pytest.mark.parametrize("name,kernel", [("stablelm-1.6b", "flash_attention"),
+                                         ("rwkv6-1.6b", "wkv6"), ("zamba2-2.7b", "ssd")])
+def test_remat_replays_the_kernels_under_the_checkpoint(cuda, name, kernel):
+    """At "full" and "dots" the backward replays each layer's forward, so
+    the family's kernel launches twice a layer where "none" launches once;
+    the loss and the gradients equal "none"'s (the same kernels on the same
+    inputs)."""
+    runs = {m: _remat_run(cuda, name, m, 2, 128, 4) for m in ("none", "full", "dots")}
+    base = runs["none"]
+    for mode in ("full", "dots"):
+        loss, grads, launches, _ = runs[mode]
+        assert launches[kernel] == 2 * base[2][kernel], (mode, launches, base[2])
+        assert loss == base[0]
+        for n, g in base[1].items():
+            err = float((grads[n] - g).abs().max())
+            assert err <= 1e-6 * max(float(g.abs().max()), 1e-30), (mode, n, err)
+
+
+def test_remat_full_peaks_below_none_on_the_card(cuda):
+    """stablelm reduced at 8 layers, B = 8, T = 512: the peak of a loss and
+    backward at "full" below "dots" below "none" (a layer's activations
+    kept at a time, against every layer's)."""
+    peaks = {m: _remat_run(cuda, "stablelm-1.6b", m, 8, 512, 8)[3]
+             for m in ("none", "dots", "full")}
+    assert peaks["full"] < peaks["dots"] < peaks["none"], peaks

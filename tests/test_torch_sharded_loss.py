@@ -11,8 +11,20 @@ single-process loss run in this process meanwhile.  Every case is a
 reduced configuration in float32 compute with the JAX init's weights
 (``params_from_jax``), B = 4, T = 32: stablelm (MHA, gated MLP), stablelm
 with tied embeddings, minitron (GQA, plain MLP), starcoder2 (GQA and the
-sliding window), phi-3-vision (patches split over "data"), RWKV6 and
-Zamba2 (the segment-aligned ``in_proj`` and conv, B and C gathered).
+sliding window), phi-3-vision (patches split over "data"), RWKV6,
+Zamba2 (the segment-aligned ``in_proj`` and conv, B and C gathered),
+deepseek-moe ("ep", shared experts), mixtral ("ep" with 4 experts, and
+"tp" with the gated experts' ``wi`` split by segments), whisper (frames
+split over "data", the tied head over the vocabulary) and stablelm at
+``remat="full"``.
+
+MoE: the ``aux`` term on its own within 1e-5 relative of JAX's (it is
+under 1% of the loss, so a load balance of per-rank statistics would pass
+the loss's tolerance), and every route (each token's top-k experts, per
+layer) equal to JAX's, whose layer inputs are rebuilt here from the JAX
+package's own block functions.  remat: the gradients equal the no-remat
+ranks', and the replay sends a layer's forward "model" all-reduces again
+up to the last one the backward reads (one a stablelm layer).
 
 Tolerances, those of ``tests/test_torch_loss_grad.py``: the loss within
 1e-5 relative of JAX's and of the port's local loss; each gathered
@@ -23,7 +35,18 @@ of a "model" line ends with the same loss.
 ZeRO-1: one ``make_train_step(mesh=...)`` step with ``zero1=True`` at
 lr 1e-4 (stablelm and Zamba2, and stablelm in two microbatches) against
 the single process's step: loss and grad_norm within
-1e-5 relative, and each leaf's update within 1e-2 of its norm.  Adam's
+1e-5 relative, and each leaf's update within 1e-2 of its norm.  A
+compressed ZeRO-1 stablelm step (``grad_compress=True``) against the
+port's single-process compressed step and JAX's ``make_train_step``: the
+same, and the gathered int8 error state within one quantization step
+(each JAX leaf's scale) of JAX's elementwise, under 1% of the elements a
+step apart (where a code flips).
+
+Planted faults, each run on the ranks and each breaking the limit its
+test sets: ``router_partial`` (the gates' gradient not summed over
+"model"), ``aux_local`` (the load balance from each rank's own ``frac``
+and ``mean_prob``) and ``scale_local`` (a split leaf's int8 scale from
+the rank's block alone).  Adam's
 first update is ~lr sign(g), so a gradient's rounding moves an element
 by up to lr where the gradient is near zero: the updates differ by 1.5e-3
 of their norm at most (Zamba2's shared ``wk``), where a rank updating
@@ -52,27 +75,42 @@ GRAD_TOL = 1e-4
 B, T = 4, 32
 LR = 1e-4
 UPDATE_TOL = 1e-2
+MOE_CASES = ["deepseek-moe-16b", "mixtral-tp", "mixtral-8x22b"]
 CASES = ["stablelm-1.6b", "stablelm-tied", "minitron-8b", "starcoder2-15b",
-         "phi-3-vision-4.2b", "rwkv6-1.6b", "zamba2-2.7b"]
+         "phi-3-vision-4.2b", "rwkv6-1.6b", "zamba2-2.7b", *MOE_CASES, "whisper-medium",
+         "stablelm-remat"]
 # a step case and its microbatch count
-STEP_CASES = {"stablelm-1.6b": 1, "zamba2-2.7b": 1, "stablelm-micro2": 2}
+STEP_CASES = {"stablelm-1.6b": 1, "zamba2-2.7b": 1, "stablelm-micro2": 2,
+              "stablelm-compress": 1}
+# the share of the error state's elements allowed a quantization step apart
+CODE_FLIP_SHARE = 1e-2
 ROUND_TRIP = ["stablelm-1.6b", "deepseek-moe-16b", "rwkv6-1.6b", "zamba2-2.7b", "whisper-medium"]
 
 
 def _configs(case):
     from repro_torch.configs import get_config
 
-    name = "stablelm-1.6b" if case in ("stablelm-tied", "stablelm-micro2") else case
+    name = {"mixtral-tp": "mixtral-8x22b"}.get(
+        case, "stablelm-1.6b" if case.startswith("stablelm") else case)
     extra = {"compute_dtype": "float32"}
     if case == "stablelm-tied":
         extra["tie_embeddings"] = True
+    if case == "stablelm-remat":
+        extra["remat"] = "full"
+    if case == "mixtral-tp":
+        extra["expert_sharding"] = "tp"
     return (dataclasses.replace(jax_config(name, reduced=True), **extra),
             dataclasses.replace(get_config(name, reduced=True), **extra))
 
 
 def _weights(case):
-    """The case whose JAX weights a step case takes."""
-    return "stablelm-1.6b" if case == "stablelm-micro2" else case
+    """The case whose JAX weights a step or remat case takes."""
+    return "stablelm-1.6b" if case.startswith("stablelm-") and case != "stablelm-tied" else case
+
+
+def _train_config(case, **kw):
+    """The ``TrainConfig`` fields of a step case (either package's)."""
+    return {"microbatches": STEP_CASES[case], "grad_compress": case == "stablelm-compress", **kw}
 
 
 def _batch(cfg, seed):
@@ -80,12 +118,35 @@ def _batch(cfg, seed):
     batch = {"tokens": rng.integers(0, cfg.vocab, size=(B, T)).astype(np.int32)}
     if cfg.n_patches:
         batch["patches"] = rng.standard_normal((B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     return batch
 
 
 def _jax_params(case):
-    jc, _ = _configs(case)
-    return jax.tree.map(np.asarray, jax_family(jc).init(jc, jax.random.PRNGKey(0)))
+    jc, _ = _configs(_weights(case))
+    init = jax.jit(functools.partial(jax_family(jc).init, jc))
+    return jax.tree.map(np.asarray, init(jax.random.PRNGKey(0)))
+
+
+def _jax_routes(jc, params, tokens):
+    """Each MoE layer's top-k experts (NG, G, k) in the JAX package: the
+    layer input rebuilt with its own block functions, layer by layer."""
+    from repro.models import transformer as jt
+    from repro.models.layers import rms_norm
+
+    x = jnp.take(params["embed"], tokens, axis=0).astype(jc.cdtype)
+    positions = jnp.arange(tokens.shape[1])
+    group = min(jc.moe_group, tokens.size)
+    routes = []
+    for i in range(jc.n_layers):
+        p = jax.tree.map(lambda a: a[i], params["blocks"])
+        x1 = x + jt._attention(jc, p["attn"], rms_norm(x, p["ln1"]), positions)
+        h = rms_norm(x1, p["ln2"]).reshape(-1, group, jc.d_model).astype(jnp.float32)
+        probs = jax.nn.softmax(h @ p["moe"]["router"], axis=-1)
+        routes.append(jax.lax.top_k(probs, jc.top_k)[1])
+        x, _ = jt._block_fwd(jc, p, x, positions)
+    return routes
 
 
 def _rank_blocks(tc, fam, model, batch, mesh):
@@ -105,24 +166,51 @@ def _ranks_body(params):
     from repro_torch.core import distributed as D
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.roofline import step_stats
-    from repro_torch.models import get_family, sharded
+    from repro_torch.models import get_family, moe, sharded
     from repro_torch.models.convert import params_from_jax, params_to_jax
-    from repro_torch.train.loop import TrainConfig, init_sharded_opt_state, make_train_step
+    from repro_torch.train import loop
+    from repro_torch.train.loop import (
+        TrainConfig,
+        init_sharded_error_state,
+        init_sharded_opt_state,
+        make_train_step,
+    )
 
     torch.set_num_threads(1)
     mesh = make_test_mesh((2, 2), ("data", "model"), device="cpu")
-    out = {"loss": {}, "step": {}, "round_trip": {}}
-    for case in CASES:
-        _, tc = _configs(case)
+    out = {"loss": {}, "step": {}, "round_trip": {}, "faults": {}}
+    routes = []
+    route_plain = moe.route
+
+    def route_recorded(*a):
+        got = route_plain(*a)
+        routes.append(got[3].detach().numpy().copy())
+        return got
+
+    def loss_case(case, tc):
         fam = get_family(tc)
-        model = params_from_jax(tc, params[case], device="cpu")
-        local, batch = _rank_blocks(tc, fam, model, _batch(tc, len(case)), mesh)
+        model = params_from_jax(tc, params[_weights(case)], device="cpu")
+        local, batch = _rank_blocks(tc, fam, model, _batch(tc, len(_weights(case))), mesh)
+        routes.clear()
+        D.reset_comm_stats()
         loss, grads = sharded.value_and_grad(tc, local, batch, mesh)
+        comm, got_routes = D.comm_stats()["by_axis"], list(routes)
         full = sharded.gather_tree(tc, grads, mesh)
-        losses = [None] * 4
+        with torch.no_grad():  # the aux term alone, averaged over "data"
+            aux = fam.loss(tc, local, batch, mesh=mesh)[1]["aux"].reshape(1)
+        aux = D.all_reduce_axis(aux, mesh, "data") / mesh.shape["data"]
+        losses, rank_routes = [None] * 4, [None] * 4
         dist.all_gather_object(losses, float(loss))
-        out["loss"][case] = {"loss": float(loss), "losses": losses,
-                             "grads": params_to_jax(model, full)}
+        dist.all_gather_object(rank_routes, (mesh.axis_index(("data",)), got_routes))
+        return {"loss": float(loss), "losses": losses, "aux": float(aux), "comm": comm,
+                "routes": rank_routes, "grads": params_to_jax(model, full)}
+
+    moe.route = route_recorded
+    try:
+        for case in CASES:
+            out["loss"][case] = loss_case(case, _configs(case)[1])
+    finally:
+        moe.route = route_plain
     for case in STEP_CASES:
         _, tc = _configs(case)
         fam = get_family(tc)
@@ -130,11 +218,12 @@ def _ranks_body(params):
         local, batch = _rank_blocks(tc, fam, model, _batch(tc, len(case)), mesh)
         oc = optim.AdamWConfig(lr=LR, warmup_steps=0)
         state = init_sharded_opt_state(tc, local, mesh, zero1=True)
-        tcfg = TrainConfig(zero1=True, microbatches=STEP_CASES[case])
+        err = init_sharded_error_state(tc, local, mesh)
+        tcfg = TrainConfig(**_train_config(case, zero1=True))
         step = make_train_step(tc, oc, tcfg, mesh=mesh)
         pbytes = sum(p.numel() * 4 for p in local.parameters())
         obytes = sum(t.numel() * 4 for t in [*state.m.values(), *state.v.values()])
-        metrics, stats = step_stats(lambda: step(local, state, {}, batch), pbytes, obytes)
+        metrics, stats = step_stats(lambda: step(local, state, err, batch), pbytes, obytes)
         full = sharded.gather_model(tc, local, mesh)
         out["step"][case] = {
             "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
@@ -142,6 +231,41 @@ def _ranks_body(params):
             "m_shapes": {n: tuple(t.shape) for n, t in state.m.items()},
             "local_shapes": {n: tuple(p.shape) for n, p in local.named_parameters()},
             "stats": stats}
+        if tcfg.grad_compress:
+            out["step"][case]["err"] = params_to_jax(full, sharded.gather_tree(tc, err, mesh))
+    # every gradient cut into pieces of 1,000 elements: the same average
+    bucket = sharded.GRAD_BUCKET_ELEMENTS
+    sharded.GRAD_BUCKET_ELEMENTS = 1000
+    try:
+        out["small_buckets"] = loss_case("stablelm-1.6b", _configs("stablelm-1.6b")[1])
+    finally:
+        sharded.GRAD_BUCKET_ELEMENTS = bucket
+    # planted faults: each must break the limit its test sets
+    _, tc = _configs("deepseek-moe-16b")
+    gates_plain, balance_plain = moe.combine_gates, moe.balance_mean
+    try:
+        moe.combine_gates = lambda g, mesh_: g
+        out["faults"]["router_partial"] = loss_case("deepseek-moe-16b", tc)
+        moe.combine_gates = gates_plain
+        moe.balance_mean = lambda t, mesh_: t
+        out["faults"]["aux_local"] = loss_case("deepseek-moe-16b", tc)
+    finally:
+        moe.combine_gates, moe.balance_mean = gates_plain, balance_plain
+    _, tc = _configs("stablelm-compress")
+    model = params_from_jax(tc, params["stablelm-1.6b"], device="cpu")
+    local, batch = _rank_blocks(tc, get_family(tc), model, _batch(tc, len("stablelm-compress")),
+                                mesh)
+    err = init_sharded_error_state(tc, local, mesh)
+    step = make_train_step(tc, optim.AdamWConfig(lr=LR, warmup_steps=0),
+                           TrainConfig(**_train_config("stablelm-compress", zero1=True)),
+                           mesh=mesh)
+    scale_plain = loop.scale_over_model
+    loop.scale_over_model = lambda top, mesh_, split_leaf: top
+    try:
+        step(local, init_sharded_opt_state(tc, local, mesh, zero1=True), err, batch)
+    finally:
+        loop.scale_over_model = scale_plain
+    out["faults"]["scale_local"] = params_to_jax(model, sharded.gather_tree(tc, err, mesh))
     for name in ROUND_TRIP:
         from repro_torch.configs import get_config
 
@@ -174,35 +298,85 @@ def _ranks_body(params):
     return out if dist.get_rank() == 0 else None
 
 
+def _jax_case(case, params):
+    """JAX's loss, gradient and aux term of a loss case (and its routes)."""
+    jc, _ = _configs(case)
+    batch = {k: jnp.asarray(v) for k, v in _batch(jc, len(_weights(case))).items()}
+    (jl, jm), jg = jax.jit(jax.value_and_grad(functools.partial(jax_family(jc).loss, jc),
+                                              has_aux=True))(params[_weights(case)], batch)
+    out = {"jax": (float(jl), jax.tree.map(np.asarray, jg), float(jm["aux"]))}
+    if case in MOE_CASES:
+        routes = jax.jit(functools.partial(_jax_routes, jc))(params[case], batch["tokens"])
+        out["routes"] = [np.asarray(r) for r in routes]
+    return out
+
+
+def _jax_step(case, params):
+    """JAX's ``make_train_step`` of a step case from a fresh state."""
+    from repro import optim as jopt
+    from repro.train import TrainConfig as JaxTrainConfig
+    from repro.train import make_train_step as jax_make_train_step
+
+    jc, _ = _configs(case)
+    jp = params[_weights(case)]
+    jstep = jax.jit(jax_make_train_step(jc, jopt.AdamWConfig(lr=LR, warmup_steps=0),
+                                        JaxTrainConfig(**_train_config(case))))
+    jbatch = {k: jnp.asarray(v) for k, v in _batch(jc, len(case)).items()}
+    jp1, _, je, jm = jstep(jp, jopt.init(jp), jopt.compress.init_error_state(jp), jbatch)
+    return {"loss": float(jm["loss"]), "grad_norm": float(jm["grad_norm"]),
+            "params": jax.tree.map(np.asarray, jp1), "err": jax.tree.map(np.asarray, je)}
+
+
 def _references(params):
-    """JAX's value_and_grad, the port's single-process loss, and the port's
-    single-process step, on the same weights and batches."""
+    """JAX's value_and_grad (and a MoE case's routes), the port's
+    single-process loss, the port's single-process step, and JAX's
+    compressed step, on the same weights and batches.  The JAX programs
+    compile in a few threads while the port's references run."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch import optim
     from repro_torch.models import get_family
     from repro_torch.models.convert import params_from_jax, params_to_jax
     from repro_torch.train.loop import TrainConfig, make_train_step
 
-    out = {"jax": {}, "port": {}, "step": {}}
-    for case in CASES:
-        jc, tc = _configs(case)
-        batch = _batch(jc, len(case))
-        (jl, _), jg = jax.jit(jax.value_and_grad(functools.partial(jax_family(jc).loss, jc),
-                                                 has_aux=True))(
-            params[case], {k: jnp.asarray(v) for k, v in batch.items()})
-        out["jax"][case] = (float(jl), jax.tree.map(np.asarray, jg))
-        model = params_from_jax(tc, params[case], device="cpu")
-        with torch.no_grad():
-            tl, _ = get_family(tc).loss(tc, model, {k: torch.tensor(v) for k, v in batch.items()})
-        out["port"][case] = float(tl)
-    for case in STEP_CASES:
-        _, tc = _configs(case)
-        model = params_from_jax(tc, params[_weights(case)], device="cpu").requires_grad_(True)
-        state = optim.init(dict(model.named_parameters()))
-        step = make_train_step(tc, optim.AdamWConfig(lr=LR, warmup_steps=0),
-                               TrainConfig(microbatches=STEP_CASES[case]))
-        m = step(model, state, {}, {k: torch.tensor(v) for k, v in _batch(tc, len(case)).items()})
-        out["step"][case] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                             "params": params_to_jax(model)}
+    out = {"jax": {}, "port": {}, "step": {}, "routes": {}, "jax_step": {}}
+    compressed = [c for c in STEP_CASES if _train_config(c)["grad_compress"]]
+    with ThreadPoolExecutor(3) as pool:
+        jax_cases = {c: pool.submit(_jax_case, c, params) for c in CASES}
+        jax_steps = {c: pool.submit(_jax_step, c, params) for c in compressed}
+        for case in CASES:
+            _, tc = _configs(case)
+            batch = _batch(tc, len(_weights(case)))
+            model = params_from_jax(tc, params[_weights(case)], device="cpu")
+            with torch.no_grad():
+                tl, _ = get_family(tc).loss(tc, model,
+                                            {k: torch.tensor(v) for k, v in batch.items()})
+            out["port"][case] = float(tl)
+        for case in STEP_CASES:
+            _, tc = _configs(case)
+            batch = {k: torch.tensor(v) for k, v in _batch(tc, len(case)).items()}
+            model = params_from_jax(tc, params[_weights(case)], device="cpu").requires_grad_(True)
+            named = dict(model.named_parameters())
+            if case in compressed:
+                # a fresh error state: each leaf's quantization step is
+                # max |g| / 127, of the port's single-process gradient
+                # (JAX's within float32 rounding)
+                get_family(tc).loss(tc, model, batch)[0].backward()
+                grads = params_to_jax(model, {n: p.grad for n, p in named.items()})
+                out["jax_step"][case] = {
+                    "qstep": jax.tree.map(lambda g: float(np.abs(g).max()) / 127.0, grads)}
+            step = make_train_step(tc, optim.AdamWConfig(lr=LR, warmup_steps=0),
+                                   TrainConfig(**_train_config(case)))
+            m = step(model, optim.init(named), optim.compress.init_error_state(named), batch)
+            out["step"][case] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                                 "params": params_to_jax(model)}
+        for case, fut in jax_cases.items():
+            got = fut.result()
+            out["jax"][case] = got["jax"]
+            if "routes" in got:
+                out["routes"][case] = got["routes"]
+        for case, fut in jax_steps.items():
+            out["jax_step"][case].update(fut.result())
     return out
 
 
@@ -210,7 +384,11 @@ def _references(params):
 def runs():
     from repro_torch.launch.mesh import spawn_ranks
 
-    params = {case: _jax_params(case) for case in CASES}
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as pool:
+        weights = list(dict.fromkeys(_weights(c) for c in CASES))
+        params = dict(zip(weights, pool.map(_jax_params, weights)))
     got = {}
 
     def ranks():
@@ -345,3 +523,124 @@ def test_collective_bytes_of_the_dense_step_match_the_shapes(runs):
     assert set(detail) == {"all_reduce/model", "all_reduce/data", "all_gather/data"}
     assert got["stats"]["coll_bytes"] == sum(v["bytes"] for v in detail.values())
     assert got["stats"]["flops"] > 0 and got["stats"]["saved_bytes"] > 0
+
+
+def _route_flips(want: list, got: list) -> int:
+    """Routed slots (token, choice) whose expert differs from JAX's, over
+    every layer and rank: each rank's groups are its data block's."""
+    flips = 0
+    for data_index, layers in got:
+        assert len(layers) == len(want)
+        for w, g in zip(want, layers):
+            ng = g.shape[0]
+            flips += int(np.sum(w[data_index * ng:(data_index + 1) * ng] != g))
+    return flips
+
+
+def _router_error(want: dict, got: dict) -> float:
+    """The routers' gradient difference over their largest magnitude."""
+    a = np.asarray(want["blocks"]["moe"]["router"])
+    b = np.asarray(got["blocks"]["moe"]["router"])
+    return float(np.abs(a - b).max()) / max(float(np.abs(a).max()), 1e-30)
+
+
+def _err_state_reading(want: dict, got: dict, qstep: dict) -> tuple[float, float]:
+    """(the largest |error difference| in quantization steps, the share of
+    elements more than half a step apart -- a flipped int8 code)."""
+    worst, apart, total = 0.0, 0, 0
+    for path, a in _leaves(want):
+        step = _get(qstep, path)
+        d = np.abs(a - np.asarray(_get(got, path))) / step
+        worst = max(worst, float(d.max()))
+        apart += int(np.sum(d > 0.5))
+        total += d.size
+    return worst, apart / total
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_aux_term_equals_jax(runs, case):
+    """The load balance and z-loss alone: under 1% of the loss, so the
+    loss's tolerance cannot see a wrong load balance."""
+    want = runs["jax"][case][2]
+    assert want > 0
+    assert abs(runs["ranks"]["loss"][case]["aux"] - want) <= LOSS_RTOL * want
+
+
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_moe_routes_equal_jax(runs, case):
+    got = runs["ranks"]["loss"][case]["routes"]
+    want = runs["routes"][case]
+    assert all(len(layers) == runs["params"][case]["blocks"]["ln1"].shape[0] for _, layers in got)
+    assert _route_flips(want, got) == 0
+
+
+def test_remat_gradients_equal_the_plain_ranks_and_replay_the_forward_all_reduces(runs):
+    """stablelm at remat="full" on the ranks: the gradients of the no-remat
+    ranks, and each layer's forward "model" all-reduces sent once more in
+    the backward's replay, (B/2, T, D) float32 each, up to the last tensor
+    the backward reads (the checkpoint's early stop): the attention's
+    row-parallel sum, which the MLP's norm reads; the MLP's own sum ends
+    the layer, and no saved tensor needs it."""
+    _, tc = _configs("stablelm-1.6b")
+    plain, rem = runs["ranks"]["loss"]["stablelm-1.6b"], runs["ranks"]["loss"]["stablelm-remat"]
+    assert rem["loss"] == plain["loss"]
+    for path, a in _leaves(plain["grads"]):
+        scale = max(float(np.abs(a).max()), 1e-30)
+        assert float(np.abs(a - np.asarray(_get(rem["grads"], path))).max()) <= 1e-6 * scale, path
+    extra = tc.n_layers
+    act = (B // 2) * T * tc.d_model * 4
+    base, got = plain["comm"]["all_reduce/model"], rem["comm"]["all_reduce/model"]
+    assert got == {"messages": base["messages"] + extra, "bytes": base["bytes"] + extra * act}
+    assert rem["comm"]["all_reduce/data"] == plain["comm"]["all_reduce/data"]
+
+
+def test_compressed_zero1_step_equals_jax_and_the_single_process(runs):
+    case = "stablelm-compress"
+    got = runs["ranks"]["step"][case]
+    p0 = runs["params"][_weights(case)]
+    for want in (runs["step"][case], runs["jax_step"][case]):
+        assert abs(got["loss"] - want["loss"]) <= LOSS_RTOL * abs(want["loss"])
+        assert abs(got["grad_norm"] - want["grad_norm"]) <= LOSS_RTOL * abs(want["grad_norm"])
+        for path, a in _leaves(want["params"]):
+            du_want = a - np.asarray(_get(p0, path))
+            du_got = np.asarray(_get(got["params"], path)) - np.asarray(_get(p0, path))
+            err = float(np.linalg.norm(du_got - du_want))
+            assert err <= UPDATE_TOL * float(np.linalg.norm(du_want)), path
+
+
+def test_compressed_error_state_within_a_quantization_step_of_jax(runs):
+    case = "stablelm-compress"
+    want = runs["jax_step"][case]
+    worst, apart = _err_state_reading(want["err"], runs["ranks"]["step"][case]["err"],
+                                      want["qstep"])
+    assert worst <= 1.0 + 1e-3
+    assert apart < CODE_FLIP_SHARE
+
+
+@pytest.mark.parametrize("fault", ["router_partial", "aux_local", "scale_local"])
+def test_planted_fault_breaks_its_limit(runs, fault):
+    """Each fault, injected into the ranks, fails the limit that the sound
+    run passes above: the router's gradient (GRAD_TOL of its largest), the
+    aux term (LOSS_RTOL), the error state (CODE_FLIP_SHARE of the elements
+    a step apart)."""
+    got = runs["ranks"]["faults"][fault]
+    if fault == "router_partial":
+        assert _router_error(runs["jax"]["deepseek-moe-16b"][1], got["grads"]) > GRAD_TOL
+    elif fault == "aux_local":
+        want = runs["jax"]["deepseek-moe-16b"][2]
+        assert abs(got["aux"] - want) > LOSS_RTOL * want
+    else:
+        want = runs["jax_step"]["stablelm-compress"]
+        worst, apart = _err_state_reading(want["err"], got, want["qstep"])
+        assert apart >= CODE_FLIP_SHARE or worst > 1.0 + 1e-3
+
+
+def test_gradients_cut_into_small_buckets_average_the_same(runs):
+    """reduce_grads with a 1,000-element bucket: every gradient larger
+    than a bucket cut into pieces, many more messages over "data", the
+    same averaged gradients."""
+    got, want = runs["ranks"]["small_buckets"], runs["ranks"]["loss"]["stablelm-1.6b"]
+    n_elements = sum(int(np.prod(a.shape)) for _, a in _leaves(want["grads"])) // 2
+    assert got["comm"]["all_reduce/data"]["messages"] > n_elements // 1000
+    for path, a in _leaves(want["grads"]):
+        assert np.array_equal(a, np.asarray(_get(got["grads"], path))), path
