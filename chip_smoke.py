@@ -132,11 +132,20 @@ service. ``configs/sap_solver.py:service()`` at P=16 through
    the cache hit rate, escalations and deadline misses; it fails on a
    future resolved without a solve (but for a missed deadline), a true
    residual above 10 tol, or a dominance class never routed;
+examples. The port's entry points as a user runs them: each module of
+   ``repro_torch.examples`` (quickstart, fleet_solve, serve_async,
+   traced_solve, distributed_solve on 8 gloo ranks of the card, serve_lm
+   for stablelm, rwkv6 and zamba2, train_lm) as ``python -m`` in a
+   process of its own at its defaults, each with its seconds, the numbers
+   it printed and its kernel launches (read from the child and its ranks);
+   it fails on a non-zero exit, a missing "OK" line, a float32 relative
+   error above its limit, a training loss that does not fall, a request not
+   served, or a kernel of EXAMPLE_KERNELS never launched;
 lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
    random weights from a seeded generator: ``forward`` over 64 tokens
    against 64 ``decode_step`` calls in float32, a bfloat16 prefill
-   (B=4, T=512) timed, and a ``ServeEngine`` with 8 slots draining 16
-   requests (prompts of 16-48 tokens, 32 new tokens each), with the
+   (B=4, T=512) timed, and a ``ServeEngine`` with 8 slots draining 12
+   requests (prompts of 8-24 tokens, 16 new tokens each), with the
    WKV / SSD launches of each path by route (none may take the one-block
    kernel) and a profiler window of decode ticks; then the same model
    with ``scan_dtype="bfloat16"`` against its float32 scans (5 decode
@@ -147,8 +156,8 @@ lm. RWKV6-1.6B and Zamba2-2.7B at their published widths and depths,
    bfloat16 scan launches counted;
 dense. Minitron-8B at its published width and depth (32 layers, d=4096,
    GQA 32 over 8, vocab 256,000), random float32 weights from a seeded
-   generator, after the other models are freed: ``forward`` over 128
-   tokens (through the flash kernel) against 128 ``decode_step`` calls
+   generator, after the other models are freed: ``forward`` over 64
+   tokens (through the flash kernel) against 64 ``decode_step`` calls
    from an empty cache in float32, bfloat16 prefills at B=4, T=512 and
    B=1, T=4096 (each a forward with one flash launch a layer, profiled
    once), and the same serving run and decode window as above;
@@ -177,9 +186,9 @@ encdec. whisper-medium at full size: forward (encode 1,500 random frames,
 train. Training, after every serving phase has freed its model:
    stablelm-1.6b at its published width and depth (24 layers, d=2048, 32
    heads of 64, d_ff 5,632, vocab 100,352; random float32 weights from
-   seed 0, bfloat16 compute) through ``TrainLoop`` on the card for 30
+   seed 0, bfloat16 compute) through ``TrainLoop`` on the card for 10
    steps of B=8 x T=256 tokens of the affine-bigram stream over 512 tokens
-   (lr 5e-4, 5 warmup steps, no checkpoint): every loss finite, step 30's
+   (lr 5e-4, 5 warmup steps, no checkpoint): every loss finite, step 10's
    at least 1.0 below step 1's, 24 flash launches a step (the forward's;
    the backward differentiates the plain version); the median step ms,
    tokens/s, peak memory, one step under the profiler split by part (the
@@ -207,8 +216,8 @@ train. Training, after every serving phase has freed its model:
    the modes and the peak at "full" below "none"'s;
 sharded. The LM loss on a (2, 2) ("data", "model") mesh of 4 gloo ranks,
    all on the one card, after phase train: first the single-process
-   references on the card (stablelm-1.6b at its published width and depth
-   in bfloat16 with two AdamW steps; rwkv6-1.6b at 2 layers and
+   references on the card (stablelm-1.6b at its published width and 1 of
+   its 24 layers in bfloat16 with two AdamW steps; rwkv6-1.6b at 2 layers and
    zamba2-2.7b at 6, full width, in float32 and in their published
    bfloat16), each freed before the next: the loss, every leaf's gradient
    norm and an evenly strided sample of rank 0's block of it, the
@@ -226,7 +235,7 @@ sharded. The LM loss on a (2, 2) ("data", "model") mesh of 4 gloo ranks,
    rank's gradient left out of the average, a step on half the batch,
    ZeRO-1's gather left out, a split leaf's scale its block's own); also
    deepseek-moe-16b ("ep", 2 layers), mixtral-8x22b ("tp", 1
-   layer) and whisper-medium in float32, the MoE jobs with the aux term
+   layer) and whisper-medium (4 + 4 layers) in float32, the MoE jobs with the aux term
    and the route flips against the single process and two planted faults
    (the gates' gradient not summed over "model", a per-rank load
    balance); every fault must fail at least one of the limits the sound
@@ -256,6 +265,9 @@ sharded. The LM loss on a (2, 2) ("data", "model") mesh of 4 gloo ranks,
    under the kernel's (data sheet) bound.  Then each row's share of both
    bounds, a share above 1 of the calibrated bound printed as it is.
 
+Every phase ends with a ``{"phase": "seconds", "of": <phase>}`` line, and
+the run with the total and the seconds of every phase.
+
 Then the kernel summary line (a row per kernel, and per (kernel, dtype)
 of phase "dtypes": its launches in that phase's slices and fleet steps --
 the scans' in phase lm's bfloat16 runs -- its error against the plain
@@ -269,6 +281,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -278,6 +291,7 @@ import threading
 import time
 from pathlib import Path
 
+_STARTED = time.perf_counter()  # the phase clock's zero: the process's start
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 SEED = 0
@@ -302,16 +316,19 @@ L2_BYTES = 50e6
 # recurrences in float32 with the sums of every K x K product taken in
 # another order; rounding compounds over the M block rows.
 KERNEL_RTOL = 1e-4
-# The LM path: both models at full width and depth, serving 16 requests
-# through 8 slots.
+# The LM path: both models at full width and depth, serving LM_REQUESTS
+# requests through LM_SLOTS slots (prompts of LM_PROMPT tokens fed one a
+# tick, LM_NEW_TOKENS new tokens each).  Every LM phase's serving run has
+# this shape: ~55 ticks, a second wave refilling the slots (the smoke's
+# time limit cut it from 16 requests of 16-48 + 32 tokens, ~137 ticks).
 LM_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")
-LM_SLOTS, LM_REQUESTS, LM_NEW_TOKENS, LM_PROMPT = 8, 16, 32, (16, 48)
+LM_SLOTS, LM_REQUESTS, LM_NEW_TOKENS, LM_PROMPT = 8, 12, 16, (8, 24)
 PREFILL_B, PREFILL_T, CONSISTENCY_T = 4, 512, 64
 # The dense run: Minitron-8B; its forward (through the flash kernel)
 # against DENSE_CONSISTENCY_T decode steps, and a second prefill at the
 # kernel's long shape.
 DENSE_ARCH = "minitron-8b"
-DENSE_CONSISTENCY_T, DENSE_LONG_T = 128, 4096
+DENSE_CONSISTENCY_T, DENSE_LONG_T = 64, 4096
 # The MoE, VLM and encoder-decoder runs (phases "moe", "vlm", "encdec"),
 # each model freed before the next: deepseek-moe-16b at full size (67.5 GB
 # of float32 weights; forward against MOE_CONSISTENCY_T decode steps at
@@ -325,13 +342,15 @@ DENSE_CONSISTENCY_T, DENSE_LONG_T = 128, 4096
 # slot; the forward's drops at the published 1.25 are printed.
 MOE_ARCH, MIXTRAL_ARCH, VLM_ARCH, ENCDEC_ARCH = (
     "deepseek-moe-16b", "mixtral-8x22b", "phi-3-vision-4.2b", "whisper-medium")
-MOE_CONSISTENCY_T, MIXTRAL_LAYERS, MIXTRAL_CONSISTENCY_T, MIXTRAL_LONG_T = 128, 4, 64, 8192
+MOE_CONSISTENCY_T, MIXTRAL_LAYERS, MIXTRAL_CONSISTENCY_T, MIXTRAL_LONG_T = 64, 4, 64, 8192
 WHISPER_T, WHISPER_TRAIN_T, WHISPER_STEPS = 64, 448, 32
 # Phase "train": stablelm-1.6b at full width and depth through TrainLoop
 # (TRAIN_STEPS steps of TRAIN_B x TRAIN_T tokens from the affine-bigram
 # stream over TRAIN_VOCAB tokens, inside the model's vocabulary; lr
 # TRAIN_LR after TRAIN_WARMUP warmup steps), the last step's loss at least
-# TRAIN_DROP below the first; then TRAIN_COMPRESS_STEPS steps with int8
+# TRAIN_DROP below the first (30 steps read 11.94 -> 6.23 on the H100, 6.51
+# at step 10; the smoke's time limit cut 30 steps to 10); then
+# TRAIN_COMPRESS_STEPS steps with int8
 # compression, two microbatches against one on one batch from a fresh
 # optimizer state (losses within TRAIN_MICRO_LOSS_RTOL, the gradients' and
 # the updates' global norms of difference within TRAIN_MICRO_GRAD_RTOL and
@@ -347,7 +366,7 @@ WHISPER_T, WHISPER_TRAIN_T, WHISPER_STEPS = 64, 448, 32
 # stablelm-reduced (TRAIN_RESTART: a fault at the first step of 50 that
 # follows the step-20 checkpoint).
 TRAIN_ARCH, TRAIN_OTHERS = "stablelm-1.6b", ("rwkv6-1.6b", "zamba2-2.7b")
-TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR, TRAIN_DROP = 30, 5, 5e-4, 1.0
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR, TRAIN_DROP = 10, 5, 5e-4, 1.0
 TRAIN_VOCAB, TRAIN_B, TRAIN_T = 512, 8, 256
 TRAIN_COMPRESS_STEPS, TRAIN_FIXED_STEPS = 5, 5
 TRAIN_MICRO_LOSS_RTOL, TRAIN_MICRO_GRAD_RTOL, TRAIN_MICRO_UPDATE_RTOL = 1e-5, 5e-2, 1e-1
@@ -357,12 +376,12 @@ TRAIN_RESTART = {"steps": 50, "fault_at": 30, "checkpoint_every": 20}
 # TRAIN_REMAT_STEPS steps on one batch from the same weights and a fresh
 # state at each remat mode; the step ms (median of steps 2 on: with two
 # steps the host-bound step read 0.87-1.18x "none" at "full" in two
-# runs), the peak memory, the launches a step; the first step's loss and
+# runs; the smoke's time limit cut six steps to four), the peak memory, the launches a step; the first step's loss and
 # gradient norm
 # within TRAIN_REMAT_RTOL of remat="none"'s (the replay recomputes the
 # same values), and the peak at "full" below "none"'s.
 TRAIN_REMAT = (("stablelm-1.6b", ("none", "full", "dots")), ("zamba2-2.7b", ("none", "full")))
-TRAIN_REMAT_STEPS, TRAIN_REMAT_RTOL = 6, 1e-6
+TRAIN_REMAT_STEPS, TRAIN_REMAT_RTOL = 4, 1e-6
 # flash kernel against its plain version in bfloat16, element by element:
 # both compute in float32 and round the output to bfloat16 once, so where
 # the float32 values straddle a rounding boundary they differ by one
@@ -462,11 +481,17 @@ DIST_RANKS, DIST_P, DIST_P500, DIST_TOL = 4, 64, 500, 1e-6
 # weights moved by SHARD_WITNESS_SCALE relative),
 # because RWKV6's random-init gradients in bfloat16 carry its rounding
 # by tens of percent (ROADMAP L1).  The planted faults must each fail one
-# limit at least.  Each limit lies between the sound and the faulty
-# readings of stablelm in bfloat16 (H100 80GB HBM3, 700 W; sound / nearest fault):
-# gradient norm 1.5e-3 / 0.38, gradient sample 5.1e-2 / 0.89, step loss
-# 1.3e-3 / 8.9e-2, step gradient norm 1.9e-3 / 0.42, update norm
-# 3.1e-3 / 0.29, update sample 0.20 / 0.75; the loss limit is the JAX
+# limit at least.  stablelm-1.6b runs 1 of its 24 layers at full width,
+# the fewest at which each of its four planted faults still fails a limit
+# (a fault moves every layer's gradient or update alike).  Its sound and
+# faulty readings in bfloat16 (H100 80GB HBM3, 700 W; sound / nearest
+# fault) at 1 layer: gradient norm 2.3e-4 / 0.37, gradient sample
+# 7.9e-3 / 0.71, step loss 1.2e-4 / 4.9e-3 (half_batch, under the limit:
+# its step gradient norm, update norm and sample catch it) and 3.4
+# (zero1_stale), step gradient norm 1.5e-4 / 0.41, update norm
+# 1.8e-3 / 0.29, update sample 0.10 / 0.72; at the published 24 layers,
+# before the cut: 1.5e-3 / 0.38, 5.1e-2 / 0.89, 1.3e-3 / 8.9e-2,
+# 1.9e-3 / 0.42, 3.1e-3 / 0.29, 0.20 / 0.75.  The loss limit is the JAX
 # package's (a left-out gradient leaves the averaged loss as it was).
 #
 # Every job runs at its published remat ("full": each layer's
@@ -474,7 +499,8 @@ DIST_RANKS, DIST_P, DIST_P500, DIST_TOL = 4, 64, 500, 1e-6
 # phase adds the MoE and encoder-decoder losses and a compressed ZeRO-1
 # step.  deepseek-moe-16b ("ep": 64 experts over model = 2) at 2 of 28
 # layers, mixtral-8x22b ("tp", its published setting) at 1 of 56, and
-# whisper-medium at full depth, all three at full width in float32 (the
+# whisper-medium at 4 of its 24 encoder and 24 decoder layers, all three at
+# full width in float32 (the
 # route and aux readings below are float32's); each rank's model is made
 # whole on the card one rank at a time, cut to its blocks and freed, so
 # that four whole mixtral layers are never held at once.  A MoE job also
@@ -494,19 +520,20 @@ DIST_RANKS, DIST_P, DIST_P500, DIST_TOL = 4, 64, 500, 1e-6
 # the compressed step, whose scales are read too: SHARD_SCALE_RTOL).
 SHARD_MESH, SHARD_B, SHARD_T, SHARD_LR = (2, 2), 8, 256, 5e-4
 SHARD_RUNS = (
-    ("stablelm-1.6b", None, 2, "bfloat16",
+    ("stablelm-1.6b", 1, 2, "bfloat16",
      ("grad_left_out", "half_batch", "zero1_stale", "scale_local")),
     ("rwkv6-1.6b", 2, 0, "float32", ()), ("zamba2-2.7b", 6, 0, "float32", ()),
     ("rwkv6-1.6b", 2, 0, "bfloat16", ()), ("zamba2-2.7b", 6, 0, "bfloat16", ()),
     ("deepseek-moe-16b", 2, 0, "float32", ("router_partial", "aux_local")),
-    ("mixtral-8x22b", 1, 0, "float32", ()), ("whisper-medium", None, 0, "float32", ()))
+    ("mixtral-8x22b", 1, 0, "float32", ()), ("whisper-medium", 4, 0, "float32", ()))
 SHARD_FAULT_AGAINST = {"scale_local": "compress"}  # the reference a fault is read against
 SHARD_AUX_RTOL, SHARD_FLIP_SHARE = 1e-4, 1e-3
 # The compressed step's int8 scale of each JAX leaf (its largest |g| / 127
 # over the whole leaf) against the single process's, relative: bfloat16
 # moves the largest element by its rounding.  Between the sound run and
-# scale_local on the H100 (80GB HBM3, 700 W): 1.14e-2 sound,
-# 4.84e-2 with the fault (a rank's block holds most of a leaf's top).
+# scale_local on the H100 (80GB HBM3, 700 W), stablelm at 1 layer:
+# 6.9e-3 sound, 8.5e-2 with the fault (1.14e-2 and 4.84e-2 at 24 layers;
+# a rank's block holds most of a leaf's top).
 SHARD_SCALE_RTOL = 3e-2
 SHARD_LOSS_ATOL, SHARD_NORM_RTOL, SHARD_UPDATE_RTOL, SHARD_TIMEOUT_S = 1e-3, 1e-2, 3e-2, 900
 SHARD_STEP_LOSS_ATOL, SHARD_SAMPLE_RTOL, SHARD_UPDATE_SAMPLE_RTOL = 1e-2, 0.2, 0.4
@@ -517,6 +544,26 @@ DIST_SWEEPS, DIST_ZTOL, DIST_DOMINANT, SCAN_WEAK_DECAY = 0.25, 1e-6, 1.25, 1e-4
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+class PhaseClock:
+    """Each phase's seconds on a line of its own as the phase ends
+    (``{"phase": "seconds", "of": name, ...}``), and the run's total."""
+
+    def __init__(self):
+        self.start = self.last = _STARTED
+        self.by_phase: dict[str, float] = {}
+
+    def end(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.by_phase[phase] = now - self.last
+        emit({"phase": "seconds", "of": phase, "seconds": now - self.last,
+              "elapsed_s": now - self.start})
+        self.last = now
+
+    def total(self) -> None:
+        emit({"phase": "seconds", "of": "total", "seconds": time.perf_counter() - self.start,
+              "by_phase": self.by_phase})
 
 
 def nvidia_smi() -> str:
@@ -2311,6 +2358,8 @@ def _sharded_config(job: dict):
     cfg = get_config(job["arch"])
     if job["layers"]:
         cfg = dataclasses.replace(cfg, n_layers=job["layers"])
+    if job["layers"] and cfg.family == "encdec":  # the encoder's depth too
+        cfg = dataclasses.replace(cfg, n_enc_layers=job["layers"])
     return dataclasses.replace(cfg, compute_dtype=job["dtype"])
 
 
@@ -3518,6 +3567,146 @@ def dtype_phase(dev, smi, band_d1, band_d05, xstar, cal) -> tuple[dict, list]:
     return launches, summary
 
 
+# ---- examples: the port's entry points as a user runs them ----------------------
+#
+# Phase "examples" runs each of repro_torch.examples' modules as a user
+# would, ``python -m repro_torch.examples.<name>`` with PYTHONPATH=src at
+# its defaults on the card (serve_lm also with --arch rwkv6-1.6b and
+# zamba2-2.7b; train_lm with --ckpt-dir in the run's own temporary
+# directory: its default lies outside it, and an earlier run's step-300
+# checkpoint there would leave nothing to train), each in a process group
+# of its own with a time limit (EXAMPLE_TIMEOUT_S), one after another.  A
+# child reports its kernel launches at exit (kernels/ops.py,
+# REPRO_TORCH_REPORT_LAUNCHES; distributed_solve's ranks each report
+# theirs).  Limits: exit code 0; the JAX script's "OK" line where it prints
+# one (EXAMPLE_OK); every printed relative error of a float32 solve at most
+# EXAMPLE_RELERR, but for distributed_solve's SaP-auto on the d=0.5 band:
+# that float32 solve exits on its recursive residual at a relative error of
+# 1.07e-2 in the JAX package (8 host devices, CPU) and 2.0e-2 in the port
+# (8 ranks, CPU), far above cond(A) eps = 746 x 6e-8 (R2), so it is held to
+# EXAMPLE_RELERR_D05; train_lm's final loss below its first logged one;
+# serve_lm serving every request it was sent; and over the phase, launches
+# of every kernel in EXAMPLE_KERNELS.
+EXAMPLE_RUNS = (("quickstart",), ("fleet_solve",), ("serve_async",), ("traced_solve",),
+                ("distributed_solve",), ("serve_lm",), ("serve_lm", "--arch", "rwkv6-1.6b"),
+                ("serve_lm", "--arch", "zamba2-2.7b"), ("train_lm",))
+EXAMPLE_OK = {"quickstart": "quickstart OK", "distributed_solve": "distributed solve OK"}
+EXAMPLE_RELERR, EXAMPLE_RELERR_D05 = 1e-4, 5e-2
+EXAMPLE_TIMEOUT_S = {"distributed_solve": 300, "train_lm": 400}
+EXAMPLE_DEFAULT_TIMEOUT_S = 180
+EXAMPLE_KERNELS = ("btf", "bts", "fused_factor_spike", "flash", "wkv", "ssd")
+_NUMBER = r"[-+]?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?"
+
+
+def _run_example(argv: tuple, cwd: str, timeout: float) -> tuple:
+    """(exit code or None on timeout, stdout, stderr, seconds) of one
+    example run; its whole process group is stopped either way."""
+    import os
+    import signal
+
+    from repro_torch.kernels.ops import REPORT_LAUNCHES_ENV
+
+    env = {**os.environ, "PYTHONPATH": str(SRC), REPORT_LAUNCHES_ENV: "1"}
+    cmd = [sys.executable, "-m", f"repro_torch.examples.{argv[0]}", *argv[1:]]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    if rc is None:
+        out, err = proc.communicate()
+    return rc, out, err, time.perf_counter() - t0
+
+
+def _example_readings(name: str, out: str) -> dict:
+    """The numbers an example printed that its limits read."""
+    rd: dict = {"relerr": {}}
+    for line in out.splitlines():
+        for v in re.findall(rf"relerr=({_NUMBER})", line):
+            label = line.split(":")[0] if ":" in line else line.split("relerr=")[0]
+            rd["relerr"][label.strip()[:60] or name] = float(v)
+    losses = [float(v) for v in re.findall(rf"^step\s+\d+\s+loss ({_NUMBER})", out, re.M)]
+    if losses:
+        rd["losses"] = losses
+    m = re.search(rf"final loss: ({_NUMBER})\s+restarts: (\d+)", out)
+    if m:
+        rd["final_loss"], rd["restarts"] = float(m.group(1)), int(m.group(2))
+    m = re.search(r"served (\d+)/(\d+) requests, (\d+) tokens", out)
+    if m:
+        rd["served"], rd["sent"], rd["tokens"] = (int(g) for g in m.groups())
+    for key, pat in (("tok_s", rf"({_NUMBER}) tok/s"), ("ms", rf"({_NUMBER}) ms"),
+                     ("iters", rf"iters=\s*({_NUMBER})"), ("sys_s", rf"({_NUMBER}) sys/s"),
+                     ("solves_s", rf"({_NUMBER}) solves/s")):
+        found = [float(v) for v in re.findall(pat, out)]
+        if found:
+            rd[key] = found
+    return rd
+
+
+def examples_phase(smi) -> dict:
+    """Phase "examples" (see EXAMPLE_RUNS): one line a run with its seconds,
+    the numbers it printed, its launches by kernel (the child and, for
+    distributed_solve, its ranks) and its limits; then the phase's total
+    launches, which it returns.  Every run's line is printed before a
+    failed limit raises."""
+    from repro_torch.kernels.ops import LAUNCH_REPORT_PREFIX, launch_counts
+
+    launches = dict.fromkeys(launch_counts(), 0)
+    failures, t_phase = [], time.perf_counter()
+    for argv in EXAMPLE_RUNS:
+        name, run = argv[0], " ".join(argv)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as tmp:
+            extra = ("--ckpt-dir", str(Path(tmp) / "ckpt")) if name == "train_lm" else ()
+            timeout = EXAMPLE_TIMEOUT_S.get(name, EXAMPLE_DEFAULT_TIMEOUT_S)
+            rc, out, err, secs = _run_example(argv + extra, tmp, timeout)
+        reports = [json.JSONDecoder().raw_decode(out, m.end())[0]
+                   for m in re.finditer(LAUNCH_REPORT_PREFIX, out)]
+        mine = {k: sum(r["launches"].get(k, 0) for r in reports) for k in launches}
+        for k, v in mine.items():
+            launches[k] += v
+        printed = [ln for ln in out.splitlines()
+                   if ln.strip() and LAUNCH_REPORT_PREFIX not in ln]
+        rd = _example_readings(name, out)
+        bad = []
+        if rc != 0:
+            bad.append(f"exit code {rc} (None: over {timeout} s); stderr: {err[-2000:]}")
+        if name in EXAMPLE_OK and not any(ln.startswith(EXAMPLE_OK[name]) for ln in printed):
+            bad.append(f"no {EXAMPLE_OK[name]!r} line")
+        for label, v in rd["relerr"].items():
+            limit = EXAMPLE_RELERR_D05 if "d=0.5" in label else EXAMPLE_RELERR
+            if not v <= limit:
+                bad.append(f"{label}: relerr {v:.3e} > {limit:.0e}")
+        if name == "train_lm" and rc == 0 and not rd.get("final_loss", math.inf) < rd["losses"][0]:
+            bad.append(f"final loss {rd.get('final_loss')} is not below the first "
+                       f"{rd['losses'][0]}")
+        if name == "serve_lm" and rc == 0 and rd.get("served") != rd.get("sent"):
+            bad.append(f"served {rd.get('served')} of {rd.get('sent')} requests")
+        emit({"phase": "examples", "run": run, "seconds": secs, "rc": rc, "readings": rd,
+              "launches": {k: v for k, v in mine.items() if v}, "processes_reporting": len(reports),
+              "bcr_reached": [k for k in mine if k.startswith("bcr_") and mine[k]],
+              "printed": printed[:60], "failed": bad, "nvidia_smi": smi})
+        failures += [f"examples {run}: {b}" for b in bad]
+    never = [k for k in EXAMPLE_KERNELS if not launches[k]]
+    if never:
+        failures.append(f"examples: kernels {never} were never launched")
+    emit({"phase": "examples", "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "bcr_reached": [k for k in launches if k.startswith("bcr_") and launches[k]],
+          "limits": {"relerr": EXAMPLE_RELERR, "relerr_d05": EXAMPLE_RELERR_D05,
+                     "timeout_s": {**{a[0]: EXAMPLE_DEFAULT_TIMEOUT_S for a in EXAMPLE_RUNS},
+                                   **EXAMPLE_TIMEOUT_S}}})
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return launches
+
+
 def lm_bf16_scan_check(dev, cfg, fam, params, seed: int) -> dict:
     """One model with scan_dtype="bfloat16" against the same model with
     float32 scans, both computing in the model's bfloat16: five decode
@@ -3626,6 +3815,7 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: the port package is missing under {SRC}", file=sys.stderr)
         return 2
+    clock = PhaseClock()
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3694,6 +3884,7 @@ def main() -> int:
         "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
     })
 
+    clock.end("device")
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     ptxas = build.build_all()
@@ -3702,6 +3893,7 @@ def main() -> int:
     emit({"phase": "build", "sources": list(build.SOURCES), "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
 
+    clock.end("build")
     # ---- calibrate: the card's ceilings, measured in this run ------------------
     t0 = time.perf_counter()
     cal = calibrate.calibrate()
@@ -3741,6 +3933,7 @@ def main() -> int:
         return {"bound_ms": ms, "bound_by": by, "bound_ms_calibrated": ms_cal,
                 "bound_by_calibrated": by_cal}
 
+    clock.end("calibrate")
     # ---- 3. kernels against plain versions on the card ----------------------
     band_d1 = torch.tensor(random_banded(N, K, 1.0, seed=SEED).astype(np.float32), device=dev)
     bt = band_to_block_tridiag(band_d1, K, 64)
@@ -4158,6 +4351,7 @@ def main() -> int:
           "chain_coupling": coupling, "refused": refused, "flash_shapes": flash_shapes,
           "fleet_routes": fleet_routes})
 
+    clock.end("kernels_vs_plain")
     # ---- 4. the slices at full size ------------------------------------------
     rng = np.random.default_rng(SEED)
     xstar = torch.tensor(rng.normal(size=N), device=dev)
@@ -4305,6 +4499,7 @@ def main() -> int:
         raise AssertionError(f"E_bcr_p500 took {iterations['E_bcr_p500']} sweeps, "
                              f"C_p500 {iterations['C_p500']}")
 
+    clock.end("slices")
     # ---- trace: full() C, exact() E (BCR) and the sparse run under a Tracer --
     # Each case's warm calls, untraced and traced in turn (the first call
     # of all warms the plan): the span tree of the first traced call against
@@ -4409,6 +4604,7 @@ def main() -> int:
         if not traced_counts[nm]:
             raise AssertionError(f"trace: kernel {nm} was never launched: {traced_counts}")
 
+    clock.end("trace")
     # ---- distributed: the solver and the scans split over ranks ---------------
     # After phase trace: for seconds after the ranks' processes end, this
     # process's host times spread (calls read up to 1.6x their steady
@@ -4417,12 +4613,14 @@ def main() -> int:
     for nm in ("btf", "bts", "fused_factor_spike", "bcr_inv_odd"):
         totals[nm] += dist_launches[nm]
 
+    clock.end("distributed")
     # ---- dtypes: bfloat16 and float64 preconditioners, bfloat16 scans ----------
     # after phase trace, whose host-time ratios it would disturb
     dtype_launches, dtype_summary = dtype_phase(dev, smi, band_d1, band_d05, xstar, cal)
     del systems, band_d05, sparse_plan, a_sparse, csr
     torch.cuda.empty_cache()
 
+    clock.end("dtypes")
     # ---- the solver's serving path: fleet, batch_full, service ----------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -4620,6 +4818,7 @@ def main() -> int:
     check_folds("fleet", log, one_factor, one_bts)
     del eng, done, order, fleet_bands, fleet_b, fleet_x, x_got
 
+    clock.end("fleet")
     # cost: an engine with cost_accounting at fleet()'s shape, COST_S systems,
     # one miss step then one hit step: each stage's roofline seconds (the
     # calibrated ceilings) against the engine's measured seconds
@@ -4671,6 +4870,7 @@ def main() -> int:
     must_launch("cost", cost_counts, ("btf", "bts", "fused_factor_spike"))
     del ceng, cost_bands, done
 
+    clock.end("cost")
     # batch_full: full() (C) and exact() (E, BCR) at P=64, BATCH_S systems a
     # batch, against BATCH_S single-system factor / solve runs of the same
     # systems.  Exact rounding: the bucket is then each system's own split
@@ -4789,6 +4989,7 @@ def main() -> int:
         del bands, xs, bs, bmany, res, resm, rows
         torch.cuda.empty_cache()
 
+    clock.end("batch_full")
     # service: configs/sap_solver.py:service() through AsyncSolverService,
     # SERVICE_CLIENTS client threads submitting SERVICE_REQUESTS requests:
     # N, K and d drawn per request (several pow2 buckets, both dominance
@@ -4884,6 +5085,14 @@ def main() -> int:
     # both apply bts twice
     check_folds("service", log, {"btf": 1, "fused_factor_spike": 1}, 2)
     del svc, reqs, pool, by_req, solved, outs, futures
+    clock.end("service")
+
+    # ---- examples: the port's entry points, each run as a user runs it ----------
+    torch.cuda.empty_cache()
+    example_launches = examples_phase(smi)
+    for nm in totals:
+        totals[nm] += example_launches[nm]
+    clock.end("examples")
 
     # ---- lm. RWKV6-1.6B and Zamba2-2.7B at full width and depth ----------------
     import dataclasses
@@ -5075,7 +5284,7 @@ def main() -> int:
                 fam.forward(cfg, params, ptoks)
                 torch.cuda.synchronize()
                 prefill_ms.append((time.perf_counter() - t0) * 1e3)
-            # serving: 16 requests through 8 slots
+            # serving: LM_REQUESTS requests through LM_SLOTS slots
             prompts = [rng.integers(0, cfg.vocab, size=int(n)).tolist()
                        for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, size=LM_REQUESTS)]
             serve_line, serve_counts = serve(arch, cfg, params, prompts, other_bytes)
@@ -5106,6 +5315,7 @@ def main() -> int:
         del params
         torch.cuda.empty_cache()
 
+    clock.end("lm")
     # ---- dense. Minitron-8B at full width and depth ----------------------------
     cfg = get_config(DENSE_ARCH)
     fam = get_family(cfg)
@@ -5194,18 +5404,24 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    clock.end("dense")
     # ---- moe, vlm, encdec: the rest of the LM zoo ---------------------------------
     lm_launches["flash"] += zoo_phases(dev, get_config, get_family, reset, counts, serve,
                                        decode_window, prompts)
 
+    clock.end("moe_vlm_encdec")
     # ---- train: every loss's gradients through the kernels' Functions -------------
     for kernel, n in train_phase(dev, get_config, get_family, reset, counts).items():
         lm_launches[kernel] += n
 
+    clock.end("train")
     # ---- sharded: the LM loss and the ZeRO-1 step over a (data, model) mesh --------
     for kernel, n in sharded_phase(dev, smi, cal).items():
         lm_launches[kernel] += n
+    for kernel in ("wkv", "ssd", "flash"):
+        lm_launches[kernel] += example_launches[kernel]
 
+    clock.end("sharded")
     # ---- 5. timing at the main path's shapes ---------------------------------
     p, m, k = bt.p, bt.m, bt.k
     ref = bl.btf_ref(bt.d, bt.e, bt.f)
@@ -5634,6 +5850,8 @@ def main() -> int:
     for entry in dtype_summary:
         if entry["launches"] is None:
             entry["launches"] = dtype_launches[entry["name"].split("_")[0]].get("bfloat16", 0)
+    clock.end("timing")
+    clock.total()
     emit({"kernels": summary + dtype_summary})
     print(smi, flush=True)
     emit({

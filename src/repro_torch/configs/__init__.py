@@ -16,6 +16,7 @@ from . import (
     phi3_mini_3_8b,
     phi3_vision_4_2b,
     rwkv6_1_6b,
+    sap_solver,
     stablelm_1_6b,
     starcoder2_15b,
     whisper_medium,
@@ -34,6 +35,8 @@ ARCHS = {
     "phi-3-vision-4.2b": phi3_vision_4_2b,
     "whisper-medium": whisper_medium,
 }
+
+SOLVER_ARCHS = {"sap-solver": sap_solver}
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:

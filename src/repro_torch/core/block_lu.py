@@ -75,6 +75,13 @@ def gj_inverse(a: torch.Tensor, boost_eps: float = DEFAULT_BOOST) -> torch.Tenso
     return aug[..., k:].to(a.dtype)
 
 
+def gj_solve(a: torch.Tensor, b: torch.Tensor, boost_eps: float = DEFAULT_BOOST) -> torch.Tensor:
+    """Solve (..., K, K) @ x = (..., K, R) through the boosted inverse (small
+    systems), in the compute dtype of the wider of ``a`` and ``b``."""
+    cdt = compute_dtype(torch.promote_types(a.dtype, b.dtype))
+    return gj_inverse(a.to(cdt), boost_eps) @ b.to(cdt)
+
+
 # ---------------------------------------------------------------------------
 # Factorization
 # ---------------------------------------------------------------------------

@@ -61,6 +61,17 @@ from .krylov import _bicgstab2_block
 from .sap import SaPSolveResult, resolve_variant
 from .spike import _block_inverse
 
+
+def mesh_axes(mesh) -> tuple[str, ...]:
+    """The mesh's axis names (a :class:`~repro_torch.launch.mesh.Mesh`)."""
+    return tuple(mesh.axis_names)
+
+
+def n_devices(mesh) -> int:
+    """The number of mesh positions: one rank each."""
+    return int(mesh.size)
+
+
 # ---------------------------------------------------------------------------
 # Transport: permutations and all-reduces over the mesh's group
 # ---------------------------------------------------------------------------

@@ -17,6 +17,9 @@
 * ``drop_off``: removes smallest off-band elements subject to a fraction
   of the total absolute mass, to shrink the half-bandwidth (T_Drop).
 
+* ``third_stage``: the third-stage reordering (Sec. 4.3.2), a CM pass
+  inside each partition's diagonal block of the band.
+
 These run on the host (numpy), exactly as SaP::GPU runs its reordering
 stages partially on the CPU (hybrid strategy, Sec. 3.2-3.3).  This module
 is the JAX package's ``repro.core.reorder`` copied for the port (numpy and
@@ -433,3 +436,43 @@ def drop_off(csr: CSR, frac: float) -> Tuple[CSR, int]:
     keep = off <= k_new
     out = csr_from_coo(csr.n, rows[keep], csr.indices[keep], csr.data[keep])
     return out, k_new
+
+
+# ---------------------------------------------------------------------------
+# Third-stage reordering (Sec. 4.3.2): per-partition CM
+# ---------------------------------------------------------------------------
+
+
+def third_stage(
+    band: np.ndarray, k: int, p: int, part_size: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-partition CM reordering of the banded matrix.
+
+    ``band``: (N_pad, 2K+1) with N_pad = p * part_size.
+    Returns (global_perm, k_per_partition) where global_perm is the
+    concatenation of intra-partition permutations (new -> old, global ids)
+    and k_per_partition[i] is the half bandwidth of partition i after its
+    local reordering.
+    """
+    n_pad = band.shape[0]
+    if n_pad != p * part_size:
+        raise ValueError(f"band has {n_pad} rows, not p * part_size = {p * part_size}")
+    perm = np.empty(n_pad, dtype=np.int64)
+    k_i = np.zeros(p, dtype=np.int64)
+    for i in range(p):
+        lo, hi = i * part_size, (i + 1) * part_size
+        rows = np.arange(lo, hi)
+        rows_l, cols_l, vals = [], [], []
+        for j in range(2 * k + 1):  # the diagonal block's entries, column by column of the band
+            c = rows - k + j
+            ok = (c >= lo) & (c < hi) & (band[lo:hi, j] != 0.0)
+            rows_l.append(rows[ok] - lo)
+            cols_l.append(c[ok] - lo)
+            vals.append(band[lo:hi, j][ok])
+        block = csr_from_coo(
+            part_size, np.concatenate(rows_l), np.concatenate(cols_l), np.concatenate(vals)
+        )
+        local = cuthill_mckee(symmetrize(block))
+        perm[lo:hi] = local + lo
+        k_i[i] = half_bandwidth(permute_symmetric(block, local))
+    return perm, k_i

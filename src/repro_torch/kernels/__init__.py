@@ -6,3 +6,6 @@
 counter; :mod:`.ref` holds the plain versions of the two scan kernels and
 of flash attention; :mod:`.ops` is the public dispatch layer.
 """
+
+from . import ops, ref  # noqa: F401
+from .ops import block_tridiag_factor, block_tridiag_solve, ssd, wkv6  # noqa: F401

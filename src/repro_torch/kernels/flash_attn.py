@@ -34,7 +34,7 @@ import torch
 
 from . import build
 from ._launch import check_no_grad, stream_handle
-from .ref import flash_attention_ref
+from .ref import NEG_INF, flash_attention_ref  # noqa: F401  (the kernel's kNegInf)
 
 DTYPES = (torch.bfloat16, torch.float32)
 MAX_HEAD_DIM = 128

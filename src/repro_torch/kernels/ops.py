@@ -11,10 +11,20 @@ recurrences, and the contiguous operands of flash attention.  The three
 model kernels' entry points (``wkv6``, ``ssd``, ``flash_attention``) are
 differentiable: on the card a call whose operands require grad goes
 through its :mod:`.autograd` Function.
+
+With ``REPRO_TORCH_REPORT_LAUNCHES`` set in its environment, a process
+prints every wrapper's launch count at exit (:func:`launch_counts`, one
+line ``repro_torch launches {json}``), so that a parent can read the
+launches of an entry point it ran as a child; the counters are read, not
+changed.
 """
 
 from __future__ import annotations
 
+import atexit
+import json
+import os
+import sys
 from typing import Optional
 
 import torch
@@ -29,6 +39,31 @@ from .flash_attn import flash_attention as _flash
 from .fused_spike import fused_factor_spike as _fused
 from .ssd import ssd as _ssd
 from .wkv import wkv6 as _wkv6
+
+
+REPORT_LAUNCHES_ENV = "REPRO_TORCH_REPORT_LAUNCHES"
+LAUNCH_REPORT_PREFIX = "repro_torch launches "
+
+
+def launch_counts() -> dict[str, int]:
+    """This process's launches by kernel wrapper (the wrappers' counters)."""
+    wrappers = {"btf": btf, "bts": bts, "fused_factor_spike": _fused,
+                "bcr_inv_odd": bcr.inv_odd, "bcr_reduce": bcr.reduce,
+                "bcr_rhs_reduce": bcr.rhs_reduce, "bcr_backsub": bcr.backsub,
+                "wkv": _wkv6, "ssd": _ssd, "flash": _flash}
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def _report_launches() -> None:
+    # one write of the whole line: ranks that share the parent's stdout
+    # end together, and a pipe keeps a write of under 4 KiB in one piece
+    line = LAUNCH_REPORT_PREFIX + json.dumps({"pid": os.getpid(), "launches": launch_counts()})
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(), (line + "\n").encode())
+
+
+if os.environ.get(REPORT_LAUNCHES_ENV):
+    atexit.register(_report_launches)
 
 
 # A 5-D input carries a leading *system* axis (S, P, M, K, ...): a fleet of

@@ -5,6 +5,6 @@ and the dense, MoE and VLM-stub transformers and the whisper
 encoder-decoder, whose prompt passes run their attention on the
 hand-written flash kernel (:mod:`repro_torch.kernels.flash_attn`)."""
 
-from .api import ModelConfig, get_family
+from .api import SHAPES, ModelConfig, ShapeSpec, dp_axes, get_family, supports_shape
 
-__all__ = ["ModelConfig", "get_family"]
+__all__ = ["SHAPES", "ModelConfig", "ShapeSpec", "dp_axes", "get_family", "supports_shape"]

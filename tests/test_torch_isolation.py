@@ -76,6 +76,9 @@ def test_port_files_are_found():
             "src/repro_torch/models/sequence_parallel.py",
             "src/repro_torch/launch/sharding.py", "src/repro_torch/models/sharded.py",
             "src/repro_torch/models/tensor_parallel.py"} <= rel
+    assert {f"src/repro_torch/examples/{name}.py" for name in (
+        "__init__", "quickstart", "fleet_solve", "serve_async", "traced_solve",
+        "distributed_solve", "serve_lm", "train_lm")} <= rel
 
 
 def test_obs_and_launch_load_neither_jax_nor_the_reference_package():
