@@ -1,0 +1,13 @@
+"""Preconditioner applies a Krylov run, over the traced process: the
+program's ``precond_applies`` counter over its ``solves`` counter
+(``repro_torch.obs.trace.counters``), the warm-up's requests included.
+None where the program has no such counters or ran no solve."""
+
+
+def read(ctx):
+    try:
+        from repro_torch.obs.trace import counters
+    except ImportError:
+        return None
+    c = counters()
+    return c["precond_applies"] / c["solves"] if c.get("solves") else None

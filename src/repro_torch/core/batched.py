@@ -64,14 +64,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..obs.trace import quiet, span
+from ..kernels import ops as kops
+from ..obs.trace import count, quiet, span
 from .banded import band_to_block_tridiag, diag_dominance_factor
 from .operators import BandedOperator
 from .sap import (
     SaPFactorization,
     SaPOptions,
     SaPSolveResult,
-    _convergence_summary,
+    _annotate_solve,
     _dtype,
     _solve_impl,
     _tensor,
@@ -414,6 +415,7 @@ class BatchedSaPFactorization:
                 f"got {tuple(b.shape)}"
             )
         with span("krylov", s=self.s, n=self.n, k=self.k, variant=self.variant) as sp:
+            launched = kops.launch_counts() if sp else None
             res = _solve_impl(self.fac, b[..., None], record_history)
             res = sp.sync(SaPSolveResult(
                 x=res.x[..., 0],
@@ -425,7 +427,7 @@ class BatchedSaPFactorization:
                 history=None if res.history is None else res.history[:, 0],
             ))
         if sp:
-            sp.annotate(convergence=_convergence_summary(res))
+            _annotate_solve(sp, res, launched)
         return res
 
     def solve_batch_many(self, b, record_history: bool = False) -> SaPSolveResult:
@@ -438,9 +440,10 @@ class BatchedSaPFactorization:
             )
         with span("krylov", s=self.s, n=self.n, k=self.k, variant=self.variant,
                   nrhs=int(b.shape[2])) as sp:
+            launched = kops.launch_counts() if sp else None
             res = sp.sync(_solve_impl(self.fac, b, record_history))
         if sp:
-            sp.annotate(convergence=_convergence_summary(res))
+            _annotate_solve(sp, res, launched)
         return res
 
 
@@ -502,6 +505,7 @@ def batch_factor(bpl: BatchedSaPPlan) -> BatchedSaPFactorization:
     opts = bpl.opts
     variant = opts.variant
     if variant == "auto":
+        count("host_syncs")
         variant = resolve_variant("auto", float(diag_dominance_factor(bpl.bands).min()))
     with span("factor.batch", s=bpl.s, n=bpl.n, k=bpl.k, p=opts.p, variant=variant) as sp:
         pc, d_factors = _factor_stages(bpl.bands, bpl.k, opts.p, variant, opts)

@@ -17,6 +17,13 @@ single-RHS forms are the R = 1 case with ``matvec`` / ``precond`` called on
 (N,) vectors.  The loop checks once per sweep, on the host, whether any
 column is still active.
 
+Inside the ``krylov`` span the loop opens host-only sub-spans:
+``krylov.start`` (the initial residual and ``||b||``), ``krylov.sweep``
+(one sweep), ``krylov.check`` (the selects after a sweep and the host
+read of whether any column is active) and ``krylov.finish`` (the exit
+norms and the true residual); each host read adds to the ``host_syncs``
+counter of :mod:`repro_torch.obs.trace`.
+
 BiCGStab(2)'s block solver takes an optional ``allreduce``: with it, each process
 holds its own rows of the vectors (:mod:`repro_torch.core.distributed`),
 and every dot product and norm is summed over the processes before use.
@@ -29,6 +36,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
+from ..obs.trace import count, span
 from .operators import LinearOperator, as_matvec
 
 MatVec = Union[Callable[[torch.Tensor], torch.Tensor], LinearOperator]
@@ -107,18 +115,24 @@ def _iterate(state: dict, step, maxiter: int, record_history: bool, bnorm: torch
             (bnorm.shape[0], maxiter), float("nan"), dtype=bnorm.dtype, device=bnorm.device
         )
     sweep = 0  # every active column has run exactly `sweep` whole sweeps
+    new = None
     while True:
-        active = (~state["done"]) & (state["it"] < maxiter)
-        if not bool(active.any()):
+        with span("krylov.check"):
+            if new is not None:
+                state = {
+                    name: torch.where(active if old.ndim == 1 else active[None, :], new[name], old)
+                    for name, old in state.items()
+                }
+                if hist is not None:
+                    hist[:, sweep] = torch.where(active, norm(state["r"]) / bnorm, hist[:, sweep])
+                sweep += 1
+            active = (~state["done"]) & (state["it"] < maxiter)
+            count("host_syncs")
+            go = bool(active.any())
+        if not go:
             return state, hist
-        new = step(state)
-        state = {
-            name: torch.where(active if old.ndim == 1 else active[None, :], new[name], old)
-            for name, old in state.items()
-        }
-        if hist is not None:
-            hist[:, sweep] = torch.where(active, norm(state["r"]) / bnorm, hist[:, sweep])
-        sweep += 1
+        with span("krylov.sweep"):
+            new = step(state)
 
 
 def _select(c: torch.Tensor, a: dict, b: dict) -> dict:
@@ -143,9 +157,11 @@ def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history, allreduce=None
     def op(v):
         return pc(mv(v)).to(dtype)
 
-    x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
-    r0 = pc(b - mv(x)).to(dtype)
-    bnorm = _nonzero(norm(pc(b).to(dtype)))
+    with span("krylov.start"):
+        x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
+        r0 = pc(b - mv(x)).to(dtype)
+        bnorm = _nonzero(norm(pc(b).to(dtype)))
+        done = norm(r0) <= tol * bnorm
     rtilde = r0
     eps = 1e-300 if dtype == torch.float64 else 1e-30
     ratio_eps = (50 * torch.finfo(dtype).eps) ** 2
@@ -222,18 +238,18 @@ def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history, allreduce=None
     ones = torch.ones((nr,), dtype=dtype, device=b.device)
     state = dict(
         x=x, r=r0, u=torch.zeros_like(b), rho=ones, omega=ones.clone(),
-        alpha=torch.zeros_like(ones), it=torch.zeros_like(ones),
-        done=norm(r0) <= tol * bnorm,
+        alpha=torch.zeros_like(ones), it=torch.zeros_like(ones), done=done,
     )
     state, hist = _iterate(state, step, maxiter, record_history, bnorm, norm)
-    return KrylovResult(
-        x=state["x"],
-        iterations=state["it"],
-        resnorm=norm(state["r"]) / bnorm,
-        converged=state["done"],
-        true_resnorm=_true_resnorm(mv, b, state["x"], norm),
-        history=hist,
-    )
+    with span("krylov.finish"):
+        return KrylovResult(
+            x=state["x"],
+            iterations=state["it"],
+            resnorm=norm(state["r"]) / bnorm,
+            converged=state["done"],
+            true_resnorm=_true_resnorm(mv, b, state["x"], norm),
+            history=hist,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -243,10 +259,11 @@ def _bicgstab2_block(mv, b, pc, x0, tol, maxiter, record_history, allreduce=None
 
 def _cg_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResult:
     dtype = b.dtype
-    x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
-    r = b - mv(x)
-    z = pc(r).to(dtype)
-    bnorm = _nonzero(_norm(b))
+    with span("krylov.start"):
+        x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
+        r = b - mv(x)
+        z = pc(r).to(dtype)
+        bnorm = _nonzero(_norm(b))
     zero = torch.zeros((), dtype=dtype, device=b.device)
 
     def step(s):
@@ -269,14 +286,15 @@ def _cg_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResult:
         done=_norm(r) <= tol * bnorm,
     )
     state, hist = _iterate(state, step, maxiter, record_history, bnorm)
-    return KrylovResult(
-        x=state["x"],
-        iterations=state["it"],
-        resnorm=_norm(state["r"]) / bnorm,
-        converged=state["done"],
-        true_resnorm=_true_resnorm(mv, b, state["x"]),
-        history=hist,
-    )
+    with span("krylov.finish"):
+        return KrylovResult(
+            x=state["x"],
+            iterations=state["it"],
+            resnorm=_norm(state["r"]) / bnorm,
+            converged=state["done"],
+            true_resnorm=_true_resnorm(mv, b, state["x"]),
+            history=hist,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -290,9 +308,10 @@ def _refine_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResult:
     preconditioner's dtype and applied in the dtype of ``b``.  The
     controlled residual IS the true residual."""
     dtype = b.dtype
-    x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
-    r = b - mv(x).to(dtype)
-    bnorm = _nonzero(_norm(b))
+    with span("krylov.start"):
+        x = torch.zeros_like(b) if x0 is None else x0.to(dtype)
+        r = b - mv(x).to(dtype)
+        bnorm = _nonzero(_norm(b))
 
     def step(s):
         x = s["x"] + pc(s["r"]).to(dtype)
@@ -304,14 +323,15 @@ def _refine_block(mv, b, pc, x0, tol, maxiter, record_history) -> KrylovResult:
         done=_norm(r) <= tol * bnorm,
     )
     state, hist = _iterate(state, step, maxiter, record_history, bnorm)
-    return KrylovResult(
-        x=state["x"],
-        iterations=state["it"],
-        resnorm=_norm(state["r"]) / bnorm,
-        converged=state["done"],
-        true_resnorm=_true_resnorm(mv, b, state["x"]),
-        history=hist,
-    )
+    with span("krylov.finish"):
+        return KrylovResult(
+            x=state["x"],
+            iterations=state["it"],
+            resnorm=_norm(state["r"]) / bnorm,
+            converged=state["done"],
+            true_resnorm=_true_resnorm(mv, b, state["x"]),
+            history=hist,
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..obs.trace import span
+from ..kernels import ops as kops
+from ..obs.trace import count, device_span, span
 from . import reorder as reorder_mod
 from .banded import band_to_block_tridiag, diag_dominance_factor
 from .block_lu import DEFAULT_BOOST
@@ -178,10 +179,12 @@ def plan_banded(band, opts: Optional[SaPOptions] = None, device=None) -> SaPPlan
     """
     opts = opts or SaPOptions()
     dev = resolve_device(device)
-    if isinstance(band, BandedOperator):
-        band = band.band
-    band = _tensor(band).to(dev)
-    op = BandedOperator.from_band(band)
+    with span("plan", banded=True) as sp:
+        if isinstance(band, BandedOperator):
+            band = band.band
+        band = _tensor(band).to(dev)
+        op = BandedOperator.from_band(band)
+        sp.annotate(n=op.n, k=op.k)
     return SaPPlan(
         op=op,
         band_pc=band,
@@ -289,6 +292,7 @@ class SaPFactorization:
         """Solve A x = b for a single RHS of shape (N,)."""
         b = self._rhs(b, 1)
         with span("krylov", n=self.n, k=self.k, p=self.p, variant=self.variant, nrhs=1) as sp:
+            launched = kops.launch_counts() if sp else None
             res = _solve_impl(self, b[:, None], record_history)
             res = sp.sync(SaPSolveResult(
                 x=res.x[:, 0],
@@ -300,7 +304,7 @@ class SaPFactorization:
                 history=None if res.history is None else res.history[0],
             ))
         if sp:
-            sp.annotate(convergence=_convergence_summary(res))
+            _annotate_solve(sp, res, launched)
         return res
 
     def solve_many(self, b, record_history: bool = False) -> SaPSolveResult:
@@ -308,9 +312,10 @@ class SaPFactorization:
         b = self._rhs(b, 2)
         with span("krylov", n=self.n, k=self.k, p=self.p, variant=self.variant,
                   nrhs=int(b.shape[1])) as sp:
+            launched = kops.launch_counts() if sp else None
             res = sp.sync(_solve_impl(self, b, record_history))
         if sp:
-            sp.annotate(convergence=_convergence_summary(res))
+            _annotate_solve(sp, res, launched)
         return res
 
 
@@ -333,14 +338,20 @@ def resolve_variant(variant: str, d_factor: float) -> str:
 
 
 def factor(pl: SaPPlan) -> SaPFactorization:
-    """Factor the SaP preconditioner from a plan (T_LU .. T_SPIKE)."""
+    """Factor the SaP preconditioner from a plan (T_LU .. T_SPIKE).
+
+    The ``factor`` span waits for the card at its close; its sub-spans
+    are timed on the card by CUDA-event pairs and wait for nothing."""
     opts = pl.opts
     with span("factor", n=pl.n, k=pl.k, p=opts.p) as sp:
+        launched = kops.launch_counts() if sp else None
         d_factor = diag_dominance_factor(pl.band_pc)
-        variant = resolve_variant(opts.variant, float(d_factor))
-        sp.annotate(variant=variant, d_factor=float(d_factor))
-        with span("factor.split") as ssp:
-            bt = ssp.sync(band_to_block_tridiag(pl.band_pc, max(pl.k, 1), opts.p))
+        count("host_syncs")
+        d_host = float(d_factor)
+        variant = resolve_variant(opts.variant, d_host)
+        sp.annotate(variant=variant, d_factor=d_host)
+        with device_span("factor.split", pl.band_pc.device):
+            bt = band_to_block_tridiag(pl.band_pc, max(pl.k, 1), opts.p)
         pc = build_preconditioner(
             bt,
             variant=variant,
@@ -350,6 +361,8 @@ def factor(pl: SaPPlan) -> SaPFactorization:
             fused=opts.fused_factor,
         )
         sp.sync(pc)
+        if sp:
+            sp.annotate(launches=_launches_since(launched))
     dev = pl.band_pc.device
 
     def to_idx(perm):
@@ -388,7 +401,12 @@ def _solve_impl(
     sweep for the whole batch.  Every column keeps its own scalars and
     freezes on its own exit -- the semantics of the JAX package's vmapped
     solve -- so the per-system results (S, R) are what S separate solves
-    report."""
+    report.
+
+    Inside the caller's ``krylov`` span each preconditioner apply (with
+    its pad and unpad) is a ``krylov.precond`` span and each band matvec a
+    ``krylov.matvec`` span; the call counts one of ``solves``."""
+    count("solves")
     b = bmat.to(_resolve_iter_dtype(bmat.dtype, fac.iter_dtype))
     n, n_pad = fac.n, fac.n_pad
     if b.ndim == 2:
@@ -413,13 +431,15 @@ def _solve_impl(
             return v.reshape(v.shape[0], s, r).transpose(0, 1)
 
     def precond(v):
-        z = systems(v)
-        if n_pad != n:
-            z = torch.cat([z, z.new_zeros(z.shape[:-2] + (n_pad - n, r))], dim=-2)
-        return cols(fac.pc.apply(z)[..., :n, :])
+        with span("krylov.precond"):
+            z = systems(v)
+            if n_pad != n:
+                z = torch.cat([z, z.new_zeros(z.shape[:-2] + (n_pad - n, r))], dim=-2)
+            return cols(fac.pc.apply(z)[..., :n, :])
 
     def matvec(v):
-        return cols(fac.op.matvec(systems(v)))
+        with span("krylov.matvec"):
+            return cols(fac.op.matvec(systems(v)))
 
     if fac.solver == "refine":
         block = _refine_block
@@ -451,15 +471,33 @@ def _solve_impl(
     )
 
 
-def _convergence_summary(res: SaPSolveResult) -> dict:
+def _launches_since(before: dict) -> dict:
+    """Kernel launches by wrapper since ``before`` (a ``launch_counts()``
+    snapshot), the wrappers that launched."""
+    return {name: n - before[name] for name, n in kops.launch_counts().items()
+            if n != before[name]}
+
+
+def _annotate_solve(sp, res: SaPSolveResult, launched: dict) -> None:
+    """A ``krylov`` span's attributes: the kernel launches since
+    ``launched``, and the convergence digest deferred to the span's first
+    read (the traced solve makes no host read for it).  The digest holds
+    the per-column scalars, never x."""
+    its, conv, rnorm, hist = res.iterations, res.converged, res.resnorm, res.history
+    sp.annotate(launches=_launches_since(launched))
+    sp.defer("convergence", lambda: _convergence_summary(its, conv, rnorm, hist))
+
+
+def _convergence_summary(iterations: torch.Tensor, converged: torch.Tensor,
+                         resnorm: torch.Tensor, history: Optional[torch.Tensor]) -> dict:
     """Host-side convergence digest for the ``krylov`` span attribute."""
     out = {
-        "iterations": float(res.iterations.max()),
-        "converged": bool(res.converged.all()),
-        "resnorm": float(res.resnorm.max()),
+        "iterations": float(iterations.max()),
+        "converged": bool(converged.all()),
+        "resnorm": float(resnorm.max()),
     }
-    if res.history is not None:
-        hist = res.history.cpu().numpy()
+    if history is not None:
+        hist = history.cpu().numpy()
         hist = hist.reshape(-1, hist.shape[-1])
         firsts, lasts, recorded, stalled = [], [], 0, False
         for row in hist:

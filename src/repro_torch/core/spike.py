@@ -47,7 +47,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops as kops
-from ..obs.trace import span
+from ..obs.trace import count, device_span
 from .banded import BlockTridiag
 from .block_lu import DEFAULT_BOOST, BTFactors, flip_block_tridiag
 from .cyclic_reduction import BCRFactors, resolve_reduced_solver
@@ -87,7 +87,9 @@ class SaPPreconditioner:
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """Apply M^{-1} to a (padded) residual of shape (P*M*K,) or
-        (P*M*K, R); for a fleet, (S, P*M*K, R)."""
+        (P*M*K, R); for a fleet, (S, P*M*K, R).  Counts one of
+        ``precond_applies``."""
+        count("precond_applies")
         dtype = self.lu.sinv.dtype
         lead = self.lu.sinv.shape[:-4]
         rb = r.to(dtype).reshape(lead + (self.p, self.m, self.k, -1)).contiguous()
@@ -233,19 +235,22 @@ def build_preconditioner(
     # the route the kernels take: the CUDA kernels for tensors on the card,
     # the plain versions otherwise (the JAX package's ``impl``)
     impl = "cuda" if d.is_cuda else "torch"
+    # each stage is a span timed on the card (``device_s``) that waits for
+    # nothing; the caller's ``factor`` span waits once, at its close
+    dev = d.device
     if use_fused:
-        with span("factor.fused", p=bt.p, m=bt.m, k=bt.k, variant=variant, impl=impl) as sp:
+        with device_span("factor.fused", dev, p=bt.p, m=bt.m, k=bt.k, variant=variant,
+                         impl=impl):
             fs = kops.fused_factor_spike(d, e, f, b_cpl, c_cpl, boost_eps)
             lu = fs.lu
             v_bot, w_top, v_top, w_bot = fs.v_bot, fs.w_top, fs.v_top, fs.w_bot
-            sp.sync((lu, v_bot, w_top, v_top, w_bot))
     else:
-        with span("factor.lu", p=bt.p, m=bt.m, k=bt.k, impl=impl) as sp:
-            lu = sp.sync(kops.block_tridiag_factor(d, e, f, boost_eps))
+        with device_span("factor.lu", dev, p=bt.p, m=bt.m, k=bt.k, impl=impl):
+            lu = kops.block_tridiag_factor(d, e, f, boost_eps)
 
     if variant in ("C", "E") and bt.p > 1:
         if not use_fused:
-            with span("factor.spike", variant=variant, mode=spike_mode) as sp:
+            with device_span("factor.spike", dev, variant=variant, mode=spike_mode):
                 if variant == "C" and spike_mode == "ul":
                     # V_i^(b) = Sinv_i[M-1] @ B_i  for i = 0..P-2
                     v_bot = lu.sinv[..., :-1, -1, :, :] @ b_cpl
@@ -263,20 +268,19 @@ def build_preconditioner(
                     rhs_c[..., 1:, 0, :, :] = c_cpl
                     w_full = kops.block_tridiag_solve(lu, rhs_c)
                     w_top, w_bot = w_full[..., 1:, 0, :, :], w_full[..., 1:, -1, :, :]
-                sp.sync((v_bot, w_top, v_top, w_bot))
         if variant == "C":
-            with span("factor.reduced", solver="truncated") as sp:
+            with device_span("factor.reduced", dev, solver="truncated"):
                 eye = torch.eye(bt.k, dtype=d.dtype, device=d.device)
-                rbar_inv = sp.sync(_block_inverse(eye - w_top @ v_bot, boost_eps))
+                rbar_inv = _block_inverse(eye - w_top @ v_bot, boost_eps)
         else:
             # exact reduced system: a (P-1)-long chain of 2K x 2K blocks,
             # factored by the sequential sweep or by block cyclic reduction
-            with span("factor.reduced", solver=reduced_solver) as sp:
+            with device_span("factor.reduced", dev, solver=reduced_solver):
                 rd, re, rf = _reduced_interface_system(v_bot, v_top, w_top, w_bot)
                 if reduced_solver == "bcr":
-                    red_bcr = sp.sync(kops.bcr_factor(rd, re, rf, boost_eps))
+                    red_bcr = kops.bcr_factor(rd, re, rf, boost_eps)
                 else:
-                    red_lu = sp.sync(kops.block_tridiag_factor_chain(rd, re, rf, boost_eps))
+                    red_lu = kops.block_tridiag_factor_chain(rd, re, rf, boost_eps)
     elif variant in ("C", "E"):
         variant = "D"  # single partition: coupled/exact == decoupled
 

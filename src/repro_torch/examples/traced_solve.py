@@ -5,8 +5,11 @@ reordering, block-LU + SPIKE factorization, BiCGStab(2) iteration -- on a
 shuffled sparse system in the non-dominant regime (d < 1, so ``auto``
 resolves to variant E and the exact reduced system appears in the trace),
 under an active :class:`repro_torch.obs.Tracer`.  Prints the merged stage
-tree and the Krylov convergence history, then writes a Chrome/Perfetto
-trace_event JSON -- open it at https://ui.perfetto.dev.
+tree (with the card's time of each factor stage, ``device_s``: the stage
+spans under ``factor`` no longer wait for the card, so their host times
+are the launches'), the Krylov convergence history and the solver's
+counters, then writes a Chrome/Perfetto trace_event JSON -- open it at
+https://ui.perfetto.dev.
 
     PYTHONPATH=src python -m repro_torch.examples.traced_solve [--smoke] [--out DIR]
 """
@@ -23,7 +26,7 @@ import torch
 from repro_torch.core import SaPOptions, factor, plan
 from repro_torch.core.sparse import random_sparse
 from repro_torch.examples import add_device_flag, resolve_device
-from repro_torch.obs import Tracer, use_tracer
+from repro_torch.obs import Tracer, counters, use_tracer
 
 
 def main(argv=None) -> int:
@@ -46,10 +49,14 @@ def main(argv=None) -> int:
     b = torch.tensor(dense @ xstar, dtype=torch.float32, device=dev)
     opts = SaPOptions(p=8, variant="auto", tol=1e-8, maxiter=300)
 
-    tracer = Tracer()  # device_sync=True: spans wait for the card's results
+    # factor and krylov wait for the card as they close; the factor's stage
+    # spans are timed on the card by CUDA-event pairs (device_s)
+    tracer = Tracer()
+    before = counters()
     with use_tracer(tracer):
         fac = factor(plan(csr, opts, dev))
         res = fac.solve(b, record_history=True)
+    steps = {k: v - before[k] for k, v in counters().items()}
 
     err = np.linalg.norm(res.x.cpu().numpy() - xstar) / np.linalg.norm(xstar)
     hist = res.history.cpu().numpy()
@@ -58,8 +65,13 @@ def main(argv=None) -> int:
           f"iters={float(res.iterations):.2f}  relerr={err:.2e}")
     print(f"convergence history ({track.size} sweeps): "
           f"{track[0]:.3e} -> {track[-1]:.3e}")
+    print(f"counters: {steps}")
     print()
     print(tracer.summary())
+    print()
+    for sp in tracer.find("factor")[0].children:
+        dev_t = "not timed (CPU)" if sp.device_s is None else f"{sp.device_s * 1e3:.3f} ms"
+        print(f"{sp.name:<16} host {sp.duration_s * 1e3:8.3f} ms   device {dev_t}")
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -31,6 +31,7 @@ import torch
 
 from ..core.block_lu import DEFAULT_BOOST, BTFactors, FusedSpikeFactors, pad_couplings
 from ..core.cyclic_reduction import BCRFactors, BCRLevel, pad_chain, pad_rhs
+from ..obs.trace import span
 from . import autograd as kgrad
 from . import bcr
 from .btf import btf
@@ -171,7 +172,8 @@ def bcr_factor(
     system has its root block; the S roots are inverted in one ``inv_odd``
     launch, at the odd places of a chain that interleaves them with
     identity blocks.  Every level of the factors carries the system axis,
-    (S, m_l / 2, K, K), and the roots are (S, K, K).
+    (S, m_l / 2, K, K), and the roots are (S, K, K).  Each level is a
+    host span ``factor.reduced.level`` (attribute ``level``, from 0).
     """
     if d.ndim == 3:
         fac = bcr_factor(d[None], e[None], f[None], boost_eps)
@@ -182,11 +184,12 @@ def bcr_factor(
     d, e, f = (torch.cat(t).contiguous() for t in zip(*padded))  # (S * 2^L, K, K)
     levels = []
     while d.shape[0] > s:
-        a_odd = bcr.inv_odd(d, boost_eps)
-        lo, hi, d_next, e_next, f_next = bcr.reduce(d, e, f, a_odd)
-        lv = (lo, hi, a_odd, e[1::2].contiguous(), f[1::2].contiguous())
-        levels.append(BCRLevel(*(t.reshape(s, -1, k, k) for t in lv)))
-        d, e, f = d_next, e_next, f_next
+        with span("factor.reduced.level", level=len(levels)):
+            a_odd = bcr.inv_odd(d, boost_eps)
+            lo, hi, d_next, e_next, f_next = bcr.reduce(d, e, f, a_odd)
+            lv = (lo, hi, a_odd, e[1::2].contiguous(), f[1::2].contiguous())
+            levels.append(BCRLevel(*(t.reshape(s, -1, k, k) for t in lv)))
+            d, e, f = d_next, e_next, f_next
     eye = torch.eye(k, dtype=d.dtype, device=d.device).expand(s, k, k)
     root_inv = bcr.inv_odd(torch.stack([eye, d], dim=1).reshape(2 * s, k, k), boost_eps)
     return BCRFactors(levels=tuple(levels), root_inv=root_inv, m=m)

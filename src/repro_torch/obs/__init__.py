@@ -11,6 +11,9 @@ from .trace import (
     NULL_SPAN,
     Span,
     Tracer,
+    count,
+    counters,
+    device_span,
     get_tracer,
     quiet,
     record,
@@ -23,7 +26,10 @@ __all__ = [
     "Span",
     "StageCost",
     "Tracer",
+    "count",
+    "counters",
     "device_memory_bytes",
+    "device_span",
     "get_tracer",
     "hardware_spec",
     "quiet",

@@ -14,7 +14,10 @@ factorization, or Krylov iteration?  Usage:
     tracer.export_chrome("trace.json")   # open at ui.perfetto.dev
 
 The JAX package's ``repro.obs.trace`` ported to torch, with the same API
-and semantics.  Design constraints:
+and semantics, and three additions of the port's own: timestamps on the
+profiler's clock, spans timed on the card by a CUDA-event pair
+(:func:`device_span`), and process-wide counters (:func:`counters`).
+Design constraints:
 
 - **Zero overhead when disabled.**  The module-level ``span()`` helper
   returns a shared no-op singleton when no tracer is active (one global
@@ -29,11 +32,31 @@ and semantics.  Design constraints:
 - **Thread-safe.**  Span nesting is tracked per-thread (the async serving
   drain thread traces concurrently with client threads); finished roots
   are collected under a lock.
-- **Honest device timing.**  Kernel launches return before the card has
-  run them; a span that launches device work calls ``sp.sync(result)``,
-  and at span exit it records a CUDA event on the current stream of the
-  result's device and waits for it before taking the end timestamp.
-  A result holding no CUDA tensor (the CPU path) waits for nothing.
+- **One clock with the device trace.**  Span timestamps are integer
+  nanoseconds of the Unix epoch (``time.time_ns``), the clock that
+  ``torch.profiler`` anchors its events to, so a span lies over the
+  ``record_function`` range of the same name in a profile of the same
+  run, and the Chrome export's ``ts`` (microseconds of the epoch) over the
+  events of the profiler's export (whose ``ts`` count from its
+  ``baseTimeNanoseconds``).
+- **Honest device timing, and no wait that the untraced run lacks below
+  the stage spans.**  Kernel launches return before the card has run
+  them; a stage span (``factor``, ``krylov``) that launches device work
+  calls ``sp.sync(result)``, and at span exit it records a CUDA event on
+  the current stream of the result's device and waits for it before
+  taking the end timestamp.  A span opened by :func:`device_span` waits
+  for nothing: it records a CUDA event on the stream at open and at
+  close, and reads the pair's elapsed time (``Span.device_s``) only when
+  the span is read.  Attributes attached with ``Span.defer`` (the
+  ``krylov`` span's convergence digest) are computed when first read too,
+  so tracing adds no host read of device state to the traced code.  A
+  result holding no CUDA tensor (the CPU path) waits for nothing and has
+  no device time.
+- **Counters beside the spans.**  :func:`count` adds to a process-wide
+  integer counter whether or not a tracer is active; :func:`counters`
+  returns a snapshot.  The solver counts its Krylov runs (``solves``),
+  its host reads of device state (``host_syncs``) and its preconditioner
+  applies (``precond_applies``).
 """
 
 from __future__ import annotations
@@ -51,6 +74,9 @@ __all__ = [
     "NULL_SPAN",
     "Span",
     "Tracer",
+    "count",
+    "counters",
+    "device_span",
     "get_tracer",
     "quiet",
     "record",
@@ -107,6 +133,22 @@ def _wait_for_card(value: Any) -> None:
         ev.synchronize()
 
 
+def _profiler_range(name: str):
+    """A ``torch.profiler`` range of ``name`` as a context manager: the
+    C++ guard where torch has it (one recorded event, no operator calls:
+    under a profiler ``record_function`` costs two recorded operator calls
+    more a range), else ``record_function``."""
+    fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
+    return fast(name) if fast is not None else torch.profiler.record_function(name)
+
+
+def _record_event(device: torch.device):
+    """A timing CUDA event recorded now on ``device``'s current stream."""
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 def _jsonable(v: Any) -> Any:
     """Coerce an attribute value to something the trace_event format accepts."""
     if isinstance(v, bool) or v is None or isinstance(v, str):
@@ -145,6 +187,10 @@ class _NullSpan:
         """No-op; mirrors Span.annotate."""
         return self
 
+    def defer(self, name: str, fn: Callable[[], Any]) -> "_NullSpan":
+        """No-op; mirrors Span.defer (``fn`` is never called)."""
+        return self
+
     def sync(self, value: Any) -> Any:
         """No-op passthrough; mirrors Span.sync."""
         return value
@@ -154,32 +200,67 @@ class _NullSpan:
         """Always 0.0 for the disabled span."""
         return 0.0
 
+    @property
+    def device_s(self) -> None:
+        """Always None for the disabled span."""
+        return None
+
 
 NULL_SPAN = _NullSpan()
 
 
 class Span:
-    """A timed, attributed region.  Created via ``Tracer.span`` / ``span()``."""
+    """A timed, attributed region.  Created via ``Tracer.span`` / ``span()``
+    or ``Tracer.device_span`` / ``device_span()``.
 
-    __slots__ = ("name", "attrs", "t0", "t1", "tid", "children", "_tracer", "_pending", "_ann")
+    ``t0`` / ``t1`` are the tracer's clock (Unix-epoch nanoseconds by
+    default); ``device_s`` is the card's time between the span's open and
+    close (a device span on a CUDA device) or None.
+    """
 
-    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any]):
+    __slots__ = ("name", "_attrs", "t0", "t1", "tid", "children", "_tracer", "_pending", "_ann",
+                 "_device", "_events", "_device_s", "_deferred")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any],
+                 device: Optional[torch.device] = None):
         self.name = name
-        self.attrs = attrs
-        self.t0 = 0.0
-        self.t1 = 0.0
+        self._attrs = attrs
+        self.t0 = 0
+        self.t1 = 0
         self.tid = 0
         self.children: List[Span] = []
         self._tracer = tracer
         self._pending: Any = None
         self._ann = None
+        self._device = device if device is not None and device.type == "cuda" else None
+        self._events: Optional[tuple] = None
+        self._device_s: Optional[float] = None
+        self._deferred: Optional[Dict[str, Callable[[], Any]]] = None
 
     def __bool__(self) -> bool:
         return True
 
+    @property
+    def attrs(self) -> Dict[str, Any]:
+        """The span's attributes, deferred ones computed on this first read."""
+        if self._deferred:
+            deferred, self._deferred = self._deferred, None
+            for name, fn in deferred.items():
+                self._attrs[name] = fn()
+        return self._attrs
+
     def annotate(self, **attrs: Any) -> "Span":
         """Attach attributes after entry (e.g. values computed inside the span)."""
-        self.attrs.update(attrs)
+        self._attrs.update(attrs)
+        return self
+
+    def defer(self, name: str, fn: Callable[[], Any]) -> "Span":
+        """Attach attribute ``name`` as ``fn()``, called when the span's
+        attributes are first read: a value that needs a host read of device
+        state costs the traced code nothing."""
+        if self._deferred is None:
+            self._deferred = {}
+        self._deferred[name] = fn
         return self
 
     def sync(self, value: Any) -> Any:
@@ -198,10 +279,12 @@ class Span:
         tracer._stack().append(self)
         if tracer.annotate_device:
             try:
-                self._ann = torch.profiler.record_function(self.name)
+                self._ann = _profiler_range(self.name)
                 self._ann.__enter__()
             except Exception:  # pragma: no cover - profiler unavailable
                 self._ann = None
+        if self._device is not None:
+            self._events = (_record_event(self._device),)
         self.t0 = tracer.clock()
         return self
 
@@ -212,6 +295,8 @@ class Span:
             except Exception:
                 pass
             self._pending = None
+        if self._events is not None:
+            self._events = (self._events[0], _record_event(self._device))
         self.t1 = self._tracer.clock()
         if self._ann is not None:
             try:
@@ -225,7 +310,19 @@ class Span:
     @property
     def duration_s(self) -> float:
         """Wall seconds between span open and close."""
-        return max(self.t1 - self.t0, 0.0)
+        return max(self.t1 - self.t0, 0) * 1e-9
+
+    @property
+    def device_s(self) -> Optional[float]:
+        """Seconds the card took between the span's open and close, read
+        from its CUDA-event pair on first use (waiting for the close event
+        then); None for a host span or off the card."""
+        if self._events is not None and len(self._events) == 2:
+            start, end = self._events
+            end.synchronize()
+            self._device_s = start.elapsed_time(end) * 1e-3
+            self._events = None
+        return self._device_s
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return f"Span({self.name!r}, {self.duration_s * 1e3:.3f} ms, attrs={self.attrs})"
@@ -248,6 +345,9 @@ class Tracer:
         When True, each host span also opens a
         ``torch.profiler.record_function`` of the same name, so spans line
         up with the kernels inside ``torch.profiler.profile`` captures.
+    clock:
+        Integer nanoseconds; the default, ``time.time_ns``, is the Unix
+        epoch that ``torch.profiler`` stamps its events on.
     """
 
     def __init__(
@@ -255,13 +355,12 @@ class Tracer:
         enabled: bool = True,
         device_sync: bool = True,
         annotate_device: bool = False,
-        clock: Callable[[], float] = time.perf_counter,
+        clock: Callable[[], int] = time.time_ns,
     ):
         self.enabled = enabled
         self.device_sync = device_sync
         self.annotate_device = annotate_device
         self.clock = clock
-        self._epoch = clock()
         self._lock = threading.Lock()
         self._tls = threading.local()
         self._roots: List[Span] = []
@@ -281,7 +380,15 @@ class Tracer:
             return NULL_SPAN
         return Span(self, name, attrs)
 
-    def record(self, name: str, t0: float, t1: float, tid: Optional[int] = None,
+    def device_span(self, name: str, device: torch.device, **attrs: Any):
+        """A span that also times the card's work between its open and
+        close on ``device``'s current stream (``Span.device_s``), without
+        waiting for it."""
+        if not self.enabled or getattr(_QUIET, "depth", 0) or _under_capture():
+            return NULL_SPAN
+        return Span(self, name, attrs, torch.device(device))
+
+    def record(self, name: str, t0: int, t1: int, tid: Optional[int] = None,
                **attrs: Any) -> None:
         """Add a retroactive root span from externally captured timestamps.
 
@@ -297,7 +404,7 @@ class Tracer:
         with self._lock:
             self._roots.append(sp)
 
-    def now(self) -> float:
+    def now(self) -> int:
         """Current timestamp on this tracer's clock (for ``record``)."""
         return self.clock()
 
@@ -344,15 +451,12 @@ class Tracer:
             out[s.name] = out.get(s.name, 0.0) + s.duration_s
         return out
 
-    def clear(self) -> None:
-        """Drop all recorded spans."""
-        with self._lock:
-            self._roots = []
-
     # -- exporters ----------------------------------------------------------
 
     def to_chrome_events(self) -> List[Dict[str, Any]]:
-        """Span forest as Chrome trace_event ``B``/``E`` pairs (ts in µs)."""
+        """Span forest as Chrome trace_event ``B``/``E`` pairs (``ts`` in
+        microseconds of the tracer's clock: the Unix epoch by default); a
+        span timed on the card carries ``device_s`` in its ``args``."""
         events: List[Dict[str, Any]] = []
         pid = os.getpid()
         events.append(
@@ -368,15 +472,17 @@ class Tracer:
                     {"name": "thread_name", "ph": "M", "pid": pid, "tid": sp.tid,
                      "args": {"name": f"thread-{sp.tid}"}}
                 )
-            ts0 = (sp.t0 - self._epoch) * 1e6
-            ts1 = (sp.t1 - self._epoch) * 1e6
+            args = {k: _jsonable(v) for k, v in sp.attrs.items()}
+            if sp.device_s is not None:
+                args["device_s"] = sp.device_s
             events.append(
-                {"name": sp.name, "ph": "B", "pid": pid, "tid": sp.tid, "ts": ts0,
-                 "args": {k: _jsonable(v) for k, v in sp.attrs.items()}}
+                {"name": sp.name, "ph": "B", "pid": pid, "tid": sp.tid, "ts": sp.t0 / 1e3,
+                 "args": args}
             )
             for c in sorted(sp.children, key=lambda s: s.t0):
                 emit(c)
-            events.append({"name": sp.name, "ph": "E", "pid": pid, "tid": sp.tid, "ts": ts1})
+            events.append({"name": sp.name, "ph": "E", "pid": pid, "tid": sp.tid,
+                           "ts": sp.t1 / 1e3})
 
         for r in self.roots():
             emit(r)
@@ -390,11 +496,12 @@ class Tracer:
         return path
 
     def summary(self, min_frac: float = 0.0) -> str:
-        """Human-readable stage tree: spans merged by name at each depth.
+        """Human-readable stage tree: spans merged by name at each depth,
+        with the card's time of the spans timed on it (``device``).
 
         ``min_frac`` hides merged nodes below that fraction of their parent.
         """
-        lines = [f"{'span':<44} {'total':>12} {'count':>6} {'% parent':>9}"]
+        lines = [f"{'span':<44} {'total':>12} {'count':>6} {'% parent':>9} {'device':>12}"]
 
         def merge(spans: List[Span]) -> List[tuple]:
             groups: Dict[str, List[Span]] = {}
@@ -421,7 +528,9 @@ class Tracer:
                     continue
                 pct = f"{frac * 100.0:8.1f}%" if frac is not None else " " * 9
                 label = "  " * depth + name
-                lines.append(f"{label:<44} {fmt_t(total):>12} {len(group):>6} {pct}")
+                dev = [s.device_s for s in group if s.device_s is not None]
+                dev_t = fmt_t(sum(dev)) if dev else ""
+                lines.append(f"{label:<44} {fmt_t(total):>12} {len(group):>6} {pct} {dev_t:>12}")
                 rec([c for s in group for c in s.children], depth + 1, total)
 
         rec(self.roots(), 0, None)
@@ -473,8 +582,37 @@ def span(name: str, **attrs: Any):
     return t.span(name, **attrs)
 
 
-def record(name: str, t0: float, t1: float, **attrs: Any) -> None:
+def device_span(name: str, device: torch.device, **attrs: Any):
+    """Open a span timed on the card (``Tracer.device_span``) on the active
+    tracer; no-op without one."""
+    t = _ACTIVE
+    if t is None:
+        return NULL_SPAN
+    return t.device_span(name, device, **attrs)
+
+
+def record(name: str, t0: int, t1: int, **attrs: Any) -> None:
     """Retroactive root span on the active tracer (timestamps from ``tracer.now()``)."""
     t = _ACTIVE
     if t is not None:
         t.record(name, t0, t1, **attrs)
+
+
+# -- counters ------------------------------------------------------------------
+#
+# Process-wide and always on, tracer or not: one dict add a count.  The
+# solver counts its Krylov runs, its host reads of device state and its
+# preconditioner applies; a reader takes differences of two snapshots, or
+# a whole process's totals.
+
+_COUNTS: Dict[str, int] = {"solves": 0, "host_syncs": 0, "precond_applies": 0}
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` (one of :func:`counters`' keys)."""
+    _COUNTS[name] += n
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of this process's counters since it started."""
+    return dict(_COUNTS)

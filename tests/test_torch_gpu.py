@@ -1504,6 +1504,85 @@ def test_span_waits_for_the_card(cuda):
     assert tr.roots()[0].duration_s >= start.elapsed_time(stop) / 1e3
 
 
+def _sync_reports(fn):
+    """fn()'s result and the synchronizing operations the card's sync debug
+    mode reports while it runs, each as its warning's text."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # the mode's own notice that it is a prototype is not a report
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+@pytest.mark.parametrize("d,opts", [
+    (1.0, dict(variant="C")),
+    (0.6, dict(variant="E", reduced_solver="bcr")),
+    (0.6, dict(variant="auto", reduced_solver="chain", fused_factor="off")),
+])
+def test_host_syncs_counter_equals_the_sync_debug_reports(cuda, d, opts):
+    """For one plan, factor and solve, the ``host_syncs`` counter adds as
+    many as the synchronizing operations that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports, and the solve alone
+    one a sweep and one more."""
+    import math
+
+    from repro_torch.obs import counters
+
+    band = torch.tensor(random_banded(12800, 20, d, seed=5).astype(np.float32), device=cuda)
+    b = torch.randn(12800, device=cuda, generator=torch.Generator(device=cuda).manual_seed(5))
+    sopts = SaPOptions(p=8, tol=1e-8, maxiter=200, **opts)
+    factor(plan_banded(band, sopts)).solve(b)  # warm
+    before = counters()
+    fac, factor_syncs = _sync_reports(lambda: factor(plan_banded(band, sopts)))
+    mid = counters()
+    res, solve_syncs = _sync_reports(lambda: fac.solve(b))
+    after = counters()
+    assert mid["host_syncs"] - before["host_syncs"] == len(factor_syncs), factor_syncs
+    assert after["host_syncs"] - mid["host_syncs"] == len(solve_syncs), solve_syncs
+    assert len(solve_syncs) == math.ceil(float(res.iterations)) + 1
+    assert after["solves"] - mid["solves"] == 1
+
+
+def test_factor_stage_spans_time_the_card_without_waiting(cuda, monkeypatch):
+    """The factor's stage spans carry the card's time of their work
+    (``device_s``, from a CUDA-event pair) and wait for nothing: only the
+    ``factor`` span's close waits, so their device times sum to at most
+    the ``factor`` span."""
+    from repro_torch.obs import Tracer, use_tracer
+    from repro_torch.obs import trace as trace_mod
+
+    band = torch.tensor(random_banded(12800, 200, 0.6, seed=3).astype(np.float32), device=cuda)
+    opts = SaPOptions(p=8, variant="E", reduced_solver="bcr", tol=1e-8, maxiter=200)
+    factor(plan_banded(band, opts))  # warm
+    waited = []
+    real = trace_mod._wait_for_card
+
+    def wait(value):
+        waited.append(tr._stack()[-1].name)
+        real(value)
+
+    tr = Tracer()
+    monkeypatch.setattr(trace_mod, "_wait_for_card", wait)
+    with use_tracer(tr):
+        factor(plan_banded(band, opts))
+    assert waited == ["factor"]
+    (fac_sp,) = tr.find("factor")
+    stages = fac_sp.children
+    assert [c.name for c in stages] == ["factor.split", "factor.fused", "factor.reduced"]
+    assert all(c.device_s is not None and c.device_s > 0 for c in stages)
+    assert sum(c.device_s for c in stages) <= fac_sp.duration_s + 1e-4
+    assert fac_sp.attrs["launches"]["fused_factor_spike"] == 1
+    assert "device" in tr.summary().splitlines()[0]
+
+
 def test_calibrated_ceilings_on_the_card(cuda):
     """The measured ceilings are positive and at most 1.05x the data sheet's
     (67 TFLOP/s float32, 989 TFLOP/s bfloat16, 3.35 TB/s): more would be a

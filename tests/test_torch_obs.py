@@ -12,7 +12,13 @@ equals the JAX package's.  Two differences are stated and held:
   children (its single-system stage spans are quiet inside it, standing
   for the JAX package's ``vmap``);
 * the compile span: the JAX package's first ``factor.batch`` of a bucket
-  holds a ``compile`` span (its ahead-of-time compile), the port's never.
+  holds a ``compile`` span (its ahead-of-time compile), the port's never;
+* the port's own spans and attributes, which the trees are compared
+  without (``_port_only``): the Krylov loop's ``krylov.*`` sub-spans,
+  BCR's ``factor.reduced.level`` spans, the ``plan`` span of
+  ``plan_banded`` (attribute ``banded``), and the ``launches`` attribute
+  of the ``factor`` and ``krylov`` spans.  Their own cases, and the
+  counters, clock and device-timed spans, are held below.
 
 With jax 0.9 the JAX package's spans do not degrade while it traces
 (``repro/obs/trace.py:_under_jax_trace`` reads a ``jax.core`` attribute
@@ -24,6 +30,7 @@ bucket's difference is held in its own test.
 """
 
 import json
+import math
 import threading
 import time
 from pathlib import Path
@@ -196,10 +203,10 @@ def _traced_forest():
     with tr.span("a", nan=float("nan")):
         with tr.span("b"):
             pass
-    # overlapping retroactive spans (the serve.request pattern)
+    # overlapping retroactive spans (the serve.request pattern); ns clock
     t = tr.now()
-    tr.record("req", t - 0.01, t - 0.002)
-    tr.record("req", t - 0.008, t - 0.001)
+    tr.record("req", t - 10_000_000, t - 2_000_000)
+    tr.record("req", t - 8_000_000, t - 1_000_000)
     return tr
 
 
@@ -222,14 +229,26 @@ def test_chrome_events_validate(tmp_path):
 # ---------------------------------------------------------------------------
 
 
+PORT_ONLY_ATTRS = ("launches",)
+
+
+def _port_only(sp):
+    """A span the port opens and the JAX package does not: the Krylov
+    loop's sub-spans, BCR's levels, the plan span of ``plan_banded``."""
+    return (sp.name.startswith("krylov.") or sp.name == "factor.reduced.level"
+            or (sp.name == "plan" and bool(sp.attrs.get("banded"))))
+
+
 def _tree(tracer):
     """(name, attribute names, children) for every root, children by start
-    time."""
+    time, without the port's own spans and attributes."""
     def rec(sp):
-        kids = sorted(sp.children, key=lambda c: c.t0)
-        return (sp.name, tuple(sorted(sp.attrs)), tuple(rec(c) for c in kids))
+        kids = sorted((c for c in sp.children if not _port_only(c)), key=lambda c: c.t0)
+        attrs = tuple(sorted(a for a in sp.attrs if a not in PORT_ONLY_ATTRS))
+        return (sp.name, attrs, tuple(rec(c) for c in kids))
 
-    return tuple(rec(r) for r in sorted(tracer.roots(), key=lambda s: s.t0))
+    roots = (r for r in tracer.roots() if not _port_only(r))
+    return tuple(rec(r) for r in sorted(roots, key=lambda s: s.t0))
 
 
 def _names(tree):
@@ -488,24 +507,25 @@ def test_disabled_overhead_under_two_percent():
     )
 
 
-def _smoke_trees():
-    """``chip_smoke.py``'s TRACE_TREES: the trees its phase "trace" holds
-    the card's spans to (the script imports only the standard library at
-    module level)."""
+def _smoke():
+    """``chip_smoke.py``, whose TRACE_TREES are the trees its phase "trace"
+    holds the card's spans to, less the spans ``trace_port_only`` names
+    (the script imports only the standard library at module level)."""
     import importlib.util
 
     path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_trees", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.TRACE_TREES
+    return mod
 
 
 @pytest.mark.parametrize("case", ["C", "E_bcr", "sparse"])
 def test_smoke_trace_trees_are_the_jax_package_s(case):
     """The card's fused factor ("auto" on the card) is ``fused_factor="on"``
     here; both packages' trees for the smoke's three traced calls are the
-    list the smoke checks."""
+    list the smoke checks, and the smoke leaves out the spans the port's
+    tree is compared without here."""
     kw = dict(p=4, tol=TOL, maxiter=300, fused_factor="on")
     if case == "sparse":
         csr = jsp.random_sparse(240, 8.0, d=1.0, seed=240, structured_band=6)
@@ -526,5 +546,191 @@ def test_smoke_trace_trees_are_the_jax_package_s(case):
             lambda: J.factor(J.plan_banded(band, J.SaPOptions(**kw))).solve(b),
             lambda: T.factor(T.plan_banded(band, T.SaPOptions(**kw), device="cpu")).solve(b),
         )
-    want = _smoke_trees()[case]
+    smoke = _smoke()
+    want = smoke.TRACE_TREES[case]
     assert _names(_tree(jt)) == want and _names(_tree(tt)) == want
+    assert all(smoke.trace_port_only(sp) == _port_only(sp) for sp in tt.walk())
+    assert any(_port_only(sp) for sp in tt.walk())
+
+
+# ---------------------------------------------------------------------------
+# the port's own: counters, the Krylov loop's sub-spans, the clock, and the
+# stage spans timed on the card without waiting
+# ---------------------------------------------------------------------------
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _lifecycle(kw, tracer=None, nrhs=None, d=0.5):
+    """Plan, factor and solve a small system (under ``tracer`` if given);
+    the result and the counters' steps over the factor and the solve."""
+    band = _band(d=d)
+    b = _rhs(256) if nrhs is None else np.stack([_rhs(256, s) for s in range(nrhs)], axis=1)
+    opts = T.SaPOptions(**dict(dict(p=4, tol=1e-7, maxiter=300), **kw))
+    with use_tracer(tracer):
+        c0 = trace_mod.counters()
+        fac = T.factor(T.plan_banded(band, opts, device="cpu"))
+        c1 = trace_mod.counters()
+        res = fac.solve(b) if nrhs is None else fac.solve_many(b)
+        c2 = trace_mod.counters()
+    return res, _delta(c0, c1), _delta(c1, c2)
+
+
+@pytest.mark.parametrize("case,nrhs", [("D", None), ("C", None), ("E_bcr", None), ("D", 3)])
+def test_counters_per_solve_at_a_small_case(case, nrhs):
+    """A factor reads the card once (its degree of dominance); a BiCGStab(2)
+    run once before its first sweep and once after each (whole sweeps + 1)
+    and applies the preconditioner twice at its start and four times a
+    sweep; a block of R columns is one run, as long as its slowest column."""
+    res, fac_steps, solve_steps = _lifecycle(LIFECYCLE[case], nrhs=nrhs)
+    sweeps = math.ceil(float(res.iterations.max()))
+    assert sweeps >= 2  # the loop's check runs after more than one sweep
+    assert fac_steps == {"solves": 0, "host_syncs": 1, "precond_applies": 0}
+    assert solve_steps == {"solves": 1, "host_syncs": sweeps + 1,
+                           "precond_applies": 4 * sweeps + 2}
+    # tracing changes none of them
+    _, traced_fac, traced_solve = _lifecycle(LIFECYCLE[case], Tracer(), nrhs=nrhs)
+    assert (traced_fac, traced_solve) == (fac_steps, solve_steps)
+
+
+def test_only_the_stage_spans_wait_for_the_card(monkeypatch):
+    """Of every span a traced lifecycle opens, only ``factor`` and
+    ``krylov`` wait for the card when they close."""
+    tr = Tracer()
+    waited = []
+    monkeypatch.setattr(trace_mod, "_wait_for_card", lambda v: waited.append(tr._stack()[-1].name))
+    for kw in LIFECYCLE.values():
+        _lifecycle(kw, tr)
+    assert waited == ["factor", "krylov"] * len(LIFECYCLE)
+    assert {s.name for s in tr.walk()} >= {"factor.split", "factor.lu", "factor.fused",
+                                           "factor.spike", "factor.reduced"}
+
+
+def test_the_convergence_digest_is_read_when_the_span_is(monkeypatch):
+    """The traced solve computes no convergence digest (a host read of
+    device state); reading the ``krylov`` span's attributes computes it
+    once, as Python scalars."""
+    from repro_torch.core import sap as sap_mod
+
+    calls = []
+    real = sap_mod._convergence_summary
+    monkeypatch.setattr(sap_mod, "_convergence_summary",
+                        lambda *a: calls.append(1) or real(*a))
+    tr = Tracer()
+    res, _, _ = _lifecycle(LIFECYCLE["C"], tr)
+    assert calls == []
+    conv = tr.find("krylov")[0].attrs["convergence"]
+    assert calls == [1] and conv["converged"] is True
+    assert conv["iterations"] == float(res.iterations) and isinstance(conv["resnorm"], float)
+    tr.find("krylov")[0].attrs
+    assert calls == [1]
+
+
+def test_krylov_sub_span_tree():
+    """Inside ``krylov``: start (a matvec, two applies), a check before the
+    first sweep and after each, each sweep four matvecs and four applies,
+    finish (the true residual's matvec); BCR's levels under
+    ``factor.reduced``; a ``plan`` span in ``plan_banded``."""
+    tr = Tracer()
+    res, _, _ = _lifecycle(LIFECYCLE["E_bcr"], tr)
+    sweeps = math.ceil(float(res.iterations))
+    (kr,) = tr.find("krylov")
+
+    def names(sp):
+        return [c.name for c in sorted(sp.children, key=lambda c: c.t0)]
+
+    assert names(kr) == (["krylov.start", "krylov.check"] + ["krylov.sweep", "krylov.check"] * sweeps
+                         + ["krylov.finish"])
+    assert names(tr.find("krylov.start")[0]) == ["krylov.matvec", "krylov.precond",
+                                                 "krylov.precond"]
+    for sw in tr.find("krylov.sweep"):
+        assert names(sw) == ["krylov.matvec", "krylov.precond"] * 4
+    assert names(tr.find("krylov.finish")[0]) == ["krylov.matvec"]
+    assert all(not c.children for c in tr.find("krylov.check"))
+    (red,) = tr.find("factor.reduced")
+    assert [c.attrs["level"] for c in red.children] == [0, 1]  # 3 interfaces padded to 4
+    assert set(names(red)) == {"factor.reduced.level"}
+    (pl,) = tr.find("plan")
+    assert pl.attrs == {"banded": True, "n": 256, "k": 4}
+    assert set(kr.attrs["launches"]) == set() and tr.find("factor")[0].attrs["launches"] == {}
+
+
+def test_span_times_are_on_the_profilers_clock():
+    """Every span's open and close lie within 100 us of its
+    ``record_function`` range in a ``torch.profiler`` capture of the same
+    run, and the Chrome export's ``ts`` is the span's clock in us."""
+    import torch
+
+    def traced():
+        tr = Tracer(annotate_device=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            _lifecycle(LIFECYCLE["C"], tr)
+        return tr, prof
+
+    traced()  # the first ranges of a process pay a one-off start-up
+    tr, prof = traced()
+    ranges = {}
+    for ev in prof.profiler.kineto_results.events():
+        ranges.setdefault(ev.name(), []).append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    spans = {}
+    for sp in tr.walk():
+        spans.setdefault(sp.name, []).append((sp.t0, sp.t1))
+    assert len(spans) >= 10
+    for name, got in spans.items():
+        want = sorted(ranges[name])
+        assert len(want) == len(got), name
+        for (t0, t1), (r0, r1) in zip(sorted(got), want):
+            assert abs(t0 - r0) <= 100_000 and abs(t1 - r1) <= 100_000, (name, t0 - r0, t1 - r1)
+    begins = {e["name"]: e["ts"] for e in tr.to_chrome_events() if e["ph"] == "B"}
+    assert begins["factor"] == pytest.approx(tr.find("factor")[0].t0 / 1e3, abs=1.0)
+
+
+class _FakeEvent:
+    """A CUDA event's timing interface, on a given time (ms)."""
+
+    def __init__(self, ms):
+        self.ms, self.synced = ms, False
+
+    def synchronize(self):
+        self.synced = True
+
+    def elapsed_time(self, end):
+        return end.ms - self.ms
+
+
+def test_device_span_reads_its_event_pair_when_read(monkeypatch):
+    """A device span records an event at open and at close on a CUDA
+    device, none elsewhere, and waits for nothing; its ``device_s`` comes
+    from the pair when first read, and the summary and the export show
+    it."""
+    import torch
+
+    times, made = iter([1.0, 3.5]), []
+    monkeypatch.setattr(trace_mod, "_record_event",
+                        lambda dev: made.append(_FakeEvent(next(times))) or made[-1])
+    monkeypatch.setattr(trace_mod, "_wait_for_card", lambda v: pytest.fail("waited"))
+    tr = Tracer()
+    with use_tracer(tr):
+        with trace_mod.device_span("factor", torch.device("cpu")):
+            with trace_mod.device_span("factor.lu", torch.device("cuda", 0), p=4) as sp:
+                pass
+    assert len(made) == 2 and not made[1].synced
+    assert sp.device_s == pytest.approx(2.5e-3) and made[1].synced
+    assert tr.find("factor")[0].device_s is None
+    assert trace_mod.span("x") is NULL_SPAN and trace_mod.device_span("x", "cuda") is NULL_SPAN
+    lines = tr.summary().splitlines()
+    assert lines[0].split()[-1] == "device"
+    assert lines[2].split()[0] == "factor.lu" and lines[2].endswith("2.500 ms")
+    args = {e["name"]: e["args"] for e in tr.to_chrome_events() if e["ph"] == "B"}
+    assert args["factor.lu"] == {"p": 4, "device_s": pytest.approx(2.5e-3)}
+    assert "device_s" not in args["factor"]
+
+
+def test_counters_are_a_snapshot():
+    c = trace_mod.counters()
+    assert set(c) == {"solves", "host_syncs", "precond_applies"}
+    c["solves"] += 100
+    trace_mod.count("solves", 0)
+    assert trace_mod.counters()["solves"] == c["solves"] - 100
